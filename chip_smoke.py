@@ -5,8 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each printing one line of progress with its seconds:
   1. build   - every CUDA source of the port, one nvcc per source, in parallel;
-  2. kernels - each kernel's wrapper against its plain PyTorch version on the
-               card, at the shapes the main path gives it, in float32 with
+  2. kernels - each kernel A wrapper against its plain PyTorch version on the
+               card, at the shapes the 2-D main path gives it, in float32 with
                TF32 off; times by CUDA events after a warm-up;
   3. main    - the paper's 2-D synthetic protocol: 20 000 + 2 000 points from
                seed 42, the M = 125^2 mean-field model, one natural-gradient
@@ -17,13 +17,35 @@ Phases, each printing one line of progress with its seconds:
                count (each PCG solve makes 1 + 2k self-dot launches, each
                whitening one R^T launch);
   4. accuracy - the float32 kernel-path whitening at M = 125^2 on 256 rows
-               against the float64 plain path on the card.
+               against the float64 plain path on the card;
+  5. kernels-1d - each radix kernel (B-2 stage1, B-3 stage1_inv_dot, B-4
+               middle) against its plain version in float32 and in float64 at
+               every plan, crop and diagonal the 1-D path gives it at the
+               sizes of main-1d: (A, B, C) = (8, 32, 128) uncropped at
+               M = 10 000, (16, 128, 128) with 8 rows at 131 072,
+               (64, 128, 128) with 31 rows at 500 000, and the headline
+               (128, 128, 128) with 64 rows at 2^20 (V = 4 packed planes
+               throughout), with the protocol spectrum's weights; at the
+               headline, times of kernel, plain version and one torch.fft
+               call by CUDA events;
+  6. main-1d - the paper's section 5.2 driver (run_pcg_vs_cholesky.main,
+               Mat52, 3 chained reps) at M = 10 000, 131 072, 500 000 and
+               2^20, one size per call with the counters zeroed just before
+               and read just after: at the planes-path sizes each 20-iteration
+               gram_solve launches middle 2k+2, stage1_inv_dot 2k+1 and
+               stage1 2k+3 times (k = 20);
+  7. accuracy-1d - at each of those sizes, the float32 kernel-path gram_solve
+               (batch 8, 20 iterations) against the same float32 path with
+               the plain stages (limit 1e-4) and against the float64 plain
+               path on the card: pcg_scan over torch.fft, then matmul_by_RT
+               (limit 5e-3).
 Any failed check raises, so the script exits non-zero.  The line before the
 last is the card's name and power limit from nvidia-smi, the one before it a
 JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the port
 beside the script, it exits non-zero and prints no result.
 """
+import contextlib
 import json
 import math
 import subprocess
@@ -34,6 +56,14 @@ FP32_PEAK = 67e12     # FLOP/s, H100 SXM, CUDA cores (NVIDIA data sheet)
 HBM_RATE = 3.35e12    # bytes/s, H100 SXM
 KERNEL_SOURCE = "hipgp_tpu_torch/csrc/mxu2d.cu"
 TPU_KERNEL = "hipgp_tpu/ops/mxu2d.py:201"   # pl.pallas_call of _make_kernel
+RADIX_SOURCE = "hipgp_tpu_torch/csrc/radix.cu"
+# pl.pallas_call sites of the TPU kernels the radix kernels replace
+RADIX_TPU_KERNELS = {"stage1": "hipgp_tpu/ops/radix_fft.py:649",
+                     "stage1_inv_dot": "hipgp_tpu/ops/radix_fft.py:686",
+                     "middle": "hipgp_tpu/ops/radix_fft.py:530"}
+HEADLINE_M = 1 << 20      # the 1-D headline: L = 2^21, (A, B, C) = (128, 128, 128)
+SIZES_1D = (10_000, 131_072, 500_000, HEADLINE_M)
+PCG_ITERS = 20            # the section 5.2 protocol's fixed iteration count
 
 
 def log(msg):
@@ -135,6 +165,322 @@ def rel(a, b):
 def check(cond, msg):
     if not cond:
         raise RuntimeError("check failed: " + msg)
+
+
+def radix_bound_ms(kind, V, A, B, C, in_rows, out_rows):
+    """Least time for a radix stage's work on the card, the larger of
+      * operations: the FFT formulation (5 n log2 n per complex n-point FFT):
+        stage 1 is V * B*C A-point FFTs; the middle is the (B, C)-plane FFT
+        of every (v, ka) both ways plus the product with d; the self-dot
+        adds 2 operations per output element of each part;
+      * bytes: the input planes (and rider, and d) read once, the output
+        planes (and dots) written once; over the memory rate.
+    Returns (ms, 'operations' | 'bytes', dense_ms), where dense_ms is the
+    operation time of the dense-table formulation of the TPU kernels (three
+    real table products per complex DFT), which the kernels do not use."""
+    N = B * C
+    if kind == "middle":
+        ops = V * A * (2 * _fft_ops(N, False) + 2 * N)
+        dense = V * A * 2 * 3 * 2 * (B * B * C + B * C * C)
+        nbytes = 4 * (2 * 2 * V * A * N + A * N)
+    else:
+        ops = V * N * _fft_ops(A, False)
+        dense = 3 * 2 * out_rows * in_rows * N * V
+        nbytes = 4 * 2 * V * N * (in_rows + out_rows)
+        if kind == "stage1_inv_dot":
+            ops += 2 * 2 * V * out_rows * N
+            nbytes += 4 * (2 * V * out_rows * N + 2 * V)
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * dense / FP32_PEAK)
+
+
+def protocol_spectrum_1d(M, dtype, dev):
+    """The section 5.2 protocol's operator at size M, as the driver builds it
+    (Matern-5/2, sig2 0.1, ell one grid spacing on [0, 1], jitter 1e-3)."""
+    from hipgp_tpu_torch.experiments.run_pcg_vs_cholesky import (protocol_problem,
+                                                                 protocol_spectrum)
+    from hipgp_tpu_torch.kernels import kernel_from_name
+
+    return protocol_spectrum(*protocol_problem(kernel_from_name("Mat52"), M, dtype, dev))
+
+
+def radix_operands(torch, M, dev):
+    """What the 1-D main path hands the radix kernels at size M: (plan in
+    f32 and f64, crop rows, planes path?, {label: stage-order diagonal}).
+    The planes path crops to the rows that hold data and takes w/L, 1/(wL)
+    and sqrt(w)/L; the generic path applies uncropped (rows = A) with the
+    permuted natural spectra of K, C^-1 and R^T."""
+    from hipgp_tpu_torch.ops import bttb, radix_fft, solve
+
+    spec = protocol_spectrum_1d(M, torch.float32, dev)
+    L = spec.edims[0]
+    p32 = radix_fft.make_plan(L, torch.float32, dev)
+    p64 = radix_fft.make_plan(L, torch.float64, dev)
+    planes = solve._planes_solver_ok(spec, torch.float32, dev)
+    if planes:
+        w = solve._planes_weights(spec, p32)
+        weights = {"w/L": w / L, "1/(wL)": 1.0 / (w * L), "sqrt(w)/L": torch.sqrt(w) / L}
+        rows = -(-M // (p32.B * p32.C))
+    else:
+        perm = lambda e: radix_fft.permute_weights(bttb._full_weights(e, L), p32)
+        weights = {"eigs/L": perm(spec.eigs), "1/(eigs L)": perm(1.0 / spec.eigs),
+                   "sqrt(eigs)/L": perm(torch.sqrt(spec.eigs))}
+        rows = p32.A
+    return p32, p64, rows, planes, {k: v.contiguous() for k, v in weights.items()}
+
+
+def phase_kernels_1d(torch, dev):
+    """Each radix kernel against its plain version (f32 and f64) at the
+    plan, crop rows and diagonals the main path gives it at every size of
+    [main-1d]; times at the headline.  Returns the per-kernel record of the
+    kernels line (launches filled in later)."""
+    from hipgp_tpu_torch.ops import radix_fft
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                     dtype=torch.float64)
+    fft = torch.fft
+    results = {}
+    for M in SIZES_1D:
+        p32, p64, rows, planes, weights = radix_operands(torch, M, dev)
+        L, A, B, C = p32.L, p32.A, p32.B, p32.C
+        N, V = B * C, 4
+        timed = M == HEADLINE_M
+        if timed:
+            check((L, A, B, C, rows) == (1 << 21, 128, 128, 128, 64),
+                  f"headline plan {(L, A, B, C, rows)}")
+        tag = f"M={M} (A, B, C) = {(A, B, C)}"
+
+        def record(name, label, got, want32, want64, kern, plain, bound, lib_fn=None,
+                   lib_ref=None):
+            torch.cuda.synchronize()
+            errs, errs64, abs_err = [], [], 0.0
+            for g, w32, w64 in zip(got, want32, want64):
+                check(g.shape == w32.shape and g.dtype == torch.float32,
+                      f"{name} {tag} ({label}) shape {tuple(g.shape)}")
+                check(bool(torch.isfinite(g).all()),
+                      f"{name} {tag} ({label}) non-finite output")
+                errs.append(rel(g, w32))
+                errs64.append(rel(g, w64))
+                abs_err = max(abs_err, float((g - w32).abs().max()))
+            msg = (f"rel err vs plain f32 {max(errs):.3e} (max abs {abs_err:.3e}), "
+                   f"vs plain f64 {max(errs64):.3e}")
+            check(max(errs) <= 1e-5 and max(errs64) <= 1e-5, f"{name} {tag} ({label}) {msg}")
+            if not timed:
+                log(f"[kernels-1d] {name} {tag} {label}: {msg}")
+                return
+            ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
+            lib_ms = None
+            if lib_fn is not None:
+                lib_err = rel(lib_fn(), lib_ref)
+                check(lib_err <= 1e-5, f"{name} ({label}) library call rel err {lib_err:.3e}")
+                lib_ms = cuda_ms(torch, lib_fn)
+                msg += f"; library rel err vs f64 {lib_err:.3e}, {lib_ms:.4f} ms"
+            log(f"[kernels-1d] {name} {tag} {label}: {msg}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; FFT count), "
+                f"dense-table operation time {bound[2]:.4f} ms")
+            if name not in results:
+                results[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound[0], bound_by=bound[1],
+                                     library_ms=lib_ms)
+
+        # B-2 forward, rows -> A (every apply's first stage; cropped on the
+        # planes path)
+        x = rnd(2, V, rows, N)
+        x32 = x.float()
+        wr, wi = radix_fft._s1_tables(p32, rows, A, False)
+        wr64, wi64 = radix_fft._s1_tables(p64, rows, A, False)
+        xc = torch.complex(x32[0], x32[1])
+        ref = fft.fft(torch.complex(x[0], x[1]), n=A, dim=1)
+        record("stage1", f"forward {rows} -> {A} rows",
+               radix_fft.stage1(x32[0], x32[1], p32, A, False),
+               radix_fft.stage1_plain(x32[0], x32[1], wr, wi),
+               radix_fft.stage1_plain(x[0], x[1], wr64, wi64),
+               lambda: radix_fft.stage1(x32[0], x32[1], p32, A, False),
+               lambda: radix_fft.stage1_plain(x32[0], x32[1], wr, wi),
+               radix_bound_ms("stage1", V, A, B, C, rows, A),
+               lambda: torch.view_as_real(fft.fft(xc, n=A, dim=1)),
+               torch.view_as_real(ref))
+        # B-2 inverse, uncropped A -> A rows (R^T's last stage; every apply's
+        # on the generic path)
+        z = rnd(2, V, A, N)
+        z32 = z.float()
+        wr, wi = radix_fft._s1_tables(p32, A, A, True)
+        wr64, wi64 = radix_fft._s1_tables(p64, A, A, True)
+        zc = torch.complex(z32[0], z32[1])
+        ref = fft.ifft(torch.complex(z[0], z[1]), dim=1, norm="forward")
+        record("stage1", f"inverse {A} -> {A} rows",
+               radix_fft.stage1(z32[0], z32[1], p32, A, True),
+               radix_fft.stage1_plain(z32[0], z32[1], wr, wi),
+               radix_fft.stage1_plain(z[0], z[1], wr64, wi64),
+               lambda: radix_fft.stage1(z32[0], z32[1], p32, A, True),
+               lambda: radix_fft.stage1_plain(z32[0], z32[1], wr, wi),
+               radix_bound_ms("stage1", V, A, B, C, A, A),
+               lambda: torch.view_as_real(fft.ifft(zc, dim=1, norm="forward")),
+               torch.view_as_real(ref))
+        # B-4 with each of the three diagonals of the path
+        y = rnd(2, V, A, B, C)
+        y32 = y.float()
+        for label, d32 in weights.items():
+            d64 = d32.double()
+            record("middle", f"d = {label}",
+                   radix_fft.middle(y32[0], y32[1], d32, p32),
+                   radix_fft.middle_plain(y32[0], y32[1], d32, p32),
+                   radix_fft.middle_plain(y[0], y[1], d64, p64),
+                   lambda: radix_fft.middle(y32[0], y32[1], d32, p32),
+                   lambda: radix_fft.middle_plain(y32[0], y32[1], d32, p32),
+                   radix_bound_ms("middle", V, A, B, C, A, A))
+        if not planes:   # the generic path launches no stage1_inv_dot
+            continue
+        # B-3 inverse A -> rows with the self-dots (every PCG apply's last stage)
+        u = rnd(2, V, rows, N)
+        u32 = u.float()
+        wr, wi = radix_fft._s1_tables(p32, A, rows, True)
+        wr64, wi64 = radix_fft._s1_tables(p64, A, rows, True)
+        got = radix_fft.stage1_inv_dot(z32[0], z32[1], u32[0], u32[1], p32, rows)
+        want32 = radix_fft.stage1_inv_dot_plain(z32[0], z32[1], u32[0], u32[1], wr, wi)
+        want64 = radix_fft.stage1_inv_dot_plain(z[0], z[1], u[0], u[1], wr64, wi64)
+        torch.cuda.synchronize()
+        # each dot sums rows * B*C products of random sign: hold its error to
+        # the scale of the terms
+        scale = torch.sqrt(torch.sum((u[0] * want64[0]) ** 2, dim=(1, 2)))
+        dot_err = max(float(torch.max((got[k].double() - want64[k]).abs() / scale))
+                      for k in (2, 3))
+        check(dot_err <= 1e-5, f"stage1_inv_dot {tag} dots err {dot_err:.3e} of the "
+              f"terms' scale")
+        log(f"[kernels-1d] stage1_inv_dot {tag} dots: err {dot_err:.3e} of the terms' "
+            f"scale vs plain f64")
+        ref = fft.ifft(torch.complex(z[0], z[1]), dim=1, norm="forward")[:, :rows]
+        record("stage1_inv_dot", f"inverse {A} -> {rows} rows with self-dots",
+               got[:2], want32[:2], want64[:2],
+               lambda: radix_fft.stage1_inv_dot(z32[0], z32[1], u32[0], u32[1], p32, rows),
+               lambda: radix_fft.stage1_inv_dot_plain(z32[0], z32[1], u32[0], u32[1],
+                                                      wr, wi),
+               radix_bound_ms("stage1_inv_dot", V, A, B, C, A, rows),
+               lambda: torch.view_as_real(fft.ifft(zc, dim=1, norm="forward")[:, :rows]),
+               torch.view_as_real(ref))
+    log("[kernels-1d] middle library_ms null: no single PyTorch call computes "
+        "the T1 / F_B / T2 / F_C / d / conjugate chain on stage-order planes")
+    log(f"[kernels-1d] done; {time.perf_counter() - t0:.2f} s")
+    return results
+
+
+def phase_main_1d(torch):
+    """The section 5.2 driver at each size, with the launch counts checked;
+    returns the launches summed over the sizes."""
+    import tempfile
+
+    from hipgp_tpu_torch.experiments import run_pcg_vs_cholesky
+    from hipgp_tpu_torch.ops import radix_fft, solve
+    from hipgp_tpu_torch.ops.bttb import BTTBSpectrum, embedded_dims
+
+    t0 = time.perf_counter()
+    reps, warmup = 3, 3     # chain_time: one first call + warmup + reps solves
+    calls = 1 + warmup + reps
+    total = dict.fromkeys(radix_fft.LAUNCHES, 0)
+    k = PCG_ITERS
+    with tempfile.TemporaryDirectory() as tmp:
+        for M in SIZES_1D:
+            radix_fft.reset_launches()
+            solve.PCG_STATS.update(solves=0, iterations=0)
+            out = run_pcg_vs_cholesky.main([
+                "--sizes", str(M), "--kernels", "Mat52", "--reps", str(reps),
+                "--maxiter-cg", str(k), "--output-dir", f"{tmp}/{M}"])
+            torch.cuda.synchronize()
+            lc, st = dict(radix_fft.LAUNCHES), dict(solve.PCG_STATS)
+            row = out["Mat52"][0]
+            L = embedded_dims((M,))[0]
+            shape_only = BTTBSpectrum(column=None, eigs=None, dims=(M,), edims=(L,))
+            planes = solve._planes_solver_ok(shape_only, torch.float32, "cuda")
+            chol = (f"; Cholesky {row['cholesky_sec'] * 1e3:.3f} ms"
+                    if math.isfinite(row["cholesky_sec"]) else "")
+            log(f"[main-1d] M={M} (L={L}, {'planes PCG' if planes else 'generic PCG'}"
+                f"): {row['pcg_fft_sec'] * 1e3:.3f} ms per solve{chol}; "
+                f"{st['solves']} fused solves, {st['iterations']} iterations; "
+                f"launches {lc}")
+            check(math.isfinite(row["pcg_fft_sec"]) and row["pcg_fft_sec"] > 0,
+                  f"M={M} solve time")
+            if planes:
+                check(st["solves"] == calls and st["iterations"] == k * calls,
+                      f"M={M}: {st} fused solves, expected {calls} of {k} iterations")
+                want = {"middle": (2 * k + 2) * calls,
+                        "stage1_inv_dot": (2 * k + 1) * calls,
+                        "stage1": (2 * k + 3) * calls}
+            else:   # generic PCG: 2k+1 operator applies and one R^T, uncropped
+                want = {"middle": (2 * k + 2) * calls, "stage1_inv_dot": 0,
+                        "stage1": 2 * (2 * k + 2) * calls}
+            check(lc == want, f"M={M} launches {lc}, expected {want}")
+            for name in total:
+                total[name] += lc[name]
+    log(f"[main-1d] launches over the sizes {total}; {time.perf_counter() - t0:.2f} s")
+    return total
+
+
+@contextlib.contextmanager
+def plain_radix_stages(radix_fft):
+    """Route the radix applies through the plain versions of the three
+    stages, on whatever device their tensors are (the reference of
+    [accuracy-1d]; nothing is launched or counted meanwhile)."""
+    saved = radix_fft.stage1, radix_fft.stage1_inv_dot, radix_fft.middle
+
+    def stage1(xr, xi, plan, out_rows, inverse):
+        tables = radix_fft._s1_tables(plan, xr.shape[1], out_rows, inverse)
+        return radix_fft.stage1_plain(xr, xi, *tables)
+
+    def stage1_inv_dot(zr, zi, ur, ui, plan, out_rows):
+        tables = radix_fft._s1_tables(plan, zr.shape[1], out_rows, True)
+        return radix_fft.stage1_inv_dot_plain(zr, zi, ur, ui, *tables)
+
+    radix_fft.stage1, radix_fft.stage1_inv_dot = stage1, stage1_inv_dot
+    radix_fft.middle = radix_fft.middle_plain
+    try:
+        yield
+    finally:
+        radix_fft.stage1, radix_fft.stage1_inv_dot, radix_fft.middle = saved
+
+
+def phase_accuracy_1d(torch, dev):
+    """At every size of [main-1d], the f32 kernel-path gram_solve (batch 8,
+    20 iterations, protocol parameters) against the same f32 path with the
+    plain stages (limit 1e-4) and against the f64 plain path: pcg_scan over
+    torch.fft, then matmul_by_RT (limit 5e-3)."""
+    import numpy as np
+
+    from hipgp_tpu_torch.ops import radix_fft, solve
+
+    t0 = time.perf_counter()
+    for M in SIZES_1D:
+        b = np.random.default_rng(0).standard_normal((8, M))
+        out = {}
+        for key, dt in (("kernel", torch.float32), ("plain32", torch.float32),
+                        ("plain64", torch.float64)):
+            spec = protocol_spectrum_1d(M, dt, dev)
+            rhs = torch.as_tensor(b, dtype=dt, device=dev)
+            before = dict(radix_fft.LAUNCHES)
+            run = lambda: solve.gram_solve(spec, rhs, maxiter=PCG_ITERS, tol=0.0,
+                                           fixed_iters=True)
+            if key == "plain32":
+                with plain_radix_stages(radix_fft):
+                    out[key] = run()
+            else:
+                out[key] = run()
+            torch.cuda.synchronize()
+            moved = radix_fft.LAUNCHES["middle"] - before["middle"]
+            check(moved == (2 * PCG_ITERS + 2 if key == "kernel" else 0),
+                  f"M={M} {key} gram_solve launched middle {moved} times")
+        k32 = out["kernel"]
+        check(k32.shape == out["plain64"].shape == (8, spec.Mprime),
+              f"M={M} gram_solve shape {tuple(k32.shape)}")
+        check(bool(torch.isfinite(k32).all()), f"M={M} non-finite f32 gram_solve")
+        err32, err64 = rel(k32, out["plain32"]), rel(k32, out["plain64"])
+        log(f"[accuracy-1d] gram_solve M={M}, batch 8, {PCG_ITERS} iterations: f32 "
+            f"kernel path vs f32 plain stages rel err {err32:.3e}, vs f64 plain "
+            f"path {err64:.3e}")
+        check(err32 <= 1e-4, f"M={M} 1-D gram_solve rel err vs f32 plain {err32}")
+        check(err64 <= 5e-3, f"M={M} 1-D gram_solve rel err vs f64 plain {err64}")
+    log(f"[accuracy-1d] done; {time.perf_counter() - t0:.2f} s")
 
 
 def main():
@@ -302,6 +648,11 @@ def main():
         f"plain path rel err {err:.3e}; {time.perf_counter() - t0:.2f} s")
     check(err <= 5e-3, f"whiten rel err {err}")
 
+    # ---- 5.-7. the 1-D long-axis path ----------------------------------------
+    radix_results = phase_kernels_1d(torch, dev)
+    radix_launches = phase_main_1d(torch)
+    phase_accuracy_1d(torch, dev)
+
     kernels = []
     for name in ("sandwich_apply_selfdot", "sandwich_apply"):
         r = results[name]
@@ -313,6 +664,16 @@ def main():
             "library_ms": r["library_ms"],
         })
         check(launches[name] > 0, f"{name} never launched on the main path")
+    for name in ("stage1", "stage1_inv_dot", "middle"):
+        r = radix_results[name]
+        kernels.append({
+            "name": f"radix_fft.{name}", "route": "cuda", "source": RADIX_SOURCE,
+            "replaces": RADIX_TPU_KERNELS[name], "launches": radix_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+        check(radix_launches[name] > 0, f"{name} never launched on the 1-D main path")
     log(f"[done] total {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     try:

@@ -1,1 +1,1 @@
-"""Experiments: the paper's synthetic 2-D protocol."""
+"""Experiments: the paper's synthetic 2-D protocol and the 1-D whitening-solve timing (section 5.2)."""

@@ -1,5 +1,6 @@
 """Structured linear algebra: the BTTB/circulant operator, batched PCG, the
-whitening solve, and kernel A (the cropped 2-D sandwich)."""
+whitening solve, kernel A (the cropped 2-D sandwich) and the radix kernels
+B-2 to B-4 (the packed 1-D circulant apply)."""
 from .bttb import (
     BTTBSpectrum,
     circulant_embed,
@@ -15,7 +16,9 @@ from .bttb import (
 )
 from .cg import PCGResult, pcg, pcg_result, pcg_scan
 from .mxu2d import sandwich_apply, sandwich_apply_selfdot
-from .solve import gram_solve, inv_matmul, whiten
+from .radix_fft import (fused_circulant_apply, fused_circulant_apply_cropped,
+                        fused_circulant_apply_cropped_selfdot)
+from .solve import cholesky_whiten, gram_solve, inv_matmul, whiten
 
 __all__ = [
     "BTTBSpectrum",
@@ -35,6 +38,10 @@ __all__ = [
     "pcg_scan",
     "sandwich_apply",
     "sandwich_apply_selfdot",
+    "fused_circulant_apply",
+    "fused_circulant_apply_cropped",
+    "fused_circulant_apply_cropped_selfdot",
+    "cholesky_whiten",
     "gram_solve",
     "inv_matmul",
     "whiten",

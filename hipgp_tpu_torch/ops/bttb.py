@@ -10,9 +10,11 @@ The embedding lengths (`expanded_dims`, `next_fast_len`, `embedded_dims`)
 are copied verbatim from the JAX package: they fix M' and the whitened
 layout, so a state carried between the two packages means the same thing.
 The matvecs run the real-Fourier-basis matmul chain whenever every embedded
-axis is <= MATMUL_DFT_MAX_LEN (the same operator as the JAX package's), and
-torch.fft otherwise.  All matvecs act on the last axis; leading batch
-dimensions are kept.
+axis is <= MATMUL_DFT_MAX_LEN (the same operator as the JAX package's); on a
+1-D grid whose embedding length the radix plan supports, for a float32
+tensor on a CUDA device, the packed radix apply (`ops/radix_fft.py`, kernels
+B-2 to B-4); and torch.fft otherwise.  All matvecs act on the last axis;
+leading batch dimensions are kept.
 """
 from __future__ import annotations
 
@@ -346,6 +348,37 @@ def _apply_spectrum_fft(spec: BTTBSpectrum, v: torch.Tensor,
     return y[crop].reshape(batch + (spec.M,))
 
 
+def _radix_apply_ok(spec: BTTBSpectrum, v: torch.Tensor) -> bool:
+    """The 1-D radix branch: a float32 tensor on a CUDA device and an
+    embedding length the radix plan supports."""
+    if len(spec.dims) != 1 or v.dtype != torch.float32 or v.device.type != "cuda":
+        return False
+    from .radix_fft import radix_supported
+
+    return radix_supported(spec.edims[0])
+
+
+def _apply_spectrum_radix(spec: BTTBSpectrum, v: torch.Tensor,
+                          weights: torch.Tensor, in_expanded: bool,
+                          out_expanded: bool) -> torch.Tensor:
+    """The packed radix apply: two real rows per complex plane (the
+    spectrum is real and even, so C_d (x1 + i x2) = C_d x1 + i C_d x2),
+    uncropped through the three radix kernels."""
+    from .radix_fft import (fused_circulant_apply, make_plan, pack_rows,
+                            permute_weights, unpack_rows)
+
+    L = spec.edims[0]
+    batch = v.shape[:-1]
+    x = v.reshape(-1, v.shape[-1])
+    plan = make_plan(L, v.dtype, v.device)
+    dperm = permute_weights(_full_weights(weights, L), plan)
+    yr, yi = fused_circulant_apply(*pack_rows(x, L), dperm, plan)
+    y = unpack_rows(yr, yi, x.shape[0])
+    if not out_expanded:
+        y = y[:, :spec.M]
+    return y.reshape(batch + (y.shape[-1],))
+
+
 def _apply_spectrum(spec: BTTBSpectrum, v: torch.Tensor, weights: torch.Tensor,
                     in_expanded: bool, out_expanded: bool) -> torch.Tensor:
     """pad -> transform -> scale by ``weights`` (a half-spectrum) ->
@@ -354,6 +387,8 @@ def _apply_spectrum(spec: BTTBSpectrum, v: torch.Tensor, weights: torch.Tensor,
     if max(spec.edims) <= MATMUL_DFT_MAX_LEN:
         wfull = _full_weights(weights, spec.edims[-1])
         return _apply_spectrum_matmul(spec, v, wfull, in_expanded, out_expanded)
+    if _radix_apply_ok(spec, v):
+        return _apply_spectrum_radix(spec, v, weights, in_expanded, out_expanded)
     return _apply_spectrum_fft(spec, v, weights, in_expanded, out_expanded)
 
 

@@ -1,13 +1,22 @@
 """Structured solves: K^{-1} B by PCG and the whitening kn = R^T K^{-1} v.
 
-Counterpart of `hipgp_tpu/ops/solve.py` (`inv_matmul`, `whiten`, and the
-fused 2-D solver `_mxu2d_solver` / `_rt_mxu2d`).  The dispatch keeps the JAX
-package's shape: on a CUDA device, in float32, on a 2-D grid whose embedded
-axes are all <= MXU2D_MAX_LEN, every PCG apply and every R^T goes through
-kernel A (`ops/mxu2d.py`), with both CG inner products taken from the
-applies' self-dots; everywhere else (the CPU, float64) the plain path runs:
-`cg.pcg` over `matmul_by_K` with the `matmul_by_Cinv` preconditioner, then
-`matmul_by_RT`.
+Counterpart of `hipgp_tpu/ops/solve.py` (`inv_matmul`, `whiten`,
+`cholesky_whiten`, the packed-planes 1-D solver `_planes_solver` /
+`_rt_planes` and the fused 2-D solver `_mxu2d_solver` / `_rt_mxu2d`).  The
+dispatch keeps the JAX package's order, with its backend test replaced by a
+device test:
+
+* on a CUDA device, in float32, on a 1-D grid whose embedding length the
+  radix plan supports with at least 8 rows of data, the PCG state lives as
+  packed complex planes and every apply and the R^T go through the radix
+  kernels B-2, B-3 and B-4 (`ops/radix_fft.py`);
+* on a CUDA device, in float32, on a 2-D grid whose embedded axes are all
+  <= MXU2D_MAX_LEN, they go through kernel A (`ops/mxu2d.py`);
+* everywhere else (the CPU, float64) the plain path runs: `cg.pcg` over
+  `matmul_by_K` with the `matmul_by_Cinv` preconditioner, then
+  `matmul_by_RT`.
+
+Both fused paths take the CG inner products from the applies' self-dots.
 
 Gradients through the solve are not ported yet: ``inv_matmul`` is a forward
 solve only.
@@ -22,12 +31,44 @@ from .bttb import (BTTBSpectrum, _full_weights, matmul_by_Cinv, matmul_by_K,
                    matmul_by_RT)
 from .cg import _beta, _guarded_steps, pcg, pcg_scan
 from .mxu2d import MXU2D_MAX_LEN, sandwich_apply, sandwich_apply_selfdot
+from .radix_fft import (fused_circulant_apply_cropped,
+                        fused_circulant_apply_cropped_selfdot, make_plan,
+                        pack_rows, permute_weights, radix_supported,
+                        row_multiple, stage_order_weights, unpack_rows)
 
-__all__ = ["inv_matmul", "whiten", "gram_solve", "PCG_STATS"]
+__all__ = ["inv_matmul", "whiten", "gram_solve", "cholesky_whiten", "PCG_STATS"]
 
-# solves and iterations run by the fused kernel-path PCG (the launch count of
-# kernel A per solve is 1 + 2 * iterations)
+# solves and iterations run by the fused kernel-path PCG (the self-dot
+# applies per solve are 1 + 2 * iterations)
 PCG_STATS: Dict[str, int] = {"solves": 0, "iterations": 0}
+
+
+def _planes_solver_ok(spec: BTTBSpectrum, dtype: torch.dtype,
+                      device: torch.device) -> bool:
+    """True when the packed planes-state PCG path applies: a 1-D grid whose
+    embedding length the radix plan supports, float32, on a CUDA device,
+    with a crop boundary of at least 8 rows."""
+    if len(spec.dims) != 1 or dtype != torch.float32:
+        return False
+    if torch.device(device).type != "cuda":
+        return False
+    L = spec.edims[0]
+    if not radix_supported(L):
+        return False
+    return -(-spec.M // row_multiple(L)) >= 8
+
+
+def _planes_weights(spec: BTTBSpectrum, plan) -> torch.Tensor:
+    """Stage-order clamped circulant spectrum for the planes path, without
+    the 1/L fold: the radix forward stages of the stored embedded column
+    (no natural-order spectrum), clamped to min(spec.eigs), which equals the
+    build-time floor whenever an eigenvalue was clamped and changes nothing
+    otherwise; else the permuted natural full weights."""
+    L = spec.edims[0]
+    if spec.ecolumn is not None:
+        w = stage_order_weights(spec.ecolumn, plan)
+        return torch.maximum(w, torch.min(spec.eigs))
+    return permute_weights(_full_weights(spec.eigs, L), plan) * L
 
 
 def _mxu2d_solver_ok(spec: BTTBSpectrum, dtype: torch.dtype,
@@ -44,11 +85,12 @@ def _mxu2d_solver_ok(spec: BTTBSpectrum, dtype: torch.dtype,
 
 
 def _fused_sandwich_pcg(apply_dot, s0, wK, wC, num_iters: int, tol: float,
-                        fixed_iters: bool):
-    """PCG over (B, *grid) sample volumes with fused self-dot applies
-    (``apply_dot(s, w) -> (y, dots)``).  Same update order and guards as
-    `cg.pcg` / `cg.pcg_scan`."""
-    nd = s0.ndim - 1
+                        fixed_iters: bool, batch_dims: int = 1):
+    """PCG over (*batch, *grid) sample volumes with fused self-dot applies
+    (``apply_dot(s, w) -> (y, dots)``, dots shaped like the batch): the
+    ``batch_dims`` leading axes index the systems.  Same update order and
+    guards as `cg.pcg` / `cg.pcg_scan`."""
+    nd = s0.ndim - batch_dims
     ax = lambda a: a.reshape(a.shape + (1,) * nd)
     red = tuple(range(-nd, 0))
 
@@ -100,24 +142,95 @@ def _mxu2d_solver(spec: BTTBSpectrum, b: torch.Tensor, maxiter: int,
     return x.reshape(batch + (spec.M,))
 
 
+def _planes_pcg(s0, dK, dC, plan, rows: int, mask, num_iters: int, tol: float,
+                fixed_iters: bool):
+    """PCG over packed (2, V, Mp) planes with both CG inner products taken
+    from the cropped self-dot applies (`_planes_pcg_fused` and, without
+    ``fixed_iters``, `_planes_pcg_fused_while` of the JAX package).  With
+    ``mask`` the state tails stay zero, so the self-dots, whose partner is
+    the apply's own zero-tailed input, need no mask: only the apply output
+    does."""
+
+    def apply_dot(s, d_perm):
+        yr, yi, dr, di = fused_circulant_apply_cropped_selfdot(
+            s[0], s[1], d_perm, plan, rows, rows)
+        y = torch.stack([yr, yi])
+        if mask is not None:
+            y = y * mask
+        return y, torch.stack([dr, di])
+
+    return _fused_sandwich_pcg(apply_dot, s0, dK, dC, num_iters, tol,
+                               fixed_iters, batch_dims=2)
+
+
+def _planes_layout(spec: BTTBSpectrum, b: torch.Tensor):
+    """(..., M) rows -> (rows, Mp, nb, planes): ``planes`` are the nb rows
+    packed by `pack_rows` into (V, Mp) real and imaginary planes, with M
+    padded to the plan's next B*C row multiple Mp = rows * B*C."""
+    BC = row_multiple(spec.edims[0])
+    rows = -(-spec.M // BC)
+    Mp = rows * BC
+    flat = b.reshape(-1, spec.M)
+    return rows, Mp, flat.shape[0], pack_rows(flat, Mp)
+
+
+def _planes_solver(spec: BTTBSpectrum, b: torch.Tensor, maxiter: int,
+                   tol: float, fixed_iters: bool) -> torch.Tensor:
+    """K^{-1} b for (..., M) rows through the packed planes PCG of the 1-D
+    radix path.  The state lives as (2, V, Mp) planes (row 2v is the real
+    part of plane v, row 2v+1 its imaginary part; Mp = M padded to the
+    plan's B*C row multiple) and every apply runs the cropped radix kernels,
+    so the embedded padding region is never formed: one deinterleave at
+    entry and one interleave at exit per solve."""
+    M, L = spec.M, spec.edims[0]
+    plan = make_plan(L, b.dtype, b.device)
+    w = _planes_weights(spec, plan)
+    dK = (w / L).contiguous()
+    dC = (1.0 / (w * L)).contiguous()
+    rows, Mp, nb, planes = _planes_layout(spec, b)
+    mask = (torch.arange(Mp, device=b.device) < M).to(b.dtype) if Mp != M else None
+    x = _planes_pcg(torch.stack(planes), dK, dC, plan, rows, mask, maxiter, tol,
+                    fixed_iters)
+    return unpack_rows(x[0], x[1], nb)[:, :M].reshape(b.shape[:-1] + (M,))
+
+
+def _rt_planes(spec: BTTBSpectrum, d: torch.Tensor) -> torch.Tensor:
+    """R^T @ d through the cropped planes apply: (..., M) -> (..., M'), the
+    same operator as `matmul_by_RT` (sqrt weights, cropped input, full
+    expanded output)."""
+    L = spec.edims[0]
+    plan = make_plan(L, d.dtype, d.device)
+    dRT = (torch.sqrt(_planes_weights(spec, plan)) / L).contiguous()
+    rows, Mp, nb, planes = _planes_layout(spec, d)
+    yr, yi = fused_circulant_apply_cropped(*planes, dRT, plan, rows, plan.A)
+    return unpack_rows(yr, yi, nb).reshape(d.shape[:-1] + (spec.Mprime,))
+
+
 def inv_matmul(spec: BTTBSpectrum, rhs: torch.Tensor, *, maxiter: int = 20,
-               tol: float = 1e-8, fixed_iters: bool = False) -> torch.Tensor:
+               tol: float = 1e-8, do_precond: bool = True,
+               fixed_iters: bool = False) -> torch.Tensor:
     """K^{-1} @ rhs with rhs of shape (..., M), by PCG with the circulant
-    preconditioner.  Forward only: gradients through the solve are not
-    ported yet."""
-    if _mxu2d_solver_ok(spec, rhs.dtype, rhs.device):
+    preconditioner (plain CG with ``do_precond=False``).  Forward only:
+    gradients through the solve are not ported yet."""
+    if do_precond and _planes_solver_ok(spec, rhs.dtype, rhs.device):
+        return _planes_solver(spec, rhs, maxiter, tol, fixed_iters)
+    if do_precond and _mxu2d_solver_ok(spec, rhs.dtype, rhs.device):
         return _mxu2d_solver(spec, rhs, maxiter, tol, fixed_iters)
     matvec = lambda v: matmul_by_K(spec, v)
-    precond = lambda v: matmul_by_Cinv(spec, v)
+    precond = (lambda v: matmul_by_Cinv(spec, v)) if do_precond else None
     if fixed_iters:
         return pcg_scan(matvec, rhs, precond=precond, num_iters=maxiter)
     return pcg(matvec, rhs, precond=precond, maxiter=maxiter, tol=tol)
 
 
 def whiten(spec: BTTBSpectrum, Knm: torch.Tensor, *, maxiter: int = 20,
-           tol: float = 1e-8, fixed_iters: bool = False) -> torch.Tensor:
+           tol: float = 1e-8, do_precond: bool = True,
+           fixed_iters: bool = False) -> torch.Tensor:
     """kn = R^T K^{-1} Knm: (..., M) -> (..., M') whitened cross-covariances."""
-    d = inv_matmul(spec, Knm, maxiter=maxiter, tol=tol, fixed_iters=fixed_iters)
+    d = inv_matmul(spec, Knm, maxiter=maxiter, tol=tol, do_precond=do_precond,
+                   fixed_iters=fixed_iters)
+    if _planes_solver_ok(spec, d.dtype, d.device):
+        return _rt_planes(spec, d)
     if _mxu2d_solver_ok(spec, d.dtype, d.device):
         return _rt_mxu2d(spec, d)
     return matmul_by_RT(spec, d)
@@ -136,3 +249,15 @@ def _rt_mxu2d(spec: BTTBSpectrum, d: torch.Tensor) -> torch.Tensor:
 
 # the benchmark-facing alias: K^{-1/2} v in the expanded basis
 gram_solve = whiten
+
+
+def cholesky_whiten(Kmm: torch.Tensor, Knm: torch.Tensor,
+                    jitter: float = 0.0) -> torch.Tensor:
+    """Dense-oracle whitening kn = L^{-1} Kmn with K = L L^T: Knm (..., M)
+    -> (..., M); O(M^3)."""
+    if jitter:
+        Kmm = Kmm + jitter * torch.eye(Kmm.shape[-1], dtype=Kmm.dtype,
+                                       device=Kmm.device)
+    Lc = torch.linalg.cholesky(Kmm)
+    sol = torch.linalg.solve_triangular(Lc, Knm.transpose(-1, -2), upper=False)
+    return sol.transpose(-1, -2)

@@ -1,4 +1,4 @@
-"""KL divergences and prediction metrics."""
-from . import metrics, stats
+"""KL divergences, prediction metrics and chained timing."""
+from . import metrics, stats, timing
 
-__all__ = ["metrics", "stats"]
+__all__ = ["metrics", "stats", "timing"]

@@ -1,5 +1,6 @@
-"""Kernel A (hipgp_tpu_torch/csrc/mxu2d.cu) against its plain PyTorch version
-on a CUDA card.  Every test here needs the card and skips without one.
+"""Kernel A (hipgp_tpu_torch/csrc/mxu2d.cu) and the radix kernels B-2, B-3 and
+B-4 (hipgp_tpu_torch/csrc/radix.cu) against their plain PyTorch versions on a
+CUDA card.  Every test here needs the card and skips without one.
 
 On the machine with the card, which has no JAX, run without the suite's
 conftest (it imports JAX):
@@ -9,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from hipgp_tpu_torch.ops import bttb, mxu2d, solve
+from hipgp_tpu_torch.kernels import Matern
+from hipgp_tpu_torch.ops import bttb, mxu2d, radix_fft, solve
 
 pytestmark = pytest.mark.cuda
 
@@ -17,7 +19,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: kernel A has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -104,3 +106,187 @@ def test_kernel_path_whiten_matches_plain_path(dev):
     assert mxu2d.LAUNCHES["sandwich_apply_selfdot"] == before["sandwich_apply_selfdot"] + 1 + 2 * k
     assert mxu2d.LAUNCHES["sandwich_apply"] == before["sandwich_apply"] + 1
     assert _rel(kn32, kn64) <= 5e-3
+
+
+# ---------------------------------------------------------------------------
+# the radix kernels (csrc/radix.cu)
+# ---------------------------------------------------------------------------
+
+RADIX_LENGTHS = [8192, 32768, 1 << 18, 1 << 20, 1 << 21]
+# (L, rows of data) of the section 5.2 sizes on the planes path:
+# M = 131 072, 500 000 and 2^20
+MAIN_PATH_CROPS = [(1 << 18, 8), (1 << 20, 31), (1 << 21, 64)]
+
+
+def _plans(L, dev):
+    return (radix_fft.make_plan(L, torch.float32, dev),
+            radix_fft.make_plan(L, torch.float64, dev))
+
+
+def _even_spectrum(L, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = 0.5 + torch.rand(L, generator=g, device=dev, dtype=torch.float64)
+    return 0.5 * (d + torch.cat([d[:1], d[1:].flip(0)]))
+
+
+def _randn(shape, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("L", RADIX_LENGTHS)
+@pytest.mark.parametrize("case", ["forward", "forward_cropped", "inverse",
+                                  "inverse_cropped"])
+def test_radix_stage1_matches_plain(dev, L, case):
+    # f32 kernel (radix-2 FFT) against the plain dense-table version in f32
+    # and in f64 on the same inputs: f32 rounding of A-point sums
+    p32, p64 = _plans(L, dev)
+    A, N, V = p32.A, p32.B * p32.C, 4
+    rows = A // 2 + 1
+    inverse = case.startswith("inverse")
+    in_rows = rows if case == "forward_cropped" else A
+    out_rows = rows if case == "inverse_cropped" else A
+    x = _randn((2, V, in_rows, N), dev, L + len(case))
+    x32 = x.float()
+    before = radix_fft.LAUNCHES["stage1"]
+    y = radix_fft.stage1(x32[0], x32[1], p32, out_rows, inverse)
+    assert radix_fft.LAUNCHES["stage1"] == before + 1
+    wr, wi = radix_fft._s1_tables(p32, in_rows, out_rows, inverse)
+    y32 = radix_fft.stage1_plain(x32[0], x32[1], wr, wi)
+    wr, wi = radix_fft._s1_tables(p64, in_rows, out_rows, inverse)
+    y64 = radix_fft.stage1_plain(x[0], x[1], wr, wi)
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert y[k].shape == (V, out_rows, N) and y[k].dtype == torch.float32
+        assert _rel(y[k], y32[k]) <= 1e-5
+        assert _rel(y[k], y64[k]) <= 1e-5
+
+
+@pytest.mark.parametrize("L", RADIX_LENGTHS)
+@pytest.mark.parametrize("cropped", [False, True])
+def test_radix_stage1_inv_dot_matches_plain(dev, L, cropped):
+    p32, p64 = _plans(L, dev)
+    A, N, V = p32.A, p32.B * p32.C, 4
+    rows = A // 2 if cropped else A
+    z = _randn((2, V, A, N), dev, L)
+    u = _randn((2, V, rows, N), dev, L + 1)
+    z32, u32 = z.float(), u.float()
+    before = radix_fft.LAUNCHES["stage1_inv_dot"]
+    got = radix_fft.stage1_inv_dot(z32[0], z32[1], u32[0], u32[1], p32, rows)
+    assert radix_fft.LAUNCHES["stage1_inv_dot"] == before + 1
+    wr, wi = radix_fft._s1_tables(p64, A, rows, True)
+    want = radix_fft.stage1_inv_dot_plain(z[0], z[1], u[0], u[1], wr, wi)
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert _rel(got[k], want[k]) <= 1e-5
+    # the dots sum ~V * rows * N products of O(1) terms with random signs:
+    # hold their error to the scale of the terms, not of the small sum
+    scale = torch.sqrt(torch.sum((u[0] * want[0]) ** 2, dim=(1, 2)))
+    for k in (2, 3):
+        assert got[k].shape == (V,)
+        assert float(torch.max(torch.abs(got[k].double() - want[k]) / scale)) <= 1e-5
+
+
+@pytest.mark.parametrize("L", RADIX_LENGTHS)
+def test_radix_middle_matches_plain(dev, L):
+    p32, p64 = _plans(L, dev)
+    V = 4
+    y = _randn((2, V, p32.A, p32.B, p32.C), dev, L)
+    d64 = radix_fft.permute_weights(_even_spectrum(L, dev, L), p64)
+    y32, d32 = y.float(), d64.float()
+    before = radix_fft.LAUNCHES["middle"]
+    got = radix_fft.middle(y32[0], y32[1], d32, p32)
+    assert radix_fft.LAUNCHES["middle"] == before + 1
+    want32 = radix_fft.middle_plain(y32[0], y32[1], d32, p32)
+    want64 = radix_fft.middle_plain(y[0], y[1], d64, p64)
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert _rel(got[k], want32[k]) <= 1e-5
+        assert _rel(got[k], want64[k]) <= 1e-5
+
+
+@pytest.mark.parametrize("L,rows", MAIN_PATH_CROPS)
+def test_radix_main_path_crops_match_plain(dev, L, rows):
+    # the forward stage from the rows of data and the self-dot inverse back
+    # to them, at the crops the planes PCG gives the kernels
+    p32, p64 = _plans(L, dev)
+    A, N, V = p32.A, p32.B * p32.C, 4
+    x = _randn((2, V, rows, N), dev, L + rows)
+    u = _randn((2, V, rows, N), dev, L + rows + 1)
+    z = _randn((2, V, A, N), dev, L + rows + 2)
+    x32, u32, z32 = x.float(), u.float(), z.float()
+    fwd = radix_fft.stage1(x32[0], x32[1], p32, A, inverse=False)
+    inv = radix_fft.stage1_inv_dot(z32[0], z32[1], u32[0], u32[1], p32, rows)
+    want_fwd = radix_fft.stage1_plain(x[0], x[1], *radix_fft._s1_tables(p64, rows, A, False))
+    want_inv = radix_fft.stage1_inv_dot_plain(z[0], z[1], u[0], u[1],
+                                              *radix_fft._s1_tables(p64, A, rows, True))
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert fwd[k].shape == (V, A, N) and inv[k].shape == (V, rows, N)
+        assert _rel(fwd[k], want_fwd[k]) <= 1e-5
+        assert _rel(inv[k], want_inv[k]) <= 1e-5
+    scale = torch.sqrt(torch.sum((u[0] * want_inv[0]) ** 2, dim=(1, 2)))
+    for k in (2, 3):
+        assert float(torch.max(torch.abs(inv[k].double() - want_inv[k]) / scale)) <= 1e-5
+
+
+def test_radix_selfdot_is_deterministic(dev):
+    p32, _ = _plans(1 << 18, dev)
+    A, N = p32.A, p32.B * p32.C
+    z = torch.randn((2, 3, A, N), device=dev)
+    u = torch.randn((2, 3, A // 2, N), device=dev)
+    a = radix_fft.stage1_inv_dot(z[0], z[1], u[0], u[1], p32, A // 2)
+    b = radix_fft.stage1_inv_dot(z[0], z[1], u[0], u[1], p32, A // 2)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_radix_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    p32, _ = _plans(8192, dev)
+    A, B, C = p32.A, p32.B, p32.C
+    x = torch.randn((2, A, B * C), device=dev)
+    with pytest.raises(TypeError):
+        radix_fft.stage1(x.double(), x.double(), p32, A, inverse=False)
+    with pytest.raises(ValueError):
+        radix_fft.stage1(x[:, ::2], x[:, ::2], p32, A, inverse=False)
+    with pytest.raises(ValueError):
+        radix_fft.stage1(x, x.cpu(), p32, A, inverse=False)
+    y = x.view(2, A, B, C)
+    d = torch.ones((A, B, C), device=dev)
+    with pytest.raises(ValueError):
+        radix_fft.middle(y, y, d.cpu(), p32)
+    with pytest.raises(TypeError):
+        radix_fft.stage1_inv_dot(x.double(), x.double(), x.double(), x.double(), p32, A)
+
+
+@pytest.mark.parametrize("M", [131072, 131073])
+def test_planes_gram_solve_matches_plain_path(dev, M):
+    # the f32 kernel path (planes PCG + R^T through the radix kernels)
+    # against the same solver on the CPU in f32 through the plain stages,
+    # and against the f64 plain path (torch.fft PCG) on the card
+    kern = Matern(2.5)
+    kf = lambda a, b: kern(a, b, (0.1, 1.0 / M))
+    b = np.random.default_rng(M).standard_normal((5, M))
+    specs = {}
+    for name, dt, where in (("k32", torch.float32, dev), ("c32", torch.float32, "cpu"),
+                            ("k64", torch.float64, dev)):
+        grid = torch.linspace(0.0, 1.0, M, dtype=dt, device=where)
+        specs[name] = bttb.make_spectrum([grid], kf, jitter=1e-3)
+    assert solve._planes_solver_ok(specs["k32"], torch.float32, dev)
+    before = dict(radix_fft.LAUNCHES)
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    out = {}
+    for name, spec in specs.items():
+        rhs = torch.as_tensor(b, dtype=spec.eigs.dtype, device=spec.eigs.device)
+        if name == "c32":   # the planes solver itself, its stages plain on the CPU
+            x = solve._planes_solver(spec, rhs, 20, 0.0, True)
+            out[name] = solve._rt_planes(spec, x)
+        else:
+            out[name] = solve.gram_solve(spec, rhs, maxiter=20, tol=0.0,
+                                         fixed_iters=True).cpu()
+    k = 20
+    assert radix_fft.LAUNCHES["middle"] - before["middle"] == 2 * k + 2
+    assert radix_fft.LAUNCHES["stage1_inv_dot"] - before["stage1_inv_dot"] == 2 * k + 1
+    assert radix_fft.LAUNCHES["stage1"] - before["stage1"] == 2 * k + 3
+    assert out["k32"].shape == (5, specs["k32"].Mprime)
+    assert _rel(out["k32"], out["c32"]) <= 1e-4
+    assert _rel(out["k32"], out["k64"]) <= 5e-3

@@ -256,9 +256,33 @@ def test_kernel_path_solver_matches_plain_path_on_cpu():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, hipgp_tpu_torch, hipgp_tpu_torch.experiments.run_synthetic;"
+    # every module of the package, found by walking it, and the chip script
+    code = ("import importlib, pkgutil, sys, hipgp_tpu_torch;"
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "hipgp_tpu_torch.__path__, 'hipgp_tpu_torch.')];"
+            "[importlib.import_module(m) for m in mods];"
+            "import chip_smoke;"
+            "assert 'hipgp_tpu_torch.ops.radix_fft' in mods, mods;"
+            "assert 'hipgp_tpu_torch.experiments.run_pcg_vs_cholesky' in mods, mods;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'hipgp_tpu' or m.startswith('hipgp_tpu.')];"
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("fixed_iters", [False, True])
+def test_inv_matmul_without_preconditioner_matches_jax(fixed_iters):
+    # do_precond=False runs plain CG in both packages
+    js, ts = _specs((12, 9), ell=0.15)
+    b = np.random.default_rng(11).standard_normal((3, ts.M))
+    kw = dict(maxiter=15, tol=1e-8, do_precond=False, fixed_iters=fixed_iters)
+    got = tsolve.inv_matmul(ts, torch.as_tensor(b), **kw)
+    want = jsolve.inv_matmul(js, jnp.asarray(b), **kw)
+    assert _rel(got, want) <= 1e-9
+    # it is not the preconditioned solve
+    pre = tsolve.inv_matmul(ts, torch.as_tensor(b), maxiter=15, tol=1e-8,
+                            fixed_iters=fixed_iters)
+    assert _rel(got, pre) > 1e-6
+    kn = tsolve.whiten(ts, torch.as_tensor(b), **kw)
+    assert _rel(kn, jsolve.whiten(js, jnp.asarray(b), **kw)) <= 1e-9
