@@ -38,7 +38,30 @@ Phases, each printing one line of progress with its seconds:
                (batch 8, 20 iterations) against the same float32 path with
                the plain stages (limit 1e-4) and against the float64 plain
                path on the card: pcg_scan over torch.fft, then matmul_by_RT
-               (limit 5e-3).
+               (limit 5e-3);
+  8. kernels-3d - the weight-plane kernel B-5 against its plain version in
+               float32 and float64 at every shape the 3-D path gives it (the
+               PCG self-dot applies (512, 64, 64, 64) with wK and 1/wK, R^T out
+               to (512, 64, 128, 128), and the prediction chunk of 400), and
+               the whole-sample kernel B-6 at the self-dot shape
+               (512, 32, 64, 64); a second call bit-equal; times of kernel,
+               plain version and the torch.fft chain, and B-6 against the
+               B-5 pipeline (outer products included);
+  9. main-3d - the paper's section 5.5 dust map (run_domain.main): 64 x 64 x
+               32 inducing grid, SqExp with ell 0.07 and the analytic
+               semi-integrated estimator, 10 240 line-integral observations
+               (cut from 100 000) and 1 000 test stars (cut from 2 000), the
+               theta2 warm start, the clamped lr, one natgrad epoch of 20
+               steps at batch 512 and maxiter_cg 20, then prediction of e at
+               the test stars and of the density on the 20 x 20 slice; the
+               counters zeroed just before and read just after: every 3-D
+               PCG solve makes 1 + 2k self-dot applies, every whitening one
+               R^T;
+ 10. accuracy-3d - 64 rows of the main path's integrated Knm, 20 iterations:
+               the float32 kernel-path whiten against the same float32 path
+               with the plain stages (limit 1e-4) and, at ell 0.07, against
+               the float64 plain path (limit 5e-3); at ell 0.2 the float64
+               error is logged (the float32 spectrum's floor dominates it).
 Any failed check raises, so the script exits non-zero.  The line before the
 last is the card's name and power limit from nvidia-smi, the one before it a
 JSON object with one entry per kernel; the last line is
@@ -61,6 +84,14 @@ RADIX_SOURCE = "hipgp_tpu_torch/csrc/radix.cu"
 RADIX_TPU_KERNELS = {"stage1": "hipgp_tpu/ops/radix_fft.py:649",
                      "stage1_inv_dot": "hipgp_tpu/ops/radix_fft.py:686",
                      "middle": "hipgp_tpu/ops/radix_fft.py:530"}
+WP_TPU_KERNEL = "hipgp_tpu/ops/mxu2d.py:325"    # pl.pallas_call of _make_kernel_wp
+WP3_SOURCE = "hipgp_tpu_torch/csrc/mxu3d.cu"
+WP3_TPU_KERNEL = "hipgp_tpu/ops/mxu3d.py:248"   # pl.pallas_call of _make_kernel_wp3
+# the section 5.5 dust map as main-3d runs it (the JAX RESULTS section 14d
+# natgrad protocol, cut to 10 240 observations and 1 000 test stars)
+DOMAIN = dict(nobs=10_240, ntest=1000, noise_std=0.1, nx=64, nz=32)
+DOMAIN_ELL = 0.07
+DOMAIN_BATCH = 512
 HEADLINE_M = 1 << 20      # the 1-D headline: L = 2^21, (A, B, C) = (128, 128, 128)
 SIZES_1D = (10_000, 131_072, 500_000, HEADLINE_M)
 PCG_ITERS = 20            # the section 5.2 protocol's fixed iteration count
@@ -483,6 +514,312 @@ def phase_accuracy_1d(torch, dev):
     log(f"[accuracy-1d] done; {time.perf_counter() - t0:.2f} s")
 
 
+def wp_bound_ms(B, W, i, L, o, selfdot):
+    """Least time for kernel B-5's work: kernel A's rule (sandwich_bound_ms)
+    over the B*W planes, with the W weight planes read once.  Returns
+    (ms, 'operations' | 'bytes')."""
+    (i0, i1), (L0, L1), (o0, o1) = i, L, o
+    half = L1 // 2 + 1
+    ops = (i0 * _fft_ops(L1, True) + 2 * half * _fft_ops(L0, False)
+           + 2 * L0 * half + o0 * _fft_ops(L1, True))
+    ops = B * W * (ops + (2 * o0 * o1 if selfdot else 0))
+    nbytes = 4 * (B * W * (i0 * i1 + o0 * o1) + W * L0 * L1 + (B if selfdot else 0))
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def wp3_bound_ms(B, dims, edims, selfdot):
+    """Least time for the whole cropped 3-D sandwich (kernel B-6): the FFT
+    formulation pruned to the data, per sample a real FFT along the minor
+    axis of the d0*d1 input rows, complex FFTs along the middle axis of the
+    d0 * (L2/2 + 1) columns that hold data and along the outer axis of all
+    L1 * (L2/2 + 1), the scale, the same back, and the self-dot; against x
+    and w read once and y written once.  Returns (ms, 'operations' | 'bytes')."""
+    (d0, d1, d2), (W, L1, L2) = dims, edims
+    half = L2 // 2 + 1
+    one_way = (d0 * d1 * _fft_ops(L2, True) + d0 * half * _fft_ops(L1, False)
+               + L1 * half * _fft_ops(W, False))
+    ops = B * (2 * one_way + 2 * W * L1 * half + (2 * d0 * d1 * d2 if selfdot else 0))
+    nbytes = 4 * (2 * B * d0 * d1 * d2 + W * L1 * L2 + (B if selfdot else 0))
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fft_chain(torch, x, w, edims, dims_out):
+    """The port's torch.fft formulation of the same sandwich (the library
+    yardstick): rfftn of the zero-padded trailing axes, times the real
+    half-spectrum, irfftn, crop."""
+    nd = len(edims)
+    axes = tuple(range(-nd, 0))
+    half = w[..., : edims[-1] // 2 + 1]
+    y = torch.fft.irfftn(torch.fft.rfftn(x, s=edims, dim=axes) * half, s=edims, dim=axes)
+    return y[(Ellipsis,) + tuple(slice(0, d) for d in dims_out)]
+
+
+def domain_setup(torch, dev, ell, dtype):
+    """The main-3d protocol's data, model, init state and spectrum at ``ell``
+    (sig2 by the empirical init, as run_domain does)."""
+    from hipgp_tpu_torch.experiments import run_domain
+
+    prob = run_domain.domain_problem(**DOMAIN)
+    sig2 = run_domain.empirical_sig2_init(prob["xobs"], prob["aobs"])
+    model = run_domain.domain_model("SqExp", prob["grids"], len(prob["xobs"]), sig2,
+                                    ell, dtype=dtype, device=dev)
+    state = model.init_state()
+    return prob, model, state, model.spectrum(state)
+
+
+def phase_kernels_3d(torch, dev):
+    """B-5 against its plain version (f32 and f64) at every shape the 3-D path
+    gives it, B-6 at the self-dot shape; dots, determinism, times, bounds and
+    the torch.fft-chain yardstick; B-6 against the B-5 pipeline.  Returns the
+    per-kernel records of the kernels line (launches filled in later)."""
+    from hipgp_tpu_torch.ops import bttb, mxu2d, mxu3d, solve
+
+    t0 = time.perf_counter()
+    _, _, _, spec = domain_setup(torch, dev, DOMAIN_ELL, torch.float32)
+    _, _, pdims, pedims, wK = solve._mxu3d_permuted(
+        spec, bttb._full_weights(spec.eigs, spec.edims[-1]))
+    check((pdims, pedims) == ((32, 64, 64), (64, 128, 128)),
+          f"main-path kernel order {pdims} -> {pedims}")
+    W, inner, einner = pedims[0], pdims[1:], pedims[1:]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results = {}
+
+    def compare(name, label, got, want32, want64, selfdot):
+        torch.cuda.synchronize()
+        y, y32, y64 = (got[0], want32[0], want64[0]) if selfdot else (got, want32, want64)
+        check(y.shape == y32.shape and y.dtype == torch.float32,
+              f"{name} ({label}) shape {tuple(y.shape)}")
+        check(bool(torch.isfinite(y).all()), f"{name} ({label}) non-finite output")
+        err32, err64 = rel(y, y32), rel(y, y64)
+        abs_err = float((y - y32).abs().max())
+        msg = (f"rel err vs plain f32 {err32:.3e} (max abs {abs_err:.3e}), vs plain "
+               f"f64 {err64:.3e}")
+        check(err32 <= 1e-5 and err64 <= 1e-5, f"{name} ({label}) {msg}")
+        if selfdot:
+            d32, d64 = rel(got[1], want32[1]), rel(got[1], want64[1])
+            msg += f"; dots vs plain f32 {d32:.3e}, vs f64 {d64:.3e}"
+            check(d32 <= 1e-5 and d64 <= 1e-5, f"{name} ({label}) dots {msg}")
+        return msg, abs_err
+
+    def same_again(name, label, got, call):
+        again = call()
+        torch.cuda.synchronize()
+        pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+        check(all(torch.equal(a, b) for a, b in pairs),
+              f"{name} ({label}): a second identical call is not bit-equal")
+
+    # ---- B-5 at the PCG self-dot, R^T and prediction-chunk shapes ----------
+    cases = [(512, wK, True, "PCG self-dot apply, w = wK"),
+             (512, (1.0 / wK).contiguous(), True, "PCG self-dot apply, w = 1/wK"),
+             (512, torch.sqrt(wK).contiguous(), False, "R^T, w = sqrt(wK)"),
+             (400, wK, True, "prediction-chunk self-dot apply"),
+             (400, torch.sqrt(wK).contiguous(), False, "prediction-chunk R^T")]
+    for B, w, selfdot, label in cases:
+        out_exp = not selfdot
+        t32 = mxu2d._tables(inner, einner, False, out_exp, torch.float32, dev)
+        t64 = mxu2d._tables(inner, einner, False, out_exp, torch.float64, dev)
+        x = torch.randn((B, W) + inner, generator=gen, device=dev)
+        call = lambda: mxu2d.sandwich_apply_wp(x, w, inner, einner,
+                                               out_expanded=out_exp, selfdot=selfdot)
+        got = call()
+        want32 = mxu2d.sandwich_wp_plain(x, w, *t32[:4], selfdot=selfdot)
+        want64 = mxu2d.sandwich_wp_plain(x.double(), w.double(), *t64[:4],
+                                         selfdot=selfdot)
+        msg, abs_err = compare("B-5", label, got, want32, want64, selfdot)
+        same_again("B-5", label, got, call)
+        del want32, want64
+        bound = wp_bound_ms(B, W, t32[4], einner, t32[5], selfdot)
+        if label.startswith("PCG self-dot apply, w = wK"):
+            ms = cuda_ms(torch, call)
+            plain_ms = cuda_ms(torch, lambda: mxu2d.sandwich_wp_plain(
+                x, w, *t32[:4], selfdot=True), warmup=1, reps=5)
+            o_shape = t32[5]
+            lib = lambda: fft_chain(torch, x, w, einner, o_shape)
+            lib_err = rel(lib(), mxu2d.sandwich_wp_plain(x.double(), w.double(),
+                                                         *t64[:4]))
+            check(lib_err <= 1e-4, f"B-5 torch.fft chain rel err {lib_err:.3e}")
+            lib_ms = cuda_ms(torch, lib, warmup=1, reps=5)
+            msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.fft chain "
+                    f"{lib_ms:.4f} ms (rel err vs f64 {lib_err:.3e}, no self-dot), "
+                    f"bound {bound[0]:.4f} ms ({bound[1]}; pruned FFT count)")
+            results["B-5"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound[0], bound_by=bound[1],
+                                  library_ms=lib_ms)
+        else:
+            msg += f"; bound {bound[0]:.4f} ms ({bound[1]})"
+        log(f"[kernels-3d] B-5 ({B}, {W}) + {inner} -> {t32[5]} {label}: {msg}")
+
+    # ---- B-6 at the self-dot shape ----------------------------------------
+    label = "PCG self-dot apply, w = wK"
+    x = torch.randn((512,) + pdims, generator=gen, device=dev)
+    call = lambda: mxu3d.sandwich_apply_wp3(x, wK, pdims, pedims, selfdot=True)
+    got = call()
+    want32 = mxu3d.sandwich_wp3_plain(x, wK, pdims, pedims, selfdot=True)
+    want64 = mxu3d.sandwich_wp3_plain(x.double(), wK.double(), pdims, pedims,
+                                      selfdot=True)
+    msg, abs_err = compare("B-6", label, got, want32, want64, True)
+    same_again("B-6", label, got, call)
+    del want32
+    ms = cuda_ms(torch, call)
+    plain_ms = cuda_ms(torch, lambda: mxu3d.sandwich_wp3_plain(x, wK, pdims, pedims,
+                                                               selfdot=True),
+                       warmup=1, reps=5)
+    lib = lambda: fft_chain(torch, x, wK, pedims, pdims)
+    lib_err = rel(lib(), want64[0])
+    check(lib_err <= 1e-4, f"B-6 torch.fft chain rel err {lib_err:.3e}")
+    del want64
+    lib_ms = cuda_ms(torch, lib, warmup=1, reps=5)
+    bound = wp3_bound_ms(512, pdims, pedims, True)
+    # the same function through the outer products and kernel B-5, in turns
+    saved = mxu3d.USE_WP3
+    mxu3d.USE_WP3 = False
+    pipe = lambda: mxu3d.sandwich_apply_3d_selfdot(x, wK, pdims, pedims)
+    try:
+        pipe_before = cuda_ms(torch, pipe)
+        wp3_ms = cuda_ms(torch, call)
+        pipe_after = cuda_ms(torch, pipe)
+    finally:
+        mxu3d.USE_WP3 = saved
+    pipe_ms = 0.5 * (pipe_before + pipe_after)
+    log(f"[kernels-3d] B-6 (512,) + {pdims} through {pedims} {label}: {msg}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.fft chain {lib_ms:.4f} ms (rel "
+        f"err vs f64 {lib_err:.3e}, no self-dot), bound {bound[0]:.4f} ms ({bound[1]}; "
+        f"pruned FFT count)")
+    log(f"[kernels-3d] the whole self-dot apply: B-6 {wp3_ms:.4f} ms against the B-5 "
+        f"pipeline (outer matmul + B-5 + outer matmul) {pipe_ms:.4f} ms (mean of two "
+        f"runs around it); USE_WP3 = {mxu3d.USE_WP3}")
+    results["B-6"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+    log(f"[kernels-3d] done; {time.perf_counter() - t0:.2f} s")
+    return results
+
+
+def phase_main_3d(torch):
+    """run_domain (section 5.5) at the main-path settings, with the counts
+    zeroed just before and read just after; returns the launches."""
+    import tempfile
+
+    from hipgp_tpu_torch.experiments import run_domain
+    from hipgp_tpu_torch.ops import mxu2d, mxu3d, solve
+
+    t0 = time.perf_counter()
+    argv = ["--nx", str(DOMAIN["nx"]), "--nz", str(DOMAIN["nz"]), "--ell", str(DOMAIN_ELL),
+            "--nobs", str(DOMAIN["nobs"]), "--ntest", str(DOMAIN["ntest"]),
+            "--noise-std", str(DOMAIN["noise_std"]), "--batch-size", str(DOMAIN_BATCH),
+            "--maxiter-cg", "20", "--lr", "1e-2", "--epochs", "1"]
+    log(f"[main-3d] run_domain {' '.join(argv)} (cut from the section 14d protocol: "
+        f"--nobs 10240 from 100 000, --ntest 1000 from 2 000, one epoch)")
+    with tempfile.TemporaryDirectory() as tmp:
+        mxu2d.reset_launches()
+        mxu3d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        out = run_domain.main(argv + ["--output-dir", tmp])
+        torch.cuda.synchronize()
+        lc = {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}
+        st = dict(solve.PCG_STATS)
+    wall = time.perf_counter() - t0
+    steps = out["steps"]
+    log(f"[main-3d] {steps} natgrad steps at {out['step_ms']:.1f} ms/step (host clock "
+        f"over the epoch, ending in a sync); warm start {out['warmstart_s']:.2f} s; "
+        f"rho {out['natgrad_rho']:.2f}, lr used {out['lr_used']:.4g}; ELBO "
+        f"{out['first_elbo']:.4f} -> {out['last_elbo']:.4f}; predict "
+        f"{out['predict_s']:.2f} s; e post-RMSE {out['e_post_rmse']:.5f} vs rms(e_test) "
+        f"{out['e_rms']:.5f}; latent RMSE {out['latent_rmse']:.5f}, slice corr "
+        f"{out['latent_corr']:.4f}")
+    check(steps == DOMAIN["nobs"] // DOMAIN_BATCH, f"{steps} steps")
+    check(math.isfinite(out["first_elbo"]) and math.isfinite(out["last_elbo"]),
+          "non-finite ELBO")
+    rho = out["natgrad_rho"]
+    check(rho is not None and math.isfinite(rho) and rho > 1, f"rho {rho}")
+    check(abs(out["lr_used"] - min(1e-2, 1.0 / rho)) <= 1e-9 * out["lr_used"],
+          f"lr used {out['lr_used']} is not min(1e-2, 1/rho)")
+    check(math.isfinite(out["e_post_rmse"]) and out["e_post_rmse"] < out["e_rms"],
+          f"e post-RMSE {out['e_post_rmse']} not below rms(e_test) {out['e_rms']}")
+    chunks = -(-DOMAIN["ntest"] // DOMAIN_BATCH) + -(-400 // DOMAIN_BATCH)
+    check(st["solves"] == 2 * steps + 1 + chunks,
+          f"{st['solves']} solves: expected a warm-start batch, a step and a "
+          f"prediction chunk each, and the rho estimate")
+    applies = st["solves"] + 2 * st["iterations"]
+    use_wp3 = mxu3d.USE_WP3
+    want = {"sandwich_apply_wp_selfdot": 0 if use_wp3 else applies,
+            "sandwich_apply_wp3": applies if use_wp3 else 0,
+            "sandwich_apply_wp": st["solves"],
+            "sandwich_apply": 0, "sandwich_apply_selfdot": 0}
+    log(f"[main-3d] {st['solves']} PCG solves, {st['iterations']} iterations -> "
+        f"expect {applies} self-dot applies through {'B-6' if use_wp3 else 'B-5'} and "
+        f"{st['solves']} R^T launches of B-5; counted {lc}; {wall:.2f} s")
+    check(lc == want, f"3-D launches {lc}, expected {want}")
+    return lc
+
+
+@contextlib.contextmanager
+def plain_3d_stages(mxu2d, mxu3d):
+    """Route the 3-D applies through the plain versions of B-5 and B-6, on
+    whatever device their tensors are (the reference of [accuracy-3d];
+    nothing is launched or counted meanwhile)."""
+    saved = mxu3d.sandwich_apply_wp, mxu3d.sandwich_apply_wp3
+
+    def wp(x, w, dims, edims, *, in_expanded=False, out_expanded=False, selfdot=False):
+        t = mxu2d._tables(dims, edims, in_expanded, out_expanded, x.dtype, x.device)
+        return mxu2d.sandwich_wp_plain(x, w, *t[:4], selfdot=selfdot)
+
+    def wp3(x, w, dims, edims, selfdot=False):
+        return mxu3d.sandwich_wp3_plain(x, w, dims, edims, selfdot=selfdot)
+
+    mxu3d.sandwich_apply_wp, mxu3d.sandwich_apply_wp3 = wp, wp3
+    try:
+        yield
+    finally:
+        mxu3d.sandwich_apply_wp, mxu3d.sandwich_apply_wp3 = saved
+
+
+def phase_accuracy_3d(torch, dev):
+    """64 rows of the main path's integrated Knm, 20 iterations: the f32
+    kernel-path whiten against the f32 path with the plain stages (limit
+    1e-4) and the f64 plain path (limit 5e-3 at ell 0.07; logged at 0.2)."""
+    from hipgp_tpu_torch.ops import mxu2d, mxu3d, solve
+
+    t0 = time.perf_counter()
+    k = 20
+    for ell in (DOMAIN_ELL, 0.2):
+        out = {}
+        for key, dt in (("kernel", torch.float32), ("plain32", torch.float32),
+                        ("plain64", torch.float64)):
+            prob, model, state, spec = domain_setup(torch, dev, ell, dt)
+            x = torch.as_tensor(prob["xobs"][:64], dtype=dt, device=dev)
+            knm, _ = model.make_grams(state, x, integrated_obs=True)
+            before = {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}
+            run = lambda: solve.whiten(spec, knm, maxiter=k, tol=0.0, fixed_iters=True)
+            if key == "plain32":
+                with plain_3d_stages(mxu2d, mxu3d):
+                    out[key] = run()
+            else:
+                out[key] = run()
+            torch.cuda.synchronize()
+            after = {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}
+            moved = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+            applies = "sandwich_apply_wp3" if mxu3d.USE_WP3 else "sandwich_apply_wp_selfdot"
+            want = ({applies: 2 * k + 1, "sandwich_apply_wp": 1} if key == "kernel" else {})
+            check(moved == want, f"ell {ell} {key} whiten launched {moved}, expected {want}")
+        k32 = out["kernel"]
+        check(k32.shape == out["plain64"].shape == (64, spec.Mprime),
+              f"whiten shape {tuple(k32.shape)}")
+        check(bool(torch.isfinite(k32).all()), f"ell {ell}: non-finite f32 whiten")
+        err32, err64 = rel(k32, out["plain32"]), rel(k32, out["plain64"])
+        log(f"[accuracy-3d] whiten {model.dims}, ell {ell}, 64 integrated rows, {k} "
+            f"iterations: f32 kernel path vs f32 plain stages rel err {err32:.3e}, vs f64 "
+            f"plain path {err64:.3e}" + ("" if ell == DOMAIN_ELL else
+                                         " (logged, not limited: the f32 spectrum's "
+                                         "floor dominates it)"))
+        check(err32 <= 1e-4, f"ell {ell} 3-D whiten rel err vs f32 plain {err32}")
+        if ell == DOMAIN_ELL:
+            check(err64 <= 5e-3, f"ell {ell} 3-D whiten rel err vs f64 plain {err64}")
+        del out, k32
+    log(f"[accuracy-3d] done; {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -501,7 +838,7 @@ def main():
     from hipgp_tpu_torch.experiments.run_synthetic import build_model, marginal_sig2
     from hipgp_tpu_torch.experiments.synthetic_data import make_two_dim_data
     from hipgp_tpu_torch.infer import FitConfig, batch_predict, svigp_fit
-    from hipgp_tpu_torch.ops import bttb, mxu2d, solve
+    from hipgp_tpu_torch.ops import bttb, mxu2d, mxu3d, solve
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -619,7 +956,10 @@ def main():
             f"R^T launches; counted {lc}")
         check(lc["sandwich_apply_selfdot"] == want_sd, f"{tag} self-dot launch count")
         check(lc["sandwich_apply"] == st["solves"], f"{tag} R^T launch count")
-    check(fit_stats["solves"] == 2 * steps, "one solve per warm-start batch and per step")
+    # the warm start also enables the step-size estimate (natgrad_safe_lr,
+    # 'warn' by default): one more whitening, of the first batch
+    check(fit_stats["solves"] == 2 * steps + 1,
+          "one solve per warm-start batch and per step, and one for rho")
     check(fit_stats["iterations"] <= 10 * fit_stats["solves"], "maxiter_cg exceeded")
     rmse = float(np.sqrt(np.mean((mu - d["ftest"]) ** 2)))
     fstd = float(np.std(d["ftest"]))
@@ -653,6 +993,11 @@ def main():
     radix_launches = phase_main_1d(torch)
     phase_accuracy_1d(torch, dev)
 
+    # ---- 8.-10. the 3-D dust map ----------------------------------------------
+    results_3d = phase_kernels_3d(torch, dev)
+    launches_3d = phase_main_3d(torch)
+    phase_accuracy_3d(torch, dev)
+
     kernels = []
     for name in ("sandwich_apply_selfdot", "sandwich_apply"):
         r = results[name]
@@ -674,6 +1019,23 @@ def main():
             "library_ms": r["library_ms"],
         })
         check(radix_launches[name] > 0, f"{name} never launched on the 1-D main path")
+    for key, name, source, tpu, counts in (
+            ("B-5", "mxu2d.sandwich_apply_wp", KERNEL_SOURCE, WP_TPU_KERNEL,
+             ("sandwich_apply_wp", "sandwich_apply_wp_selfdot")),
+            ("B-6", "mxu3d.sandwich_apply_wp3", WP3_SOURCE, WP3_TPU_KERNEL,
+             ("sandwich_apply_wp3",))):
+        r = results_3d[key]
+        n = sum(launches_3d[c] for c in counts)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": tpu,
+            "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+        # B-6 is on the main path only where USE_WP3 selects it for the PCG
+        # applies (set by the B-6 / B-5-pipeline measurement of [kernels-3d])
+        if key == "B-5" or mxu3d.USE_WP3:
+            check(n > 0, f"{name} never launched on the 3-D main path")
     log(f"[done] total {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     try:

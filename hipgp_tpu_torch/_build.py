@@ -1,10 +1,11 @@
 """Builds the package's CUDA sources with ``nvcc`` and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and includes no
-PyTorch header, so one ``nvcc`` call turns it into a shared library in a few
-seconds.  Libraries are cached by content: the file name carries a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  Nothing is built when the package is imported: the first
+PyTorch header (only the package's own ``csrc/*.cuh``), so one ``nvcc`` call
+turns it into a shared library in a few seconds.  Libraries are cached by
+content: the file name carries a hash of the source, the shared headers and
+the flags, so an edited source is rebuilt and an unchanged one is loaded as
+it is.  Nothing is built when the package is imported: the first
 launch builds what it needs (or :func:`build_all` builds every source at once,
 one ``nvcc`` process per source, all started together).
 
@@ -48,6 +49,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's content
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

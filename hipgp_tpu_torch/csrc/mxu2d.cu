@@ -1,4 +1,5 @@
-// Kernel A: the cropped 2-D real-Fourier sandwich, hand-written for Hopper (sm_90a).
+// Kernel A: the cropped 2-D real-Fourier sandwich, and kernel B-5, the same
+// sandwich over a stack of weight planes; both hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel hipgp_tpu/ops/mxu2d.py:_make_kernel (launched by
 // `_pallas_sandwich` at its pl.pallas_call).  For every sample b it computes
@@ -49,76 +50,33 @@
 // two (B*d, L1) intermediates of the minor-axis passes go through device
 // memory (and mostly L2).
 //
+// Kernel B-5 replaces the Pallas TPU kernel hipgp_tpu/ops/mxu2d.py:_make_kernel_wp
+// (launched by `_pallas_sandwich_wp` at its pl.pallas_call), the building
+// block of the 3-D sandwich: after the outer-axis analysis a 3-D sample is W
+// independent 2-D plane problems, plane l with its own spectrum w[l].  On a
+// (B, W, i0, i1) stack it computes y[b, l] = P_o (Q0 x Q1) diag(w[l]) (.)^T
+// P_i^T x[b, l] and, with dots, dots[b] = sum_l <x[b, l], y[b, l]>.  It is
+// kernel A's four launches with a plane index: the row GEMMs treat the stack
+// as B*W samples, the intermediates are laid out (W, i0, B, L1) and
+// (W, o0, B, L1) so that plane l's columns stay together, the middle pass
+// runs one grid row per plane with that plane's spectrum, and the self-dots
+// are summed per plane and then over the planes in order.  Its bound is the
+// same as kernel A's per plane: at the 3-D main path's shape, (512, 64, 64, 64)
+// through (128, 128) planes, the dense contractions are ~206 GFLOP
+// (3.1 ms at the FP32 peak) against a pruned FFT count of ~29 GFLOP.
+//
 // Interface: plain C, returns the cudaError_t of the first failing call
 // (0 on success).  Launches on `stream`, never synchronises, allocates nothing:
 // the caller passes every output and scratch buffer.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "sandwich.cuh"
 
 namespace {
 
-constexpr int NT = 256;   // threads per block, as 16 x 16 (ty, tx)
-constexpr int BM = 128;   // rows of an output tile
+using namespace sandwich;
+
 constexpr int BN = 128;   // columns of an output tile of the row GEMM
-constexpr int BK = 8;     // depth of one shared-memory stage
-constexpr int PAD = 4;    // keeps float4 alignment and spreads the transposed stores
-constexpr int SLAB = 64;  // columns of (B*L1) per middle-pass block: 4 per thread
-
-__host__ __device__ inline int round_up(int a, int m) { return (a + m - 1) / m * m; }
-
-// Row (or column) owned by slot ii (0..7) of thread index t within a 128-wide
-// tile: two groups of four consecutive indices, 64 apart, each one float4.
-__device__ inline int tile_idx(int t, int ii) { return (ii < 4 ? 0 : 64) + t * 4 + (ii & 3); }
-
 static_assert(BM == BN, "row and column tiles share one staging size");
-constexpr int TILE = BK * (BM + PAD);   // floats of one staged (BK x 128) tile
-constexpr int PER = BM * BK / NT;        // elements of a tile each thread moves
-
-// Tiles are double-buffered: while a block computes on one shared-memory
-// stage, each thread holds its part of the next tile in registers and stores
-// it into the other stage afterwards, so one barrier per stage suffices and
-// the device-memory (mostly L2) latency hides behind the FMAs.
-
-// This thread's part of the (BM x BK) tile src[r0:r0+BM, k0:k0+BK] of a
-// row-major (rows x cols) matrix with leading dimension ld; zero outside it.
-__device__ inline void fetch_rows_tile(float (&p)[PER], const float* __restrict__ src,
-                                       int r0, int k0, int rows, int cols, int ld) {
-#pragma unroll
-  for (int t = 0; t < PER; ++t) {
-    const int e = threadIdx.x + t * NT, r = r0 + e / BK, k = k0 + e % BK;
-    p[t] = (r < rows && k < cols) ? src[(size_t)r * ld + k] : 0.f;
-  }
-}
-
-// ... stored transposed into ts[BK][BM + PAD].
-__device__ inline void store_rows_tile(float* ts, const float (&p)[PER]) {
-#pragma unroll
-  for (int t = 0; t < PER; ++t) {
-    const int e = threadIdx.x + t * NT;
-    ts[(e % BK) * (BM + PAD) + e / BK] = p[t];
-  }
-}
-
-// This thread's part of the (BK x BN) tile src[k0:k0+BK, n0:n0+BN] of a
-// row-major (K x N) matrix; zero outside it.
-__device__ inline void fetch_cols_tile(float (&p)[PER], const float* __restrict__ src,
-                                       int k0, int n0, int K, int N) {
-#pragma unroll
-  for (int t = 0; t < PER; ++t) {
-    const int e = threadIdx.x + t * NT, k = k0 + e / BN, n = n0 + e % BN;
-    p[t] = (k < K && n < N) ? src[(size_t)k * N + n] : 0.f;
-  }
-}
-
-// ... stored as ts[BK][BN + PAD].
-__device__ inline void store_cols_tile(float* ts, const float (&p)[PER]) {
-#pragma unroll
-  for (int t = 0; t < PER; ++t) {
-    const int e = threadIdx.x + t * NT;
-    ts[(e / BN) * (BN + PAD) + e % BN] = p[t];
-  }
-}
 
 // out[(r % P) * Q + r / P, n] = sum_k in[r, k] * t[k, n]  for r < R, n < N.
 // With `partial`, also partial[r * gridDim.x + blockIdx.x] =
@@ -140,15 +98,15 @@ __global__ void __launch_bounds__(NT, 2) row_gemm_kernel(
 
   float pa[PER], pb[PER];
   fetch_rows_tile(pa, in, r0, 0, R, K, K);
-  fetch_cols_tile(pb, t, 0, n0, K, N);
+  fetch_cols_tile<BN>(pb, t, 0, n0, K, N);
   store_rows_tile(As, pa);
-  store_cols_tile(Bs, pb);
+  store_cols_tile<BN>(Bs, pb);
   __syncthreads();
   for (int k0 = 0, buf = 0; k0 < K; k0 += BK, buf ^= 1) {
     const bool more = k0 + BK < K;
     if (more) {
       fetch_rows_tile(pa, in, r0, k0 + BK, R, K, K);
-      fetch_cols_tile(pb, t, k0 + BK, n0, K, N);
+      fetch_cols_tile<BN>(pb, t, k0 + BK, n0, K, N);
     }
     const float* as = As + buf * TILE;
     const float* bs = Bs + buf * TILE;
@@ -167,7 +125,7 @@ __global__ void __launch_bounds__(NT, 2) row_gemm_kernel(
     }
     if (more) {
       store_rows_tile(As + (buf ^ 1) * TILE, pa);
-      store_cols_tile(Bs + (buf ^ 1) * TILE, pb);
+      store_cols_tile<BN>(Bs + (buf ^ 1) * TILE, pb);
     }
     __syncthreads();
   }
@@ -201,97 +159,20 @@ __global__ void __launch_bounds__(NT, 2) row_gemm_kernel(
   }
 }
 
-// acc (8 x 4) = tab[r0:r0+BM, :kdim] . Bsm[:kdim, tx*4 : tx*4+4], the table
-// streamed through the two stages of ts in BK-deep tiles, Bsm resident (rows
-// padded with zeros to a multiple of BK).
-__device__ inline void slab_product(float (&acc)[8][4], float* ts,
-                                    const float* __restrict__ tab, int r0, int rows,
-                                    int kdim, const float* Bsm) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float p[PER];
-  fetch_rows_tile(p, tab, r0, 0, rows, kdim, kdim);
-  store_rows_tile(ts, p);
-  __syncthreads();
-  for (int k0 = 0, buf = 0; k0 < kdim; k0 += BK, buf ^= 1) {
-    const bool more = k0 + BK < kdim;
-    if (more) fetch_rows_tile(p, tab, r0, k0 + BK, rows, kdim, kdim);
-    const float* t = ts + buf * TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&t[kk * (BM + PAD) + ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&t[kk * (BM + PAD) + 64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bsm[(k0 + kk) * SLAB + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[4] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) store_rows_tile(ts + (buf ^ 1) * TILE, p);
-    __syncthreads();
-  }
-}
-
-// One block per slab of SLAB columns of the (B*L1)-column intermediates:
+// One block per slab of SLAB columns of the (B*L1)-column intermediates of
+// plane blockIdx.y (planes lie i0*ncols, L0*L1 and o0*ncols floats apart in
+// u, w and c; kernel A has one plane):
 //   A (L0 x SLAB) = (q0a . u[:, slab]) * w[:, col % L1]   (shared memory only)
 //   c[:, slab] = q0s . A                                   (o0 x SLAB, to device memory)
 __global__ void __launch_bounds__(NT, 2) middle_kernel(
     const float* __restrict__ u, const float* __restrict__ q0a,
     const float* __restrict__ w, const float* __restrict__ q0s,
     float* __restrict__ c, int i0, int L0, int L1, int o0, int ncols) {
-  constexpr int S = SLAB;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int i0p = round_up(i0, BK), L0p = round_up(L0, BK);
-  float* Us = smem;            // [i0p][S]
-  float* As = Us + i0p * S;    // [L0p][S]
-  float* Ts = As + L0p * S;    // two stages of [BK][BM + PAD]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int c0 = blockIdx.x * S;
-
-  for (int e = tid; e < i0p * S; e += NT) {
-    const int k = e / S, col = c0 + e % S;
-    Us[e] = (k < i0 && col < ncols) ? u[(size_t)k * ncols + col] : 0.f;
-  }
-  for (int e = L0 * S + tid; e < L0p * S; e += NT) As[e] = 0.f;
-  __syncthreads();
-
-  float acc[8][4];
-  // stage 1: the embedded slab, scaled by the spectrum
-  for (int r0 = 0; r0 < L0; r0 += BM) {
-    slab_product(acc, Ts, q0a, r0, L0, i0, Us);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = r0 + tile_idx(ty, i);
-      if (r >= L0) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cc = tx * 4 + j;
-        As[r * S + cc] = acc[i][j] * w[(size_t)r * L1 + (c0 + cc) % L1];
-      }
-    }
-  }
-  __syncthreads();
-
-  // stage 2: leading-axis synthesis of the slab
-  for (int r0 = 0; r0 < o0; r0 += BM) {
-    slab_product(acc, Ts, q0s, r0, o0, L0, As);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = r0 + tile_idx(ty, i);
-      if (r >= o0) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx * 4 + j;
-        if (col < ncols) c[(size_t)r * ncols + col] = acc[i][j];
-      }
-    }
-  }
+  const size_t plane = blockIdx.y;
+  middle_slab(u + plane * i0 * ncols, q0a, w + plane * L0 * L1, L1, 0, q0s,
+              c + plane * o0 * ncols, i0, L0, o0, blockIdx.x * SLAB, ncols,
+              reinterpret_cast<float*>(smem4));
 }
 
 // dots[b] = sum_{o < o0} sum_{t < nct} partial[(o * B + b) * nct + t], in a fixed order.
@@ -311,8 +192,78 @@ __global__ void __launch_bounds__(NT) dots_reduce_kernel(
   if (threadIdx.x == 0) dots[b] = red[0];
 }
 
-size_t middle_smem_bytes(int i0, int L0) {
-  return ((size_t)(round_up(i0, BK) + round_up(L0, BK)) * SLAB + 2 * TILE) * sizeof(float);
+// Weight-plane self-dots: dots[b] = sum_{l < W} (sum_{o < o0} sum_{t < nct}
+// partial[((l * o0 + o) * B + b) * nct + t]), each plane's sum and then the sum
+// over planes in order (no atomics).  One block per sample, W floats of
+// dynamic shared memory.
+__global__ void __launch_bounds__(NT) wp_dots_reduce_kernel(
+    const float* __restrict__ partial, float* __restrict__ dots, int B, int W, int o0,
+    int nct) {
+  extern __shared__ float planedot[];
+  const int b = blockIdx.x;
+  for (int l = threadIdx.x; l < W; l += NT) {
+    float s = 0.f;
+    for (int o = 0; o < o0; ++o)
+      for (int t = 0; t < nct; ++t) s += partial[(((size_t)l * o0 + o) * B + b) * nct + t];
+    planedot[l] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int l = 0; l < W; ++l) s += planedot[l];
+    dots[b] = s;
+  }
+}
+
+size_t middle_smem_bytes(int i0, int L0) { return middle_smem_floats(i0, L0) * sizeof(float); }
+
+// The sandwich of every (b, l) plane of a (B, W, i0, i1) stack, plane l with
+// its own (L0, L1) spectrum w + l * L0 * L1 (kernel A: W = 1).  The
+// intermediates keep each plane's columns together, u as (W, i0, B, L1) and c
+// as (W, o0, B, L1), so the middle pass of plane l sees one (i0, B*L1) matrix.
+int sandwich_launch(const float* x, const float* q0a, const float* q1a, const float* q0s,
+                    const float* q1s, const float* w, float* y, float* dots, float* u,
+                    float* c, float* partial, int B, int W, int i0, int i1, int L0, int L1,
+                    int o0, int o1, cudaStream_t stream) {
+  cudaError_t err;
+  const int ncols = B * L1;
+
+  // 1. u (W, i0, B, L1) = x (B*W*i0, i1) . q1a
+  {
+    const int R = B * W * i0;
+    dim3 grid((L1 + BN - 1) / BN, (R + BM - 1) / BM);
+    row_gemm_kernel<<<grid, NT, 0, stream>>>(x, q1a, u, R, i1, L1, W * i0, B, nullptr,
+                                             nullptr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  // 2. c (W, o0, B, L1) = q0s . ((q0a . u) * w), slab by slab and plane by plane
+  {
+    const size_t smem = middle_smem_bytes(i0, L0);
+    if ((err = cudaFuncSetAttribute(middle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+      return (int)err;
+    dim3 grid((ncols + SLAB - 1) / SLAB, W);
+    middle_kernel<<<grid, NT, smem, stream>>>(u, q0a, w, q0s, c, i0, L0, L1, o0, ncols);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  // 3. y (B, W, o0, o1) = c (W*o0*B, L1) . q1s, with the self-dot partials
+  const int R = W * o0 * B;
+  const int nct = (o1 + BN - 1) / BN;
+  {
+    dim3 grid(nct, (R + BM - 1) / BM);
+    row_gemm_kernel<<<grid, NT, 0, stream>>>(c, q1s, y, R, L1, o1, B, W * o0,
+                                             dots ? x : nullptr, dots ? partial : nullptr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  // 4. dots[b], summed in a fixed order
+  if (dots) {
+    if (W == 1)
+      dots_reduce_kernel<<<B, NT, 0, stream>>>(partial, dots, B, o0, nct);
+    else
+      wp_dots_reduce_kernel<<<B, NT, W * sizeof(float), stream>>>(partial, dots, B, W, o0, nct);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -324,53 +275,39 @@ extern "C" {
 // the card's 227 KB before it launches.
 size_t mxu2d_middle_smem_bytes(int i0, int L0) { return middle_smem_bytes(i0, L0); }
 
-// Floats of the self-dot partials buffer: one per output row and column tile.
+// Floats of the self-dot partials buffer: one per output row and column tile
+// (for a weight-plane stack, pass B * W as B).
 size_t mxu2d_partial_floats(int B, int o0, int o1) {
   return (size_t)o0 * B * ((o1 + BN - 1) / BN);
 }
 
-// Scratch the caller passes: u (i0*B*L1 floats), c (o0*B*L1) and, with dots,
-// partial (mxu2d_partial_floats).
+// Rows of output tiles of the larger row GEMM; the wrapper keeps it within
+// the 65535 blocks a grid's y dimension may have.
+int mxu2d_row_tiles(int B, int W, int i0, int o0) {
+  const long long R = (long long)B * W * (i0 > o0 ? i0 : o0);
+  return (int)((R + BM - 1) / BM);
+}
+
+// Kernel A.  Scratch the caller passes: u (i0*B*L1 floats), c (o0*B*L1) and,
+// with dots, partial (mxu2d_partial_floats).
 int mxu2d_sandwich(const float* x, const float* q0a, const float* q1a, const float* q0s,
                    const float* q1s, const float* w, float* y, float* dots, float* u,
                    float* c, float* partial, int B, int i0, int i1, int L0, int L1, int o0,
                    int o1, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  cudaError_t err;
-  const int ncols = B * L1;
+  return sandwich_launch(x, q0a, q1a, q0s, q1s, w, y, dots, u, c, partial, B, 1, i0, i1,
+                         L0, L1, o0, o1, (cudaStream_t)stream_ptr);
+}
 
-  // 1. u (i0, B, L1) = x (B*i0, i1) . q1a
-  {
-    const int R = B * i0;
-    dim3 grid((L1 + BN - 1) / BN, (R + BM - 1) / BM);
-    row_gemm_kernel<<<grid, NT, 0, stream>>>(x, q1a, u, R, i1, L1, i0, B, nullptr, nullptr);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  // 2. c (o0, B, L1) = q0s . ((q0a . u) * w), slab by slab
-  {
-    const size_t smem = middle_smem_bytes(i0, L0);
-    if ((err = cudaFuncSetAttribute(middle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem)) != cudaSuccess)
-      return (int)err;
-    middle_kernel<<<(ncols + SLAB - 1) / SLAB, NT, smem, stream>>>(u, q0a, w, q0s, c, i0, L0,
-                                                                   L1, o0, ncols);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  // 3. y (B, o0, o1) = c (o0*B, L1) . q1s, with the self-dot partials
-  const int R = o0 * B;
-  const int nct = (o1 + BN - 1) / BN;
-  {
-    dim3 grid(nct, (R + BM - 1) / BM);
-    row_gemm_kernel<<<grid, NT, 0, stream>>>(c, q1s, y, R, L1, o1, B, o0,
-                                             dots ? x : nullptr, dots ? partial : nullptr);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  // 4. dots[b], summed in a fixed order
-  if (dots) {
-    dots_reduce_kernel<<<B, NT, 0, stream>>>(partial, dots, B, o0, nct);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return 0;
+// Kernel B-5, the weight-plane sandwich: x (B, W, i0, i1), w (W, L0, L1),
+// y (B, W, o0, o1), dots[b] = sum_l <x[b, l], y[b, l]>.  Scratch: u
+// (W*i0*B*L1 floats), c (W*o0*B*L1) and, with dots, partial
+// (mxu2d_partial_floats(B * W, o0, o1)).
+int mxu2d_sandwich_wp(const float* x, const float* q0a, const float* q1a, const float* q0s,
+                      const float* q1s, const float* w, float* y, float* dots, float* u,
+                      float* c, float* partial, int B, int W, int i0, int i1, int L0, int L1,
+                      int o0, int o1, void* stream_ptr) {
+  return sandwich_launch(x, q0a, q1a, q0s, q1s, w, y, dots, u, c, partial, B, W, i0, i1,
+                         L0, L1, o0, o1, (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

@@ -1,0 +1,273 @@
+"""Paper section 5.5: an interstellar-dust map from line-of-sight integrals.
+
+Counterpart of `hipgp_tpu/experiments/run_domain.py` for the mean-field
+model with natural-gradient SVI.  The observations are integrated
+extinctions e(x) = ||x|| int_0^1 rho(a x) da along rays from the origin to
+each star, with heteroscedastic noise; the model fits the latent 3-D density
+rho on an nx x nx x nz inducing grid.  Without ``--data-path`` a synthetic
+dust field (anisotropic Gaussian blobs, seed 0) is generated.
+
+The fit is the JAX experiment's natgrad protocol: sig2 from the distance-slope
+regression (`empirical_sig2_init`), the theta2 warm start, the step size
+clamped to half the estimated stability limit, then SVI; prediction of e at
+the test stars (integrated) and of the latent density on the central-z
+slice (point).  It prints and writes (with the ``csv`` module, into
+``--output-dir``) the e post-RMSE, the latent RMSE and correlation on the
+slice, the ELBO trace, rho and the lr used.  The closed-form full-batch fit
+(``--fit-method full-batch``, the JAX default) is not ported yet: it raises.
+
+Usage: python -m hipgp_tpu_torch.experiments.run_domain --nx 64 --nz 32 --ell 0.07
+       (add --device cpu --nobs 300 --nx 8 --nz 4 --max-steps 3 for a small CPU run)
+"""
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from ..infer import FitConfig, batch_predict, svigp_fit
+from ..kernels import kernel_from_name
+from ..models import HIPGP
+from ..utils import metrics
+from .synthetic_data import integrated_obs
+
+__all__ = ["main", "synthetic_dust_field", "make_synthetic_domain_data",
+           "load_domain_data", "empirical_sig2_init", "domain_problem",
+           "domain_model"]
+
+# rows per prediction chunk (the JAX harness's predict_batch_size; clamped
+# by batch_predict's memory budget)
+PREDICT_BATCH = 4096
+# Monte-Carlo points per ray for integrated predictions without a closed
+# form (the JAX FitConfig's predict_ksemi_samps)
+PREDICT_KSEMI_SAMPS = 200
+
+
+def load_domain_data(path: str):
+    """(x (N, 3), e, e_err, density or None) from the reference's
+    whitespace-separated table with named columns x y z e e_err [density]."""
+    data = np.genfromtxt(path, names=True)
+    x = np.column_stack([data["x"], data["y"], data["z"]])
+    density = data["density"] if "density" in data.dtype.names else None
+    return x, np.asarray(data["e"]), np.asarray(data["e_err"]), density
+
+
+def synthetic_dust_field(seed: int = 0, nblobs: int = 6,
+                         blob_min: float = 0.1, blob_max: float = 0.3):
+    """Positive 3-D density: a mixture of anisotropic Gaussian blobs."""
+    rs = np.random.RandomState(seed)
+    centers = rs.uniform(-0.6, 0.6, (nblobs, 3))
+    scales = rs.uniform(blob_min, blob_max, (nblobs, 3))
+    weights = rs.uniform(0.5, 1.5, nblobs)
+
+    def rho(pts):
+        pts = np.atleast_2d(pts)
+        out = np.zeros(len(pts))
+        for c, s, w in zip(centers, scales, weights):
+            out += w * np.exp(-0.5 * np.sum(((pts - c) / s) ** 2, axis=-1))
+        return out
+
+    return rho
+
+
+def make_synthetic_domain_data(n: int, noise_std: float, seed: int = 0,
+                               nblobs: int = 6, blob_min: float = 0.1,
+                               blob_max: float = 0.3):
+    """(x, a, e, sobs, rho): n stars in the unit cube away from the origin,
+    their exact extinctions e, noisy ones a with sobs ~ U[s/2, 3s/2]."""
+    rs = np.random.RandomState(seed)
+    rho = synthetic_dust_field(seed, nblobs, blob_min, blob_max)
+    x = rs.uniform(-1.0, 1.0, (4 * n, 3))
+    x = x[np.linalg.norm(x, axis=1) > 0.15][:n]
+    e = integrated_obs(x, rho)
+    sobs = rs.uniform(noise_std / 2, 3 * noise_std / 2, len(x))
+    a = e + sobs * rs.standard_normal(len(x))
+    return x, a, e, sobs, rho
+
+
+def empirical_sig2_init(xobs: np.ndarray, yobs: np.ndarray) -> float:
+    """Distance-slope regression init of the marginal variance, clamped to
+    [1e-3, 1e2] var(y) (falling back to var(y) with a warning)."""
+    dobs = np.sqrt(np.sum(np.asarray(xobs) ** 2, axis=-1))
+    y = np.asarray(yobs).reshape(-1, 1)
+    slope, *_ = np.linalg.lstsq(dobs[:, None], y, rcond=None)
+    sig2 = float(slope[0, 0] ** 2)
+    vy = float(np.var(np.asarray(yobs)))
+    if not (1e-3 * vy <= sig2 <= 1e2 * vy):
+        fallback = vy if vy > 0 else 1.0
+        warnings.warn(
+            f"empirical sig2 init {sig2:.3e} is degenerate relative to "
+            f"var(y) = {vy:.3e}; falling back to var(y) = {fallback:.3e}",
+            RuntimeWarning)
+        return float(fallback)
+    return sig2
+
+
+def _write_csv(path, header, rows):
+    with open(path, "w", newline="") as f:
+        wr = csv.writer(f)
+        wr.writerow(header)
+        wr.writerows(rows)
+
+
+def domain_problem(nobs: int, ntest: int, noise_std: float, nx: int, nz: int,
+                   nblobs: int = 6, blob_min: float = 0.1, blob_max: float = 0.3,
+                   eval_grid: int = 20, data_path=None, dataset: str = "small-sim"):
+    """The data, the inducing grids and the evaluation slice of the protocol:
+    a dict with xobs, aobs, sobs (training), xtest, etest, the three grids
+    (nx, nx, nz points spanning the stars), xgrid (the eval_grid^2 points of
+    the central-z slice) and fgrid (the true density there, None for a data
+    file)."""
+    if data_path and os.path.exists(data_path):
+        rs = np.random.RandomState(0)
+        x, e, e_err, _ = load_domain_data(data_path)
+        if dataset == "gaia":
+            sobs, a = e_err + 0.1, e
+        else:
+            sobs = rs.rand(len(e)) * noise_std + noise_std / 2
+            a = e + rs.randn(len(e)) * sobs
+        perm = rs.permutation(len(x))
+        x, a, e_true, sobs = x[perm], a[perm], e[perm], sobs[perm]
+        rho = None
+    else:
+        x, a, e_true, sobs, rho = make_synthetic_domain_data(
+            nobs + ntest, noise_std, nblobs=nblobs, blob_min=blob_min,
+            blob_max=blob_max)
+    ntr = len(x) - ntest
+    lo, hi = x.min(axis=0), x.max(axis=0)
+    grids = [np.linspace(lo[0], hi[0], nx), np.linspace(lo[1], hi[1], nx),
+             np.linspace(lo[2], hi[2], nz)]
+    g1 = np.linspace(lo[0] * 0.9, hi[0] * 0.9, eval_grid)
+    g2 = np.linspace(lo[1] * 0.9, hi[1] * 0.9, eval_grid)
+    gx, gy = np.meshgrid(g1, g2, indexing="ij")
+    zmid = float((lo[2] + hi[2]) / 2)
+    xgrid = np.column_stack([gx.ravel(), gy.ravel(), np.full(gx.size, zmid)])
+    return dict(xobs=x[:ntr], aobs=a[:ntr], sobs=sobs[:ntr], xtest=x[ntr:],
+                etest=e_true[ntr:], grids=grids, xgrid=xgrid,
+                fgrid=rho(xgrid) if rho is not None else None)
+
+
+def domain_model(kernel: str, grids, num_obs: int, sig2: float, ell: float,
+                 dtype=torch.float32, device="cuda") -> HIPGP:
+    """The mean-field model of the protocol, built as the JAX harness builds
+    it (noise2_init 1, init_Svar 1, jitter 1e-3), with the doubly-integrated
+    diagonal's table."""
+    return HIPGP(kernel_from_name(kernel), grids, num_obs=num_obs, sig2_init=sig2,
+                 ell_init=ell, noise2_init=1.0, init_Svar=1.0, jitter=1e-3,
+                 support_integrated_obs=True, dtype=dtype, device=device)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--data-path", default=None,
+                   help="reference-format table (named columns x y z e e_err "
+                        "[density]); synthetic if absent")
+    p.add_argument("--dataset", default="small-sim",
+                   choices=["small-sim", "big-sim", "gaia"],
+                   help="sim: synthetic noise added to e; gaia: real errors")
+    p.add_argument("--nobs", type=int, default=5000)
+    p.add_argument("--ntest", type=int, default=500)
+    p.add_argument("--noise-std", type=float, default=0.1)
+    p.add_argument("--nblobs", type=int, default=6)
+    p.add_argument("--blob-min", type=float, default=0.1)
+    p.add_argument("--blob-max", type=float, default=0.3)
+    p.add_argument("--nx", type=int, default=16, help="inducing points per xy dim")
+    p.add_argument("--nz", type=int, default=8, help="inducing points in z")
+    p.add_argument("--kernel", default="SqExp")
+    p.add_argument("--ell", type=float, default=0.2)
+    p.add_argument("--fit-method", default="natgrad", choices=["natgrad", "full-batch"])
+    p.add_argument("--epochs", type=int, default=5)
+    p.add_argument("--max-steps", type=int, default=None,
+                   help="stop after this many batch steps in all")
+    p.add_argument("--batch-size", type=int, default=512)
+    p.add_argument("--maxiter-cg", type=int, default=20)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--eval-grid", type=int, default=20,
+                   help="xy evaluation grid size on the central-z slice")
+    p.add_argument("--output-dir", default="./output-domain")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--f64", action="store_true")
+    args = p.parse_args(argv)
+    if args.fit_method == "full-batch":
+        raise NotImplementedError(
+            "--fit-method full-batch needs the closed-form HIPGP.batch_solve, "
+            "which is not ported yet (ROADMAP.md section A item 3); use "
+            "--fit-method natgrad")
+
+    t_all = time.perf_counter()
+    prob = domain_problem(args.nobs, args.ntest, args.noise_std, args.nx, args.nz,
+                          args.nblobs, args.blob_min, args.blob_max, args.eval_grid,
+                          args.data_path, args.dataset)
+    xobs, aobs, sobs_tr = prob["xobs"], prob["aobs"], prob["sobs"]
+    xtest, etest, xgrid, fgrid = prob["xtest"], prob["etest"], prob["xgrid"], prob["fgrid"]
+    analytic = args.kernel == "SqExp"
+    sig2 = empirical_sig2_init(xobs, aobs)
+    model = domain_model(args.kernel, prob["grids"], len(xobs), sig2, args.ell,
+                         dtype=torch.float64 if args.f64 else torch.float32,
+                         device=args.device)
+    cfg = FitConfig(epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+                    maxiter_cg=args.maxiter_cg, integrated_obs=True,
+                    semi_integrated_estimator="analytic" if analytic else "mc-biased")
+    t0 = time.perf_counter()
+    state, report = svigp_fit(model, model.init_state(), xobs, aobs, sobs_tr, cfg,
+                              verbose=False, theta2_warmstart=True,
+                              natgrad_safe_lr="clamp", max_steps=args.max_steps)
+    fit_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ekw = dict(integrated_obs=True,
+               semi_integrated_estimator="analytic" if analytic else "mc-biased",
+               semi_integrated_samps=PREDICT_KSEMI_SAMPS)
+    emu, esig = batch_predict(model, state, xtest, batch_size=PREDICT_BATCH,
+                              maxiter_cg=cfg.predict_maxiter_cg, **ekw)
+    fmu, fsig = batch_predict(model, state, xgrid, batch_size=PREDICT_BATCH,
+                              maxiter_cg=cfg.predict_maxiter_cg)
+    emu, esig = emu.cpu().numpy(), esig.cpu().numpy()
+    fmu, fsig = fmu.cpu().numpy(), fsig.cpu().numpy()
+    predict_s = time.perf_counter() - t0
+
+    trace = report["elbo_trace"]
+    out = {
+        "steps": report["steps"],
+        "warmstart_s": report["warmstart_s"],
+        "fit_s": fit_s,
+        "step_ms": 1e3 * sum(report["epoch_times"]) / max(report["steps"], 1),
+        "predict_s": predict_s,
+        "natgrad_rho": report["natgrad_rho"],
+        "lr_used": report["lr_used"],
+        "first_elbo": trace[0],
+        "last_elbo": trace[-1],
+        "e_post_rmse": metrics.rmse(etest, emu),
+        "e_rms": float(np.sqrt(np.mean(np.asarray(etest) ** 2))),
+        "e_loglike": metrics.mean_loglike(etest, emu, esig),
+        "sig2_init": sig2,
+    }
+    if fgrid is not None:
+        out["latent_rmse"] = metrics.rmse(fgrid, fmu)
+        out["latent_corr"] = metrics.correlation(fgrid, fmu)
+    out["wall_s"] = time.perf_counter() - t_all
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    _write_csv(os.path.join(args.output_dir, "metrics.csv"), ["metric", "value"],
+               sorted(out.items()))
+    _write_csv(os.path.join(args.output_dir, "elbo_trace.csv"), ["step", "elbo"],
+               list(enumerate(trace)))
+    lat = (f"; latent RMSE {out['latent_rmse']:.5f}, slice corr "
+           f"{out['latent_corr']:.4f}" if fgrid is not None else "")
+    print(f"device {args.device}: grid {model.dims} -> embedded {model.edims}, "
+          f"rho {out['natgrad_rho']:.1f}, lr used {out['lr_used']:.3g}; "
+          f"{out['steps']} steps at {out['step_ms']:.1f} ms (warm start "
+          f"{out['warmstart_s']:.2f} s), ELBO {out['first_elbo']:.4f} -> "
+          f"{out['last_elbo']:.4f}; e post-RMSE {out['e_post_rmse']:.5f} "
+          f"(rms(e_test) {out['e_rms']:.5f}){lat}; predict {predict_s:.2f} s",
+          flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -4,9 +4,11 @@ Counterpart of `hipgp_tpu/infer/fit.py`.  An epoch is a Python loop over
 batches: each step takes the ELBO and the natural gradient from
 ``model.elbo_and_grads`` and applies it to the natural parameters as SGD
 with a per-step exponential decay (the JAX package's
-``optax.sgd(optax.exponential_decay(lr, 1, step_decay))``).  The
-hyperparameters stay fixed: learning them, the step-size guard, shuffling,
-checkpoints and resume are not ported yet.  A non-finite epoch raises.
+``optax.sgd(optax.exponential_decay(lr, 1, step_decay))``).  After the
+theta2 warm start a power iteration estimates the natural-gradient
+stability limit (``natgrad_safe_lr``).  The hyperparameters stay fixed:
+learning them, shuffling, checkpoints and resume are not ported yet.  A
+non-finite epoch raises.
 
 Data is padded to a whole number of batches and masked, as in the JAX
 package, so every batch has the same shape.
@@ -15,13 +17,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
 __all__ = ["FitConfig", "svigp_fit", "batch_predict", "make_optimizer",
-           "prepare_batches", "batch_step"]
+           "prepare_batches", "batch_step", "natgrad_stability_rho"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +38,9 @@ class FitConfig:
     schedule_lr: bool = True
     step_decay: float = 0.99
     maxiter_cg: int = 5
+    integrated_obs: bool = False
+    semi_integrated_estimator: str = "analytic"
+    num_semi_mc_samples: int = 10
     predict_maxiter_cg: int = 50
 
 
@@ -84,29 +90,74 @@ def make_optimizer(config: FitConfig) -> ThetaSGD:
     return ThetaSGD(config)
 
 
-def batch_step(model, config: FitConfig, opt: ThetaSGD, state, xb, yb, sb, wb):
+def _gram_flags(config: FitConfig, generator=None) -> dict:
+    """The observation keywords of `make_grams` that the config sets."""
+    return dict(integrated_obs=config.integrated_obs,
+                semi_integrated_estimator=config.semi_integrated_estimator,
+                semi_integrated_samps=config.num_semi_mc_samples,
+                generator=generator)
+
+
+def batch_step(model, config: FitConfig, opt: ThetaSGD, state, xb, yb, sb, wb,
+               generator=None):
     """One natural-gradient step on one prepared batch: (state, elbo)."""
     elbo, grads = model.elbo_and_grads(state, xb, yb, sb,
-                                       maxiter_cg=config.maxiter_cg, weights=wb)
+                                       maxiter_cg=config.maxiter_cg, weights=wb,
+                                       **_gram_flags(config, generator))
     return opt.step(state, grads), elbo
 
 
-def _theta2_warmstart(model, state, xb, sb, w, config: FitConfig):
+def _batch_kn_ivar(model, state, xl, sl, wl, config: FitConfig, spec=None,
+                   generator=None):
+    """(kn, ivar) for one prepared batch: the warm start's kn path."""
+    if spec is None:
+        spec = model.spectrum(state)
+    Knm, _ = model.make_grams(state, xl, **_gram_flags(config, generator))
+    kn = model.compute_kn(state, Knm, maxiter_cg=config.maxiter_cg, spec=spec)
+    ivar = wl / (sl * sl) if sl is not None else wl * torch.exp(-state.log_noise2)
+    return kn, ivar
+
+
+def _theta2_warmstart(model, state, xb, sb, w, config: FitConfig, generator=None):
     """theta2 <- -(Lambda + I)/2 from one Lambda-only pass over the data."""
     spec = model.spectrum(state)
     lam = torch.zeros((model.Mprime,), dtype=model.dtype, device=model.device)
     for b in range(xb.shape[0]):
-        ivar = (w[b] / (sb[b] * sb[b]) if sb is not None
-                else w[b] * torch.exp(-state.log_noise2))
-        Knm, _ = model.make_grams(state, xb[b])
-        kn = model.compute_kn(state, Knm, maxiter_cg=config.maxiter_cg, spec=spec)
+        kn, ivar = _batch_kn_ivar(model, state, xb[b], None if sb is None else sb[b],
+                                  w[b], config, spec=spec, generator=generator)
         lam = lam + model.get_lam(ivar, kn, add_identity=False)
     return state.replace(theta2=-0.5 * (lam + 1.0))
 
 
+def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30) -> float:
+    """Top eigenvalue rho of the warm-metric-preconditioned batch precision
+    of the natural-gradient iteration, by power iteration (mean-field family).
+
+    The linearized theta1 recursion is eta1 <- (I - lr B S) eta1 + const with
+    B = bscale kn^T diag(ivar) kn + I (one batch's implied precision) and S
+    the current variational covariance; it is stable for lr < 2 / rho with
+    rho = lambda_max(B S).  B S is similar to the SPD S^{1/2} B S^{1/2}, so
+    plain power iteration with a norm-ratio estimate converges to it.  Cost:
+    2 * iters (bsz, M') products."""
+    _, S = model.standard_params(state)
+
+    def mv(v):
+        u = S * v
+        return bscale * (kn.T @ (ivar * (kn @ u))) + u
+
+    z = torch.sin(torch.arange(kn.shape[-1], dtype=kn.dtype, device=kn.device) * 0.73) + 0.1
+    z = z / torch.linalg.norm(z)
+    rho = torch.zeros((), dtype=kn.dtype, device=kn.device)
+    for _ in range(iters):
+        q = mv(z)
+        rho = torch.linalg.norm(q) / torch.linalg.norm(z)
+        z = q / torch.linalg.norm(q)
+    return float(rho)
+
+
 def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
               verbose: bool = True, theta2_warmstart: bool = False,
-              max_steps: Optional[int] = None):
+              max_steps: Optional[int] = None, natgrad_safe_lr: str = "warn"):
     """Fit the variational parameters by natural-gradient SVI.
 
     ``theta2_warmstart``: one Lambda-only pass over the data sets theta2 to
@@ -116,10 +167,16 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
     magnitude (to NaN in float32 at M = 125^2), as in the reference; the
     warm metric removes that transient at the cost of one data pass.
 
+    ``natgrad_safe_lr``: 'warn' (default) | 'clamp' | 'off'.  After the warm
+    start, :func:`natgrad_stability_rho` on the first batch estimates the
+    stability limit lr_crit = 2/rho; 'warn' warns when ``config.lr`` exceeds
+    0.5 lr_crit, 'clamp' lowers the lr to 0.5 lr_crit instead.
+
     ``max_steps`` ends the fit after that many batch steps in all (None:
     run every epoch to its end).  Returns (state, report); the report holds
     the per-batch ELBO trace, the per-epoch mean ELBOs and wall-clock
-    seconds, and the number of steps run."""
+    seconds, the number of steps run, the warm start's seconds, and
+    ``natgrad_rho``, ``natgrad_lr_crit`` and ``lr_used``."""
     dt_, dev = model.dtype, model.device
     as_t = lambda a: torch.as_tensor(a).to(dtype=dt_, device=dev)
     xb, yb, sb, w = prepare_batches(
@@ -127,9 +184,37 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
         None if noise_std_train is None else as_t(noise_std_train),
         config.batch_size,
     )
-    opt = make_optimizer(config)
+    # the Monte-Carlo estimator's draws (one generator for the whole fit)
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
     if theta2_warmstart:
-        state = _theta2_warmstart(model, state, xb, sb, w, config)
+        state = _theta2_warmstart(model, state, xb, sb, w, config, generator=gen)
+    warmstart_s = time.perf_counter() - t0
+    rho = lr_crit = None
+    if natgrad_safe_lr != "off" and theta2_warmstart:
+        if natgrad_safe_lr not in ("warn", "clamp"):
+            raise ValueError(f"natgrad_safe_lr={natgrad_safe_lr!r}: expected "
+                             "'warn', 'clamp', or 'off'")
+        kn0, ivar0 = _batch_kn_ivar(model, state, xb[0],
+                                    None if sb is None else sb[0], w[0], config,
+                                    generator=gen)
+        rho = natgrad_stability_rho(kn0, ivar0, state, model, model.N / xb.shape[1])
+        lr_crit = 2.0 / rho
+        if config.lr > 0.5 * lr_crit:
+            msg = (f"natgrad lr={config.lr:g} exceeds half the estimated natgrad "
+                   f"stability limit lr_crit=2/rho={lr_crit:.3g} (rho={rho:.1f}): "
+                   "the mean-field metric underestimates the collective "
+                   "curvature at this lengthscale and grid, and the iteration "
+                   "diverges geometrically above lr_crit")
+            if natgrad_safe_lr == "clamp":
+                config = dataclasses.replace(config, lr=0.5 * lr_crit)
+                if verbose:
+                    print(f"natgrad_safe_lr: clamping lr to {config.lr:.3g}; {msg}",
+                          flush=True)
+            else:
+                warnings.warn(msg + "; pass natgrad_safe_lr='clamp' to lower it, "
+                              "or reduce config.lr", UserWarning, stacklevel=2)
+    opt = make_optimizer(config)
     nb = xb.shape[0]
     trace, epoch_elbos, epoch_times = [], [], []
     steps = 0
@@ -142,7 +227,8 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
             if max_steps is not None and steps >= max_steps:
                 break
             state, elbo = batch_step(model, config, opt, state, xb[b], yb[b],
-                                     None if sb is None else sb[b], w[b])
+                                     None if sb is None else sb[b], w[b],
+                                     generator=gen)
             elbos.append(elbo)
             steps += 1
         elbos_np = torch.stack(elbos).cpu().numpy()
@@ -164,6 +250,10 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
         "epoch_elbos": epoch_elbos,
         "epoch_times": epoch_times,
         "steps": steps,
+        "warmstart_s": warmstart_s,
+        "natgrad_rho": rho,
+        "natgrad_lr_crit": lr_crit,
+        "lr_used": config.lr,
     }
     return state, report
 
@@ -174,8 +264,9 @@ PREDICT_CHUNK_BUDGET_BYTES = 2 << 30
 
 def batch_predict(model, state, x, batch_size: int = 100, **predict_kwargs):
     """Chunked prediction: pad to a batch multiple and predict chunk by
-    chunk.  The chunk is clamped so its (bsz, M') buffer fits the budget,
-    counted with the model dtype's item size."""
+    chunk (``predict_kwargs`` go to ``model.predict``: maxiter_cg and the
+    observation flags).  The chunk is clamped so its (bsz, M') buffer fits
+    the budget, counted with the model dtype's item size."""
     x = torch.as_tensor(x).to(dtype=model.dtype, device=model.device)
     N = x.shape[0]
     itemsize = torch.empty((), dtype=model.dtype).element_size()

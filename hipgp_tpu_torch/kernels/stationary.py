@@ -24,7 +24,10 @@ def _scaled_sqdist(x: torch.Tensor, y: torch.Tensor, ell) -> torch.Tensor:
 
 
 class Kernel:
-    """Base class. Subclasses implement ``__call__``."""
+    """Base class. Subclasses implement ``__call__``; ``has_k_semi`` marks
+    a closed-form semi-integrated cross-covariance (`interdomain.py`)."""
+
+    has_k_semi = False
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor, params: Params) -> torch.Tensor:
         raise NotImplementedError
@@ -35,7 +38,10 @@ class Kernel:
 
 
 class SqExp(Kernel):
-    """Squared-exponential kernel."""
+    """Squared-exponential kernel, the only one with an analytic
+    semi-integrated cross-covariance (`interdomain.k_semi_sqexp`)."""
+
+    has_k_semi = True
 
     def __call__(self, x, y, params):
         sig2, ell = params

@@ -6,9 +6,11 @@ model object is a plain container (kernel, grids, sizes, dtype, device); all
 learnable state lives in the
 :class:`HIPGPState` dataclass, and every method is a function of
 (state, data).  ``elbo_and_grads`` returns the natural gradient as a state-
-shaped dataclass.  Hyperparameter gradients, the block and full-rank
-families, the cholesky whitening and the closed-form batch solve are not
-ported yet.
+shaped dataclass.  Observations are points, or line integrals of the field
+(``integrated_obs``: the ray from the origin to each x, paper section 5.5)
+with the semi-integrated cross-covariances of `kernels/interdomain.py`.
+Hyperparameter gradients, the block and full-rank families, the cholesky
+whitening and the closed-form batch solve are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..kernels.interdomain import DoublyDiagInterpolator, k_semi_mc, k_semi_sqexp
 from ..ops import make_spectrum, whiten
 from ..ops.bttb import BTTBSpectrum, embedded_dims
 from ..utils import stats
@@ -49,8 +52,9 @@ class HIPGP:
     """Mean-field HIP-GP with circulant whitening and expectation-family
     natural parameters (the JAX package's defaults) over the inducing grid
     ``xgrids`` (1-D tensors or arrays).  The other arguments are the JAX
-    constructor's.  Runs on ``device`` (CUDA unless the caller asks for the
-    CPU) in ``dtype``."""
+    constructor's; ``support_integrated_obs`` builds the doubly-integrated
+    diagonal's table, which line-integral observations need.  Runs on
+    ``device`` (CUDA unless the caller asks for the CPU) in ``dtype``."""
 
     def __init__(
         self,
@@ -62,6 +66,7 @@ class HIPGP:
         ell_init: float = 0.05,
         noise2_init: float = 1.0,
         init_Svar: float = 0.1,
+        support_integrated_obs: bool = False,
         dtype: torch.dtype = torch.float32,
         device="cuda",
     ):
@@ -84,6 +89,8 @@ class HIPGP:
         self.ndim = len(self.dims)
         self.edims = embedded_dims(self.dims)
         self.Mprime = math.prod(self.edims)
+        self.diag_interp = (DoublyDiagInterpolator(kernel)
+                            if support_integrated_obs else None)
 
     # ------------------------------------------------------------------
     # state
@@ -121,11 +128,37 @@ class HIPGP:
         return make_spectrum(self.xgrids, lambda x, y: self.kernel(x, y, p),
                              jitter=self.jitter)
 
-    def make_grams(self, state: HIPGPState,
-                   x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(Knm (bsz, M), Knn_diag (bsz,)) for point observations."""
+    def make_grams(self, state: HIPGPState, x: torch.Tensor,
+                   integrated_obs: bool = False,
+                   semi_integrated_estimator: str = "analytic",
+                   semi_integrated_samps: int = 10,
+                   generator: Optional[torch.Generator] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(Knm (bsz, M), Knn_diag (bsz,)).  With ``integrated_obs`` the rows
+        of x are the ends of rays from the origin: Knm is the semi-integrated
+        cross-covariance ('analytic' for SqExp, or 'mc-biased' with
+        ``semi_integrated_samps`` points per ray drawn from ``generator``) and
+        Knn_diag the doubly-integrated diagonal."""
         params = self.kernel_params(state)
-        return self.kernel(x, self.xinduce, params), self.kernel.diag(x, params)
+        if not integrated_obs:
+            return self.kernel(x, self.xinduce, params), self.kernel.diag(x, params)
+        if semi_integrated_estimator == "analytic":
+            if not getattr(self.kernel, "has_k_semi", False):
+                raise ValueError(
+                    "analytic semi-integrated estimator requires a kernel "
+                    "with a closed form (SqExp); use 'mc-biased'")
+            Knm = k_semi_sqexp(self.xinduce, x, params).T
+        elif semi_integrated_estimator == "mc-biased":
+            Knm = k_semi_mc(self.kernel, self.xinduce, x, params,
+                            npts=semi_integrated_samps, generator=generator).T
+        else:
+            raise ValueError(
+                f"unknown estimator {semi_integrated_estimator!r} "
+                "(the quadrature oracle is host-only: kernels.k_semi_quad)")
+        if self.diag_interp is None:
+            raise ValueError(
+                "integrated_obs requires support_integrated_obs=True at build")
+        return Knm, self.diag_interp(x, params)
 
     def compute_kn(self, state: HIPGPState, Knm: torch.Tensor,
                    maxiter_cg: int = 10,
@@ -190,10 +223,16 @@ class HIPGP:
 
     def elbo(self, state: HIPGPState, x: torch.Tensor, y: torch.Tensor,
              noise_std: Optional[torch.Tensor] = None, maxiter_cg: int = 10,
+             integrated_obs: bool = False,
+             semi_integrated_estimator: str = "analytic",
+             semi_integrated_samps: int = 10,
+             generator: Optional[torch.Generator] = None,
              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Minibatch ELBO estimate: mean(a_n) - KL/N.  ``weights`` (0/1 per
-        row) masks padded rows."""
-        Knm, Knn_diag = self.make_grams(state, x)
+        row) masks padded rows; the observation flags are `make_grams`'."""
+        Knm, Knn_diag = self.make_grams(state, x, integrated_obs,
+                                        semi_integrated_estimator,
+                                        semi_integrated_samps, generator)
         kn = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg)
         qm, qS = self.standard_params(state)
         an = self.batch_an(state, y, noise_std, kn, Knn_diag, qm, qS)
@@ -217,7 +256,10 @@ class HIPGP:
 
     def elbo_and_grads(self, state: HIPGPState, x: torch.Tensor,
                        y: torch.Tensor, noise_std: Optional[torch.Tensor] = None,
-                       maxiter_cg: int = 10,
+                       maxiter_cg: int = 10, integrated_obs: bool = False,
+                       semi_integrated_estimator: str = "analytic",
+                       semi_integrated_samps: int = 10,
+                       generator: Optional[torch.Generator] = None,
                        weights: Optional[torch.Tensor] = None):
         """ELBO and natural gradients.
 
@@ -226,7 +268,9 @@ class HIPGP:
         ``theta - lr * grad = theta + lr * deta``; the hyperparameter entries
         are zeros (hyperparameter gradients are not ported yet)."""
         y = y.reshape(-1)
-        Knm, Knn_diag = self.make_grams(state, x)
+        Knm, Knn_diag = self.make_grams(state, x, integrated_obs,
+                                        semi_integrated_estimator,
+                                        semi_integrated_samps, generator)
         kn = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg)
         qm, qS = self.standard_params(state)
         an = self.batch_an(state, y, noise_std, kn, Knn_diag, qm, qS)
@@ -252,10 +296,17 @@ class HIPGP:
     # prediction
     # ------------------------------------------------------------------
 
-    def predict(self, state: HIPGPState, x: torch.Tensor, maxiter_cg: int = 50):
-        """(mu*, sig*): posterior mean and marginal std at x; the latent
-        variance is floored at VAR_CLAMP."""
-        Knm, Knn_diag = self.make_grams(state, x)
+    def predict(self, state: HIPGPState, x: torch.Tensor, maxiter_cg: int = 50,
+                integrated_obs: bool = False,
+                semi_integrated_estimator: str = "analytic",
+                semi_integrated_samps: int = 10,
+                generator: Optional[torch.Generator] = None):
+        """(mu*, sig*): posterior mean and marginal std at x (of the line
+        integrals with ``integrated_obs``); the latent variance is floored at
+        VAR_CLAMP."""
+        Knm, Knn_diag = self.make_grams(state, x, integrated_obs,
+                                        semi_integrated_estimator,
+                                        semi_integrated_samps, generator)
         kn = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg)
         qm, qS = self.standard_params(state)
         mu = kn @ qm

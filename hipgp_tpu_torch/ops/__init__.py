@@ -1,6 +1,7 @@
 """Structured linear algebra: the BTTB/circulant operator, batched PCG, the
-whitening solve, kernel A (the cropped 2-D sandwich) and the radix kernels
-B-2 to B-4 (the packed 1-D circulant apply)."""
+whitening solve, kernel A (the cropped 2-D sandwich), the radix kernels
+B-2 to B-4 (the packed 1-D circulant apply) and the 3-D sandwich kernels B-5
+(weight planes) and B-6 (whole sample)."""
 from .bttb import (
     BTTBSpectrum,
     circulant_embed,
@@ -15,7 +16,8 @@ from .bttb import (
     toeplitz_column,
 )
 from .cg import PCGResult, pcg, pcg_result, pcg_scan
-from .mxu2d import sandwich_apply, sandwich_apply_selfdot
+from .mxu2d import sandwich_apply, sandwich_apply_selfdot, sandwich_apply_wp
+from .mxu3d import sandwich_apply_3d, sandwich_apply_3d_selfdot
 from .radix_fft import (fused_circulant_apply, fused_circulant_apply_cropped,
                         fused_circulant_apply_cropped_selfdot)
 from .solve import cholesky_whiten, gram_solve, inv_matmul, whiten
@@ -38,6 +40,9 @@ __all__ = [
     "pcg_scan",
     "sandwich_apply",
     "sandwich_apply_selfdot",
+    "sandwich_apply_wp",
+    "sandwich_apply_3d",
+    "sandwich_apply_3d_selfdot",
     "fused_circulant_apply",
     "fused_circulant_apply_cropped",
     "fused_circulant_apply_cropped_selfdot",

@@ -1,7 +1,7 @@
 """The cropped 2-D sandwich y = P_o (Q0 x Q1) diag(w) (Q0 x Q1)^T P_i^T x.
 
 Counterpart of `hipgp_tpu/ops/mxu2d.py` (`sandwich_apply`,
-`sandwich_apply_selfdot`).  The hot op of every PCG iteration on a 2-D
+`sandwich_apply_selfdot`, `sandwich_apply_wp`).  The hot op of every PCG iteration on a 2-D
 inducing grid is this real-eigenbasis sandwich per sample: two analysis
 contractions, an elementwise scale by the full (L0, L1) spectrum w, two
 synthesis contractions.  With rectangular tables (Q[:d] per axis) the
@@ -9,11 +9,18 @@ circulant padding is never materialised on input or output.  The self-dot
 variant also returns dots[b] = <x[b], y[b]>: both PCG inner products
 (p . Ap and r . C^{-1} r) are self-dots of an apply.
 
-Two implementations of the same function live here:
+The weight-plane variant :func:`sandwich_apply_wp` applies the sandwich to
+every plane of a (B, W, i0, i1) stack, plane l with its own spectrum w[l]:
+the building block of the 3-D sandwich (`ops/mxu3d.py`), where the
+outer-axis analysis turns one 3-D sample into W independent 2-D plane
+problems.  Its self-dots sum over the planes.
 
-* kernel A, ``csrc/mxu2d.cu``, hand-written CUDA for Hopper, launched for a
-  tensor on a CUDA device (f32 only; anything else raises);
-* its plain PyTorch version, :func:`sandwich_plain`, the einsum chain of
+Two implementations of each function live here:
+
+* kernel A and kernel B-5, ``csrc/mxu2d.cu``, hand-written CUDA for Hopper,
+  launched for a tensor on a CUDA device (f32 only; anything else raises);
+* their plain PyTorch versions, :func:`sandwich_plain` and
+  :func:`sandwich_wp_plain`, the einsum chain of
   `bttb._apply_spectrum_matmul` over the same rectangular tables, taken only
   for a tensor on the CPU.
 
@@ -29,12 +36,16 @@ import torch
 from .bttb import _real_fourier_basis
 
 __all__ = ["sandwich_apply", "sandwich_apply_selfdot", "sandwich_plain",
-           "LAUNCHES", "MXU2D_MAX_LEN", "reset_launches"]
+           "sandwich_apply_wp", "sandwich_wp_plain", "LAUNCHES",
+           "MXU2D_MAX_LEN", "reset_launches"]
 
 # largest embedded axis the kernel path is used for (the solver gate)
 MXU2D_MAX_LEN = 512
 # launches of kernel A, per wrapper; a plain-version call counts nothing
-LAUNCHES: Dict[str, int] = {"sandwich_apply": 0, "sandwich_apply_selfdot": 0}
+LAUNCHES: Dict[str, int] = {"sandwich_apply": 0, "sandwich_apply_selfdot": 0,
+                            "sandwich_apply_wp": 0, "sandwich_apply_wp_selfdot": 0}
+# blocks a grid's y dimension may have (the row GEMMs' row tiles)
+_GRID_Y_LIMIT = 65535
 # shared memory one block may use on the card (sm_90)
 _SMEM_LIMIT = 232448
 _TABLES: Dict[tuple, tuple] = {}
@@ -76,6 +87,20 @@ def sandwich_plain(x, w, q0a, q1a, q0s, q1s, selfdot: bool = False):
     return y
 
 
+def sandwich_wp_plain(x, w, q0a, q1a, q0s, q1s, selfdot: bool = False):
+    """The plain PyTorch sandwich of every plane of a (B, W, i0, i1) stack,
+    plane l with spectrum w[l] of the (W, L0, L1) stack.  Returns
+    y (B, W, o0, o1), and (y, dots) with ``selfdot``: each plane's dot, then
+    their sum over the planes in order."""
+    u = torch.matmul(x, q1a)          # (B, W, i0, L1)
+    a = torch.matmul(q0a, u) * w      # (B, W, L0, L1)
+    c = torch.matmul(q0s, a)          # (B, W, o0, L1)
+    y = torch.matmul(c, q1s)          # (B, W, o0, o1)
+    if selfdot:
+        return y, torch.sum(torch.sum(x * y, dim=(2, 3)), dim=1)
+    return y
+
+
 def _lib():
     global _LIB
     if _LIB is None:
@@ -85,6 +110,10 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mxu2d_sandwich.argtypes = [p] * 11 + [i] * 7 + [p]
         lib.mxu2d_sandwich.restype = ctypes.c_int
+        lib.mxu2d_sandwich_wp.argtypes = [p] * 11 + [i] * 8 + [p]
+        lib.mxu2d_sandwich_wp.restype = ctypes.c_int
+        lib.mxu2d_row_tiles.argtypes = [i] * 4
+        lib.mxu2d_row_tiles.restype = ctypes.c_int
         lib.mxu2d_middle_smem_bytes.argtypes = [i, i]
         lib.mxu2d_middle_smem_bytes.restype = ctypes.c_size_t
         lib.mxu2d_partial_floats.argtypes = [i, i, i]
@@ -94,12 +123,14 @@ def _lib():
 
 
 def _launch(x, w, tables, selfdot: bool):
-    """Kernel A on CUDA tensors: checks, allocates every output and scratch
-    buffer with torch.empty, launches on the current stream, raises on a
-    non-zero cudaError_t."""
+    """Kernel A on (B, i0, i1) planes with w (L0, L1), or kernel B-5 on a
+    (B, W, i0, i1) stack with w (W, L0, L1), on CUDA tensors: checks,
+    allocates every output and scratch buffer with torch.empty, launches on
+    the current stream, raises on a non-zero cudaError_t."""
     q0a, q1a, q0s, q1s, (i0, i1), (o0, o1) = tables
-    L0, L1 = w.shape
-    B = x.shape[0]
+    L0, L1 = w.shape[-2:]
+    wp = x.ndim == 4
+    B, W = x.shape[0], (x.shape[1] if wp else 1)
     for name, t in (("x", x), ("w", w)):
         if t.dtype != torch.float32:
             raise TypeError(f"sandwich kernel takes float32 {name}, got {t.dtype}")
@@ -113,27 +144,35 @@ def _launch(x, w, tables, selfdot: bool):
     if lib.mxu2d_middle_smem_bytes(i0, L0) > _SMEM_LIMIT:
         raise ValueError(f"input rows {i0} and embedded rows {L0} need more "
                          "shared memory than one block has")
+    if lib.mxu2d_row_tiles(B, W, i0, o0) > _GRID_Y_LIMIT:
+        raise ValueError(f"{B * W} planes of {max(i0, o0)} rows are more than "
+                         "one launch of the row GEMM covers; split the batch")
     dev = x.device
-    y = torch.empty((B, o0, o1), dtype=torch.float32, device=dev)
-    u = torch.empty((i0 * B * L1,), dtype=torch.float32, device=dev)
-    c = torch.empty((o0 * B * L1,), dtype=torch.float32, device=dev)
+    y = torch.empty((B, W, o0, o1) if wp else (B, o0, o1), dtype=torch.float32,
+                    device=dev)
+    u = torch.empty((W * i0 * B * L1,), dtype=torch.float32, device=dev)
+    c = torch.empty((W * o0 * B * L1,), dtype=torch.float32, device=dev)
     if selfdot:
         dots = torch.empty((B,), dtype=torch.float32, device=dev)
-        partial = torch.empty((lib.mxu2d_partial_floats(B, o0, o1),),
+        partial = torch.empty((lib.mxu2d_partial_floats(B * W, o0, o1),),
                               dtype=torch.float32, device=dev)
         dots_p, partial_p = dots.data_ptr(), partial.data_ptr()
     else:
         dots = None
         dots_p = partial_p = None
+    ptrs = (x.data_ptr(), q0a.data_ptr(), q1a.data_ptr(), q0s.data_ptr(),
+            q1s.data_ptr(), w.data_ptr(), y.data_ptr(), dots_p, u.data_ptr(),
+            c.data_ptr(), partial_p)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mxu2d_sandwich(
-            x.data_ptr(), q0a.data_ptr(), q1a.data_ptr(), q0s.data_ptr(),
-            q1s.data_ptr(), w.data_ptr(), y.data_ptr(), dots_p, u.data_ptr(),
-            c.data_ptr(), partial_p, B, i0, i1, L0, L1, o0, o1, stream)
+        if wp:
+            err = lib.mxu2d_sandwich_wp(*ptrs, B, W, i0, i1, L0, L1, o0, o1, stream)
+        else:
+            err = lib.mxu2d_sandwich(*ptrs, B, i0, i1, L0, L1, o0, o1, stream)
     if err != 0:
         raise RuntimeError(f"mxu2d sandwich kernel failed: cudaError_t {err}")
-    LAUNCHES["sandwich_apply_selfdot" if selfdot else "sandwich_apply"] += 1
+    name = "sandwich_apply_wp" if wp else "sandwich_apply"
+    LAUNCHES[name + "_selfdot" if selfdot else name] += 1
     return (y, dots) if selfdot else y
 
 
@@ -172,3 +211,28 @@ def sandwich_apply_selfdot(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return sandwich_plain(x, w, *tables[:4], selfdot=True)
     return _launch(x, w, tables, selfdot=True)
+
+
+def sandwich_apply_wp(x: torch.Tensor, w: torch.Tensor, dims: Tuple[int, int],
+                      edims: Tuple[int, int], *, in_expanded: bool = False,
+                      out_expanded: bool = False, selfdot: bool = False):
+    """y[b, l] = P_o (Q0 x Q1) diag(w[l]) (Q0 x Q1)^T P_i^T x[b, l] on a
+    (B, W, i0, i1) plane stack with per-plane spectra w (W, L0, L1).
+
+    Returns (B, W, o0, o1); with ``selfdot`` (cropped in and out) also
+    dots[b] = sum_l <x[b, l], y[b, l]>.  Kernel B-5 on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    tables = _tables(dims, edims, bool(in_expanded), bool(out_expanded),
+                     x.dtype, x.device)
+    i_shape = tables[4]
+    if x.ndim != 4 or tuple(x.shape[2:]) != i_shape:
+        raise ValueError(f"x must be (B, W, {i_shape[0]}, {i_shape[1]}), got "
+                         f"{tuple(x.shape)}")
+    if w.ndim != 3 or w.shape[0] != x.shape[1] or tuple(w.shape[1:]) != tuple(edims):
+        raise ValueError(f"w must be ({x.shape[1]}, {edims[0]}, {edims[1]}) "
+                         f"per-plane spectra, got {tuple(w.shape)}")
+    if selfdot and (in_expanded or out_expanded):
+        raise ValueError("the self-dot needs equal input and output crops")
+    if x.device.type == "cpu":
+        return sandwich_wp_plain(x, w, *tables[:4], selfdot=selfdot)
+    return _launch(x, w, tables, selfdot=selfdot)

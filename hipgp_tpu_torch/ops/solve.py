@@ -12,11 +12,15 @@ device test:
   kernels B-2, B-3 and B-4 (`ops/radix_fft.py`);
 * on a CUDA device, in float32, on a 2-D grid whose embedded axes are all
   <= MXU2D_MAX_LEN, they go through kernel A (`ops/mxu2d.py`);
+* on a CUDA device, in float32, on a 3-D grid whose embedded axes are all
+  <= MXU2D_MAX_LEN (and > 1), the state is permuted once per solve so that
+  the smallest embedded axis is the outer one, and they go through the
+  outer-axis products and kernel B-5, or kernel B-6 (`ops/mxu3d.py`);
 * everywhere else (the CPU, float64) the plain path runs: `cg.pcg` over
   `matmul_by_K` with the `matmul_by_Cinv` preconditioner, then
   `matmul_by_RT`.
 
-Both fused paths take the CG inner products from the applies' self-dots.
+The fused paths take the CG inner products from the applies' self-dots.
 
 Gradients through the solve are not ported yet: ``inv_matmul`` is a forward
 solve only.
@@ -31,6 +35,7 @@ from .bttb import (BTTBSpectrum, _full_weights, matmul_by_Cinv, matmul_by_K,
                    matmul_by_RT)
 from .cg import _beta, _guarded_steps, pcg, pcg_scan
 from .mxu2d import MXU2D_MAX_LEN, sandwich_apply, sandwich_apply_selfdot
+from .mxu3d import best_perm, sandwich_apply_3d, sandwich_apply_3d_selfdot
 from .radix_fft import (fused_circulant_apply_cropped,
                         fused_circulant_apply_cropped_selfdot, make_plan,
                         pack_rows, permute_weights, radix_supported,
@@ -82,6 +87,27 @@ def _mxu2d_solver_ok(spec: BTTBSpectrum, dtype: torch.dtype,
     if min(spec.edims) <= 1:
         return False
     return max(spec.edims) <= MXU2D_MAX_LEN
+
+
+def _mxu3d_solver_ok(spec: BTTBSpectrum, dtype: torch.dtype,
+                     device: torch.device) -> bool:
+    """True when the fused 3-D sandwich PCG path applies: a 3-D grid whose
+    embedded axes are all > 1 and <= MXU2D_MAX_LEN, float32, on a CUDA
+    device."""
+    if len(spec.dims) != 3 or dtype != torch.float32:
+        return False
+    if torch.device(device).type != "cuda":
+        return False
+    if min(spec.edims) <= 1:
+        return False
+    return max(spec.edims) <= MXU2D_MAX_LEN
+
+
+def _inv_perm(perm):
+    inv = [0] * len(perm)
+    for i, p in enumerate(perm):
+        inv[p] = i
+    return tuple(inv)
 
 
 def _fused_sandwich_pcg(apply_dot, s0, wK, wC, num_iters: int, tol: float,
@@ -140,6 +166,48 @@ def _mxu2d_solver(spec: BTTBSpectrum, b: torch.Tensor, maxiter: int,
     s0 = b.reshape((-1,) + dims).contiguous()
     x = _mxu2d_pcg(s0, wK, wC, dims, edims, maxiter, tol, fixed_iters)
     return x.reshape(batch + (spec.M,))
+
+
+def _mxu3d_permuted(spec: BTTBSpectrum, w: torch.Tensor):
+    """(perm, inverse perm, permuted dims, permuted edims, w permuted and
+    contiguous) for the 3-D kernel path."""
+    perm = best_perm(spec.edims)
+    pdims = tuple(spec.dims[a] for a in perm)
+    pedims = tuple(spec.edims[a] for a in perm)
+    return perm, _inv_perm(perm), pdims, pedims, w.permute(perm).contiguous()
+
+
+def _mxu3d_solver(spec: BTTBSpectrum, b: torch.Tensor, maxiter: int,
+                  tol: float, fixed_iters: bool) -> torch.Tensor:
+    """K^{-1} b for (..., M) rows through the fused 3-D PCG.  The state is
+    permuted into the kernel order once per solve, never per apply."""
+    dims = spec.dims
+    perm, inv, pdims, pedims, wK = _mxu3d_permuted(
+        spec, _full_weights(spec.eigs, spec.edims[-1]))
+    wC = 1.0 / wK
+    batch = b.shape[:-1]
+    s0 = b.reshape((-1,) + dims).permute((0,) + tuple(a + 1 for a in perm))
+
+    def apply_dot(s, w):
+        return sandwich_apply_3d_selfdot(s, w, pdims, pedims)
+
+    x = _fused_sandwich_pcg(apply_dot, s0.contiguous(), wK, wC, maxiter, tol,
+                            fixed_iters)
+    x = x.permute((0,) + tuple(a + 1 for a in inv))
+    return x.reshape(batch + (spec.M,))
+
+
+def _rt_mxu3d(spec: BTTBSpectrum, d: torch.Tensor) -> torch.Tensor:
+    """R^T @ d through the 3-D sandwich: (..., M) -> (..., M'), the same
+    operator as `matmul_by_RT`; the kernel-order permutation is undone on the
+    expanded output, so the whitened layout is the plain path's."""
+    perm, inv, pdims, pedims, w = _mxu3d_permuted(
+        spec, torch.sqrt(_full_weights(spec.eigs, spec.edims[-1])))
+    batch = d.shape[:-1]
+    x = d.reshape((-1,) + spec.dims).permute((0,) + tuple(a + 1 for a in perm))
+    y = sandwich_apply_3d(x.contiguous(), w, pdims, pedims, out_expanded=True)
+    y = y.permute((0,) + tuple(a + 1 for a in inv))
+    return y.reshape(batch + (spec.Mprime,))
 
 
 def _planes_pcg(s0, dK, dC, plan, rows: int, mask, num_iters: int, tol: float,
@@ -216,6 +284,8 @@ def inv_matmul(spec: BTTBSpectrum, rhs: torch.Tensor, *, maxiter: int = 20,
         return _planes_solver(spec, rhs, maxiter, tol, fixed_iters)
     if do_precond and _mxu2d_solver_ok(spec, rhs.dtype, rhs.device):
         return _mxu2d_solver(spec, rhs, maxiter, tol, fixed_iters)
+    if do_precond and _mxu3d_solver_ok(spec, rhs.dtype, rhs.device):
+        return _mxu3d_solver(spec, rhs, maxiter, tol, fixed_iters)
     matvec = lambda v: matmul_by_K(spec, v)
     precond = (lambda v: matmul_by_Cinv(spec, v)) if do_precond else None
     if fixed_iters:
@@ -233,6 +303,8 @@ def whiten(spec: BTTBSpectrum, Knm: torch.Tensor, *, maxiter: int = 20,
         return _rt_planes(spec, d)
     if _mxu2d_solver_ok(spec, d.dtype, d.device):
         return _rt_mxu2d(spec, d)
+    if _mxu3d_solver_ok(spec, d.dtype, d.device):
+        return _rt_mxu3d(spec, d)
     return matmul_by_RT(spec, d)
 
 

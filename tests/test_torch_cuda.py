@@ -1,17 +1,20 @@
-"""Kernel A (hipgp_tpu_torch/csrc/mxu2d.cu) and the radix kernels B-2, B-3 and
-B-4 (hipgp_tpu_torch/csrc/radix.cu) against their plain PyTorch versions on a
-CUDA card.  Every test here needs the card and skips without one.
+"""Kernel A (hipgp_tpu_torch/csrc/mxu2d.cu), the radix kernels B-2, B-3 and
+B-4 (hipgp_tpu_torch/csrc/radix.cu) and the 3-D sandwich kernels B-5
+(csrc/mxu2d.cu) and B-6 (csrc/mxu3d.cu) against their plain PyTorch versions
+on a CUDA card.  Every test here needs the card and skips without one.
 
 On the machine with the card, which has no JAX, run without the suite's
 conftest (it imports JAX):
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from hipgp_tpu_torch.kernels import Matern
-from hipgp_tpu_torch.ops import bttb, mxu2d, radix_fft, solve
+from hipgp_tpu_torch.ops import bttb, mxu2d, mxu3d, radix_fft, solve
 
 pytestmark = pytest.mark.cuda
 
@@ -112,7 +115,7 @@ def test_kernel_path_whiten_matches_plain_path(dev):
 # the radix kernels (csrc/radix.cu)
 # ---------------------------------------------------------------------------
 
-RADIX_LENGTHS = [8192, 32768, 1 << 18, 1 << 20, 1 << 21]
+RADIX_LENGTHS = [8192, 32768, 1 << 18, 1 << 20, 1 << 21, 1 << 22, 1 << 25]
 # (L, rows of data) of the section 5.2 sizes on the planes path:
 # M = 131 072, 500 000 and 2^20
 MAIN_PATH_CROPS = [(1 << 18, 8), (1 << 20, 31), (1 << 21, 64)]
@@ -290,3 +293,134 @@ def test_planes_gram_solve_matches_plain_path(dev, M):
     assert out["k32"].shape == (5, specs["k32"].Mprime)
     assert _rel(out["k32"], out["c32"]) <= 1e-4
     assert _rel(out["k32"], out["k64"]) <= 5e-3
+
+
+# ---------------------------------------------------------------------------
+# the 3-D sandwich: kernel B-5 (csrc/mxu2d.cu) and kernel B-6 (csrc/mxu3d.cu)
+# at the shapes of the dust map's main path (64 x 64 x 32 grid, embedded
+# (128, 128, 64), kernel order (32, 64, 64) -> (64, 128, 128))
+# ---------------------------------------------------------------------------
+
+DIMS_3D, EDIMS_3D = (32, 64, 64), (64, 128, 128)
+
+
+def _spectrum_3d(dev, dtype=torch.float32):
+    """The main path's spectrum (SqExp, sig2 0.5, ell 0.07, jitter 1e-3 on the
+    64 x 64 x 32 grid over [-1, 1]^3) and its kernel-order permutation."""
+    kern = lambda a, b: 0.5 * torch.exp(
+        -0.5 * torch.sum(((a[:, None, :] - b[None, :, :]) / 0.07) ** 2, -1))
+    grids = [torch.linspace(-1.0, 1.0, m, dtype=dtype, device=dev) for m in (64, 64, 32)]
+    spec = bttb.make_spectrum(grids, kern, jitter=1e-3)
+    perm = mxu3d.best_perm(spec.edims)
+    w = bttb._full_weights(spec.eigs, spec.edims[-1]).permute(perm).contiguous()
+    return spec, w
+
+
+@pytest.mark.parametrize("B,mode", [(512, "selfdot"), (512, "out_expanded"),
+                                    (400, "selfdot"), (400, "out_expanded")])
+def test_wp_kernel_matches_plain(dev, B, mode):
+    # B-5 at the PCG, R^T and prediction-chunk shapes against its plain
+    # version in f32 and f64: <= 1e-5
+    _, w = _spectrum_3d(dev)
+    selfdot, out_exp = mode == "selfdot", mode == "out_expanded"
+    if out_exp:
+        w = torch.sqrt(w)
+    W, inner, einner = EDIMS_3D[0], DIMS_3D[1:], EDIMS_3D[1:]
+    x = torch.randn((B, W) + inner, device=dev, generator=torch.Generator(device=dev).manual_seed(B))
+    t32 = mxu2d._tables(inner, einner, False, out_exp, torch.float32, dev)
+    t64 = mxu2d._tables(inner, einner, False, out_exp, torch.float64, dev)
+    key = "sandwich_apply_wp_selfdot" if selfdot else "sandwich_apply_wp"
+    before = mxu2d.LAUNCHES[key]
+    got = mxu2d.sandwich_apply_wp(x, w, inner, einner, out_expanded=out_exp, selfdot=selfdot)
+    assert mxu2d.LAUNCHES[key] == before + 1
+    want32 = mxu2d.sandwich_wp_plain(x, w, *t32[:4], selfdot=selfdot)
+    want64 = mxu2d.sandwich_wp_plain(x.double(), w.double(), *t64[:4], selfdot=selfdot)
+    torch.cuda.synchronize()
+    if selfdot:
+        assert _rel(got[1], want32[1]) <= 1e-5 and _rel(got[1], want64[1]) <= 1e-5
+        got, want32, want64 = got[0], want32[0], want64[0]
+    assert got.shape == want64.shape == (B, W) + t32[5]
+    assert _rel(got, want32) <= 1e-5 and _rel(got, want64) <= 1e-5
+
+
+def test_wp3_kernel_matches_plain(dev):
+    # B-6 at the self-dot shape against its plain version in f32 and f64
+    _, w = _spectrum_3d(dev)
+    x = torch.randn((512,) + DIMS_3D, device=dev, generator=torch.Generator(device=dev).manual_seed(6))
+    before = mxu3d.LAUNCHES["sandwich_apply_wp3"]
+    y, dots = mxu3d.sandwich_apply_wp3(x, w, DIMS_3D, EDIMS_3D, selfdot=True)
+    assert mxu3d.LAUNCHES["sandwich_apply_wp3"] == before + 1
+    y32, d32 = mxu3d.sandwich_wp3_plain(x, w, DIMS_3D, EDIMS_3D, selfdot=True)
+    y64, d64 = mxu3d.sandwich_wp3_plain(x.double(), w.double(), DIMS_3D, EDIMS_3D,
+                                        selfdot=True)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape
+    assert _rel(y, y32) <= 1e-5 and _rel(y, y64) <= 1e-5
+    assert _rel(dots, d32) <= 1e-5 and _rel(dots, d64) <= 1e-5
+    y2 = mxu3d.sandwich_apply_wp3(x[:3], w, DIMS_3D, EDIMS_3D)
+    assert _rel(y2, y64[:3]) <= 1e-5
+
+
+def test_3d_selfdots_are_deterministic(dev):
+    _, w = _spectrum_3d(dev)
+    x = torch.randn((96,) + DIMS_3D, device=dev)
+    u = torch.randn((96, EDIMS_3D[0]) + DIMS_3D[1:], device=dev)
+    a = mxu3d.sandwich_apply_wp3(x, w, DIMS_3D, EDIMS_3D, selfdot=True)
+    b = mxu3d.sandwich_apply_wp3(x, w, DIMS_3D, EDIMS_3D, selfdot=True)
+    c = mxu2d.sandwich_apply_wp(u, w, DIMS_3D[1:], EDIMS_3D[1:], selfdot=True)
+    d = mxu2d.sandwich_apply_wp(u, w, DIMS_3D[1:], EDIMS_3D[1:], selfdot=True)
+    assert all(torch.equal(p, q) for p, q in zip(a + c, b + d))
+
+
+def test_3d_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    _, w = _spectrum_3d(dev)
+    inner, einner = DIMS_3D[1:], EDIMS_3D[1:]
+    u = torch.randn((2, EDIMS_3D[0]) + inner, device=dev)
+    with pytest.raises(TypeError):
+        mxu2d.sandwich_apply_wp(u.double(), w.double(), inner, einner)
+    with pytest.raises(ValueError):
+        mxu2d.sandwich_apply_wp(u.transpose(2, 3).contiguous().transpose(2, 3), w,
+                                inner, einner)
+    with pytest.raises(ValueError):
+        mxu2d.sandwich_apply_wp(u, w.cpu(), inner, einner)
+    x = torch.randn((2,) + DIMS_3D, device=dev)
+    with pytest.raises(TypeError):
+        mxu3d.sandwich_apply_wp3(x.double(), w.double(), DIMS_3D, EDIMS_3D)
+    with pytest.raises(ValueError):
+        mxu3d.sandwich_apply_wp3(x.transpose(2, 3).contiguous().transpose(2, 3), w,
+                                 DIMS_3D, EDIMS_3D)
+    with pytest.raises(ValueError):
+        mxu3d.sandwich_apply_wp3(x, w.cpu(), DIMS_3D, EDIMS_3D)
+
+
+def test_3d_kernel_path_whiten_matches_plain_paths(dev):
+    # the f32 kernel path (fused 3-D PCG + R^T) on 16 rows against the same
+    # solver on the CPU in f32 through the plain stages, with the same f32
+    # spectrum (<= 1e-4), and the f64 plain path on the card (<= 5e-3), 20
+    # iterations, launches exact.  The CPU solver gets the card's spectrum:
+    # built on the CPU in f32, the smallest eigenvalues carry other f32
+    # rounding than the card's, which this ill-conditioned solve amplifies
+    # (3.2e-4 of the whitening on an H100 when each side built its own)
+    s32, _ = _spectrum_3d(dev)
+    c32 = dataclasses.replace(s32, column=s32.column.cpu(), eigs=s32.eigs.cpu(),
+                              ecolumn=s32.ecolumn.cpu())
+    s64, _ = _spectrum_3d(dev, torch.float64)
+    assert solve._mxu3d_solver_ok(s32, torch.float32, dev)
+    b = np.random.default_rng(3).standard_normal((16, s32.M))
+    before = {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    k32 = solve.whiten(s32, torch.as_tensor(b, dtype=torch.float32, device=dev),
+                       maxiter=20, tol=0.0, fixed_iters=True)
+    torch.cuda.synchronize()
+    moved = {n: v - before[n] for n, v in {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}.items()
+             if v != before[n]}
+    applies = "sandwich_apply_wp3" if mxu3d.USE_WP3 else "sandwich_apply_wp_selfdot"
+    assert solve.PCG_STATS == {"solves": 1, "iterations": 20}
+    assert moved == {applies: 41, "sandwich_apply_wp": 1}
+    xc = solve._mxu3d_solver(c32, torch.as_tensor(b, dtype=torch.float32), 20, 0.0, True)
+    c = solve._rt_mxu3d(c32, xc)
+    k64 = solve.whiten(s64, torch.as_tensor(b, device=dev), maxiter=20, tol=0.0,
+                       fixed_iters=True)
+    assert k32.shape == (16, s32.Mprime)
+    assert _rel(k32.cpu(), c) <= 1e-4
+    assert _rel(k32, k64) <= 5e-3

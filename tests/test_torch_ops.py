@@ -264,6 +264,10 @@ def test_port_imports_no_jax():
             "import chip_smoke;"
             "assert 'hipgp_tpu_torch.ops.radix_fft' in mods, mods;"
             "assert 'hipgp_tpu_torch.experiments.run_pcg_vs_cholesky' in mods, mods;"
+            "new = {'hipgp_tpu_torch.kernels.interdomain', 'hipgp_tpu_torch.ops.mxu3d',"
+            " 'hipgp_tpu_torch.experiments.run_domain',"
+            " 'hipgp_tpu_torch.experiments.profile_domain_step'};"
+            "assert new <= set(mods), sorted(new - set(mods));"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'hipgp_tpu' or m.startswith('hipgp_tpu.')];"
             "assert not bad, bad")
