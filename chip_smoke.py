@@ -6,8 +6,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each printing one line of progress with its seconds:
   1. build   - every CUDA source of the port, one nvcc per source, in parallel;
   2. kernels - each kernel A wrapper against its plain PyTorch version on the
-               card, at the shapes the 2-D main path gives it, in float32 with
-               TF32 off; times by CUDA events after a warm-up;
+               card, at the shapes the 2-D main path gives it (the R^T's
+               pullback, (256, 250, 250) -> (256, 125, 125), included), and
+               kernel B-8 (the full-plane sandwich) at (256, 250, 250), in
+               float32 with TF32 off; times by CUDA events after a warm-up,
+               B-8 against the einsum chain in turns (the measurement behind
+               bttb.USE_PALLAS_TRANSFORM);
   3. main    - the paper's 2-D synthetic protocol: 20 000 + 2 000 points from
                seed 42, the M = 125^2 mean-field model, one natural-gradient
                epoch (79 steps at batch 256, maxiter_cg 10, after the theta2
@@ -17,7 +21,20 @@ Phases, each printing one line of progress with its seconds:
                count (each PCG solve makes 1 + 2k self-dot launches, each
                whitening one R^T launch);
   4. accuracy - the float32 kernel-path whitening at M = 125^2 on 256 rows
-               against the float64 plain path on the card;
+               against the float64 plain path on the card, and the same
+               whitening with USE_MXU2D_PCG off and USE_PALLAS_TRANSFORM on
+               (the generic PCG over B-8, 2k + 2 B-8 launches);
+     train   - the flagship training step: one epoch of the same protocol
+               with learn_kernel and learn_noise (natgrad on theta, Adam at
+               kernel_lr 1e-3 on the three log-hyperparameters, gradients
+               through the whitening by implicit differentiation and through
+               kernel A's backward) from the warm start, then prediction;
+               per step 2 (1 + 2k) self-dot launches, one R^T and one
+               pullback, checked exactly;
+     train-grad - one batch from the trained state: the float32 kernel-path
+               hyper-gradients against the float64 plain path (limit 1e-2
+               relative each), and with USE_PALLAS_TRANSFORM on (one B-8
+               launch, the dK term; within 1e-4 of the flag-off run);
   5. kernels-1d - each radix kernel (B-2 stage1, B-3 stage1_inv_dot, B-4
                middle) against its plain version in float32 and in float64 at
                every plan, crop and diagonal the 1-D path gives it at the
@@ -25,9 +42,11 @@ Phases, each printing one line of progress with its seconds:
                M = 10 000, (16, 128, 128) with 8 rows at 131 072,
                (64, 128, 128) with 31 rows at 500 000, and the headline
                (128, 128, 128) with 64 rows at 2^20 (V = 4 packed planes
-               throughout), with the protocol spectrum's weights; at the
-               headline, times of kernel, plain version and one torch.fft
-               call by CUDA events;
+               throughout), with the protocol spectrum's weights, and B-7 (the
+               two-diagonal middle) with the first two diagonals at each plan;
+               at the headline, times of kernel, plain version and one
+               torch.fft call by CUDA events, and B-7 against two B-4
+               launches;
   6. main-1d - the paper's section 5.2 driver (run_pcg_vs_cholesky.main,
                Mat52, 3 chained reps) at M = 10 000, 131 072, 500 000 and
                2^20, one size per call with the counters zeroed just before
@@ -87,6 +106,8 @@ RADIX_TPU_KERNELS = {"stage1": "hipgp_tpu/ops/radix_fft.py:649",
 WP_TPU_KERNEL = "hipgp_tpu/ops/mxu2d.py:325"    # pl.pallas_call of _make_kernel_wp
 WP3_SOURCE = "hipgp_tpu_torch/csrc/mxu3d.cu"
 WP3_TPU_KERNEL = "hipgp_tpu/ops/mxu3d.py:248"   # pl.pallas_call of _make_kernel_wp3
+DUAL_TPU_KERNEL = "hipgp_tpu/ops/radix_fft.py:497"   # _middle_pallas_dual
+B8_TPU_KERNEL = "hipgp_tpu/ops/pallas_transform.py:99"   # _pallas_apply
 # the section 5.5 dust map as main-3d runs it (the JAX RESULTS section 14d
 # natgrad protocol, cut to 10 240 observations and 1 000 test stars)
 DOMAIN = dict(nobs=10_240, ntest=1000, noise_std=0.1, nx=64, nz=32)
@@ -146,6 +167,54 @@ def sandwich_bound_ms(B, i, L, o, selfdot):
     t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
             1e3 * dense / FP32_PEAK)
+
+
+def fft_chain_ms(torch, x, w, edims, dims_out, y64):
+    """Time of the torch.fft chain of a 2-D sandwich (rfft2 x w, irfft2,
+    crop; the yardstick of the pullback and B-8) after checking it against
+    the float64 plain result: (ms, rel err)."""
+    fn = lambda: fft_chain(torch, x, w, edims, dims_out)
+    err = rel(fn(), y64)
+    check(err <= 1e-4, f"torch.fft chain rel err {err:.3e}")
+    return cuda_ms(torch, fn, warmup=1, reps=5), err
+
+
+def phase_kernels_b8(torch, dev, wK, edims, gen):
+    """Kernel B-8 (the full-plane sandwich) at (256, 250, 250) with the
+    main path's spectrum against its plain version (the einsum chain) and
+    float64, limit 1e-5; times of B-8, the einsum chain (in turns) and the
+    torch.fft chain, the bound.  Returns B-8's record of the kernels line."""
+    from hipgp_tpu_torch.ops import bttb, pallas_transform
+
+    B = 256
+    Q0, Q1 = (bttb._real_fourier_basis(L, torch.float32, dev) for L in edims)
+    Q0d, Q1d = (bttb._real_fourier_basis(L, torch.float64, dev) for L in edims)
+    x = torch.randn((B,) + tuple(edims), generator=gen, device=dev)
+    kern = lambda: pallas_transform.circulant_apply_2d(x, Q0, Q1, wK)
+    plain = lambda: pallas_transform._apply_einsum(x, Q0, Q1, wK)
+    got, want = kern(), plain()
+    y64 = pallas_transform._apply_einsum(x.double(), Q0d, Q1d, wK.double())
+    torch.cuda.synchronize()
+    check(got.shape == want.shape == (B,) + tuple(edims), f"B-8 shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "B-8 non-finite output")
+    err32, err64 = rel(got, want), rel(got, y64)
+    abs_err = float((got - want).abs().max())
+    check(err32 <= 1e-5 and err64 <= 1e-5,
+          f"B-8 rel err vs plain f32 {err32:.3e}, vs f64 {err64:.3e}")
+    k1, p1 = cuda_ms(torch, kern), cuda_ms(torch, plain)
+    p2, k2 = cuda_ms(torch, plain), cuda_ms(torch, kern)
+    ms, plain_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+    fft_ms, fft_err = fft_chain_ms(torch, x, wK, edims, edims, y64)
+    bound, bound_by, dense_ms = sandwich_bound_ms(B, edims, edims, edims, False)
+    log(f"[kernels] B-8 circulant_apply_2d B={B} {tuple(edims)}, w = wK: rel err vs "
+        f"plain f32 {err32:.3e} (max abs {abs_err:.3e}), vs float64 {err64:.3e}; kernel "
+        f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}), einsum chain (plain) {plain_ms:.4f} ms "
+        f"({p1:.4f}, {p2:.4f}), in turns; torch.fft chain {fft_ms:.4f} ms (rel err vs "
+        f"f64 {fft_err:.3e}); bound {bound:.4f} ms ({bound_by}; FFT count), dense-DFT "
+        f"operation time {dense_ms:.4f} ms; USE_PALLAS_TRANSFORM = "
+        f"{bttb.USE_PALLAS_TRANSFORM}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=fft_ms)
 
 
 def circulant_conv(torch, mxu2d, w, dims, edims, i, o):
@@ -214,6 +283,10 @@ def radix_bound_ms(kind, V, A, B, C, in_rows, out_rows):
         ops = V * A * (2 * _fft_ops(N, False) + 2 * N)
         dense = V * A * 2 * 3 * 2 * (B * B * C + B * C * C)
         nbytes = 4 * (2 * 2 * V * A * N + A * N)
+    elif kind == "middle_dual":   # one forward half, two products, two inverse halves
+        ops = V * A * (3 * _fft_ops(N, False) + 4 * N)
+        dense = V * A * 3 * 3 * 2 * (B * B * C + B * C * C)
+        nbytes = 4 * (3 * 2 * V * A * N + 2 * A * N)
     else:
         ops = V * N * _fft_ops(A, False)
         dense = 3 * 2 * out_rows * in_rows * N * V
@@ -363,6 +436,25 @@ def phase_kernels_1d(torch, dev):
                    lambda: radix_fft.middle(y32[0], y32[1], d32, p32),
                    lambda: radix_fft.middle_plain(y32[0], y32[1], d32, p32),
                    radix_bound_ms("middle", V, A, B, C, A, A))
+        # B-7 with the path's first two diagonals (those of K and C^-1): the
+        # middle of `fused_circulant_apply_cropped_dual` (no solver calls it)
+        (la, dA), (lb, dB) = list(weights.items())[:2]
+        record("middle_dual", f"dA = {la}, dB = {lb}",
+               radix_fft.middle_dual(y32[0], y32[1], dA, dB, p32),
+               radix_fft.middle_dual_plain(y32[0], y32[1], dA, dB, p32),
+               radix_fft.middle_dual_plain(y[0], y[1], dA.double(), dB.double(), p64),
+               lambda: radix_fft.middle_dual(y32[0], y32[1], dA, dB, p32),
+               lambda: radix_fft.middle_dual_plain(y32[0], y32[1], dA, dB, p32),
+               radix_bound_ms("middle_dual", V, A, B, C, A, A))
+        if timed:
+            dual = lambda: radix_fft.middle_dual(y32[0], y32[1], dA, dB, p32)
+            two = lambda: (radix_fft.middle(y32[0], y32[1], dA, p32),
+                           radix_fft.middle(y32[0], y32[1], dB, p32))
+            d1, t1 = cuda_ms(torch, dual), cuda_ms(torch, two)
+            t2, d2 = cuda_ms(torch, two), cuda_ms(torch, dual)
+            log(f"[kernels-1d] middle_dual {tag}: one B-7 launch {0.5 * (d1 + d2):.4f} ms "
+                f"({d1:.4f}, {d2:.4f}) against two B-4 launches {0.5 * (t1 + t2):.4f} ms "
+                f"({t1:.4f}, {t2:.4f}), in turns")
         if not planes:   # the generic path launches no stage1_inv_dot
             continue
         # B-3 inverse A -> rows with the self-dots (every PCG apply's last stage)
@@ -392,8 +484,8 @@ def phase_kernels_1d(torch, dev):
                radix_bound_ms("stage1_inv_dot", V, A, B, C, A, rows),
                lambda: torch.view_as_real(fft.ifft(zc, dim=1, norm="forward")[:, :rows]),
                torch.view_as_real(ref))
-    log("[kernels-1d] middle library_ms null: no single PyTorch call computes "
-        "the T1 / F_B / T2 / F_C / d / conjugate chain on stage-order planes")
+    log("[kernels-1d] middle and middle_dual library_ms null: no single PyTorch call "
+        "computes the T1 / F_B / T2 / F_C / d / conjugate chain on stage-order planes")
     log(f"[kernels-1d] done; {time.perf_counter() - t0:.2f} s")
     return results
 
@@ -438,10 +530,10 @@ def phase_main_1d(torch):
                       f"M={M}: {st} fused solves, expected {calls} of {k} iterations")
                 want = {"middle": (2 * k + 2) * calls,
                         "stage1_inv_dot": (2 * k + 1) * calls,
-                        "stage1": (2 * k + 3) * calls}
+                        "stage1": (2 * k + 3) * calls, "middle_dual": 0}
             else:   # generic PCG: 2k+1 operator applies and one R^T, uncropped
                 want = {"middle": (2 * k + 2) * calls, "stage1_inv_dot": 0,
-                        "stage1": 2 * (2 * k + 2) * calls}
+                        "stage1": 2 * (2 * k + 2) * calls, "middle_dual": 0}
             check(lc == want, f"M={M} launches {lc}, expected {want}")
             for name in total:
                 total[name] += lc[name]
@@ -820,6 +912,129 @@ def phase_accuracy_3d(torch, dev):
     log(f"[accuracy-3d] done; {time.perf_counter() - t0:.2f} s")
 
 
+HYPERS = ("log_sig2", "log_ell", "log_noise2")
+TRAIN_K = 10   # maxiter_cg of the protocol
+
+
+def _hypers(torch, state):
+    """(sig2, ell, noise2) of a state, as floats."""
+    return tuple(float(torch.exp(getattr(state, k))) for k in HYPERS)
+
+
+def phase_train(torch, d, model, state0, main_step_ms):
+    """The flagship training step: one epoch of the 2-D protocol with
+    learn_kernel and learn_noise (Adam at kernel_lr 1e-3 on the three
+    log-hyperparameters beside natgrad on theta), from the theta2 warm start,
+    through svigp_fit, then batch_predict; the counters zeroed just before
+    and read just after.  Returns (state, kernel A launches)."""
+    import numpy as np
+
+    from hipgp_tpu_torch.infer import FitConfig, batch_predict, svigp_fit
+    from hipgp_tpu_torch.ops import mxu2d, pallas_transform, solve
+
+    t0 = time.perf_counter()
+    cfg = FitConfig(epochs=1, batch_size=256, lr=1e-2, maxiter_cg=TRAIN_K,
+                    learn_kernel=True, learn_noise=True)
+    mxu2d.reset_launches()
+    pallas_transform.reset_launches()
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    state, report = svigp_fit(model, state0, d["xobs"], d["yobs"], d["sobs"], cfg,
+                              verbose=False, theta2_warmstart=True)
+    torch.cuda.synchronize()
+    lc, st = dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS)
+    b8 = pallas_transform.LAUNCHES["circulant_apply_2d"]
+    steps = report["steps"]
+    nb = -(-len(d["xobs"]) // cfg.batch_size)
+    step_ms = 1e3 * report["epoch_times"][0] / steps
+    trace = np.asarray(report["elbo_trace"])
+    before, after = _hypers(torch, state0), _hypers(torch, state)
+    log(f"[train] {steps} training steps (natgrad + Adam on the hypers, gradients "
+        f"through the whitening) at {step_ms:.2f} ms/step against the forward-only "
+        f"step's {main_step_ms:.2f} ms ([main]); warm start {report['warmstart_s']:.2f} s")
+    log(f"[train] (sig2, ell, noise2) {before} -> {after}")
+    log(f"[train] ELBO first {trace[0]:.4f}, last {trace[-1]:.4f}; mean of first 10 "
+        f"{trace[:10].mean():.4f}, of last 10 {trace[-10:].mean():.4f}")
+    check(steps == nb == 79, f"{steps} steps of {nb} batches, expected 79")
+    check(bool(np.isfinite(trace).all()), "non-finite training ELBO")
+    check(trace[-10:].mean() > trace[:10].mean(), "the training ELBO did not rise")
+    check(all(math.isfinite(v) for v in after), f"non-finite hypers {after}")
+    check(all(a != b for a, b in zip(after, before)), f"hypers did not move: {after}")
+    # warm start (one whitening per batch) and the rho estimate (one) run
+    # forward only; every step solves twice (K^{-1} Knm and, in the
+    # backward, K^{-1} of the cotangent) and launches R^T and its pullback
+    want_solves = nb + 1 + 2 * steps
+    check(st["solves"] == want_solves, f"{st['solves']} solves, expected {want_solves}")
+    check(st["iterations"] == TRAIN_K * st["solves"],
+          f"{st['iterations']} iterations: every solve should run {TRAIN_K}")
+    want = {"sandwich_apply_selfdot": st["solves"] * (1 + 2 * TRAIN_K),
+            "sandwich_apply": nb + 1 + 2 * steps,
+            "sandwich_apply_wp": 0, "sandwich_apply_wp_selfdot": 0}
+    log(f"[train] {st['solves']} PCG solves, {st['iterations']} iterations; per step "
+        f"{2 * (1 + 2 * TRAIN_K)} self-dot launches, one R^T and one pullback; expect "
+        f"{want}, counted {lc}; B-8 launches {b8} (USE_PALLAS_TRANSFORM gates it)")
+    check(lc == want, f"training launches {lc}, expected {want}")
+    t1 = time.perf_counter()
+    mu, sig = batch_predict(model, state, d["xtest"], batch_size=4096,
+                            maxiter_cg=cfg.predict_maxiter_cg)
+    mu, sig = mu.cpu().numpy(), sig.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mu - d["ftest"]) ** 2)))
+    fstd = float(np.std(d["ftest"]))
+    check(bool(np.isfinite(mu).all() and np.isfinite(sig).all()), "non-finite prediction")
+    check(rmse < fstd, f"trained test RMSE {rmse} not below std(ftest) {fstd}")
+    log(f"[train] predict: test RMSE {rmse:.5f} vs std(ftest) {fstd:.5f} "
+        f"({time.perf_counter() - t1:.2f} s); {time.perf_counter() - t0:.2f} s")
+    return state, lc
+
+
+def phase_train_grad(torch, dev, d, model, model64, state):
+    """One batch from one state: the f32 kernel-path hyper-gradients against
+    the f64 plain path (limit 1e-2 relative each), then with
+    USE_PALLAS_TRANSFORM on (B-8 launches counted, gradients within 1e-4 of
+    the flag-off run).  Returns the B-8 launches of the flag-on step."""
+    from hipgp_tpu_torch.infer.fit import prepare_batches
+    from hipgp_tpu_torch.ops import bttb, mxu2d, pallas_transform, solve
+
+    t0 = time.perf_counter()
+    out = {}
+    for key, m, dt in (("kernel", model, torch.float32), ("b8", model, torch.float32),
+                       ("plain64", model64, torch.float64)):
+        as_t = lambda a: torch.as_tensor(a).to(dtype=dt, device=dev)
+        xb, yb, _, wb = prepare_batches(as_t(d["xobs"]), as_t(d["yobs"]), None, 256)
+        st = state.__class__(**{f: getattr(state, f).to(dt) for f in
+                                ("theta1", "theta2") + HYPERS})
+        saved = bttb.USE_PALLAS_TRANSFORM
+        bttb.USE_PALLAS_TRANSFORM = key == "b8"
+        mxu2d.reset_launches()
+        pallas_transform.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        try:
+            elbo, g = m.elbo_and_grads(st, xb[0], yb[0], None, maxiter_cg=TRAIN_K,
+                                       weights=wb[0], compute_hyper_grads=True)
+        finally:
+            bttb.USE_PALLAS_TRANSFORM = saved
+        torch.cuda.synchronize()
+        lc = {**mxu2d.LAUNCHES, **pallas_transform.LAUNCHES}
+        out[key] = (float(elbo), [float(getattr(g, k)) for k in HYPERS])
+        log(f"[train-grad] {key}: ELBO {out[key][0]:.6f}, -d elbo / d (log_sig2, "
+            f"log_ell, log_noise2) = {out[key][1]}; launches "
+            f"{ {n: v for n, v in lc.items() if v} }, PCG {dict(solve.PCG_STATS)}")
+        fused = {"sandwich_apply_selfdot": 2 * (1 + 2 * TRAIN_K), "sandwich_apply": 2}
+        want = {"kernel": fused, "b8": {**fused, "circulant_apply_2d": 1},
+                "plain64": {}}[key]
+        check({n: v for n, v in lc.items() if v} == want,
+              f"[train-grad] {key} launches {lc}, expected {want}")
+        if key == "b8":
+            b8_launches = lc["circulant_apply_2d"]
+    for key, limit in (("plain64", 1e-2), ("b8", 1e-4)):
+        errs = [abs(a - b) / abs(b) for a, b in zip(out["kernel"][1], out[key][1])]
+        log(f"[train-grad] f32 kernel path vs {key}: rel err per hyper-gradient "
+            f"{[f'{e:.3e}' for e in errs]} (limit {limit:g})")
+        check(all(math.isfinite(e) and e <= limit for e in errs),
+              f"hyper-gradients vs {key}: {errs}")
+    log(f"[train-grad] done; {time.perf_counter() - t0:.2f} s")
+    return b8_launches
+
+
 def main():
     import torch
 
@@ -878,16 +1093,21 @@ def main():
         ("sandwich_apply_selfdot", 2000, wK, "predict PCG apply, w = wK"),
         ("sandwich_apply", 256, torch.sqrt(wK).contiguous(), "R^T, w = sqrt(wK)"),
         ("sandwich_apply", 2000, torch.sqrt(wK).contiguous(), "predict R^T"),
+        ("sandwich_apply", 256, torch.sqrt(wK).contiguous(), "R^T pullback"),
     ]
     for name, B, w, label in cases:
         selfdot = name == "sandwich_apply_selfdot"
-        out_exp = not selfdot
-        tables = mxu2d._tables(dims, edims, False, out_exp, torch.float32, dev)
-        x = torch.randn((B,) + dims, generator=gen, device=dev, dtype=torch.float32)
+        # R^T: cropped in, expanded out; its pullback (the training step's
+        # backward): expanded in, cropped out
+        in_exp = label == "R^T pullback"
+        out_exp = not selfdot and not in_exp
+        tables = mxu2d._tables(dims, edims, in_exp, out_exp, torch.float32, dev)
+        x = torch.randn((B,) + tables[4], generator=gen, device=dev, dtype=torch.float32)
         if selfdot:
             kern = lambda: mxu2d.sandwich_apply_selfdot(x, w, dims, edims)
         else:
-            kern = lambda: mxu2d.sandwich_apply(x, w, dims, edims, out_expanded=True)
+            kern = lambda: mxu2d.sandwich_apply(x, w, dims, edims, in_expanded=in_exp,
+                                                out_expanded=out_exp)
         plain = lambda: mxu2d.sandwich_plain(x, w, *tables[:4], selfdot=selfdot)
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -898,7 +1118,7 @@ def main():
         err_abs = float((y - yp).abs().max())
         # both accumulate each contraction in order with FMA, so they may
         # agree bit for bit; the float64 plain version shows the f32 error
-        t64 = mxu2d._tables(dims, edims, False, out_exp, torch.float64, dev)
+        t64 = mxu2d._tables(dims, edims, in_exp, out_exp, torch.float64, dev)
         y64 = mxu2d.sandwich_plain(x.double(), w.double(), *t64[:4], selfdot=selfdot)
         y64 = y64[0] if selfdot else y64
         err64 = rel(y, y64)
@@ -912,6 +1132,9 @@ def main():
         ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
         bound, bound_by, dense_ms = sandwich_bound_ms(B, tables[4], edims, tables[5],
                                                       selfdot)
+        if in_exp:
+            fft_ms, fft_err = fft_chain_ms(torch, x, w, edims, dims, y64)
+            msg += f"; torch.fft chain {fft_ms:.4f} ms (rel err vs f64 {fft_err:.3e})"
         log(f"[kernels] {name} B={B} {label}: {msg}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; FFT count), "
             f"dense-DFT operation time {dense_ms:.4f} ms")
@@ -920,6 +1143,7 @@ def main():
                                  bound_ms=bound, bound_by=bound_by,
                                  library_ms=library_ms(torch, mxu2d, x, w, dims, edims,
                                                        tables, y64, name))
+    results["B-8"] = phase_kernels_b8(torch, dev, wK, edims, gen)
     log(f"[kernels] done; {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. the main path ----------------------------------------------------
@@ -985,8 +1209,37 @@ def main():
           "the f32 whitening did not take the kernel path")
     err = rel(kn32, kn64)
     log(f"[accuracy] whiten M=125^2, 256 rows, maxiter 10: f32 kernel path vs f64 "
-        f"plain path rel err {err:.3e}; {time.perf_counter() - t0:.2f} s")
+        f"plain path rel err {err:.3e}")
     check(err <= 5e-3, f"whiten rel err {err}")
+    # the same whitening with USE_MXU2D_PCG off and USE_PALLAS_TRANSFORM on:
+    # the generic PCG, every apply and the R^T through B-8 (10 fixed
+    # iterations: 2k + 1 applies and one R^T)
+    from hipgp_tpu_torch.ops import pallas_transform
+
+    kn64f = solve.whiten(m64.spectrum(s64), knm64, maxiter=10, tol=0.0, fixed_iters=True)
+    saved = bttb.USE_MXU2D_PCG, bttb.USE_PALLAS_TRANSFORM
+    bttb.USE_MXU2D_PCG, bttb.USE_PALLAS_TRANSFORM = False, True
+    before = {**mxu2d.LAUNCHES, **pallas_transform.LAUNCHES}
+    try:
+        kn_b8 = solve.whiten(spec, knm32, maxiter=10, tol=0.0, fixed_iters=True)
+    finally:
+        bttb.USE_MXU2D_PCG, bttb.USE_PALLAS_TRANSFORM = saved
+    torch.cuda.synchronize()
+    moved = {n: v - before[n] for n, v in {**mxu2d.LAUNCHES,
+                                            **pallas_transform.LAUNCHES}.items()
+             if v != before[n]}
+    check(moved == {"circulant_apply_2d": 2 * 10 + 2},
+          f"the B-8 whitening launched {moved}, expected 22 B-8 launches only")
+    err_b8 = rel(kn_b8, kn64f)
+    log(f"[accuracy] the same whitening through the generic PCG over B-8 "
+        f"(USE_MXU2D_PCG off, USE_PALLAS_TRANSFORM on), 10 fixed iterations: rel err "
+        f"vs f64 plain path {err_b8:.3e}; launches {moved}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(err_b8 <= 5e-3, f"B-8 whiten rel err {err_b8}")
+
+    # ---- the training step -------------------------------------------------------
+    state_tr, train_launches = phase_train(torch, d, model, state0, step_s * 1e3)
+    b8_launches = phase_train_grad(torch, dev, d, model, m64, state_tr)
 
     # ---- 5.-7. the 1-D long-axis path ----------------------------------------
     radix_results = phase_kernels_1d(torch, dev)
@@ -1036,6 +1289,23 @@ def main():
         # applies (set by the B-6 / B-5-pipeline measurement of [kernels-3d])
         if key == "B-5" or mxu3d.USE_WP3:
             check(n > 0, f"{name} never launched on the 3-D main path")
+    r = radix_results["middle_dual"]
+    kernels.append({
+        "name": "radix_fft.middle_dual", "route": "cuda", "source": RADIX_SOURCE,
+        "replaces": DUAL_TPU_KERNEL, "launches": radix_launches["middle_dual"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    })
+    # B-7 is on no solver path, as in the JAX package: [kernels-1d] holds it
+    r = results["B-8"]
+    kernels.append({
+        "name": "pallas_transform.circulant_apply_2d", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": B8_TPU_KERNEL, "launches": b8_launches,
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    })
+    # B-8's launches: the training step of [train-grad] with USE_PALLAS_TRANSFORM on
+    check(b8_launches > 0, "B-8 never launched on the training path")
     log(f"[done] total {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     try:

@@ -19,7 +19,12 @@
 //                     exp(-2 pi i ka (b C + c) / L), the B-point DFT over b,
 //                     the T2 twiddle exp(-2 pi i kb c / (B C)), the C-point DFT
 //                     over c, the product with d[ka, kb, kc] (stage order, 1/L
-//                     folded in), then the conjugate chain back.
+//                     folded in), then the conjugate chain back;
+//   radix_middle_dual replaces _make_middle_kernel_dual (`_middle_pallas_dual`,
+//                     kernel B-7): the same chain with two diagonals dA, dB on
+//                     one forward half, giving both products (the core of
+//                     `fused_circulant_apply_cropped_dual`: C_dA x and C_dB x
+//                     for one x).
 //
 // Bound on this card.  At the headline shape (V = 4, L = 2^21, A = B = C = 128,
 // 64 rows of data) every stage is bound by bytes: each moves its planes once
@@ -51,6 +56,15 @@
 //     chain needs no reordering pass: T2 and d are read at the bit-reversed
 //     indices.  T1 is a product of a per-plane row and column factor,
 //     T2 a product of two small tables, so no per-element sincos is taken.
+//   * Dual middle (B-7): one plane of forward spectrum is all a block's shared
+//     memory holds, so the forward spectrum is parked in the second output
+//     (each thread stores, and later reloads, only the elements it owns, so no
+//     other thread's writes need to be visible), the first inverse half runs
+//     with dA in place, and the second with dB from the reloaded copy: one
+//     forward half instead of two, at the price of one extra write and read
+//     of the plane (5 passes of the plane through device memory against 4 for two
+//     single middles; 3 half chains of work against 4).  Bytes bind it, as they
+//     bind the single middle.
 // All arithmetic is full FP32 on the CUDA cores (no TF32).  This first version
 // does one shared-memory pass per radix-2 stage (28 passes of the plane in the
 // middle), so shared-memory bandwidth, not device memory, is expected to
@@ -257,62 +271,80 @@ dot_reduce_kernel(const float* __restrict__ pr, const float* __restrict__ pi,
     block_sum2(a, b, red, dr + v, di + v);
 }
 
-// The middle stages on plane ka = blockIdx.x of sample v = blockIdx.y.
-__global__ void __launch_bounds__(MID_THREADS)
-middle_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
-              const float* __restrict__ d, float* __restrict__ zr,
-              float* __restrict__ zi, int lA, int lB, int lC) {
-    extern __shared__ float smem[];
-    const int A = 1 << lA, B = 1 << lB, C = 1 << lC;
-    const int lP = lB + lC, P = 1 << lP;
-    float* re = smem;
-    float* im = re + P;
-    float2* twB = reinterpret_cast<float2*>(im + P);  // exp(-2 pi i k / B), k < B/2
-    float2* twC = twB + B / 2;                         // exp(-2 pi i k / C), k < C/2
-    float2* t1r = twC + C / 2;   // exp(-2 pi i ka b / (A B)), b < B
-    float2* t1c = t1r + B;       // exp(-2 pi i ka c / L), c < C
-    float2* t2h = t1c + C;       // exp(-2 pi i k / B), k < B
-    float2* t2l = t2h + B;       // exp(-2 pi i k / (B C)), k < C
-    const int ka = blockIdx.x, v = blockIdx.y;
+// Twiddle tables of a middle block, in shared memory after its plane.
+struct MiddleTables {
+    float2* twB;   // exp(-2 pi i k / B), k < B/2
+    float2* twC;   // exp(-2 pi i k / C), k < C/2
+    float2* t1r;   // exp(-2 pi i ka b / (A B)), b < B
+    float2* t1c;   // exp(-2 pi i ka c / L), c < C
+    float2* t2h;   // exp(-2 pi i k / B), k < B
+    float2* t2l;   // exp(-2 pi i k / (B C)), k < C
+};
 
+// Fills the tables of plane ka (ends with a barrier).
+__device__ MiddleTables middle_setup(float2* tw, int ka, int A, int B, int C) {
+    const int P = B * C;
+    MiddleTables t;
+    t.twB = tw;
+    t.twC = t.twB + B / 2;
+    t.t1r = t.twC + C / 2;
+    t.t1c = t.t1r + B;
+    t.t2h = t.t1c + C;
+    t.t2l = t.t2h + B;
     for (int k = threadIdx.x; k < B; k += blockDim.x) {
-        if (k < B / 2) twB[k] = unit(k, B, -1.0f);
-        t1r[k] = unit((ka * k) & (A * B - 1), A * B, -1.0f);
-        t2h[k] = unit(k, B, -1.0f);
+        if (k < B / 2) t.twB[k] = unit(k, B, -1.0f);
+        t.t1r[k] = unit((ka * k) & (A * B - 1), A * B, -1.0f);
+        t.t2h[k] = unit(k, B, -1.0f);
     }
     for (int k = threadIdx.x; k < C; k += blockDim.x) {
-        if (k < C / 2) twC[k] = unit(k, C, -1.0f);
-        t1c[k] = unit(ka * k, A * P, -1.0f);
-        t2l[k] = unit(k, P, -1.0f);
+        if (k < C / 2) t.twC[k] = unit(k, C, -1.0f);
+        t.t1c[k] = unit(ka * k, A * P, -1.0f);
+        t.t2l[k] = unit(k, P, -1.0f);
     }
     __syncthreads();
+    return t;
+}
 
-    const size_t base = ((size_t)v * A + ka) * P;
+// The forward half on the plane at y + base: T1, F_B over b, T2, F_C over c,
+// into shared memory (re, im) in bit-reversed (kb, kc) order (ends with a
+// barrier).
+__device__ void middle_forward(const float* __restrict__ yr, const float* __restrict__ yi,
+                               size_t base, float* re, float* im, const MiddleTables& t,
+                               int lB, int lC) {
+    const int C = 1 << lC, P = 1 << (lB + lC);
     // T1 on the way in
     for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
         const int b = idx >> lC, c = idx & (C - 1);
-        const float2 w = cmul(t1r[b], t1c[c]);
+        const float2 w = cmul(t.t1r[b], t.t1c[c]);
         const float r = yr[base + idx], i = yi[base + idx];
         re[idx] = r * w.x - i * w.y;
         im[idx] = r * w.y + i * w.x;
     }
     __syncthreads();
     // F_B over b (columns; row p then holds kb = bitrev(p))
-    fft<true>(re, im, lB, lC, 1, C, twB, 1.0f);
+    fft<true>(re, im, lB, lC, 1, C, t.twB, 1.0f);
     // T2 at (kb, c)
     for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
         const int p = idx >> lC, c = idx & (C - 1);
         const int r = (bitrev(p, lB) * c) & (P - 1);
-        const float2 w = cmul(t2h[r >> lC], t2l[r & (C - 1)]);
+        const float2 w = cmul(t.t2h[r >> lC], t.t2l[r & (C - 1)]);
         const float x = re[idx], y = im[idx];
         re[idx] = x * w.x - y * w.y;
         im[idx] = x * w.y + y * w.x;
     }
     __syncthreads();
     // F_C over c (rows; position q then holds kc = bitrev(q))
-    fft<true>(re, im, lC, lB, C, 1, twC, 1.0f);
-    // the diagonal, read at (kb, kc) of plane ka
-    const float* dp = d + (size_t)ka * P;
+    fft<true>(re, im, lC, lB, C, 1, t.twC, 1.0f);
+}
+
+// The inverse half: the product with the diagonal dp of this plane, read at
+// (kb, kc), conj F_C, conj T2, conj F_B, and conj T1 on the way out to
+// z + base.  Each thread first scales the elements it holds, so the caller
+// needs no barrier between its own writes of those elements and this call.
+__device__ void middle_inverse(float* re, float* im, const float* __restrict__ dp,
+                               float* zr, float* zi, size_t base, const MiddleTables& t,
+                               int lB, int lC) {
+    const int C = 1 << lC, P = 1 << (lB + lC);
     for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
         const int p = idx >> lC, q = idx & (C - 1);
         const float s = __ldg(dp + (bitrev(p, lB) << lC) + bitrev(q, lC));
@@ -321,32 +353,91 @@ middle_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
     }
     __syncthreads();
     // conj F_C: bit-reversed kc in, natural c out
-    fft<false>(re, im, lC, lB, C, 1, twC, -1.0f);
+    fft<false>(re, im, lC, lB, C, 1, t.twC, -1.0f);
     // conj T2
     for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
         const int p = idx >> lC, c = idx & (C - 1);
         const int r = (bitrev(p, lB) * c) & (P - 1);
-        const float2 w = cconj(cmul(t2h[r >> lC], t2l[r & (C - 1)]));
+        const float2 w = cconj(cmul(t.t2h[r >> lC], t.t2l[r & (C - 1)]));
         const float x = re[idx], y = im[idx];
         re[idx] = x * w.x - y * w.y;
         im[idx] = x * w.y + y * w.x;
     }
     __syncthreads();
     // conj F_B: bit-reversed kb in, natural b out
-    fft<false>(re, im, lB, lC, 1, C, twB, -1.0f);
+    fft<false>(re, im, lB, lC, 1, C, t.twB, -1.0f);
     // conj T1 on the way out
     for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
         const int b = idx >> lC, c = idx & (C - 1);
-        const float2 w = cconj(cmul(t1r[b], t1c[c]));
+        const float2 w = cconj(cmul(t.t1r[b], t.t1c[c]));
         const float x = re[idx], y = im[idx];
         zr[base + idx] = x * w.x - y * w.y;
         zi[base + idx] = x * w.y + y * w.x;
     }
 }
 
+// The middle stages on plane ka = blockIdx.x of sample v = blockIdx.y.
+__global__ void __launch_bounds__(MID_THREADS)
+middle_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
+              const float* __restrict__ d, float* __restrict__ zr,
+              float* __restrict__ zi, int lA, int lB, int lC) {
+    extern __shared__ float smem[];
+    const int P = 1 << (lB + lC);
+    float* re = smem;
+    float* im = re + P;
+    const int ka = blockIdx.x, v = blockIdx.y;
+    const MiddleTables t = middle_setup(reinterpret_cast<float2*>(im + P), ka, 1 << lA,
+                                        1 << lB, 1 << lC);
+    const size_t base = ((size_t)v * (1 << lA) + ka) * P;
+    middle_forward(yr, yi, base, re, im, t, lB, lC);
+    middle_inverse(re, im, d + (size_t)ka * P, zr, zi, base, t, lB, lC);
+}
+
+// Kernel B-7: the middle stages with two diagonals on one forward half.  The
+// forward spectrum is parked in zB (each thread stores and later reloads the
+// elements it holds), the inverse half runs with dA into zA, then with dB from
+// the reloaded spectrum into zB.
+__global__ void __launch_bounds__(MID_THREADS)
+middle_dual_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
+                   const float* __restrict__ dA, const float* __restrict__ dB,
+                   float* __restrict__ zAr, float* __restrict__ zAi, float* zBr,
+                   float* zBi, int lA, int lB, int lC) {
+    extern __shared__ float smem[];
+    const int P = 1 << (lB + lC);
+    float* re = smem;
+    float* im = re + P;
+    const int ka = blockIdx.x, v = blockIdx.y;
+    const MiddleTables t = middle_setup(reinterpret_cast<float2*>(im + P), ka, 1 << lA,
+                                        1 << lB, 1 << lC);
+    const size_t base = ((size_t)v * (1 << lA) + ka) * P;
+    middle_forward(yr, yi, base, re, im, t, lB, lC);
+    for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
+        zBr[base + idx] = re[idx];
+        zBi[base + idx] = im[idx];
+    }
+    middle_inverse(re, im, dA + (size_t)ka * P, zAr, zAi, base, t, lB, lC);
+    __syncthreads();   // every thread is done with the plane before it is reloaded
+    for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
+        re[idx] = zBr[base + idx];
+        im[idx] = zBi[base + idx];
+    }
+    middle_inverse(re, im, dB + (size_t)ka * P, zBr, zBi, base, t, lB, lC);
+}
+
 size_t middle_smem_bytes(int B, int C) {
     return (size_t)2 * B * C * sizeof(float)
          + (size_t)(B / 2 + C / 2 + 2 * B + 2 * C) * sizeof(float2);
+}
+
+bool middle_args_ok(int V, int A, int B, int C) {
+    return V > 0 && is_pow2(A) && is_pow2(B) && is_pow2(C) && B >= 2 && C >= 2
+        && (size_t)A * B * C <= ((size_t)1 << 25)
+        && middle_smem_bytes(B, C) <= (size_t)SMEM_LIMIT;
+}
+
+int middle_threads(int B, int C) {
+    const int threads = B * C / 2;
+    return threads > MID_THREADS ? MID_THREADS : threads;
 }
 
 int set_smem(const void* kernel, size_t bytes) {
@@ -417,18 +508,27 @@ int radix_stage1_dot(const float* zr, const float* zi, const float* ur,
 // into z (V, A, B, C).
 int radix_middle(const float* yr, const float* yi, const float* d, float* zr,
                  float* zi, int V, int A, int B, int C, cudaStream_t stream) {
-    if (V <= 0 || !is_pow2(A) || !is_pow2(B) || !is_pow2(C) || B < 2 || C < 2
-        || (size_t)A * B * C > ((size_t)1 << 25))
-        return (int)cudaErrorInvalidValue;
+    if (!middle_args_ok(V, A, B, C)) return (int)cudaErrorInvalidValue;
     const size_t smem = middle_smem_bytes(B, C);
-    if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     int err = set_smem((const void*)middle_kernel, smem);
     if (err) return err;
-    int threads = B * C / 2;
-    if (threads > MID_THREADS) threads = MID_THREADS;
-    dim3 grid(A, V);
-    middle_kernel<<<grid, threads, smem, stream>>>(yr, yi, d, zr, zi, ilog2(A),
-                                                   ilog2(B), ilog2(C));
+    middle_kernel<<<dim3(A, V), middle_threads(B, C), smem, stream>>>(
+        yr, yi, d, zr, zi, ilog2(A), ilog2(B), ilog2(C));
+    return (int)cudaGetLastError();
+}
+
+// Kernel B-7: the middle stages on y (V, A, B, C) with two stage-order
+// diagonals dA, dB (A, B, C) sharing one forward half, into zA and zB
+// (V, A, B, C) each.
+int radix_middle_dual(const float* yr, const float* yi, const float* dA,
+                      const float* dB, float* zAr, float* zAi, float* zBr, float* zBi,
+                      int V, int A, int B, int C, cudaStream_t stream) {
+    if (!middle_args_ok(V, A, B, C)) return (int)cudaErrorInvalidValue;
+    const size_t smem = middle_smem_bytes(B, C);
+    int err = set_smem((const void*)middle_dual_kernel, smem);
+    if (err) return err;
+    middle_dual_kernel<<<dim3(A, V), middle_threads(B, C), smem, stream>>>(
+        yr, yi, dA, dB, zAr, zAi, zBr, zBi, ilog2(A), ilog2(B), ilog2(C));
     return (int)cudaGetLastError();
 }
 

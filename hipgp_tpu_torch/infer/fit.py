@@ -4,11 +4,14 @@ Counterpart of `hipgp_tpu/infer/fit.py`.  An epoch is a Python loop over
 batches: each step takes the ELBO and the natural gradient from
 ``model.elbo_and_grads`` and applies it to the natural parameters as SGD
 with a per-step exponential decay (the JAX package's
-``optax.sgd(optax.exponential_decay(lr, 1, step_decay))``).  After the
-theta2 warm start a power iteration estimates the natural-gradient
-stability limit (``natgrad_safe_lr``).  The hyperparameters stay fixed:
-learning them, shuffling, checkpoints and resume are not ported yet.  A
-non-finite epoch raises.
+``optax.sgd(optax.exponential_decay(lr, 1, step_decay))``).  With
+``learn_kernel`` or ``learn_noise`` the same step also takes the gradient in
+the log-hyperparameters and applies Adam to them (``optax.adam(kernel_lr)``
+under the JAX package's ``optax.multi_transform``); the gradients of what
+is not learned are zeroed.  After the theta2 warm start a power iteration
+estimates the natural-gradient stability limit (``natgrad_safe_lr``).
+Shuffling, checkpoints and resume are not ported yet.  A non-finite epoch
+raises.
 
 Data is padded to a whole number of batches and masked, as in the JAX
 package, so every batch has the same shape.
@@ -24,19 +27,23 @@ import numpy as np
 import torch
 
 __all__ = ["FitConfig", "svigp_fit", "batch_predict", "make_optimizer",
-           "prepare_batches", "batch_step", "natgrad_stability_rho"]
+           "prepare_batches", "batch_step", "natgrad_stability_rho",
+           "HyperAdam", "zero_frozen"]
 
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
     """Training configuration: the fields of the JAX package's FitConfig that
-    the natgrad fit with fixed hyperparameters reads, with its defaults."""
+    the natgrad fit reads, with its defaults."""
 
     epochs: int = 50
     batch_size: int = 256
     lr: float = 1e-2
     schedule_lr: bool = True
     step_decay: float = 0.99
+    learn_kernel: bool = False
+    learn_noise: bool = False
+    kernel_lr: float = 1e-3
     maxiter_cg: int = 5
     integrated_obs: bool = False
     semi_integrated_estimator: str = "analytic"
@@ -70,24 +77,67 @@ def prepare_batches(x: torch.Tensor, y: torch.Tensor,
     return xb, yb, sb, w
 
 
-class ThetaSGD:
-    """SGD on the natural parameters with the learning rate
-    lr * step_decay ** step (constant without ``schedule_lr``)."""
+HYPERS = ("log_sig2", "log_ell", "log_noise2")
+
+
+class HyperAdam:
+    """Adam on the three log-hyperparameters, the update of ``optax.adam``
+    (bias-corrected moments, eps outside the square root, no eps_root)."""
+
+    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.count = 0
+        self.mu = self.nu = None
+
+    def step(self, state, grads):
+        g = [getattr(grads, k) for k in HYPERS]
+        if self.mu is None:
+            self.mu = [torch.zeros_like(a) for a in g]
+            self.nu = [torch.zeros_like(a) for a in g]
+        self.count += 1
+        self.mu = [(1 - self.b1) * a + self.b1 * m for a, m in zip(g, self.mu)]
+        self.nu = [(1 - self.b2) * a * a + self.b2 * n for a, n in zip(g, self.nu)]
+        c1, c2 = 1 - self.b1 ** self.count, 1 - self.b2 ** self.count
+        new = {k: getattr(state, k) - self.lr * ((m / c1) / (torch.sqrt(n / c2) + self.eps))
+               for k, m, n in zip(HYPERS, self.mu, self.nu)}
+        return state.replace(**new)
+
+
+class FitOptimizer:
+    """The JAX package's ``optax.multi_transform``: SGD on the natural
+    parameters with the learning rate lr * step_decay ** step (constant
+    without ``schedule_lr``) and, when a hyperparameter is learned,
+    :class:`HyperAdam` at ``kernel_lr`` on the log-hyperparameters (else
+    they stay put)."""
 
     def __init__(self, config: FitConfig):
         self.lr = config.lr
         self.decay = config.step_decay if config.schedule_lr else 1.0
         self.count = 0
+        learn = config.learn_kernel or config.learn_noise
+        self.hyper = HyperAdam(config.kernel_lr) if learn else None
 
     def step(self, state, grads):
         lr = self.lr * self.decay ** self.count
         self.count += 1
-        return state.replace(theta1=state.theta1 - lr * grads.theta1,
-                             theta2=state.theta2 - lr * grads.theta2)
+        state = state.replace(theta1=state.theta1 - lr * grads.theta1,
+                              theta2=state.theta2 - lr * grads.theta2)
+        return state if self.hyper is None else self.hyper.step(state, grads)
 
 
-def make_optimizer(config: FitConfig) -> ThetaSGD:
-    return ThetaSGD(config)
+def make_optimizer(config: FitConfig) -> FitOptimizer:
+    return FitOptimizer(config)
+
+
+def zero_frozen(config: FitConfig, grads):
+    """The hyperparameter gradients of what ``config`` does not learn, zeroed."""
+    z = torch.zeros_like
+    if not config.learn_kernel:
+        grads = grads.replace(log_sig2=z(grads.log_sig2), log_ell=z(grads.log_ell))
+    if not config.learn_noise:
+        grads = grads.replace(log_noise2=z(grads.log_noise2))
+    return grads
 
 
 def _gram_flags(config: FitConfig, generator=None) -> dict:
@@ -98,13 +148,15 @@ def _gram_flags(config: FitConfig, generator=None) -> dict:
                 generator=generator)
 
 
-def batch_step(model, config: FitConfig, opt: ThetaSGD, state, xb, yb, sb, wb,
+def batch_step(model, config: FitConfig, opt: FitOptimizer, state, xb, yb, sb, wb,
                generator=None):
-    """One natural-gradient step on one prepared batch: (state, elbo)."""
-    elbo, grads = model.elbo_and_grads(state, xb, yb, sb,
-                                       maxiter_cg=config.maxiter_cg, weights=wb,
-                                       **_gram_flags(config, generator))
-    return opt.step(state, grads), elbo
+    """One natural-gradient step (and Adam step on the learned
+    hyperparameters) on one prepared batch: (state, elbo)."""
+    elbo, grads = model.elbo_and_grads(
+        state, xb, yb, sb, maxiter_cg=config.maxiter_cg, weights=wb,
+        compute_hyper_grads=config.learn_kernel or config.learn_noise,
+        **_gram_flags(config, generator))
+    return opt.step(state, zero_frozen(config, grads)), elbo
 
 
 def _batch_kn_ivar(model, state, xl, sl, wl, config: FitConfig, spec=None,
@@ -173,15 +225,18 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
     0.5 lr_crit, 'clamp' lowers the lr to 0.5 lr_crit instead.
 
     ``max_steps`` ends the fit after that many batch steps in all (None:
-    run every epoch to its end).  Returns (state, report); the report holds
-    the per-batch ELBO trace, the per-epoch mean ELBOs and wall-clock
-    seconds, the number of steps run, the warm start's seconds, and
+    run every epoch to its end).  With ``config.learn_noise`` the per-point
+    noise is dropped and the model's noise is learned, as in the JAX
+    package.  Returns (state, report); the report holds the per-batch ELBO
+    trace, the per-epoch mean ELBOs and wall-clock seconds, the per-epoch
+    sig2 and ell (with ``learn_kernel``) and noise2 (with ``learn_noise``)
+    traces, the number of steps run, the warm start's seconds, and
     ``natgrad_rho``, ``natgrad_lr_crit`` and ``lr_used``."""
     dt_, dev = model.dtype, model.device
     as_t = lambda a: torch.as_tensor(a).to(dtype=dt_, device=dev)
+    noise = None if config.learn_noise else noise_std_train
     xb, yb, sb, w = prepare_batches(
-        as_t(xtrain), as_t(ytrain),
-        None if noise_std_train is None else as_t(noise_std_train),
+        as_t(xtrain), as_t(ytrain), None if noise is None else as_t(noise),
         config.batch_size,
     )
     # the Monte-Carlo estimator's draws (one generator for the whole fit)
@@ -217,6 +272,7 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
     opt = make_optimizer(config)
     nb = xb.shape[0]
     trace, epoch_elbos, epoch_times = [], [], []
+    sig2_trace, ell_trace, noise2_trace = [], [], []
     steps = 0
     for epoch in range(config.epochs):
         if max_steps is not None and steps >= max_steps:
@@ -242,6 +298,11 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
                 "the natural-gradient lr is likely above the stability limit "
                 "at this lengthscale and grid; lower config.lr or use "
                 "theta2_warmstart")
+        if config.learn_kernel:
+            sig2_trace.append(float(torch.exp(state.log_sig2)))
+            ell_trace.append(float(torch.exp(state.log_ell.reshape(-1)[0])))
+        if config.learn_noise:
+            noise2_trace.append(float(torch.exp(state.log_noise2)))
         if verbose:
             print(f"epoch {epoch:4d}: elbo {epoch_elbos[-1]:.4f} ({dt:.2f}s)",
                   flush=True)
@@ -249,6 +310,9 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
         "elbo_trace": trace,
         "epoch_elbos": epoch_elbos,
         "epoch_times": epoch_times,
+        "sig2_trace": sig2_trace,
+        "ell_trace": ell_trace,
+        "noise2_trace": noise2_trace,
         "steps": steps,
         "warmstart_s": warmstart_s,
         "natgrad_rho": rho,

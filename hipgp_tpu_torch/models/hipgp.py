@@ -6,11 +6,14 @@ model object is a plain container (kernel, grids, sizes, dtype, device); all
 learnable state lives in the
 :class:`HIPGPState` dataclass, and every method is a function of
 (state, data).  ``elbo_and_grads`` returns the natural gradient as a state-
-shaped dataclass.  Observations are points, or line integrals of the field
-(``integrated_obs``: the ray from the origin to each x, paper section 5.5)
-with the semi-integrated cross-covariances of `kernels/interdomain.py`.
-Hyperparameter gradients, the block and full-rank families, the cholesky
-whitening and the closed-form batch solve are not ported yet.
+shaped dataclass and, with ``compute_hyper_grads``, the gradient of the ELBO
+in the three log-hyperparameters, taken by autograd through the kernel, the
+spectrum and the whitening solve (`ops/solve.py`, implicit differentiation).
+Observations are points, or line integrals of the field (``integrated_obs``:
+the ray from the origin to each x, paper section 5.5) with the
+semi-integrated cross-covariances of `kernels/interdomain.py`.  The block and
+full-rank families, the cholesky whitening and the closed-form batch solve
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -53,8 +56,10 @@ class HIPGP:
     natural parameters (the JAX package's defaults) over the inducing grid
     ``xgrids`` (1-D tensors or arrays).  The other arguments are the JAX
     constructor's; ``support_integrated_obs`` builds the doubly-integrated
-    diagonal's table, which line-integral observations need.  Runs on
-    ``device`` (CUDA unless the caller asks for the CPU) in ``dtype``."""
+    diagonal's table, which line-integral observations need, and
+    ``learn_kernel``/``learn_noise`` are stored as the JAX model stores them
+    (the fit's `FitConfig` decides what is learned).  Runs on ``device``
+    (CUDA unless the caller asks for the CPU) in ``dtype``."""
 
     def __init__(
         self,
@@ -66,6 +71,8 @@ class HIPGP:
         ell_init: float = 0.05,
         noise2_init: float = 1.0,
         init_Svar: float = 0.1,
+        learn_kernel: bool = False,
+        learn_noise: bool = False,
         support_integrated_obs: bool = False,
         dtype: torch.dtype = torch.float32,
         device="cuda",
@@ -73,6 +80,8 @@ class HIPGP:
         self.kernel = kernel
         self.jitter = float(jitter)
         self.N = int(num_obs)
+        self.learn_kernel = learn_kernel
+        self.learn_noise = learn_noise
         self.dtype = dtype
         self.device = torch.device(device)
         self.sig2_init = float(sig2_init)
@@ -260,21 +269,38 @@ class HIPGP:
                        semi_integrated_estimator: str = "analytic",
                        semi_integrated_samps: int = 10,
                        generator: Optional[torch.Generator] = None,
-                       weights: Optional[torch.Tensor] = None):
-        """ELBO and natural gradients.
+                       weights: Optional[torch.Tensor] = None,
+                       compute_hyper_grads: bool = False):
+        """ELBO and natural gradients (and hyperparameter gradients).
 
         Returns (elbo, grads), ``grads`` a :class:`HIPGPState` in descent
         convention: the theta entries hold -deta, so that
-        ``theta - lr * grad = theta + lr * deta``; the hyperparameter entries
-        are zeros (hyperparameter gradients are not ported yet)."""
+        ``theta - lr * grad = theta + lr * deta``; with
+        ``compute_hyper_grads`` the hyperparameter entries hold
+        -d elbo / d log_sig2, log_ell, log_noise2 (theta1 and theta2 held
+        constant), else zeros."""
         y = y.reshape(-1)
-        Knm, Knn_diag = self.make_grams(state, x, integrated_obs,
-                                        semi_integrated_estimator,
-                                        semi_integrated_samps, generator)
-        kn = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg)
-        qm, qS = self.standard_params(state)
-        an = self.batch_an(state, y, noise_std, kn, Knn_diag, qm, qS)
-        elbo = self._mean_an(an, weights) - self.kl_to_prior(qm, qS) / self.N
+        hypers = (state.log_sig2, state.log_ell, state.log_noise2)
+        with torch.set_grad_enabled(compute_hyper_grads):
+            if compute_hyper_grads:
+                hypers = tuple(h.detach().requires_grad_() for h in hypers)
+            st = state.replace(theta1=state.theta1.detach(),
+                               theta2=state.theta2.detach(), log_sig2=hypers[0],
+                               log_ell=hypers[1], log_noise2=hypers[2])
+            Knm, Knn_diag = self.make_grams(st, x, integrated_obs,
+                                            semi_integrated_estimator,
+                                            semi_integrated_samps, generator)
+            kn = self.compute_kn(st, Knm, maxiter_cg=maxiter_cg)
+            qm, qS = self.standard_params(st)
+            an = self.batch_an(st, y, noise_std, kn, Knn_diag, qm, qS)
+            elbo = self._mean_an(an, weights) - self.kl_to_prior(qm, qS) / self.N
+        if compute_hyper_grads:
+            hgrads = torch.autograd.grad(elbo, hypers, allow_unused=True)
+            g_sig2, g_ell, g_noise2 = (torch.zeros_like(h) if g is None else -g
+                                       for g, h in zip(hgrads, hypers))
+            elbo, kn = elbo.detach(), kn.detach()
+        else:
+            g_sig2, g_ell, g_noise2 = (torch.zeros_like(h) for h in hypers)
 
         ivar, _ = self._ivar_and_lognoise(state, noise_std, y.shape[0])
         if weights is not None:
@@ -286,9 +312,9 @@ class HIPGP:
         grads = HIPGPState(
             theta1=-deta1,
             theta2=-deta2,
-            log_sig2=torch.zeros_like(state.log_sig2),
-            log_ell=torch.zeros_like(state.log_ell),
-            log_noise2=torch.zeros_like(state.log_noise2),
+            log_sig2=g_sig2,
+            log_ell=g_ell,
+            log_noise2=g_noise2,
         )
         return elbo, grads
 

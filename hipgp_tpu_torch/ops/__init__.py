@@ -1,7 +1,8 @@
 """Structured linear algebra: the BTTB/circulant operator, batched PCG, the
 whitening solve, kernel A (the cropped 2-D sandwich), the radix kernels
-B-2 to B-4 (the packed 1-D circulant apply) and the 3-D sandwich kernels B-5
-(weight planes) and B-6 (whole sample)."""
+B-2 to B-4 (the packed 1-D circulant apply) and B-7 (its two-diagonal
+middle), the 3-D sandwich kernels B-5 (weight planes) and B-6 (whole
+sample), and B-8 (the full-plane 2-D sandwich)."""
 from .bttb import (
     BTTBSpectrum,
     circulant_embed,
@@ -18,7 +19,9 @@ from .bttb import (
 from .cg import PCGResult, pcg, pcg_result, pcg_scan
 from .mxu2d import sandwich_apply, sandwich_apply_selfdot, sandwich_apply_wp
 from .mxu3d import sandwich_apply_3d, sandwich_apply_3d_selfdot
+from .pallas_transform import circulant_apply_2d
 from .radix_fft import (fused_circulant_apply, fused_circulant_apply_cropped,
+                        fused_circulant_apply_cropped_dual,
                         fused_circulant_apply_cropped_selfdot)
 from .solve import cholesky_whiten, gram_solve, inv_matmul, whiten
 
@@ -43,8 +46,10 @@ __all__ = [
     "sandwich_apply_wp",
     "sandwich_apply_3d",
     "sandwich_apply_3d_selfdot",
+    "circulant_apply_2d",
     "fused_circulant_apply",
     "fused_circulant_apply_cropped",
+    "fused_circulant_apply_cropped_dual",
     "fused_circulant_apply_cropped_selfdot",
     "cholesky_whiten",
     "gram_solve",

@@ -10,14 +10,20 @@ The embedding lengths (`expanded_dims`, `next_fast_len`, `embedded_dims`)
 are copied verbatim from the JAX package: they fix M' and the whitened
 layout, so a state carried between the two packages means the same thing.
 The matvecs run the real-Fourier-basis matmul chain whenever every embedded
-axis is <= MATMUL_DFT_MAX_LEN (the same operator as the JAX package's); on a
-1-D grid whose embedding length the radix plan supports, for a float32
-tensor on a CUDA device, the packed radix apply (`ops/radix_fft.py`, kernels
-B-2 to B-4); and torch.fft otherwise.  All matvecs act on the last axis;
-leading batch dimensions are kept.
+axis is <= MATMUL_DFT_MAX_LEN (the same operator as the JAX package's; on a
+2-D grid, for a float32 tensor on a CUDA device and with
+USE_PALLAS_TRANSFORM set, the full-plane sandwich kernel B-8 of
+`ops/pallas_transform.py`); on a 1-D grid whose embedding length the radix
+plan supports, for a float32 tensor on a CUDA device, the packed radix apply
+(`ops/radix_fft.py`, kernels B-2 to B-4); and torch.fft otherwise.  All
+matvecs act on the last axis; leading batch dimensions are kept.  They are
+differentiable in the vector and the spectrum (so, through `make_spectrum`,
+in the kernel's hyperparameters), except on the 1-D radix branch, whose
+kernels have no backward yet: there a required gradient raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -45,6 +51,16 @@ DEFAULT_EIG_FLOOR = 1e-6
 # Embedded axes up to this length use the real-basis matmul transform (and
 # the 2-D sandwich kernel); longer ones use the FFT.
 MATMUL_DFT_MAX_LEN = 512
+# The 2-D matmul chain through the full-plane sandwich kernel B-8
+# (`ops/pallas_transform.py`) for float32 CUDA tensors.  Off, as in the JAX
+# package, by measurement: at (256, 250, 250) on an H100 80GB HBM3 (700 W)
+# B-8 takes 1.29-1.31 ms against the einsum chain's 0.88-0.90 ms, in turns
+# by chip_smoke.py [kernels] (PERF.md section 6).
+USE_PALLAS_TRANSFORM = False
+# The fused 2-D sandwich PCG and R^T through kernel A (`solve._mxu2d_solver`,
+# `solve._rt_mxu2d`); off, the 2-D float32 CUDA solve is the generic `pcg`
+# over `matmul_by_K` (through B-8 when USE_PALLAS_TRANSFORM is set).
+USE_MXU2D_PCG = True
 
 
 def expanded_dims(dims: Sequence[int]) -> Tuple[int, ...]:
@@ -157,6 +173,33 @@ class BTTBSpectrum:
     @property
     def ndim(self) -> int:
         return len(self.dims)
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Full-FP32 matrix products for the duration (TF32 off): TF32 keeps
+    about three decimal digits, which these DFT-like sums cannot spare."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd would record an op on any of ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def no_backward(where: str):
+    """The error for a gradient through a kernel whose backward is not
+    ported yet: a silent zero or partial gradient would be wrong."""
+    return NotImplementedError(
+        f"gradients through {where} are not ported yet (ROADMAP section A item 1: "
+        "the radix VJP and kernel B-5's VJP); run the plain path (CPU or float64) "
+        "to differentiate here")
 
 
 def _grid_points(xgrids: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -306,11 +349,26 @@ def _pad_to(x: torch.Tensor, dims, edims) -> torch.Tensor:
     return torch.nn.functional.pad(x, pad)
 
 
+def _pallas_transform_ok(spec: BTTBSpectrum, v: torch.Tensor) -> bool:
+    """The gate of kernel B-8 (the JAX package's `_apply_spectrum_matmul`
+    gate, its backend test replaced by a device test): USE_PALLAS_TRANSFORM,
+    a 2-D grid, a float32 tensor on a CUDA device, and every embedded axis
+    <= PALLAS_MAX_LEN."""
+    if not USE_PALLAS_TRANSFORM or len(spec.dims) != 2:
+        return False
+    if v.device.type != "cuda" or v.dtype != torch.float32:
+        return False
+    from .pallas_transform import PALLAS_MAX_LEN
+
+    return max(spec.edims) <= PALLAS_MAX_LEN
+
+
 def _apply_spectrum_matmul(spec: BTTBSpectrum, v: torch.Tensor,
                            weights_full: torch.Tensor, in_expanded: bool,
                            out_expanded: bool) -> torch.Tensor:
     """The einsum chain: analysis per axis (minor axis first), scale by the
-    full spectrum, synthesis per axis."""
+    full spectrum, synthesis per axis; through kernel B-8 where
+    `_pallas_transform_ok` says so.  Full FP32 (TF32 off)."""
     dims, edims = spec.dims, spec.edims
     nd = len(dims)
     batch = v.shape[:-1]
@@ -318,11 +376,20 @@ def _apply_spectrum_matmul(spec: BTTBSpectrum, v: torch.Tensor,
         x = v.reshape(batch + edims)
     else:
         x = _pad_to(v.reshape(batch + dims), dims, edims)
-    for a in range(-1, -nd - 1, -1):
-        x = _axis_contract(x, _real_fourier_basis(edims[a], v.dtype, v.device), a)
-    x = x * weights_full
-    for a in range(-nd, 0):
-        x = _axis_contract(x, _real_fourier_basis(edims[a], v.dtype, v.device).T, a)
+    if _pallas_transform_ok(spec, v):
+        from .pallas_transform import circulant_apply_2d
+
+        Q0 = _real_fourier_basis(edims[0], v.dtype, v.device)
+        Q1 = _real_fourier_basis(edims[1], v.dtype, v.device)
+        x = circulant_apply_2d(x.reshape((-1,) + edims).contiguous(), Q0, Q1,
+                               weights_full.contiguous()).reshape(batch + edims)
+    else:
+        with fp32_matmul():
+            for a in range(-1, -nd - 1, -1):
+                x = _axis_contract(x, _real_fourier_basis(edims[a], v.dtype, v.device), a)
+            x = x * weights_full
+            for a in range(-nd, 0):
+                x = _axis_contract(x, _real_fourier_basis(edims[a], v.dtype, v.device).T, a)
     if out_expanded:
         return x.reshape(batch + (spec.Mprime,))
     crop = (Ellipsis,) + tuple(slice(0, d) for d in dims)
@@ -388,6 +455,8 @@ def _apply_spectrum(spec: BTTBSpectrum, v: torch.Tensor, weights: torch.Tensor,
         wfull = _full_weights(weights, spec.edims[-1])
         return _apply_spectrum_matmul(spec, v, wfull, in_expanded, out_expanded)
     if _radix_apply_ok(spec, v):
+        if needs_grad(v, weights):
+            raise no_backward("the 1-D radix apply (kernels B-2 to B-4)")
         return _apply_spectrum_radix(spec, v, weights, in_expanded, out_expanded)
     return _apply_spectrum_fft(spec, v, weights, in_expanded, out_expanded)
 

@@ -25,6 +25,14 @@ Two implementations of each function live here:
   for a tensor on the CPU.
 
 Each wrapper counts its kernel launches in :data:`LAUNCHES`.
+
+:func:`sandwich_apply` is differentiable in x and w (a
+``torch.autograd.Function``, the JAX package's `_get_sandwich` custom VJP):
+the operator is linear in x and its pullback is the same sandwich with the
+two crops swapped (P_i and P_o exchange; diag(w) and Q are symmetric), so gx
+is kernel A again on a CUDA tensor; gw = sum_b analysis(x_b) * analysis(g_b)
+is plain PyTorch, as in JAX.  The self-dot and weight-plane variants are
+solver-internal and not differentiable, as in JAX.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .bttb import _real_fourier_basis
+from .bttb import _real_fourier_basis, fp32_matmul, needs_grad, no_backward
 
 __all__ = ["sandwich_apply", "sandwich_apply_selfdot", "sandwich_plain",
            "sandwich_apply_wp", "sandwich_wp_plain", "LAUNCHES",
@@ -78,10 +86,11 @@ def sandwich_plain(x, w, q0a, q1a, q0s, q1s, selfdot: bool = False):
     """The plain PyTorch sandwich on (B, i0, i1) planes: minor-axis analysis,
     leading-axis analysis, scale, leading-axis synthesis, minor-axis
     synthesis.  Returns y (B, o0, o1), and (y, dots) with ``selfdot``."""
-    u = torch.matmul(x, q1a)          # (B, i0, L1)
-    a = torch.matmul(q0a, u) * w      # (B, L0, L1)
-    c = torch.matmul(q0s, a)          # (B, o0, L1)
-    y = torch.matmul(c, q1s)          # (B, o0, o1)
+    with fp32_matmul():
+        u = torch.matmul(x, q1a)          # (B, i0, L1)
+        a = torch.matmul(q0a, u) * w      # (B, L0, L1)
+        c = torch.matmul(q0s, a)          # (B, o0, L1)
+        y = torch.matmul(c, q1s)          # (B, o0, o1)
     if selfdot:
         return y, torch.sum(x * y, dim=(1, 2))
     return y
@@ -92,10 +101,11 @@ def sandwich_wp_plain(x, w, q0a, q1a, q0s, q1s, selfdot: bool = False):
     plane l with spectrum w[l] of the (W, L0, L1) stack.  Returns
     y (B, W, o0, o1), and (y, dots) with ``selfdot``: each plane's dot, then
     their sum over the planes in order."""
-    u = torch.matmul(x, q1a)          # (B, W, i0, L1)
-    a = torch.matmul(q0a, u) * w      # (B, W, L0, L1)
-    c = torch.matmul(q0s, a)          # (B, W, o0, L1)
-    y = torch.matmul(c, q1s)          # (B, W, o0, o1)
+    with fp32_matmul():
+        u = torch.matmul(x, q1a)          # (B, W, i0, L1)
+        a = torch.matmul(q0a, u) * w      # (B, W, L0, L1)
+        c = torch.matmul(q0s, a)          # (B, W, o0, L1)
+        y = torch.matmul(c, q1s)          # (B, W, o0, o1)
     if selfdot:
         return y, torch.sum(torch.sum(x * y, dim=(2, 3)), dim=1)
     return y
@@ -126,7 +136,8 @@ def _launch(x, w, tables, selfdot: bool):
     """Kernel A on (B, i0, i1) planes with w (L0, L1), or kernel B-5 on a
     (B, W, i0, i1) stack with w (W, L0, L1), on CUDA tensors: checks,
     allocates every output and scratch buffer with torch.empty, launches on
-    the current stream, raises on a non-zero cudaError_t."""
+    the current stream, raises on a non-zero cudaError_t.  The caller counts
+    the launch (kernel B-8 is this launch with full-plane tables)."""
     q0a, q1a, q0s, q1s, (i0, i1), (o0, o1) = tables
     L0, L1 = w.shape[-2:]
     wp = x.ndim == 4
@@ -171,8 +182,6 @@ def _launch(x, w, tables, selfdot: bool):
             err = lib.mxu2d_sandwich(*ptrs, B, i0, i1, L0, L1, o0, o1, stream)
     if err != 0:
         raise RuntimeError(f"mxu2d sandwich kernel failed: cudaError_t {err}")
-    name = "sandwich_apply_wp" if wp else "sandwich_apply"
-    LAUNCHES[name + "_selfdot" if selfdot else name] += 1
     return (y, dots) if selfdot else y
 
 
@@ -185,6 +194,45 @@ def _check_shapes(x, w, tables):
         raise ValueError(f"w must be the full (L0, L1) spectrum, got {tuple(w.shape)}")
 
 
+def _analysis(x: torch.Tensor, dims, edims, expanded: bool) -> torch.Tensor:
+    """Q0^T P^T x Q1 per sample, (B, i0, i1) -> (B, L0, L1), with the crop
+    ``expanded`` selects (the JAX package's `_analysis_einsum`)."""
+    q0a, q1a = _tables(dims, edims, expanded, expanded, x.dtype, x.device)[:2]
+    with fp32_matmul():
+        return torch.matmul(q0a, torch.matmul(x, q1a))
+
+
+class _Sandwich(torch.autograd.Function):
+    """Kernel A (or its plain version on the CPU) with the backward of the
+    JAX package's `_get_sandwich`: gx is the sandwich with the crops
+    swapped, gw = sum_b analysis(x_b) * analysis(g_b)."""
+
+    @staticmethod
+    def forward(ctx, x, w, dims, edims, in_expanded, out_expanded):
+        tables = _tables(dims, edims, in_expanded, out_expanded, x.dtype, x.device)
+        ctx.save_for_backward(x, w)
+        ctx.crops = (dims, edims, in_expanded, out_expanded)
+        if x.device.type == "cpu":
+            return sandwich_plain(x, w, *tables[:4])
+        y = _launch(x, w, tables, selfdot=False)
+        LAUNCHES["sandwich_apply"] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dims, edims, in_expanded, out_expanded = ctx.crops
+        g = g.contiguous()
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = sandwich_apply(g, w, dims, edims, in_expanded=out_expanded,
+                                out_expanded=in_expanded)
+        if ctx.needs_input_grad[1]:
+            gw = torch.sum(_analysis(x, dims, edims, in_expanded)
+                           * _analysis(g, dims, edims, out_expanded), dim=0)
+        return gx, gw, None, None, None, None
+
+
 def sandwich_apply(x: torch.Tensor, w: torch.Tensor, dims: Tuple[int, int],
                    edims: Tuple[int, int], *, in_expanded: bool = False,
                    out_expanded: bool = False) -> torch.Tensor:
@@ -193,13 +241,13 @@ def sandwich_apply(x: torch.Tensor, w: torch.Tensor, dims: Tuple[int, int],
     x: (B, i0, i1) with (i0, i1) = ``edims`` when ``in_expanded`` else
     ``dims``; w: (L0, L1) full spectrum (`bttb._full_weights` layout).
     Returns (B, o0, o1).  Kernel A on a CUDA tensor, the plain version on
-    a CPU tensor."""
-    tables = _tables(dims, edims, bool(in_expanded), bool(out_expanded),
-                     x.dtype, x.device)
-    _check_shapes(x, w, tables)
-    if x.device.type == "cpu":
-        return sandwich_plain(x, w, *tables[:4])
-    return _launch(x, w, tables, selfdot=False)
+    a CPU tensor; differentiable in x and w (the backward's gx is kernel A
+    with the crops swapped)."""
+    dims, edims = tuple(dims), tuple(edims)
+    in_expanded, out_expanded = bool(in_expanded), bool(out_expanded)
+    _check_shapes(x, w, _tables(dims, edims, in_expanded, out_expanded,
+                                x.dtype, x.device))
+    return _Sandwich.apply(x, w, dims, edims, in_expanded, out_expanded)
 
 
 def sandwich_apply_selfdot(x: torch.Tensor, w: torch.Tensor,
@@ -210,7 +258,11 @@ def sandwich_apply_selfdot(x: torch.Tensor, w: torch.Tensor,
     _check_shapes(x, w, tables)
     if x.device.type == "cpu":
         return sandwich_plain(x, w, *tables[:4], selfdot=True)
-    return _launch(x, w, tables, selfdot=True)
+    if needs_grad(x, w):
+        raise no_backward("the self-dot sandwich (solver-internal)")
+    out = _launch(x, w, tables, selfdot=True)
+    LAUNCHES["sandwich_apply_selfdot"] += 1
+    return out
 
 
 def sandwich_apply_wp(x: torch.Tensor, w: torch.Tensor, dims: Tuple[int, int],
@@ -235,4 +287,8 @@ def sandwich_apply_wp(x: torch.Tensor, w: torch.Tensor, dims: Tuple[int, int],
         raise ValueError("the self-dot needs equal input and output crops")
     if x.device.type == "cpu":
         return sandwich_wp_plain(x, w, *tables[:4], selfdot=selfdot)
-    return _launch(x, w, tables, selfdot=selfdot)
+    if needs_grad(x, w):
+        raise no_backward("kernel B-5")
+    out = _launch(x, w, tables, selfdot=selfdot)
+    LAUNCHES["sandwich_apply_wp_selfdot" if selfdot else "sandwich_apply_wp"] += 1
+    return out

@@ -25,13 +25,12 @@ outer axis (:func:`best_perm`), once per solve, never per apply
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Dict, Sequence, Tuple
 
 import torch
 
-from .bttb import _real_fourier_basis
+from .bttb import _real_fourier_basis, fp32_matmul, needs_grad, no_backward
 from .mxu2d import _SMEM_LIMIT, _tables, sandwich_apply_wp, sandwich_wp_plain
 
 __all__ = ["sandwich_apply_3d", "sandwich_apply_3d_selfdot", "sandwich_apply_wp3",
@@ -66,23 +65,11 @@ def best_perm(edims: Sequence[int]) -> Tuple[int, ...]:
     return tuple(sorted(range(len(edims)), key=lambda a: edims[a]))
 
 
-@contextlib.contextmanager
-def _fp32_matmul():
-    """Full-FP32 matrix products for the duration (TF32 off): TF32 drops
-    mantissa bits on these DFT-like sums."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def _outer_contract(x: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     """Contract axis 1 of (B, a, j, k) with Q[a, out], the axis kept in
     place: one batched product (out, a) . (a, j*k) per sample."""
     B, a = x.shape[:2]
-    with _fp32_matmul():
+    with fp32_matmul():
         y = torch.matmul(Q.T, x.reshape(B, a, -1))
     return y.reshape((B, Q.shape[1]) + tuple(x.shape[2:]))
 
@@ -214,6 +201,8 @@ def sandwich_apply_wp3(x: torch.Tensor, w: torch.Tensor, dims, edims,
                          f"{tuple(w.shape)}")
     if x.device.type == "cpu":
         return sandwich_wp3_plain(x, w, dims, edims, selfdot=selfdot)
+    if needs_grad(x, w):
+        raise no_backward("kernel B-6")
     return _launch_wp3(x, w, tuple(dims), tuple(edims), selfdot)
 
 

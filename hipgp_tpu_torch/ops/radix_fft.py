@@ -23,14 +23,15 @@ the weights line up with it element for element.
 Two implementations of each stage live here:
 
 * the hand-written CUDA kernels of ``csrc/radix.cu`` (B-2 ``stage1``, B-3
-  ``stage1_inv_dot``, B-4 ``middle``), launched for float32 tensors on a
-  CUDA device (anything else raises);
+  ``stage1_inv_dot``, B-4 ``middle``, B-7 ``middle_dual``), launched for
+  float32 tensors on a CUDA device (anything else raises);
 * their plain PyTorch versions (`stage1_plain`, `stage1_inv_dot_plain`,
-  `middle_plain`): dense DFT tables and complex matmuls, taken only for a
-  tensor on the CPU.
+  `middle_plain`, `middle_dual_plain`): dense DFT tables and complex
+  matmuls, taken only for a tensor on the CPU.
 
 Each wrapper counts its kernel launches in :data:`LAUNCHES`.  The
-gradients of the applies (the JAX package's custom VJP) are not ported yet.
+gradients of the applies (the JAX package's custom VJP) are not ported yet;
+`bttb` and `solve` raise where one would be needed.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ import torch
 
 __all__ = ["RadixPlan", "make_plan", "permute_weights", "fused_circulant_apply",
            "fused_circulant_apply_cropped", "fused_circulant_apply_cropped_selfdot",
+           "fused_circulant_apply_cropped_dual", "middle_dual", "middle_dual_plain",
            "radix_supported", "row_multiple", "stage_order_weights",
            "stage1", "stage1_inv_dot", "middle", "stage1_plain",
            "stage1_inv_dot_plain", "middle_plain", "pack_rows", "unpack_rows",
@@ -50,7 +52,8 @@ __all__ = ["RadixPlan", "make_plan", "permute_weights", "fused_circulant_apply",
 
 _LANE = 128
 # launches of the radix kernels, per wrapper; a plain-version call counts nothing
-LAUNCHES: Dict[str, int] = {"stage1": 0, "stage1_inv_dot": 0, "middle": 0}
+LAUNCHES: Dict[str, int] = {"stage1": 0, "stage1_inv_dot": 0, "middle": 0,
+                            "middle_dual": 0}
 _LIB = None
 
 
@@ -185,15 +188,30 @@ def _middle_forward(y, t1, t2, wb, wc):
     return torch.matmul(torch.matmul(wb, y * t1) * t2, wc)
 
 
+def _middle_inverse(y, t1, t2, wb, wc):
+    """The conjugate chain back: the inverse C-point DFT, conj T2, the
+    inverse B-point DFT, conj T1; as real and imaginary parts."""
+    y = torch.matmul(y, wc.conj()) * t2.conj()
+    y = torch.matmul(wb.conj(), y) * t1.conj()
+    return y.real.contiguous(), y.imag.contiguous()
+
+
 def middle_plain(yr, yi, d_perm, plan: RadixPlan):
     """(V, A, B, C) planes -> same shape: per (B, C) plane, T1, the B-point
     DFT over b, T2, the C-point DFT over c, x d (stage order, 1/L folded
     in), then the conjugate chain back."""
-    t1, t2, wb, wc = _middle_tables(plan.L, yr.dtype, yr.device)
-    y = _middle_forward(torch.complex(yr, yi), t1, t2, wb, wc) * d_perm
-    y = torch.matmul(y, wc.conj()) * t2.conj()
-    y = torch.matmul(wb.conj(), y) * t1.conj()
-    return y.real.contiguous(), y.imag.contiguous()
+    tables = _middle_tables(plan.L, yr.dtype, yr.device)
+    y = _middle_forward(torch.complex(yr, yi), *tables)
+    return _middle_inverse(y * d_perm, *tables)
+
+
+def middle_dual_plain(yr, yi, dA, dB, plan: RadixPlan):
+    """`middle_plain` with two diagonals on one forward half: returns
+    (zAr, zAi, zBr, zBi), the chain back from the forward spectrum times dA
+    and times dB."""
+    tables = _middle_tables(plan.L, yr.dtype, yr.device)
+    y = _middle_forward(torch.complex(yr, yi), *tables)
+    return _middle_inverse(y * dA, *tables) + _middle_inverse(y * dB, *tables)
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +231,8 @@ def _lib():
         lib.radix_stage1_dot.restype = ctypes.c_int
         lib.radix_middle.argtypes = [p] * 5 + [i] * 4 + [p]
         lib.radix_middle.restype = ctypes.c_int
+        lib.radix_middle_dual.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.radix_middle_dual.restype = ctypes.c_int
         lib.radix_dot_partials.argtypes = [i, i, i]
         lib.radix_dot_partials.restype = ctypes.c_size_t
         _LIB = lib
@@ -333,6 +353,31 @@ def middle(yr: torch.Tensor, yi: torch.Tensor, d_perm: torch.Tensor,
     return zr, zi
 
 
+def middle_dual(yr: torch.Tensor, yi: torch.Tensor, dA: torch.Tensor,
+                dB: torch.Tensor, plan: RadixPlan):
+    """The middle stages with two diagonals on one forward half (see
+    `middle_dual_plain`): returns (zAr, zAi, zBr, zBi).  Kernel B-7 on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    V = yr.shape[0]
+    shape = (V, plan.A, plan.B, plan.C)
+    if (tuple(yr.shape) != shape or yi.shape != yr.shape
+            or tuple(dA.shape) != shape[1:] or dB.shape != dA.shape):
+        raise ValueError(f"middle_dual takes {shape} planes and two {shape[1:]} "
+                         f"diagonals, got {tuple(yr.shape)}, {tuple(dA.shape)} and "
+                         f"{tuple(dB.shape)}")
+    if yr.device.type == "cpu":
+        return middle_dual_plain(yr, yi, dA, dB, plan)
+    _check("middle_dual", yr, yr, yi, dA, dB)
+    out = [torch.empty_like(yr) for _ in range(4)]
+    with torch.cuda.device(yr.device):
+        err = _lib().radix_middle_dual(yr.data_ptr(), yi.data_ptr(), dA.data_ptr(),
+                                       dB.data_ptr(), *(z.data_ptr() for z in out),
+                                       V, plan.A, plan.B, plan.C, _stream(yr.device))
+    _raise_on(err, "middle_dual")
+    LAUNCHES["middle_dual"] += 1
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # The applies
 # ---------------------------------------------------------------------------
@@ -397,6 +442,27 @@ def fused_circulant_apply_cropped_selfdot(xr, xi, d_perm, plan: RadixPlan,
     yr, yi, dr, di = stage1_inv_dot(zr, zi, xr.reshape(V, out_rows, N),
                                     xi.reshape(V, out_rows, N), plan, out_rows)
     return yr.view(V, out_rows * N), yi.view(V, out_rows * N), dr, di
+
+
+def fused_circulant_apply_cropped_dual(xr, xi, dA, dB, plan: RadixPlan,
+                                       in_rows: int, out_rows: int):
+    """Cropped-IO circulant apply with two diagonals sharing one forward
+    transform: returns (C_dA x, C_dB x) as ((yAr, yAi), (yBr, yBi)), each
+    cropped as in `fused_circulant_apply_cropped`.  One stage-1 forward, one
+    dual middle (kernel B-7), two stage-1 inverses.  No solver uses it (the
+    PCG's two applies act on different vectors) and it is not
+    differentiable, as in the JAX package."""
+    V = xr.shape[0]
+    A, B, C = plan.A, plan.B, plan.C
+    N = B * C
+    yr, yi = stage1(xr.reshape(V, in_rows, N), xi.reshape(V, in_rows, N), plan, A,
+                    inverse=False)
+    z = middle_dual(yr.view(V, A, B, C), yi.view(V, A, B, C), dA, dB, plan)
+    outs = []
+    for zr, zi in (z[:2], z[2:]):
+        ur, ui = stage1(zr.view(V, A, N), zi.view(V, A, N), plan, out_rows, inverse=True)
+        outs.append((ur.view(V, out_rows * N), ui.view(V, out_rows * N)))
+    return tuple(outs)
 
 
 def _forward_stages(xr, xi, plan: RadixPlan, in_rows: Optional[int] = None):

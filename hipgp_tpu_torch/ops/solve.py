@@ -21,18 +21,32 @@ device test:
   `matmul_by_RT`.
 
 The fused paths take the CG inner products from the applies' self-dots.
+The 2-D kernel path is taken only while `bttb.USE_MXU2D_PCG` is set; off,
+the 2-D float32 CUDA solve is the generic path (whose applies go through
+kernel B-8 when `bttb.USE_PALLAS_TRANSFORM` is set), as in JAX.
 
-Gradients through the solve are not ported yet: ``inv_matmul`` is a forward
-solve only.
+``inv_matmul`` is differentiable in the right-hand side and the spectrum,
+by implicit differentiation as `lax.custom_linear_solve(..., symmetric=True)`
+does it: the forward runs the dispatched solver with no graph through its
+iterations; the backward solves again, lambda = K^{-1} g with the same
+solver, returns lambda for the right-hand side, and takes the spectrum's
+cotangent as the VJP of `matmul_by_K(spec, x)` at -lambda with the solution
+x held fixed.  ``whiten``'s R^T is differentiable on the plain path
+(autograd) and on the 2-D kernel path (kernel A's backward).  The 1-D
+planes path and the 3-D kernel path have no backward yet (the radix VJP and
+kernel B-5's VJP, ROADMAP section A item 1): there a required gradient
+raises NotImplementedError.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
 
-from .bttb import (BTTBSpectrum, _full_weights, matmul_by_Cinv, matmul_by_K,
-                   matmul_by_RT)
+from . import bttb
+from .bttb import (BTTBSpectrum, _full_weights, fp32_matmul, matmul_by_Cinv,
+                   matmul_by_K, matmul_by_RT, needs_grad, no_backward)
 from .cg import _beta, _guarded_steps, pcg, pcg_scan
 from .mxu2d import MXU2D_MAX_LEN, sandwich_apply, sandwich_apply_selfdot
 from .mxu3d import best_perm, sandwich_apply_3d, sandwich_apply_3d_selfdot
@@ -78,9 +92,10 @@ def _planes_weights(spec: BTTBSpectrum, plan) -> torch.Tensor:
 
 def _mxu2d_solver_ok(spec: BTTBSpectrum, dtype: torch.dtype,
                      device: torch.device) -> bool:
-    """True when the fused 2-D sandwich PCG path applies: a 2-D grid whose
-    embedded axes are all <= MXU2D_MAX_LEN, float32, on a CUDA device."""
-    if len(spec.dims) != 2 or dtype != torch.float32:
+    """True when the fused 2-D sandwich PCG path applies: USE_MXU2D_PCG, a
+    2-D grid whose embedded axes are all <= MXU2D_MAX_LEN, float32, on a
+    CUDA device."""
+    if len(spec.dims) != 2 or dtype != torch.float32 or not bttb.USE_MXU2D_PCG:
         return False
     if torch.device(device).type != "cuda":
         return False
@@ -274,12 +289,9 @@ def _rt_planes(spec: BTTBSpectrum, d: torch.Tensor) -> torch.Tensor:
     return unpack_rows(yr, yi, nb).reshape(d.shape[:-1] + (spec.Mprime,))
 
 
-def inv_matmul(spec: BTTBSpectrum, rhs: torch.Tensor, *, maxiter: int = 20,
-               tol: float = 1e-8, do_precond: bool = True,
-               fixed_iters: bool = False) -> torch.Tensor:
-    """K^{-1} @ rhs with rhs of shape (..., M), by PCG with the circulant
-    preconditioner (plain CG with ``do_precond=False``).  Forward only:
-    gradients through the solve are not ported yet."""
+def _solve(spec: BTTBSpectrum, rhs: torch.Tensor, maxiter: int, tol: float,
+           do_precond: bool, fixed_iters: bool) -> torch.Tensor:
+    """K^{-1} @ rhs through the dispatched solver, with no graph."""
     if do_precond and _planes_solver_ok(spec, rhs.dtype, rhs.device):
         return _planes_solver(spec, rhs, maxiter, tol, fixed_iters)
     if do_precond and _mxu2d_solver_ok(spec, rhs.dtype, rhs.device):
@@ -293,17 +305,71 @@ def inv_matmul(spec: BTTBSpectrum, rhs: torch.Tensor, *, maxiter: int = 20,
     return pcg(matvec, rhs, precond=precond, maxiter=maxiter, tol=tol)
 
 
+def _detached(spec: BTTBSpectrum, eigs: torch.Tensor) -> BTTBSpectrum:
+    """``spec`` with ``eigs`` and no tensor that carries a graph."""
+    det = lambda t: None if t is None else t.detach()
+    return dataclasses.replace(spec, column=det(spec.column), eigs=eigs,
+                               ecolumn=det(spec.ecolumn))
+
+
+class _InvMatmul(torch.autograd.Function):
+    """K^{-1} rhs with the implicit gradient of a symmetric linear solve."""
+
+    @staticmethod
+    def forward(ctx, rhs, eigs, spec, opts):
+        x = _solve(spec, rhs, *opts)
+        ctx.spec, ctx.opts = spec, opts
+        ctx.save_for_backward(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lam = _solve(ctx.spec, g.contiguous(), *ctx.opts)
+        g_eigs = None
+        if ctx.needs_input_grad[1]:
+            eigs = ctx.spec.eigs.detach().requires_grad_()
+            with torch.enable_grad(), fp32_matmul():
+                y = matmul_by_K(_detached(ctx.spec, eigs), x.detach())
+                # the VJP at -lam as the gradient of a scalar: passing -lam as
+                # grad_outputs would make autograd import sympy on first use
+                # (~5 s in a fresh process)
+                (g_eigs,) = torch.autograd.grad(-torch.sum(y * lam), eigs)
+        return (lam if ctx.needs_input_grad[0] else None), g_eigs, None, None
+
+
+def inv_matmul(spec: BTTBSpectrum, rhs: torch.Tensor, *, maxiter: int = 20,
+               tol: float = 1e-8, do_precond: bool = True,
+               fixed_iters: bool = False) -> torch.Tensor:
+    """K^{-1} @ rhs with rhs of shape (..., M), by PCG with the circulant
+    preconditioner (plain CG with ``do_precond=False``); differentiable in
+    rhs and ``spec.eigs`` (implicitly, see the module docstring)."""
+    if needs_grad(rhs, spec.eigs, spec.ecolumn) and do_precond:
+        if _planes_solver_ok(spec, rhs.dtype, rhs.device):
+            raise no_backward("the 1-D planes solve (kernels B-2 to B-4)")
+        if _mxu3d_solver_ok(spec, rhs.dtype, rhs.device):
+            raise no_backward("the 3-D kernel-path solve (kernel B-5)")
+    opts = (maxiter, tol, do_precond, fixed_iters)
+    return _InvMatmul.apply(rhs, spec.eigs, _detached(spec, spec.eigs.detach()), opts)
+
+
 def whiten(spec: BTTBSpectrum, Knm: torch.Tensor, *, maxiter: int = 20,
            tol: float = 1e-8, do_precond: bool = True,
            fixed_iters: bool = False) -> torch.Tensor:
-    """kn = R^T K^{-1} Knm: (..., M) -> (..., M') whitened cross-covariances."""
+    """kn = R^T K^{-1} Knm: (..., M) -> (..., M') whitened cross-covariances;
+    differentiable in Knm and ``spec.eigs`` (not on the 1-D planes and 3-D
+    kernel paths)."""
     d = inv_matmul(spec, Knm, maxiter=maxiter, tol=tol, do_precond=do_precond,
                    fixed_iters=fixed_iters)
     if _planes_solver_ok(spec, d.dtype, d.device):
+        if needs_grad(d, spec.eigs, spec.ecolumn):
+            raise no_backward("the 1-D planes R^T (kernels B-2 to B-4)")
         return _rt_planes(spec, d)
     if _mxu2d_solver_ok(spec, d.dtype, d.device):
         return _rt_mxu2d(spec, d)
     if _mxu3d_solver_ok(spec, d.dtype, d.device):
+        if needs_grad(d, spec.eigs):
+            raise no_backward("the 3-D kernel-path R^T (kernel B-5)")
         return _rt_mxu3d(spec, d)
     return matmul_by_RT(spec, d)
 

@@ -424,3 +424,190 @@ def test_3d_kernel_path_whiten_matches_plain_paths(dev):
     assert k32.shape == (16, s32.Mprime)
     assert _rel(k32.cpu(), c) <= 1e-4
     assert _rel(k32, k64) <= 5e-3
+
+
+# ---------------------------------------------------------------------------
+# the training path: kernel A's backward, B-8 (the full-plane sandwich,
+# csrc/mxu2d.cu with full tables), B-7 (the two-diagonal middle,
+# csrc/radix.cu) and the whitening's gradient
+# ---------------------------------------------------------------------------
+
+def test_kernel_a_backward_at_the_pullback_crops(dev):
+    # the main path's R^T, (256, 125, 125) -> (256, 250, 250), differentiated
+    # on the card: gx is kernel A at the pullback crops (256, 250, 250) ->
+    # (256, 125, 125), gw the plain analyses; both against the f64 plain
+    # version's autograd on the card, <= 1e-5
+    spec = _spec((125, 125), torch.float64, dev, ell=0.05)
+    w64 = torch.sqrt(bttb._full_weights(spec.eigs, spec.edims[-1]))
+    x64 = _randn((256, 125, 125), dev, 1)
+    g64 = _randn((256, 250, 250), dev, 2)
+    x = x64.float().requires_grad_()
+    w = w64.float().contiguous().requires_grad_()
+    before = mxu2d.LAUNCHES["sandwich_apply"]
+    y = mxu2d.sandwich_apply(x, w, spec.dims, spec.edims, out_expanded=True)
+    got = (y,) + torch.autograd.grad(y, (x, w), g64.float())
+    # R^T and its pullback launch kernel A
+    assert mxu2d.LAUNCHES["sandwich_apply"] - before == 2
+    # the reference: autograd through the f64 plain version on the card
+    t64 = mxu2d._tables(spec.dims, spec.edims, False, True, torch.float64, dev)
+    xr, wr = x64.clone().requires_grad_(), w64.clone().requires_grad_()
+    yr = mxu2d.sandwich_plain(xr, wr, *t64[:4])
+    want = (yr,) + torch.autograd.grad(yr, (xr, wr), g64)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _rel(a, b) <= 1e-5
+    # the pullback itself, as a forward call at its crops
+    t64 = mxu2d._tables(spec.dims, spec.edims, True, False, torch.float64, dev)
+    y = mxu2d.sandwich_apply(g64.float(), w64.float().contiguous(), spec.dims, spec.edims,
+                             in_expanded=True)
+    assert y.shape == (256, 125, 125)
+    assert _rel(y, mxu2d.sandwich_plain(g64, w64, *t64[:4])) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(256, 250, 250), (3, 16, 12), (70, 64, 64)])
+def test_b8_matches_plain(dev, shape):
+    # B-8 and its backward (gx is B-8 again, gw plain) against the plain
+    # version in f32 and f64, <= 1e-5
+    from hipgp_tpu_torch.ops import pallas_transform
+
+    B, L0, L1 = shape
+    Q = {dt: (bttb._real_fourier_basis(L0, dt, dev), bttb._real_fourier_basis(L1, dt, dev))
+         for dt in (torch.float32, torch.float64)}
+    w64 = 0.1 + torch.rand((L0, L1), generator=torch.Generator(device=dev).manual_seed(B),
+                           device=dev, dtype=torch.float64)
+    x64, g64 = _randn(shape, dev, 3), _randn(shape, dev, 4)
+    x = x64.float().requires_grad_()
+    w = w64.float().requires_grad_()
+    before = pallas_transform.LAUNCHES["circulant_apply_2d"]
+    y = pallas_transform.circulant_apply_2d(x, *Q[torch.float32], w)
+    got = (y,) + torch.autograd.grad(y, (x, w), g64.float())
+    # the apply and its backward's gx launch B-8
+    assert pallas_transform.LAUNCHES["circulant_apply_2d"] - before == 2
+    # the references: the plain version in f32, and autograd through it in f64
+    y32 = pallas_transform._apply_einsum(x64.float(), *Q[torch.float32], w64.float())
+    xr, wr = x64.clone().requires_grad_(), w64.clone().requires_grad_()
+    yr = pallas_transform._apply_einsum(xr, *Q[torch.float64], wr)
+    want = (yr,) + torch.autograd.grad(yr, (xr, wr), g64)
+    torch.cuda.synchronize()
+    assert _rel(y, y32) <= 1e-5
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("L", RADIX_LENGTHS)
+def test_radix_middle_dual_matches_plain(dev, L):
+    # B-7 against its plain version in f32 and f64 and against two B-4
+    # launches, <= 1e-5
+    p32, p64 = _plans(L, dev)
+    V = 4
+    y = _randn((2, V, p32.A, p32.B, p32.C), dev, L + 5)
+    dA64 = radix_fft.permute_weights(_even_spectrum(L, dev, L) / L, p64)
+    dB64 = radix_fft.permute_weights(1.0 / (_even_spectrum(L, dev, L) * L), p64)
+    y32, dA, dB = y.float(), dA64.float().contiguous(), dB64.float().contiguous()
+    before = dict(radix_fft.LAUNCHES)
+    got = radix_fft.middle_dual(y32[0], y32[1], dA, dB, p32)
+    assert radix_fft.LAUNCHES["middle_dual"] == before["middle_dual"] + 1
+    want32 = radix_fft.middle_dual_plain(y32[0], y32[1], dA, dB, p32)
+    want64 = radix_fft.middle_dual_plain(y[0], y[1], dA64, dB64, p64)
+    twice = (radix_fft.middle(y32[0], y32[1], dA, p32)
+             + radix_fft.middle(y32[0], y32[1], dB, p32))
+    torch.cuda.synchronize()
+    for k in range(4):
+        assert got[k].shape == y32[0].shape
+        assert _rel(got[k], want32[k]) <= 1e-5
+        assert _rel(got[k], want64[k]) <= 1e-5
+        assert _rel(got[k], twice[k]) <= 1e-5
+
+
+def test_radix_dual_apply_matches_two_applies(dev):
+    # fused_circulant_apply_cropped_dual at the headline plan and crop (64 of
+    # 128 rows) against two cropped applies, <= 1e-5
+    L, rows, V = 1 << 21, 64, 4
+    p32, _ = _plans(L, dev)
+    N = p32.B * p32.C
+    x = _randn((2, V, rows * N), dev, 7).float()
+    dA = radix_fft.permute_weights(_even_spectrum(L, dev, 8) / L, p32).float().contiguous()
+    dB = radix_fft.permute_weights(_even_spectrum(L, dev, 9) / L, p32).float().contiguous()
+    got = radix_fft.fused_circulant_apply_cropped_dual(x[0], x[1], dA, dB, p32, rows, rows)
+    for (gr, gi), d in zip(got, (dA, dB)):
+        wr, wi = radix_fft.fused_circulant_apply_cropped(x[0], x[1], d, p32, rows, rows)
+        assert _rel(gr, wr) <= 1e-5 and _rel(gi, wi) <= 1e-5
+
+
+def _whiten_grads(dims, dt, where, ell=0.05, sig2=0.3, pallas=False):
+    """(loss, d loss / d(log_sig2, log_ell, rhs)) of sum(whiten(spec, rhs) * c)
+    with 10 PCG iterations, rhs and c from one numpy seed."""
+    rng = np.random.default_rng(11)
+    M = dims[0] * dims[1]
+    b = rng.standard_normal((32, M))
+    c = rng.standard_normal((32, int(np.prod(bttb.embedded_dims(dims)))))
+    ls = torch.tensor(np.log(sig2), dtype=dt, device=where, requires_grad=True)
+    le = torch.tensor(np.log(ell), dtype=dt, device=where, requires_grad=True)
+    rhs = torch.as_tensor(b, dtype=dt, device=where).requires_grad_()
+    p = (torch.exp(ls), torch.exp(le))
+    kern = lambda a, bb: p[0] * torch.exp(
+        -0.5 * torch.sum(((a[:, None, :] - bb[None, :, :]) / p[1]) ** 2, -1))
+    grids = [torch.linspace(-1.0, 1.0, m, dtype=dt, device=where) for m in dims]
+    spec = bttb.make_spectrum(grids, kern, jitter=1e-3)
+    saved = bttb.USE_MXU2D_PCG, bttb.USE_PALLAS_TRANSFORM
+    bttb.USE_MXU2D_PCG, bttb.USE_PALLAS_TRANSFORM = not pallas, pallas
+    try:
+        kn = solve.whiten(spec, rhs, maxiter=10, tol=0.0, fixed_iters=True)
+        loss = torch.sum(kn * torch.as_tensor(c, dtype=dt, device=where))
+        return loss, torch.autograd.grad(loss, (ls, le, rhs))
+    finally:
+        bttb.USE_MXU2D_PCG, bttb.USE_PALLAS_TRANSFORM = saved
+
+
+@pytest.mark.parametrize("route", ["mxu2d", "b8"])
+def test_whiten_gradient_on_the_card_matches_f64_cpu(dev, route):
+    # the f32 kernel-path gradient of a 10-iteration whitening (kernel A's
+    # fused PCG and backward, or the generic PCG over B-8) against the f64
+    # plain path on the CPU: each of d/d log_sig2, d/d log_ell and d/d rhs
+    # within 1e-2 relative, the limit [train-grad] holds the model to;
+    # launches exact
+    from hipgp_tpu_torch.ops import pallas_transform
+
+    dims = (48, 40)
+    k = 10
+    before = {**mxu2d.LAUNCHES, **pallas_transform.LAUNCHES}
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    l32, g32 = _whiten_grads(dims, torch.float32, dev, pallas=route == "b8")
+    torch.cuda.synchronize()
+    moved = {n: v - before[n] for n, v in {**mxu2d.LAUNCHES, **pallas_transform.LAUNCHES}.items()
+             if v != before[n]}
+    if route == "mxu2d":
+        # forward and backward solve; R^T and its pullback; dK by einsum
+        assert solve.PCG_STATS == {"solves": 2, "iterations": 2 * k}
+        assert moved == {"sandwich_apply_selfdot": 2 * (1 + 2 * k), "sandwich_apply": 2}
+    else:
+        # each solve 1 + 2k applies, R^T one (its backward one more, for
+        # gx), and the dK term's matmul_by_K one forward launch
+        assert moved == {"circulant_apply_2d": 2 * (1 + 2 * k) + 2 + 1}
+    l64, g64 = _whiten_grads(dims, torch.float64, "cpu")
+    assert abs(float(l32) - float(l64)) <= 1e-2 * abs(float(l64))
+    for got, want in zip(g32, g64):
+        assert _rel(got.cpu(), want) <= 1e-2
+
+
+def test_gradient_guards_on_the_card(dev):
+    # the 1-D planes/radix branch and the 3-D B-5 branch have no backward
+    # yet: a required gradient raises; without one they run
+    ell = torch.tensor(1.0 / 131072, device=dev, requires_grad=True)
+    kern = Matern(2.5)
+    grid = torch.linspace(0.0, 1.0, 131072, device=dev)
+    spec = bttb.make_spectrum([grid], lambda a, b: kern(a, b, (0.1, ell)), jitter=1e-3)
+    rhs = torch.randn((8, 131072), device=dev)
+    assert solve._planes_solver_ok(spec, torch.float32, dev)
+    with pytest.raises(NotImplementedError, match="section A item 1"):
+        solve.whiten(spec, rhs, maxiter=2)
+    with pytest.raises(NotImplementedError, match="radix"):
+        bttb.matmul_by_K(spec, rhs.requires_grad_())
+    s3, _ = _spectrum_3d(dev)
+    x3 = torch.randn((2, s3.M), device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="section A item 1"):
+        solve.whiten(s3, x3, maxiter=2)
+    with torch.no_grad():
+        assert solve.whiten(s3, x3, maxiter=2).shape == (2, s3.Mprime)
