@@ -5,13 +5,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each printing one line of progress with its seconds:
   1. build   - every CUDA source of the port, one nvcc per source, in parallel;
-  2. kernels - each kernel A wrapper against its plain PyTorch version on the
-               card, at the shapes the 2-D main path gives it (the R^T's
-               pullback, (256, 250, 250) -> (256, 125, 125), included), and
-               kernel B-8 (the full-plane sandwich) at (256, 250, 250), in
-               float32 with TF32 off; times by CUDA events after a warm-up,
-               B-8 against the einsum chain in turns (the measurement behind
-               bttb.USE_PALLAS_TRANSFORM);
+  2. kernels - each kernel A wrapper (the FFT-structured sandwich) against
+               its plain PyTorch version in float32 and float64 on the card,
+               at the shapes the 2-D main path gives it (the R^T's pullback,
+               (256, 250, 250) -> (256, 125, 125), included), and kernel B-8
+               (the same kernel uncropped) at (256, 250, 250), in float32
+               with TF32 off; times by CUDA events after a warm-up: the
+               kernel and the dense route (kernel B-5 on one plane, the
+               earlier kernels A and B-8) in turns, the plain version, the
+               torch.fft chain, the bound; B-8 against the einsum chain in
+               turns (the measurement behind bttb.USE_PALLAS_TRANSFORM); and
+               the self-dot and pullback at M = 256^2 through (512, 512);
   3. main    - the paper's 2-D synthetic protocol: 20 000 + 2 000 points from
                seed 42, the M = 125^2 mean-field model, one natural-gradient
                epoch (79 steps at batch 256, maxiter_cg 10, after the theta2
@@ -96,7 +100,8 @@ import time
 
 FP32_PEAK = 67e12     # FLOP/s, H100 SXM, CUDA cores (NVIDIA data sheet)
 HBM_RATE = 3.35e12    # bytes/s, H100 SXM
-KERNEL_SOURCE = "hipgp_tpu_torch/csrc/mxu2d.cu"
+KERNEL_SOURCE = "hipgp_tpu_torch/csrc/sandwich_fft.cu"   # kernels A and B-8
+WP_SOURCE = "hipgp_tpu_torch/csrc/mxu2d.cu"              # kernel B-5
 TPU_KERNEL = "hipgp_tpu/ops/mxu2d.py:201"   # pl.pallas_call of _make_kernel
 RADIX_SOURCE = "hipgp_tpu_torch/csrc/radix.cu"
 # pl.pallas_call sites of the TPU kernels the radix kernels replace
@@ -154,8 +159,9 @@ def sandwich_bound_ms(B, i, L, o, selfdot):
       * bytes: x and w read once, y (and dots) written once; over the memory
         rate.
     Returns (ms, 'operations' | 'bytes', dense_ms), where dense_ms is the
-    operation time of the four dense real-DFT contractions that kernel A and
-    its plain version actually perform (about ten times the FFT count)."""
+    operation time of the four dense real-DFT contractions that the plain
+    version and the dense route (kernel B-5) perform (about ten times the FFT
+    count)."""
     (i0, i1), (L0, L1), (o0, o1) = i, L, o
     half = L1 // 2 + 1
     ops = (i0 * _fft_ops(L1, True) + 2 * half * _fft_ops(L0, False)
@@ -182,9 +188,10 @@ def fft_chain_ms(torch, x, w, edims, dims_out, y64):
 def phase_kernels_b8(torch, dev, wK, edims, gen):
     """Kernel B-8 (the full-plane sandwich) at (256, 250, 250) with the
     main path's spectrum against its plain version (the einsum chain) and
-    float64, limit 1e-5; times of B-8, the einsum chain (in turns) and the
-    torch.fft chain, the bound.  Returns B-8's record of the kernels line."""
-    from hipgp_tpu_torch.ops import bttb, pallas_transform
+    float64, limit 1e-5; times of B-8, the einsum chain and the dense route
+    (kernel B-5 on one plane, the earlier B-8), in turns, and the torch.fft
+    chain, the bound.  Returns B-8's record of the kernels line."""
+    from hipgp_tpu_torch.ops import bttb, mxu2d, pallas_transform
 
     B = 256
     Q0, Q1 = (bttb._real_fourier_basis(L, torch.float32, dev) for L in edims)
@@ -201,15 +208,19 @@ def phase_kernels_b8(torch, dev, wK, edims, gen):
     abs_err = float((got - want).abs().max())
     check(err32 <= 1e-5 and err64 <= 1e-5,
           f"B-8 rel err vs plain f32 {err32:.3e}, vs f64 {err64:.3e}")
-    k1, p1 = cuda_ms(torch, kern), cuda_ms(torch, plain)
-    p2, k2 = cuda_ms(torch, plain), cuda_ms(torch, kern)
-    ms, plain_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+    dense = lambda: mxu2d.sandwich_apply_wp(x[:, None], wK[None], edims, edims)
+    err_dense = rel(dense()[:, 0], y64)
+    check(err_dense <= 1e-5, f"B-8 dense route rel err {err_dense:.3e}")
+    k1, p1, d1 = cuda_ms(torch, kern), cuda_ms(torch, plain), cuda_ms(torch, dense)
+    d2, p2, k2 = cuda_ms(torch, dense), cuda_ms(torch, plain), cuda_ms(torch, kern)
+    ms, plain_ms, dense_route_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2), 0.5 * (d1 + d2)
     fft_ms, fft_err = fft_chain_ms(torch, x, wK, edims, edims, y64)
     bound, bound_by, dense_ms = sandwich_bound_ms(B, edims, edims, edims, False)
     log(f"[kernels] B-8 circulant_apply_2d B={B} {tuple(edims)}, w = wK: rel err vs "
         f"plain f32 {err32:.3e} (max abs {abs_err:.3e}), vs float64 {err64:.3e}; kernel "
         f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}), einsum chain (plain) {plain_ms:.4f} ms "
-        f"({p1:.4f}, {p2:.4f}), in turns; torch.fft chain {fft_ms:.4f} ms (rel err vs "
+        f"({p1:.4f}, {p2:.4f}), dense route (B-5, one plane) {dense_route_ms:.4f} ms "
+        f"({d1:.4f}, {d2:.4f}), in turns; torch.fft chain {fft_ms:.4f} ms (rel err vs "
         f"f64 {fft_err:.3e}); bound {bound:.4f} ms ({bound_by}; FFT count), dense-DFT "
         f"operation time {dense_ms:.4f} ms; USE_PALLAS_TRANSFORM = "
         f"{bttb.USE_PALLAS_TRANSFORM}")
@@ -256,6 +267,68 @@ def library_ms(torch, mxu2d, x, w, dims, edims, tables, y64, name):
     log(f"[kernels] {name} library conv2d, stencil {tuple(stencil.shape[2:])}: "
         f"rel err {err:.3e} vs float64, {ms:.4f} ms")
     return ms
+
+
+def phase_kernel_a_case(torch, dev, mxu2d, gen, name, B, w, label, dims, edims, in_exp,
+                        out_exp, timed, with_library=False):
+    """Kernel A through one wrapper at one shape: against its plain version
+    in float32 and float64 (limit 1e-5, dots too); with ``timed``, the
+    kernel and the dense route (kernel B-5 on one plane, the earlier kernel
+    A's four launches) in turns, the plain version, the torch.fft chain, the
+    bound and, ``with_library``, the conv2d yardstick.  Returns its record of
+    the kernels line (None when not ``timed``)."""
+    selfdot = name == "sandwich_apply_selfdot"
+    tables = mxu2d._tables(dims, edims, in_exp, out_exp, torch.float32, dev)
+    x = torch.randn((B,) + tables[4], generator=gen, device=dev, dtype=torch.float32)
+    if selfdot:
+        kern = lambda: mxu2d.sandwich_apply_selfdot(x, w, dims, edims)
+    else:
+        kern = lambda: mxu2d.sandwich_apply(x, w, dims, edims, in_expanded=in_exp,
+                                            out_expanded=out_exp)
+    plain = lambda: mxu2d.sandwich_plain(x, w, *tables[:4], selfdot=selfdot)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    y, yp = (got[0], want[0]) if selfdot else (got, want)
+    check(y.shape == yp.shape == (B,) + tables[5], f"{name} shape {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), f"{name} non-finite output")
+    err_y = rel(y, yp)
+    err_abs = float((y - yp).abs().max())
+    t64 = mxu2d._tables(dims, edims, in_exp, out_exp, torch.float64, dev)
+    y64 = mxu2d.sandwich_plain(x.double(), w.double(), *t64[:4], selfdot=selfdot)
+    y64, d64 = (y64[0], y64[1]) if selfdot else (y64, None)
+    err64 = rel(y, y64)
+    msg = f"rel err y {err_y:.3e} (max abs {err_abs:.3e}; vs float64 {err64:.3e})"
+    check(err_y <= 1e-5 and err64 <= 1e-5, f"{name} ({label}) y {msg}")
+    if selfdot:
+        err_d, err_d64 = rel(got[1], want[1]), rel(got[1], d64)
+        msg += f", dots {err_d:.3e} (vs float64 {err_d64:.3e})"
+        check(err_d <= 1e-5 and err_d64 <= 1e-5, f"{name} ({label}) dots {msg}")
+    if not timed:
+        ms = cuda_ms(torch, kern, warmup=1, reps=5)
+        log(f"[kernels] {name} B={B} {label}: {msg}; kernel {ms:.4f} ms")
+        return None
+    # the dense route: kernel B-5 with one weight plane
+    dense = lambda: mxu2d.sandwich_apply_wp(x[:, None], w[None], dims, edims,
+                                            in_expanded=in_exp, out_expanded=out_exp,
+                                            selfdot=selfdot)
+    yd = dense()
+    err_dense = rel(yd[0][:, 0] if selfdot else yd[:, 0], y64)
+    check(err_dense <= 1e-5, f"{name} ({label}) dense route rel err {err_dense:.3e}")
+    k1, d1 = cuda_ms(torch, kern), cuda_ms(torch, dense)
+    d2, k2 = cuda_ms(torch, dense), cuda_ms(torch, kern)
+    ms, dense_ms = 0.5 * (k1 + k2), 0.5 * (d1 + d2)
+    plain_ms = cuda_ms(torch, plain)
+    fft_ms, fft_err = fft_chain_ms(torch, x, w, edims, tables[5], y64)
+    bound, bound_by, dense_op_ms = sandwich_bound_ms(B, tables[4], edims, tables[5], selfdot)
+    log(f"[kernels] {name} B={B} {label}: {msg}; kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), "
+        f"dense route (B-5, one plane) {dense_ms:.4f} ms ({d1:.4f}, {d2:.4f}), in turns; "
+        f"plain {plain_ms:.4f} ms; torch.fft chain {fft_ms:.4f} ms (rel err vs f64 "
+        f"{fft_err:.3e}); bound {bound:.4f} ms ({bound_by}; FFT count), dense-DFT "
+        f"operation time {dense_op_ms:.4f} ms")
+    lib = (library_ms(torch, mxu2d, x, w, dims, edims, tables, y64, name)
+           if with_library else None)
+    return dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=lib)
 
 
 def rel(a, b):
@@ -1101,48 +1174,22 @@ def main():
         # backward): expanded in, cropped out
         in_exp = label == "R^T pullback"
         out_exp = not selfdot and not in_exp
-        tables = mxu2d._tables(dims, edims, in_exp, out_exp, torch.float32, dev)
-        x = torch.randn((B,) + tables[4], generator=gen, device=dev, dtype=torch.float32)
-        if selfdot:
-            kern = lambda: mxu2d.sandwich_apply_selfdot(x, w, dims, edims)
-        else:
-            kern = lambda: mxu2d.sandwich_apply(x, w, dims, edims, in_expanded=in_exp,
-                                                out_expanded=out_exp)
-        plain = lambda: mxu2d.sandwich_plain(x, w, *tables[:4], selfdot=selfdot)
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        y, yp = (got[0], want[0]) if selfdot else (got, want)
-        check(y.shape == yp.shape == (B,) + tables[5], f"{name} shape {tuple(y.shape)}")
-        check(bool(torch.isfinite(y).all()), f"{name} non-finite output")
-        err_y = rel(y, yp)
-        err_abs = float((y - yp).abs().max())
-        # both accumulate each contraction in order with FMA, so they may
-        # agree bit for bit; the float64 plain version shows the f32 error
-        t64 = mxu2d._tables(dims, edims, in_exp, out_exp, torch.float64, dev)
-        y64 = mxu2d.sandwich_plain(x.double(), w.double(), *t64[:4], selfdot=selfdot)
-        y64 = y64[0] if selfdot else y64
-        err64 = rel(y, y64)
-        msg = (f"rel err y {err_y:.3e} (max abs {err_abs:.3e}; vs float64 "
-               f"{err64:.3e})")
-        check(err_y <= 1e-5 and err64 <= 1e-5, f"{name} ({label}) y {msg}")
-        if selfdot:
-            err_d = rel(got[1], want[1])
-            msg += f", dots {err_d:.3e}"
-            check(err_d <= 1e-5, f"{name} ({label}) dots rel err {err_d:.3e}")
-        ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
-        bound, bound_by, dense_ms = sandwich_bound_ms(B, tables[4], edims, tables[5],
-                                                      selfdot)
-        if in_exp:
-            fft_ms, fft_err = fft_chain_ms(torch, x, w, edims, dims, y64)
-            msg += f"; torch.fft chain {fft_ms:.4f} ms (rel err vs f64 {fft_err:.3e})"
-        log(f"[kernels] {name} B={B} {label}: {msg}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; FFT count), "
-            f"dense-DFT operation time {dense_ms:.4f} ms")
-        if B == 256 and name not in results:   # the natgrad-step shape
-            results[name] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound, bound_by=bound_by,
-                                 library_ms=library_ms(torch, mxu2d, x, w, dims, edims,
-                                                       tables, y64, name))
+        first = B == 256 and name not in results   # the natgrad-step shape
+        r = phase_kernel_a_case(torch, dev, mxu2d, gen, name, B, w, label, dims, edims,
+                                in_exp, out_exp, timed=True, with_library=first)
+        if first:
+            results[name] = r
+    # the largest embedding kernel A takes: M = 256^2 through (512, 512), where
+    # the dense kernel's slab did not fit a block for an expanded input
+    m512 = build_model("SqExp", 256, len(d["xobs"]), sig2, 0.05, 0.01,
+                       dtype=torch.float32, device=dev)
+    s512 = m512.spectrum(m512.init_state())
+    w512 = bttb._full_weights(s512.eigs, s512.edims[-1]).contiguous()
+    check(s512.edims == (512, 512), f"M = 256^2 embeds at {s512.edims}")
+    for name, in_exp, label in (("sandwich_apply_selfdot", False, "(512, 512) PCG apply"),
+                                ("sandwich_apply", True, "(512, 512) R^T pullback")):
+        phase_kernel_a_case(torch, dev, mxu2d, gen, name, 64, w512, label, s512.dims,
+                            s512.edims, in_exp, False, timed=False)
     results["B-8"] = phase_kernels_b8(torch, dev, wK, edims, gen)
     log(f"[kernels] done; {time.perf_counter() - t0:.2f} s")
 
@@ -1273,7 +1320,7 @@ def main():
         })
         check(radix_launches[name] > 0, f"{name} never launched on the 1-D main path")
     for key, name, source, tpu, counts in (
-            ("B-5", "mxu2d.sandwich_apply_wp", KERNEL_SOURCE, WP_TPU_KERNEL,
+            ("B-5", "mxu2d.sandwich_apply_wp", WP_SOURCE, WP_TPU_KERNEL,
              ("sandwich_apply_wp", "sandwich_apply_wp_selfdot")),
             ("B-6", "mxu3d.sandwich_apply_wp3", WP3_SOURCE, WP3_TPU_KERNEL,
              ("sandwich_apply_wp3",))):

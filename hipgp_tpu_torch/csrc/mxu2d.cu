@@ -1,30 +1,25 @@
-// Kernel A: the cropped 2-D real-Fourier sandwich, and kernel B-5, the same
-// sandwich over a stack of weight planes; both hand-written for Hopper (sm_90a).
+// Kernel B-5: the cropped 2-D real-Fourier sandwich over a stack of weight
+// planes, hand-written for Hopper (sm_90a), as dense real-DFT contractions.
+// Kernel A (and B-8), the same sandwich on single planes, moved to the
+// FFT-structured csrc/sandwich_fft.cu; the four launches below were first
+// written for it and are B-5's with a plane index.
 //
-// Replaces the Pallas TPU kernel hipgp_tpu/ops/mxu2d.py:_make_kernel (launched by
-// `_pallas_sandwich` at its pl.pallas_call).  For every sample b it computes
+// For every plane it computes
 //
-//     y[b] = P_o (Q0 x Q1) diag(w) (Q0 x Q1)^T P_i^T x[b]
+//     y = P_o (Q0 x Q1) diag(w) (Q0 x Q1)^T P_i^T x
 //
 // with the rectangular real-Fourier tables of `_tables`:
 //     q1a = Q1[:i1]    (i1, L1)   minor-axis analysis
 //     q0a = Q0[:i0].T  (L0, i0)   leading-axis analysis
 //     q0s = Q0[:o0]    (o0, L0)   leading-axis synthesis
 //     q1s = Q1[:o1].T  (L1, o1)   minor-axis synthesis
-// and, when `dots` is given, the PCG self-dot dots[b] = <x[b], y[b]>.
+// and, when `dots` is given, the PCG self-dots.
 //
 // Bound on this card.  The sandwich is a circulant apply, so the least work it
 // needs is the FFT formulation on the embedding, pruned to the rows that hold
-// data.  At the PCG shape of the paper's 2-D protocol, (256, 125, 125) ->
-// (256, 125, 125) through a (250, 250) embedding, that is 0.99 GFLOP of FP32
-// work (0.015 ms at the 67 TFLOP/s FP32 non-tensor-core peak) against 32 MB of
-// input and output (0.010 ms at 3.35 TB/s); at the R^T shape, out to
-// (256, 250, 250), the 80 MB of bytes bound it (0.024 ms).  This kernel does
-// the dense real-DFT contractions instead: 12.0 GFLOP at the PCG shape, 0.18 ms
-// at the peak, twelve times the least work.  Dense contractions keep a first
-// version simple and sum every output in order; reaching the bound needs an
-// FFT-structured kernel.  Within its own formulation the kernel is bound by
-// operations, not bytes.
+// data (per (125, 125) plane through (250, 250): ~3.9 MFLOP against ~47 MFLOP
+// of the dense contractions done here, twelve times the least work).  Within
+// its own formulation the kernel is bound by operations, not bytes.
 //
 // What the design does about it.  The TPU kernel holds the whole embedded
 // (L0, L1) plane of a sample in VMEM; at 250^2 in f32 that plane (250,000 bytes)
@@ -48,20 +43,21 @@
 // feeds at least 64 FMAs; the tiles staged from device memory are double-
 // buffered behind the FMAs.  The embedded planes live only in shared memory; the
 // two (B*d, L1) intermediates of the minor-axis passes go through device
-// memory (and mostly L2).
+// memory (and mostly L2).  The middle pass's (i0 + L0) x 64 slab caps the
+// embedded axis at 432 for an expanded input.
 //
 // Kernel B-5 replaces the Pallas TPU kernel hipgp_tpu/ops/mxu2d.py:_make_kernel_wp
 // (launched by `_pallas_sandwich_wp` at its pl.pallas_call), the building
 // block of the 3-D sandwich: after the outer-axis analysis a 3-D sample is W
 // independent 2-D plane problems, plane l with its own spectrum w[l].  On a
 // (B, W, i0, i1) stack it computes y[b, l] = P_o (Q0 x Q1) diag(w[l]) (.)^T
-// P_i^T x[b, l] and, with dots, dots[b] = sum_l <x[b, l], y[b, l]>.  It is
-// kernel A's four launches with a plane index: the row GEMMs treat the stack
+// P_i^T x[b, l] and, with dots, dots[b] = sum_l <x[b, l], y[b, l]>.  The
+// four launches carry a plane index: the row GEMMs treat the stack
 // as B*W samples, the intermediates are laid out (W, i0, B, L1) and
 // (W, o0, B, L1) so that plane l's columns stay together, the middle pass
 // runs one grid row per plane with that plane's spectrum, and the self-dots
 // are summed per plane and then over the planes in order.  Its bound is the
-// same as kernel A's per plane: at the 3-D main path's shape, (512, 64, 64, 64)
+// the FFT count per plane: at the 3-D main path's shape, (512, 64, 64, 64)
 // through (128, 128) planes, the dense contractions are ~206 GFLOP
 // (3.1 ms at the FP32 peak) against a pruned FFT count of ~29 GFLOP.
 //
@@ -76,6 +72,7 @@ namespace {
 using namespace sandwich;
 
 constexpr int BN = 128;   // columns of an output tile of the row GEMM
+constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block may use (sm_90)
 static_assert(BM == BN, "row and column tiles share one staging size");
 
 // out[(r % P) * Q + r / P, n] = sum_k in[r, k] * t[k, n]  for r < R, n < N.
@@ -161,7 +158,7 @@ __global__ void __launch_bounds__(NT, 2) row_gemm_kernel(
 
 // One block per slab of SLAB columns of the (B*L1)-column intermediates of
 // plane blockIdx.y (planes lie i0*ncols, L0*L1 and o0*ncols floats apart in
-// u, w and c; kernel A has one plane):
+// u, w and c; a single plane W = 1):
 //   A (L0 x SLAB) = (q0a . u[:, slab]) * w[:, col % L1]   (shared memory only)
 //   c[:, slab] = q0s . A                                   (o0 x SLAB, to device memory)
 __global__ void __launch_bounds__(NT, 2) middle_kernel(
@@ -218,7 +215,7 @@ __global__ void __launch_bounds__(NT) wp_dots_reduce_kernel(
 size_t middle_smem_bytes(int i0, int L0) { return middle_smem_floats(i0, L0) * sizeof(float); }
 
 // The sandwich of every (b, l) plane of a (B, W, i0, i1) stack, plane l with
-// its own (L0, L1) spectrum w + l * L0 * L1 (kernel A: W = 1).  The
+// its own (L0, L1) spectrum w + l * L0 * L1.  The
 // intermediates keep each plane's columns together, u as (W, i0, B, L1) and c
 // as (W, o0, B, L1), so the middle pass of plane l sees one (i0, B*L1) matrix.
 int sandwich_launch(const float* x, const float* q0a, const float* q1a, const float* q0s,
@@ -238,10 +235,16 @@ int sandwich_launch(const float* x, const float* q0a, const float* q1a, const fl
   }
   // 2. c (W, o0, B, L1) = q0s . ((q0a . u) * w), slab by slab and plane by plane
   {
+    // the opt-in to more than 48 KB of dynamic shared memory, once per process
+    static bool configured = false;
+    if (!configured) {
+      if ((err = cudaFuncSetAttribute(middle_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      SMEM_MAX)) != cudaSuccess)
+        return (int)err;
+      configured = true;
+    }
     const size_t smem = middle_smem_bytes(i0, L0);
-    if ((err = cudaFuncSetAttribute(middle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem)) != cudaSuccess)
-      return (int)err;
     dim3 grid((ncols + SLAB - 1) / SLAB, W);
     middle_kernel<<<grid, NT, smem, stream>>>(u, q0a, w, q0s, c, i0, L0, L1, o0, ncols);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -286,16 +289,6 @@ size_t mxu2d_partial_floats(int B, int o0, int o1) {
 int mxu2d_row_tiles(int B, int W, int i0, int o0) {
   const long long R = (long long)B * W * (i0 > o0 ? i0 : o0);
   return (int)((R + BM - 1) / BM);
-}
-
-// Kernel A.  Scratch the caller passes: u (i0*B*L1 floats), c (o0*B*L1) and,
-// with dots, partial (mxu2d_partial_floats).
-int mxu2d_sandwich(const float* x, const float* q0a, const float* q1a, const float* q0s,
-                   const float* q1s, const float* w, float* y, float* dots, float* u,
-                   float* c, float* partial, int B, int i0, int i1, int L0, int L1, int o0,
-                   int o1, void* stream_ptr) {
-  return sandwich_launch(x, q0a, q1a, q0s, q1s, w, y, dots, u, c, partial, B, 1, i0, i1,
-                         L0, L1, o0, o1, (cudaStream_t)stream_ptr);
 }
 
 // Kernel B-5, the weight-plane sandwich: x (B, W, i0, i1), w (W, L0, L1),

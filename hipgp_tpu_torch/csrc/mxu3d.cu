@@ -34,7 +34,7 @@
 //   2. outer analysis      V (d1, W*L2)   with V[k, l*L2 + c] = sum_j Q0[j, l] U[j*d1 + k, c],
 //                          a GEMM over (m = k*L2 + c, l) reading U by columns
 //   3. inner analysis, scale by w, inner synthesis, one 64-column slab of V at a
-//      time in shared memory (kernel A's middle pass), written back in place
+//      time in shared memory (B-5's middle pass), written back in place
 //   4. outer synthesis     Y (d0, d1*L2)  with Y[j, k*L2 + c] = sum_l Q0[j, l] V[k, l*L2 + c],
 //                          a GEMM over (m = k*L2 + c, j), stored by columns into U
 //   5. minor synthesis     y (d0*d1, d2)  = Y (d0*d1, L2) . q1s, and the self-dot.

@@ -1,5 +1,5 @@
-// Tile primitives shared by the real-Fourier sandwich kernels: kernel A and
-// the weight-plane kernel B-5 (mxu2d.cu) and the whole-sample 3-D kernel B-6
+// Tile primitives shared by the dense real-Fourier sandwich kernels: the
+// weight-plane kernel B-5 (mxu2d.cu) and the whole-sample 3-D kernel B-6
 // (mxu3d.cu).
 //
 // Every contraction is a dense product with a rectangular slab of the
@@ -156,7 +156,7 @@ __host__ __device__ inline size_t middle_smem_floats(int i0, int L0) {
 //   c[:, slab]    = q0s . A                            (o0 x SLAB)
 // Column col of the slab takes its spectrum column from
 //   w[(col / wlm) * wplane + r * wlm + col % wlm]
-// (kernel A: wlm = L1, wplane = 0; a weight-plane stack of (L0, wlm) planes:
+// (one spectrum: wlm = L1, wplane = 0; a weight-plane stack of (L0, wlm) planes:
 // wplane = L0 * wlm).  u is read whole into shared memory before c is
 // written, so c may be u itself (o0 <= i0 rows, same leading dimension).
 __device__ inline void middle_slab(const float* u, const float* __restrict__ q0a,

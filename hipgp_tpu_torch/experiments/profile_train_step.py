@@ -32,9 +32,11 @@ from .synthetic_data import make_two_dim_data
 __all__ = ["main"]
 
 TOP = 12
-# kernel-name fragments of each group (the CUDA sources' function names;
-# B-8 launches kernel A's code, so it shows as kernel A)
-GROUPS = {"kernel A": ("row_gemm_kernel", "middle_kernel", "dots_reduce_kernel"),
+# kernel-name fragments of each group (the CUDA sources' function names:
+# csrc/sandwich_fft.cu's passes; B-8 launches kernel A's code, so it shows as
+# kernel A)
+GROUPS = {"kernel A": ("rows_forward_kernel", "columns_kernel", "rows_inverse_kernel",
+                       "dots_reduce_kernel"),
           "cuBLAS products": ("gemm", "Kernel2", "cutlass", "xmma"),
           "FFT": ("fft", "FFT")}
 

@@ -17,12 +17,20 @@ problems.  Its self-dots sum over the planes.
 
 Two implementations of each function live here:
 
-* kernel A and kernel B-5, ``csrc/mxu2d.cu``, hand-written CUDA for Hopper,
-  launched for a tensor on a CUDA device (f32 only; anything else raises);
+* on a tensor on a CUDA device (f32 only; anything else raises), hand-written
+  CUDA for Hopper: kernel A, ``csrc/sandwich_fft.cu``, the FFT-structured
+  circulant sandwich (also kernel B-8's, `ops/pallas_transform.py`), and
+  kernel B-5, ``csrc/mxu2d.cu``, dense real-DFT contractions per plane;
 * their plain PyTorch versions, :func:`sandwich_plain` and
   :func:`sandwich_wp_plain`, the einsum chain of
   `bttb._apply_spectrum_matmul` over the same rectangular tables, taken only
   for a tensor on the CPU.
+
+Kernel A computes the sandwich through the DFT of the zero-padded plane
+(one Cooley-Tukey step per axis, `fft_plan`): for a w even in each axis, as
+the solver's spectra are, that is crop(irfft2(w[:, :L1/2+1] * rfft2(pad(x))));
+its scale step also applies w's odd parts, as the real basis does, so it is
+the sandwich for any w.
 
 Each wrapper counts its kernel launches in :data:`LAUNCHES`.
 
@@ -37,27 +45,33 @@ solver-internal and not differentiable, as in JAX.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from .bttb import _real_fourier_basis, fp32_matmul, needs_grad, no_backward
 
 __all__ = ["sandwich_apply", "sandwich_apply_selfdot", "sandwich_plain",
-           "sandwich_apply_wp", "sandwich_wp_plain", "LAUNCHES",
+           "sandwich_apply_wp", "sandwich_wp_plain", "fft_plan", "LAUNCHES",
            "MXU2D_MAX_LEN", "reset_launches"]
 
 # largest embedded axis the kernel path is used for (the solver gate)
 MXU2D_MAX_LEN = 512
-# launches of kernel A, per wrapper; a plain-version call counts nothing
+# launches of kernels A and B-5, per wrapper; a plain-version call counts nothing
 LAUNCHES: Dict[str, int] = {"sandwich_apply": 0, "sandwich_apply_selfdot": 0,
                             "sandwich_apply_wp": 0, "sandwich_apply_wp_selfdot": 0}
-# blocks a grid's y dimension may have (the row GEMMs' row tiles)
+# blocks a grid's y dimension may have (B-5's row GEMMs' row tiles)
 _GRID_Y_LIMIT = 65535
+# largest factor of kernel A's one-step Cooley-Tukey split (csrc/sandwich_fft.cu)
+_FFT_MAX_FACTOR = 32
 # shared memory one block may use on the card (sm_90)
 _SMEM_LIMIT = 232448
 _TABLES: Dict[tuple, tuple] = {}
+_FFT_TABLES: Dict[tuple, torch.Tensor] = {}
 _LIB = None
+_FFT_LIB = None
 
 
 def reset_launches() -> None:
@@ -111,6 +125,88 @@ def sandwich_wp_plain(x, w, q0a, q1a, q0s, q1s, selfdot: bool = False):
     return y
 
 
+def _crops(dims, edims, in_expanded: bool, out_expanded: bool):
+    """The input and output plane shapes ((i0, i1), (o0, o1)) of a crop."""
+    return (tuple(edims) if in_expanded else tuple(dims),
+            tuple(edims) if out_expanded else tuple(dims))
+
+
+def fft_plan(L: int) -> Tuple[int, int]:
+    """Kernel A's split of a length-L DFT into one Cooley-Tukey step
+    L = a * b with a <= b <= 32, the most balanced one (the fewest
+    operations per point).  Raises for a length with no such split (every
+    {2,3,5}-smooth L <= 512 has one)."""
+    for a in range(math.isqrt(L), 0, -1):
+        if L % a == 0 and L // a <= _FFT_MAX_FACTOR:
+            return a, L // a
+    raise ValueError(f"length {L} has no split into two factors <= "
+                     f"{_FFT_MAX_FACTOR}; kernel A does not take it")
+
+
+def _pad8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _fft_split_np(L: int, P: int, Q: int, sign: float) -> np.ndarray:
+    """One oriented split L = P * Q of one direction as kernel A keeps it in
+    shared memory: the P x P and Q x Q DFT matrices e^{sign 2 pi i r s / n}
+    (rows padded with zeros to a multiple of 8 entries), then the twiddles
+    e^{sign 2 pi i n2 k1 / L} as Q rows of P (padded the same way);
+    complex128, flat."""
+    blocks = []
+    for rows, cols, n in ((P, P, P), (Q, Q, Q), (Q, P, L)):
+        block = np.zeros((rows, _pad8(cols)), dtype=np.complex128)
+        rs = np.arange(rows)[:, None] * np.arange(cols)[None, :] % n
+        block[:, :cols] = np.exp(sign * 2j * np.pi * rs / n)
+        blocks.append(block.ravel())
+    return np.concatenate(blocks)
+
+
+def _fft_table_np(L: int) -> np.ndarray:
+    """Kernel A's table of a length L = a * b (`fft_plan`), complex128: for
+    the forward (e^-) and then the inverse (e^+) direction, the splits
+    (P, Q) = (a, b) and (b, a) of `_fft_split_np` (the layout `make_split` in
+    csrc/sandwich_fft.cu reads)."""
+    a, b = fft_plan(L)
+    return np.concatenate([_fft_split_np(L, P, Q, sign) for sign in (-1.0, 1.0)
+                           for P, Q in ((a, b), (b, a))])
+
+
+def _fft_tables(L: int, device) -> torch.Tensor:
+    """:func:`_fft_table_np` rounded to float32 as interleaved (re, im)
+    pairs, cached per length and device."""
+    key = (L, str(device))
+    if key not in _FFT_TABLES:
+        t = _fft_table_np(L)
+        pairs = np.stack([t.real, t.imag], axis=-1).astype(np.float32)
+        _FFT_TABLES[key] = torch.as_tensor(pairs).to(device).contiguous()
+    return _FFT_TABLES[key]
+
+
+def _fft_orient(plan, nin: int, nout: int, real_in: bool = False,
+                real_out: bool = False) -> int:
+    """1 when a transform of nin nonzero inputs to nout outputs costs less
+    as (P, Q) = (b, a) than as (a, b): step 1 does P * nin and step 2 Q * nout
+    complex multiply-adds, half as many FMAs each for a real input (step 1)
+    or a real output (step 2)."""
+    a, b = plan
+    c1, c2 = (2 if real_in else 4), (2 if real_out else 4)
+    return int(c1 * b * nin + c2 * a * nout < c1 * a * nin + c2 * b * nout)
+
+
+def _fft_launch_plan(i_shape, edims, o_shape):
+    """The splits (a0, b0, a1, b1) of the two axes and the orientations of
+    kernel A's four transforms: the real-input row DFT i1 -> L1/2+1, the
+    column DFT i0 -> L0 and back L0 -> o0, the real-output row DFT
+    L1/2+1 -> o1."""
+    (i0, i1), (L0, L1), (o0, o1) = i_shape, edims, o_shape
+    p0, p1 = fft_plan(L0), fft_plan(L1)
+    H = L1 // 2 + 1
+    swaps = (_fft_orient(p1, i1, H, real_in=True), _fft_orient(p0, i0, L0),
+             _fft_orient(p0, L0, o0), _fft_orient(p1, H, o1, real_out=True))
+    return p0 + p1, swaps
+
+
 def _lib():
     global _LIB
     if _LIB is None:
@@ -118,8 +214,6 @@ def _lib():
 
         lib = _build.load("mxu2d")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mxu2d_sandwich.argtypes = [p] * 11 + [i] * 7 + [p]
-        lib.mxu2d_sandwich.restype = ctypes.c_int
         lib.mxu2d_sandwich_wp.argtypes = [p] * 11 + [i] * 8 + [p]
         lib.mxu2d_sandwich_wp.restype = ctypes.c_int
         lib.mxu2d_row_tiles.argtypes = [i] * 4
@@ -132,16 +226,22 @@ def _lib():
     return _LIB
 
 
-def _launch(x, w, tables, selfdot: bool):
-    """Kernel A on (B, i0, i1) planes with w (L0, L1), or kernel B-5 on a
-    (B, W, i0, i1) stack with w (W, L0, L1), on CUDA tensors: checks,
-    allocates every output and scratch buffer with torch.empty, launches on
-    the current stream, raises on a non-zero cudaError_t.  The caller counts
-    the launch (kernel B-8 is this launch with full-plane tables)."""
-    q0a, q1a, q0s, q1s, (i0, i1), (o0, o1) = tables
-    L0, L1 = w.shape[-2:]
-    wp = x.ndim == 4
-    B, W = x.shape[0], (x.shape[1] if wp else 1)
+def _fft_lib():
+    global _FFT_LIB
+    if _FFT_LIB is None:
+        from .. import _build
+
+        lib = _build.load("sandwich_fft")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fft_sandwich.argtypes = [p] * 9 + [i] * 15 + [p]
+        lib.fft_sandwich.restype = ctypes.c_int
+        lib.fft_sandwich_smem_bytes.argtypes = [i] * 11
+        lib.fft_sandwich_smem_bytes.restype = ctypes.c_size_t
+        _FFT_LIB = lib
+    return _FFT_LIB
+
+
+def _check_operands(x, w):
     for name, t in (("x", x), ("w", w)):
         if t.dtype != torch.float32:
             raise TypeError(f"sandwich kernel takes float32 {name}, got {t.dtype}")
@@ -149,8 +249,58 @@ def _launch(x, w, tables, selfdot: bool):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"sandwich kernel needs a contiguous {name}")
+
+
+def _launch_fft(x, w, o_shape, selfdot: bool):
+    """Kernel A on (B, i0, i1) planes with the full (L0, L1) spectrum w,
+    out to (B, o0, o1), on CUDA tensors: checks, allocates every output and
+    scratch buffer with torch.empty, launches on the current stream, raises
+    on a non-zero cudaError_t.  The caller counts the launch (kernel B-8 is
+    this launch with both crops full)."""
+    _check_operands(x, w)
+    B, i0, i1 = x.shape
+    L0, L1 = w.shape
+    o0, o1 = o_shape
     if selfdot and (i0, i1) != (o0, o1):
         raise ValueError("the self-dot needs equal input and output crops")
+    splits, swaps = _fft_launch_plan((i0, i1), (L0, L1), (o0, o1))
+    lib = _fft_lib()
+    if lib.fft_sandwich_smem_bytes(i1, L0, o1, *splits, *swaps) > _SMEM_LIMIT:
+        raise ValueError(f"embedding {(L0, L1)} needs more shared memory than one "
+                         "block has")
+    dev = x.device
+    H = L1 // 2 + 1
+    y = torch.empty((B, o0, o1), dtype=torch.float32, device=dev)
+    s1 = torch.empty((2 * B * H * i0,), dtype=torch.float32, device=dev)
+    s2 = torch.empty((2 * B * H * o0,), dtype=torch.float32, device=dev)
+    if selfdot:
+        dots = torch.empty((B,), dtype=torch.float32, device=dev)
+        rowdot = torch.empty((B * o0,), dtype=torch.float32, device=dev)
+        dots_p, rowdot_p = dots.data_ptr(), rowdot.data_ptr()
+    else:
+        dots = None
+        dots_p = rowdot_p = None
+    t0, t1 = _fft_tables(L0, dev), _fft_tables(L1, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fft_sandwich(x.data_ptr(), w.data_ptr(), t0.data_ptr(), t1.data_ptr(),
+                               y.data_ptr(), dots_p, s1.data_ptr(), s2.data_ptr(),
+                               rowdot_p, B, i0, i1, L0, L1, o0, o1, *splits, *swaps,
+                               stream)
+    if err != 0:
+        raise RuntimeError(f"sandwich_fft kernel failed: cudaError_t {err}")
+    return (y, dots) if selfdot else y
+
+
+def _launch_wp(x, w, tables, selfdot: bool):
+    """Kernel B-5 on a (B, W, i0, i1) stack with w (W, L0, L1), on CUDA
+    tensors: checks, allocates every output and scratch buffer with
+    torch.empty, launches on the current stream, raises on a non-zero
+    cudaError_t.  The caller counts the launch."""
+    q0a, q1a, q0s, q1s, (i0, i1), (o0, o1) = tables
+    L0, L1 = w.shape[-2:]
+    B, W = x.shape[:2]
+    _check_operands(x, w)
     lib = _lib()
     if lib.mxu2d_middle_smem_bytes(i0, L0) > _SMEM_LIMIT:
         raise ValueError(f"input rows {i0} and embedded rows {L0} need more "
@@ -159,8 +309,7 @@ def _launch(x, w, tables, selfdot: bool):
         raise ValueError(f"{B * W} planes of {max(i0, o0)} rows are more than "
                          "one launch of the row GEMM covers; split the batch")
     dev = x.device
-    y = torch.empty((B, W, o0, o1) if wp else (B, o0, o1), dtype=torch.float32,
-                    device=dev)
+    y = torch.empty((B, W, o0, o1), dtype=torch.float32, device=dev)
     u = torch.empty((W * i0 * B * L1,), dtype=torch.float32, device=dev)
     c = torch.empty((W * o0 * B * L1,), dtype=torch.float32, device=dev)
     if selfdot:
@@ -176,21 +325,17 @@ def _launch(x, w, tables, selfdot: bool):
             c.data_ptr(), partial_p)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if wp:
-            err = lib.mxu2d_sandwich_wp(*ptrs, B, W, i0, i1, L0, L1, o0, o1, stream)
-        else:
-            err = lib.mxu2d_sandwich(*ptrs, B, i0, i1, L0, L1, o0, o1, stream)
+        err = lib.mxu2d_sandwich_wp(*ptrs, B, W, i0, i1, L0, L1, o0, o1, stream)
     if err != 0:
         raise RuntimeError(f"mxu2d sandwich kernel failed: cudaError_t {err}")
     return (y, dots) if selfdot else y
 
 
-def _check_shapes(x, w, tables):
-    i_shape, o_shape = tables[4], tables[5]
-    if x.ndim != 3 or tuple(x.shape[1:]) != i_shape:
+def _check_shapes(x, w, i_shape, edims):
+    if x.ndim != 3 or tuple(x.shape[1:]) != tuple(i_shape):
         raise ValueError(f"x must be (B, {i_shape[0]}, {i_shape[1]}), got "
                          f"{tuple(x.shape)}")
-    if w.ndim != 2 or w.shape[0] != tables[0].shape[0] or w.shape[1] != tables[1].shape[1]:
+    if w.ndim != 2 or tuple(w.shape) != tuple(edims):
         raise ValueError(f"w must be the full (L0, L1) spectrum, got {tuple(w.shape)}")
 
 
@@ -209,12 +354,13 @@ class _Sandwich(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, dims, edims, in_expanded, out_expanded):
-        tables = _tables(dims, edims, in_expanded, out_expanded, x.dtype, x.device)
         ctx.save_for_backward(x, w)
         ctx.crops = (dims, edims, in_expanded, out_expanded)
         if x.device.type == "cpu":
+            tables = _tables(dims, edims, in_expanded, out_expanded, x.dtype, x.device)
             return sandwich_plain(x, w, *tables[:4])
-        y = _launch(x, w, tables, selfdot=False)
+        y = _launch_fft(x, w, _crops(dims, edims, in_expanded, out_expanded)[1],
+                        selfdot=False)
         LAUNCHES["sandwich_apply"] += 1
         return y
 
@@ -245,8 +391,7 @@ def sandwich_apply(x: torch.Tensor, w: torch.Tensor, dims: Tuple[int, int],
     with the crops swapped)."""
     dims, edims = tuple(dims), tuple(edims)
     in_expanded, out_expanded = bool(in_expanded), bool(out_expanded)
-    _check_shapes(x, w, _tables(dims, edims, in_expanded, out_expanded,
-                                x.dtype, x.device))
+    _check_shapes(x, w, _crops(dims, edims, in_expanded, out_expanded)[0], edims)
     return _Sandwich.apply(x, w, dims, edims, in_expanded, out_expanded)
 
 
@@ -254,13 +399,14 @@ def sandwich_apply_selfdot(x: torch.Tensor, w: torch.Tensor,
                            dims: Tuple[int, int], edims: Tuple[int, int]):
     """Cropped in/out sandwich plus the per-sample self-dot: returns
     (y, dots) with dots[b] = sum(x[b] * y[b])."""
-    tables = _tables(dims, edims, False, False, x.dtype, x.device)
-    _check_shapes(x, w, tables)
+    dims, edims = tuple(dims), tuple(edims)
+    _check_shapes(x, w, dims, edims)
     if x.device.type == "cpu":
+        tables = _tables(dims, edims, False, False, x.dtype, x.device)
         return sandwich_plain(x, w, *tables[:4], selfdot=True)
     if needs_grad(x, w):
         raise no_backward("the self-dot sandwich (solver-internal)")
-    out = _launch(x, w, tables, selfdot=True)
+    out = _launch_fft(x, w, dims, selfdot=True)
     LAUNCHES["sandwich_apply_selfdot"] += 1
     return out
 
@@ -289,6 +435,6 @@ def sandwich_apply_wp(x: torch.Tensor, w: torch.Tensor, dims: Tuple[int, int],
         return sandwich_wp_plain(x, w, *tables[:4], selfdot=selfdot)
     if needs_grad(x, w):
         raise no_backward("kernel B-5")
-    out = _launch(x, w, tables, selfdot=selfdot)
+    out = _launch_wp(x, w, tables, selfdot=selfdot)
     LAUNCHES["sandwich_apply_wp_selfdot" if selfdot else "sandwich_apply_wp"] += 1
     return out

@@ -9,10 +9,13 @@ Pallas.  On (B, L0, L1) embedded planes it is the real-eigenbasis sandwich of
 Two implementations live here:
 
 * kernel B-8, launched for a float32 tensor on a CUDA device (anything else
-  raises): kernel A's code, ``csrc/mxu2d.cu``, which takes its four tables as
-  arguments, with the tables (Q0^T, Q1, Q0, Q1^T) and both crops full;
+  raises): kernel A's launch, ``csrc/sandwich_fft.cu``, with both crops full.
+  That kernel is FFT-structured and does not read Q0 and Q1: on a CUDA
+  tensor they must be the cached `bttb._real_fourier_basis` tensors (the
+  only ones its caller, `bttb._apply_spectrum_matmul`, passes); other
+  tables raise;
 * its plain PyTorch version, :func:`_apply_einsum`, taken only for a tensor
-  on the CPU.
+  on the CPU, with whatever tables it is given.
 
 :func:`circulant_apply_2d` is differentiable in x and w, as the JAX custom
 VJP is: the operator is symmetric in x, so gx is the same apply on the
@@ -26,6 +29,7 @@ from typing import Dict
 
 import torch
 
+from . import bttb
 from .bttb import fp32_matmul
 from . import mxu2d
 
@@ -56,14 +60,26 @@ def _apply_einsum(x, Q0, Q1, w):
         return torch.matmul(torch.matmul(Q0, a), Q1.T)
 
 
+def _check_basis(Q0, Q1, x) -> None:
+    """Raises unless Q0 and Q1 are cached real Fourier bases of their
+    lengths (tensors `bttb._real_fourier_basis` returned) in x's dtype on
+    x's device: the kernel computes with its own FFT tables and never reads
+    them."""
+    for name, Q in (("Q0", Q0), ("Q1", Q1)):
+        cached = any(Q is t for (L, dtype, _), t in bttb._BASIS.items()
+                     if L == Q.shape[0] and dtype == x.dtype)
+        if not cached or Q.device != x.device:
+            raise ValueError(f"kernel B-8 takes only the cached real Fourier basis "
+                             f"as {name} (bttb._real_fourier_basis); it does not "
+                             f"read the tables")
+
+
 def _apply(x, Q0, Q1, w):
     """Kernel B-8 on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return _apply_einsum(x, Q0, Q1, w)
-    L0, L1 = w.shape
-    tables = (Q0.T.contiguous(), Q1.contiguous(), Q0.contiguous(),
-              Q1.T.contiguous(), (L0, L1), (L0, L1))
-    y = mxu2d._launch(x, w, tables, selfdot=False)
+    _check_basis(Q0, Q1, x)
+    y = mxu2d._launch_fft(x, w, tuple(w.shape), selfdot=False)
     LAUNCHES["circulant_apply_2d"] += 1
     return y
 
@@ -73,12 +89,15 @@ class _CirculantApply2d(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, Q0, Q1, w):
-        ctx.save_for_backward(x, Q0, Q1, w)
+        # the tables are kept as they are: the kernel's check needs the
+        # very tensors the caller passed
+        ctx.save_for_backward(x, w)
+        ctx.bases = (Q0, Q1)
         return _apply(x, Q0, Q1, w)
 
     @staticmethod
     def backward(ctx, g):
-        x, Q0, Q1, w = ctx.saved_tensors
+        (x, w), (Q0, Q1) = ctx.saved_tensors, ctx.bases
         g = g.contiguous()
         gx = gw = None
         if ctx.needs_input_grad[0]:
@@ -93,8 +112,8 @@ def circulant_apply_2d(x: torch.Tensor, Q0: torch.Tensor, Q1: torch.Tensor,
     """out[b] = Q0 ((Q0^T x[b] Q1) * w) Q1^T.
 
     x: (B, L0, L1); Q0: (L0, L0); Q1: (L1, L1); w: (L0, L1) real spectrum.
-    Kernel B-8 on a CUDA tensor, the plain version on a CPU tensor;
-    differentiable in x and w."""
+    Kernel B-8 on a CUDA tensor (Q0, Q1 the cached bases), the plain
+    version on a CPU tensor; differentiable in x and w."""
     if x.ndim != 3:
         raise ValueError(f"x must be (B, L0, L1), got {tuple(x.shape)}")
     L0, L1 = x.shape[1:]

@@ -1,7 +1,8 @@
-"""Kernel A (hipgp_tpu_torch/csrc/mxu2d.cu), the radix kernels B-2, B-3 and
-B-4 (hipgp_tpu_torch/csrc/radix.cu) and the 3-D sandwich kernels B-5
-(csrc/mxu2d.cu) and B-6 (csrc/mxu3d.cu) against their plain PyTorch versions
-on a CUDA card.  Every test here needs the card and skips without one.
+"""Kernels A and B-8 (hipgp_tpu_torch/csrc/sandwich_fft.cu), the radix
+kernels B-2, B-3, B-4 and B-7 (hipgp_tpu_torch/csrc/radix.cu) and the 3-D
+sandwich kernels B-5 (csrc/mxu2d.cu) and B-6 (csrc/mxu3d.cu) against their
+plain PyTorch versions on a CUDA card.  Every test here needs the card and
+skips without one.
 
 On the machine with the card, which has no JAX, run without the suite's
 conftest (it imports JAX):
@@ -38,17 +39,23 @@ def _rel(a, b):
     return float((a.double() - b.double()).norm() / b.double().norm())
 
 
-@pytest.mark.parametrize("dims", [(12, 9), (7, 20), (33, 17), (64, 64)])
+# (63, 40) embeds at (125, 80), odd; (256, 256) at (512, 512), the largest
+# embedding kernel A takes (the dense kernel's shared-memory slab refused its
+# expanded input)
+@pytest.mark.parametrize("dims", [(12, 9), (7, 20), (33, 17), (64, 64), (63, 40),
+                                  (256, 256)])
 @pytest.mark.parametrize("B", [1, 3, 70])
-@pytest.mark.parametrize("mode", ["cropped", "out_expanded", "in_expanded", "selfdot"])
+@pytest.mark.parametrize("mode", ["cropped", "out_expanded", "in_expanded", "full",
+                                  "selfdot"])
 def test_kernel_matches_plain_f64_reference(dev, dims, B, mode):
     # f32 kernel against the plain version in f64 on the same inputs: f32
-    # rounding of sums of up to L terms, well under 1e-5 relative
+    # rounding of two 2-step DFTs per axis, well under 1e-5 relative
     spec = _spec(dims, torch.float64, dev)
     w64 = bttb._full_weights(spec.eigs, spec.edims[-1])
     if mode == "out_expanded":
         w64 = torch.sqrt(w64)
-    in_exp, out_exp = mode == "in_expanded", mode == "out_expanded"
+    in_exp = mode in ("in_expanded", "full")
+    out_exp = mode in ("out_expanded", "full")
     gen = torch.Generator(device=dev).manual_seed(B)
     shape = spec.edims if in_exp else spec.dims
     x64 = torch.randn((B,) + tuple(shape), generator=gen, device=dev,
@@ -71,10 +78,11 @@ def test_kernel_matches_plain_f64_reference(dev, dims, B, mode):
     assert _rel(y, yp) <= 1e-5
 
 
-def test_selfdot_is_deterministic(dev):
-    spec = _spec((40, 40), torch.float32, dev)
+@pytest.mark.parametrize("dims", [(40, 40), (256, 256)])
+def test_selfdot_is_deterministic(dev, dims):
+    spec = _spec(dims, torch.float32, dev)
     w = bttb._full_weights(spec.eigs, spec.edims[-1]).contiguous()
-    x = torch.randn((33, 40, 40), device=dev)
+    x = torch.randn((33,) + dims, device=dev)
     y1, d1 = mxu2d.sandwich_apply_selfdot(x, w, spec.dims, spec.edims)
     y2, d2 = mxu2d.sandwich_apply_selfdot(x, w, spec.dims, spec.edims)
     assert torch.equal(y1, y2) and torch.equal(d1, d2)
@@ -494,6 +502,54 @@ def test_b8_matches_plain(dev, shape):
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == torch.float32
         assert _rel(a, b) <= 1e-5
+
+
+def test_b8_refuses_tables_it_does_not_read(dev):
+    # the FFT kernel computes with its own tables: anything but the cached
+    # real Fourier bases raises, and nothing is launched
+    from hipgp_tpu_torch.ops import pallas_transform
+
+    Q0 = bttb._real_fourier_basis(24, torch.float32, dev)
+    Q1 = bttb._real_fourier_basis(16, torch.float32, dev)
+    x = torch.randn((3, 24, 16), device=dev)
+    w = torch.ones((24, 16), device=dev)
+    before = pallas_transform.LAUNCHES["circulant_apply_2d"]
+    for q0, q1 in ((Q0.clone(), Q1), (Q0, torch.eye(16, device=dev))):
+        with pytest.raises(ValueError, match="cached real Fourier basis"):
+            pallas_transform.circulant_apply_2d(x, q0, q1, w)
+    assert pallas_transform.LAUNCHES["circulant_apply_2d"] == before
+    assert pallas_transform.circulant_apply_2d(x, Q0, Q1, w).shape == (3, 24, 16)
+    assert pallas_transform.LAUNCHES["circulant_apply_2d"] == before + 1
+
+
+def test_training_step_at_256_squared(dev):
+    # one 2-D training step at M = 256^2 (embedded (512, 512)): the
+    # whitening's backward runs kernel A's pullback (512, 512) -> (256, 256),
+    # which the dense kernel's shared memory could not take; finite ELBO and
+    # hyper-gradients, launches exact
+    from hipgp_tpu_torch.experiments.run_synthetic import build_model
+
+    k = 3
+    model = build_model("SqExp", 256, 1000, 1.0, 0.05, 0.01, dtype=torch.float32,
+                        device=dev)
+    assert model.spectrum(model.init_state()).edims == (512, 512)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(-1, 1, (64, 2)), dtype=torch.float32, device=dev)
+    y = torch.as_tensor(np.sin(3 * rng.uniform(-1, 1, 64)), dtype=torch.float32,
+                        device=dev)
+    mxu2d.reset_launches()
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    elbo, g = model.elbo_and_grads(model.init_state(), x, y, None, maxiter_cg=k,
+                                   compute_hyper_grads=True)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(elbo))
+    for name in ("log_sig2", "log_ell", "log_noise2"):
+        assert np.isfinite(float(getattr(g, name)))
+    # the forward and the backward solve; R^T and its pullback
+    st = dict(solve.PCG_STATS)
+    assert st["solves"] == 2 and st["iterations"] <= 2 * k
+    assert {n: v for n, v in mxu2d.LAUNCHES.items() if v} == {
+        "sandwich_apply_selfdot": st["solves"] + 2 * st["iterations"], "sandwich_apply": 2}
 
 
 @pytest.mark.parametrize("L", RADIX_LENGTHS)
