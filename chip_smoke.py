@@ -11,11 +11,10 @@ Phases, each printing one line of progress with its seconds:
                (256, 250, 250) -> (256, 125, 125), included), and kernel B-8
                (the same kernel uncropped) at (256, 250, 250), in float32
                with TF32 off; times by CUDA events after a warm-up: the
-               kernel and the dense route (kernel B-5 on one plane, the
-               earlier kernels A and B-8) in turns, the plain version, the
-               torch.fft chain, the bound; B-8 against the einsum chain in
-               turns (the measurement behind bttb.USE_PALLAS_TRANSFORM); and
-               the self-dot and pullback at M = 256^2 through (512, 512);
+               kernel and the plain version in turns, the torch.fft chain,
+               the bound; B-8 against the einsum chain in turns (the
+               measurement behind bttb.USE_PALLAS_TRANSFORM); and the
+               self-dot and pullback at M = 256^2 through (512, 512);
   3. main    - the paper's 2-D synthetic protocol: 20 000 + 2 000 points from
                seed 42, the M = 125^2 mean-field model, one natural-gradient
                epoch (79 steps at batch 256, maxiter_cg 10, after the theta2
@@ -65,11 +64,14 @@ Phases, each printing one line of progress with its seconds:
   8. kernels-3d - the weight-plane kernel B-5 against its plain version in
                float32 and float64 at every shape the 3-D path gives it (the
                PCG self-dot applies (512, 64, 64, 64) with wK and 1/wK, R^T out
-               to (512, 64, 128, 128), and the prediction chunk of 400), and
-               the whole-sample kernel B-6 at the self-dot shape
-               (512, 32, 64, 64); a second call bit-equal; times of kernel,
-               plain version and the torch.fft chain, and B-6 against the
-               B-5 pipeline (outer products included);
+               to (512, 64, 128, 128), and the prediction chunk of 400), at
+               the pullback crop (expanded in) and, through kernel A's passes
+               with a plane index, a (2, 3, 512, 512) stack expanded in and
+               out; each case's route, and the times of kernel, plain version
+               and torch.fft chain beside its bound; the whole-sample kernel
+               B-6 at the self-dot shape (512, 32, 64, 64); a second call
+               bit-equal; B-6 against the B-5 pipeline (outer products
+               included);
   9. main-3d - the paper's section 5.5 dust map (run_domain.main): 64 x 64 x
                32 inducing grid, SqExp with ell 0.07 and the analytic
                semi-integrated estimator, 10 240 line-integral observations
@@ -101,7 +103,7 @@ import time
 FP32_PEAK = 67e12     # FLOP/s, H100 SXM, CUDA cores (NVIDIA data sheet)
 HBM_RATE = 3.35e12    # bytes/s, H100 SXM
 KERNEL_SOURCE = "hipgp_tpu_torch/csrc/sandwich_fft.cu"   # kernels A and B-8
-WP_SOURCE = "hipgp_tpu_torch/csrc/mxu2d.cu"              # kernel B-5
+WP_SOURCE = "hipgp_tpu_torch/csrc/sandwich_wp.cu"        # kernel B-5
 TPU_KERNEL = "hipgp_tpu/ops/mxu2d.py:201"   # pl.pallas_call of _make_kernel
 RADIX_SOURCE = "hipgp_tpu_torch/csrc/radix.cu"
 # pl.pallas_call sites of the TPU kernels the radix kernels replace
@@ -160,8 +162,7 @@ def sandwich_bound_ms(B, i, L, o, selfdot):
         rate.
     Returns (ms, 'operations' | 'bytes', dense_ms), where dense_ms is the
     operation time of the four dense real-DFT contractions that the plain
-    version and the dense route (kernel B-5) perform (about ten times the FFT
-    count)."""
+    version performs (about ten times the FFT count)."""
     (i0, i1), (L0, L1), (o0, o1) = i, L, o
     half = L1 // 2 + 1
     ops = (i0 * _fft_ops(L1, True) + 2 * half * _fft_ops(L0, False)
@@ -188,9 +189,8 @@ def fft_chain_ms(torch, x, w, edims, dims_out, y64):
 def phase_kernels_b8(torch, dev, wK, edims, gen):
     """Kernel B-8 (the full-plane sandwich) at (256, 250, 250) with the
     main path's spectrum against its plain version (the einsum chain) and
-    float64, limit 1e-5; times of B-8, the einsum chain and the dense route
-    (kernel B-5 on one plane, the earlier B-8), in turns, and the torch.fft
-    chain, the bound.  Returns B-8's record of the kernels line."""
+    float64, limit 1e-5; times of B-8 and the einsum chain in turns, and the
+    torch.fft chain, the bound.  Returns B-8's record of the kernels line."""
     from hipgp_tpu_torch.ops import bttb, mxu2d, pallas_transform
 
     B = 256
@@ -208,19 +208,15 @@ def phase_kernels_b8(torch, dev, wK, edims, gen):
     abs_err = float((got - want).abs().max())
     check(err32 <= 1e-5 and err64 <= 1e-5,
           f"B-8 rel err vs plain f32 {err32:.3e}, vs f64 {err64:.3e}")
-    dense = lambda: mxu2d.sandwich_apply_wp(x[:, None], wK[None], edims, edims)
-    err_dense = rel(dense()[:, 0], y64)
-    check(err_dense <= 1e-5, f"B-8 dense route rel err {err_dense:.3e}")
-    k1, p1, d1 = cuda_ms(torch, kern), cuda_ms(torch, plain), cuda_ms(torch, dense)
-    d2, p2, k2 = cuda_ms(torch, dense), cuda_ms(torch, plain), cuda_ms(torch, kern)
-    ms, plain_ms, dense_route_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2), 0.5 * (d1 + d2)
+    k1, p1 = cuda_ms(torch, kern), cuda_ms(torch, plain)
+    p2, k2 = cuda_ms(torch, plain), cuda_ms(torch, kern)
+    ms, plain_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
     fft_ms, fft_err = fft_chain_ms(torch, x, wK, edims, edims, y64)
     bound, bound_by, dense_ms = sandwich_bound_ms(B, edims, edims, edims, False)
     log(f"[kernels] B-8 circulant_apply_2d B={B} {tuple(edims)}, w = wK: rel err vs "
         f"plain f32 {err32:.3e} (max abs {abs_err:.3e}), vs float64 {err64:.3e}; kernel "
         f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}), einsum chain (plain) {plain_ms:.4f} ms "
-        f"({p1:.4f}, {p2:.4f}), dense route (B-5, one plane) {dense_route_ms:.4f} ms "
-        f"({d1:.4f}, {d2:.4f}), in turns; torch.fft chain {fft_ms:.4f} ms (rel err vs "
+        f"({p1:.4f}, {p2:.4f}), in turns; torch.fft chain {fft_ms:.4f} ms (rel err vs "
         f"f64 {fft_err:.3e}); bound {bound:.4f} ms ({bound_by}; FFT count), dense-DFT "
         f"operation time {dense_ms:.4f} ms; USE_PALLAS_TRANSFORM = "
         f"{bttb.USE_PALLAS_TRANSFORM}")
@@ -273,10 +269,9 @@ def phase_kernel_a_case(torch, dev, mxu2d, gen, name, B, w, label, dims, edims, 
                         out_exp, timed, with_library=False):
     """Kernel A through one wrapper at one shape: against its plain version
     in float32 and float64 (limit 1e-5, dots too); with ``timed``, the
-    kernel and the dense route (kernel B-5 on one plane, the earlier kernel
-    A's four launches) in turns, the plain version, the torch.fft chain, the
-    bound and, ``with_library``, the conv2d yardstick.  Returns its record of
-    the kernels line (None when not ``timed``)."""
+    kernel and the plain version in turns, the torch.fft chain, the bound
+    and, ``with_library``, the conv2d yardstick.  Returns its record of the
+    kernels line (None when not ``timed``)."""
     selfdot = name == "sandwich_apply_selfdot"
     tables = mxu2d._tables(dims, edims, in_exp, out_exp, torch.float32, dev)
     x = torch.randn((B,) + tables[4], generator=gen, device=dev, dtype=torch.float32)
@@ -307,22 +302,13 @@ def phase_kernel_a_case(torch, dev, mxu2d, gen, name, B, w, label, dims, edims, 
         ms = cuda_ms(torch, kern, warmup=1, reps=5)
         log(f"[kernels] {name} B={B} {label}: {msg}; kernel {ms:.4f} ms")
         return None
-    # the dense route: kernel B-5 with one weight plane
-    dense = lambda: mxu2d.sandwich_apply_wp(x[:, None], w[None], dims, edims,
-                                            in_expanded=in_exp, out_expanded=out_exp,
-                                            selfdot=selfdot)
-    yd = dense()
-    err_dense = rel(yd[0][:, 0] if selfdot else yd[:, 0], y64)
-    check(err_dense <= 1e-5, f"{name} ({label}) dense route rel err {err_dense:.3e}")
-    k1, d1 = cuda_ms(torch, kern), cuda_ms(torch, dense)
-    d2, k2 = cuda_ms(torch, dense), cuda_ms(torch, kern)
-    ms, dense_ms = 0.5 * (k1 + k2), 0.5 * (d1 + d2)
-    plain_ms = cuda_ms(torch, plain)
+    k1, p1 = cuda_ms(torch, kern), cuda_ms(torch, plain)
+    p2, k2 = cuda_ms(torch, plain), cuda_ms(torch, kern)
+    ms, plain_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
     fft_ms, fft_err = fft_chain_ms(torch, x, w, edims, tables[5], y64)
     bound, bound_by, dense_op_ms = sandwich_bound_ms(B, tables[4], edims, tables[5], selfdot)
     log(f"[kernels] {name} B={B} {label}: {msg}; kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), "
-        f"dense route (B-5, one plane) {dense_ms:.4f} ms ({d1:.4f}, {d2:.4f}), in turns; "
-        f"plain {plain_ms:.4f} ms; torch.fft chain {fft_ms:.4f} ms (rel err vs f64 "
+        f"plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}), in turns; torch.fft chain {fft_ms:.4f} ms (rel err vs f64 "
         f"{fft_err:.3e}); bound {bound:.4f} ms ({bound_by}; FFT count), dense-DFT "
         f"operation time {dense_op_ms:.4f} ms")
     lib = (library_ms(torch, mxu2d, x, w, dims, edims, tables, y64, name)
@@ -775,18 +761,20 @@ def phase_kernels_3d(torch, dev):
         check(all(torch.equal(a, b) for a, b in pairs),
               f"{name} ({label}): a second identical call is not bit-equal")
 
-    # ---- B-5 at the PCG self-dot, R^T and prediction-chunk shapes ----------
-    cases = [(512, wK, True, "PCG self-dot apply, w = wK"),
-             (512, (1.0 / wK).contiguous(), True, "PCG self-dot apply, w = 1/wK"),
-             (512, torch.sqrt(wK).contiguous(), False, "R^T, w = sqrt(wK)"),
-             (400, wK, True, "prediction-chunk self-dot apply"),
-             (400, torch.sqrt(wK).contiguous(), False, "prediction-chunk R^T")]
-    for B, w, selfdot, label in cases:
-        out_exp = not selfdot
-        t32 = mxu2d._tables(inner, einner, False, out_exp, torch.float32, dev)
-        t64 = mxu2d._tables(inner, einner, False, out_exp, torch.float64, dev)
-        x = torch.randn((B, W) + inner, generator=gen, device=dev)
-        call = lambda: mxu2d.sandwich_apply_wp(x, w, inner, einner,
+    # ---- B-5 at the PCG self-dot, R^T, prediction-chunk and pullback shapes --
+    sq = torch.sqrt(wK).contiguous()
+    cases = [(512, wK, "selfdot", "PCG self-dot apply, w = wK"),
+             (512, (1.0 / wK).contiguous(), "selfdot", "PCG self-dot apply, w = 1/wK"),
+             (512, sq, "out", "R^T, w = sqrt(wK)"),
+             (400, wK, "selfdot", "prediction-chunk self-dot apply"),
+             (400, sq, "out", "prediction-chunk R^T"),
+             (512, sq, "in", "R^T pullback (expanded in), w = sqrt(wK)")]
+    for B, w, crop, label in cases:
+        selfdot, in_exp, out_exp = crop == "selfdot", crop == "in", crop == "out"
+        t32 = mxu2d._tables(inner, einner, in_exp, out_exp, torch.float32, dev)
+        t64 = mxu2d._tables(inner, einner, in_exp, out_exp, torch.float64, dev)
+        x = torch.randn((B, W) + t32[4], generator=gen, device=dev)
+        call = lambda: mxu2d.sandwich_apply_wp(x, w, inner, einner, in_expanded=in_exp,
                                                out_expanded=out_exp, selfdot=selfdot)
         got = call()
         want32 = mxu2d.sandwich_wp_plain(x, w, *t32[:4], selfdot=selfdot)
@@ -794,27 +782,62 @@ def phase_kernels_3d(torch, dev):
                                          selfdot=selfdot)
         msg, abs_err = compare("B-5", label, got, want32, want64, selfdot)
         same_again("B-5", label, got, call)
+        y64 = want64[0] if selfdot else want64
         del want32, want64
+        route = mxu2d._wp_route(t32[4], einner, t32[5])[0]
         bound = wp_bound_ms(B, W, t32[4], einner, t32[5], selfdot)
-        if label.startswith("PCG self-dot apply, w = wK"):
-            ms = cuda_ms(torch, call)
-            plain_ms = cuda_ms(torch, lambda: mxu2d.sandwich_wp_plain(
-                x, w, *t32[:4], selfdot=True), warmup=1, reps=5)
-            o_shape = t32[5]
-            lib = lambda: fft_chain(torch, x, w, einner, o_shape)
-            lib_err = rel(lib(), mxu2d.sandwich_wp_plain(x.double(), w.double(),
-                                                         *t64[:4]))
+        plain = lambda: mxu2d.sandwich_wp_plain(x, w, *t32[:4], selfdot=selfdot)
+        k1, p1 = cuda_ms(torch, call), cuda_ms(torch, plain, warmup=1, reps=5)
+        p2, k2 = cuda_ms(torch, plain, warmup=1, reps=5), cuda_ms(torch, call)
+        ms, plain_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+        o_shape = t32[5]
+        lib = lambda: fft_chain(torch, x, w, einner, o_shape)
+        lib_err = rel(lib(), y64)
+        # the fft chain drops w's odd part, which 1/wK weighs most (the f32
+        # spectrum is even only to rounding): there it is a yardstick of time,
+        # not of the function
+        if "1/wK" not in label:
             check(lib_err <= 1e-4, f"B-5 torch.fft chain rel err {lib_err:.3e}")
-            lib_ms = cuda_ms(torch, lib, warmup=1, reps=5)
-            msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.fft chain "
-                    f"{lib_ms:.4f} ms (rel err vs f64 {lib_err:.3e}, no self-dot), "
-                    f"bound {bound[0]:.4f} ms ({bound[1]}; pruned FFT count)")
+        del y64
+        lib_ms = cuda_ms(torch, lib, warmup=1, reps=5)
+        msg += (f"; route {route}; kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+                f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}), in turns; torch.fft chain "
+                f"{lib_ms:.4f} ms (rel err vs f64 {lib_err:.3e}, no self-dot); bound "
+                f"{bound[0]:.4f} ms ({bound[1]}; pruned FFT count), kernel at "
+                f"{100 * bound[0] / ms:.1f} % of it")
+        if label == "PCG self-dot apply, w = wK":
+            check(route == "resident", f"B-5 self-dot route {route}")
             results["B-5"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound[0], bound_by=bound[1],
                                   library_ms=lib_ms)
-        else:
-            msg += f"; bound {bound[0]:.4f} ms ({bound[1]})"
-        log(f"[kernels-3d] B-5 ({B}, {W}) + {inner} -> {t32[5]} {label}: {msg}")
+        log(f"[kernels-3d] B-5 ({B}, {W}) + {t32[4]} -> {t32[5]} {label}: {msg}")
+        del x, got
+
+    # ---- B-5 on planes above one block: expanded (512, 512), W = 3 --------
+    # (kernel A's three passes with a plane index; the dense kernel refused
+    # an expanded input above an axis of 432)
+    grids = [torch.linspace(-1.0, 1.0, 256, device=dev)] * 2
+    s512 = bttb.make_spectrum(grids, lambda a, b: torch.exp(
+        -0.5 * torch.sum(((a[:, None, :] - b[None, :, :]) / 0.05) ** 2, -1)), jitter=1e-3)
+    w1 = bttb._full_weights(s512.eigs, s512.edims[-1])
+    w3 = torch.stack([w1, torch.sqrt(w1), 1.0 / w1]).contiguous()
+    big = tuple(s512.edims)
+    check(big == (512, 512), f"(256, 256) embeds at {big}")
+    x = torch.randn((2, 3) + big, generator=gen, device=dev)
+    call = lambda: mxu2d.sandwich_apply_wp(x, w3, (256, 256), big, in_expanded=True,
+                                           out_expanded=True)
+    got = call()
+    t32 = mxu2d._tables((256, 256), big, True, True, torch.float32, dev)
+    t64 = mxu2d._tables((256, 256), big, True, True, torch.float64, dev)
+    msg, _ = compare("B-5", "(512, 512) expanded, W = 3", got,
+                     mxu2d.sandwich_wp_plain(x, w3, *t32[:4]),
+                     mxu2d.sandwich_wp_plain(x.double(), w3.double(), *t64[:4]), False)
+    same_again("B-5", "(512, 512) expanded, W = 3", got, call)
+    route = mxu2d._wp_route(big, big, big)[0]
+    check(route == "three-pass", f"B-5 expanded (512, 512) route {route}")
+    log(f"[kernels-3d] B-5 (2, 3) + {big} -> {big} expanded in and out: {msg}; route "
+        f"{route}; kernel {cuda_ms(torch, call, warmup=1, reps=5):.4f} ms")
+    del x, got, w3
 
     # ---- B-6 at the self-dot shape ----------------------------------------
     label = "PCG self-dot apply, w = wK"

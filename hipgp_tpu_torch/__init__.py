@@ -5,9 +5,10 @@ Hopper card: the BTTB/circulant operator, the PCG whitening solve, the
 mean-field natural-gradient SVI fit (with Adam on the hyperparameters,
 differentiated through the whitening) and prediction, for point and
 line-integral observations.  The hot ops are hand-written CUDA kernels built
-with nvcc at first use: the cropped real-Fourier sandwich of the 2-D path,
-its full-plane form and its weight-plane form for the 3-D path
-(``csrc/mxu2d.cu``), the whole-sample 3-D sandwich (``csrc/mxu3d.cu``) and
+with nvcc at first use: the cropped real-Fourier sandwich of the 2-D path
+and its full-plane form (``csrc/sandwich_fft.cu``), its weight-plane form for
+the 3-D path (``csrc/sandwich_wp.cu``), the whole-sample 3-D sandwich
+(``csrc/mxu3d.cu``) and
 the stages of the packed radix circulant apply of the 1-D long axis
 (``csrc/radix.cu``); everything else is plain PyTorch.  Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``, where each kernel's

@@ -1,6 +1,6 @@
-// Tile primitives shared by the dense real-Fourier sandwich kernels: the
-// weight-plane kernel B-5 (mxu2d.cu) and the whole-sample 3-D kernel B-6
-// (mxu3d.cu).
+// Tile primitives of the dense real-Fourier sandwich: the whole-sample 3-D
+// kernel B-6 (mxu3d.cu).  Kernels A, B-5 and B-8 are FFT-structured
+// (sandwich_fft.cu, sandwich_wp.cu) and do not use them.
 //
 // Every contraction is a dense product with a rectangular slab of the
 // orthonormal real Fourier basis, in full FP32 FMA on the CUDA cores (no

@@ -10,6 +10,10 @@
 //
 // (the real-basis sandwich of the TPU kernels) and, when `dots` is given,
 // dots[b] = <x[b], y[b]>, through the DFT of the zero-padded (L0, L1) plane.
+// With a plane index (W > 1) it is also kernel B-5's route for planes whose
+// half spectrum does not fit one block (csrc/sandwich_wp.cu): x is a stack of
+// B * W planes, plane s weighted by w[s % W], and dots sum each sample's W
+// planes.
 // Column k of the real Fourier basis is the cosine (k <= L/2) or the sine
 // (k > L/2) of frequency min(k, L-k), so for a w even in each axis,
 // w[k0][k1] = w[L0-k0][k1] = w[k0][L1-k1], this is the circulant apply
@@ -29,11 +33,11 @@
 // below) and moves x in, two round trips of the (B, L1/2+1, .) complex half
 // spectrum and y out, ~180 MB (part of it in the 50 MB L2): ~0.065 ms by
 // either count.  It is bound by its operations: the DFT steps take most of
-// its time, and the whole runs at ~19 % of the FP32 peak at that shape.  The earlier dense kernel
-// (csrc/mxu2d.cu, now B-5 only) did 12.0 GFLOP of real-DFT contractions and
-// held an (i0 + L0) x 64 slab in shared memory, which capped the embedded
-// axis at 432; here a block holds 32 rows or 16 columns of one axis, so
-// every axis up to 512 fits.
+// its time, and the whole runs at ~19 % of the FP32 peak at that shape.  A
+// dense formulation would do 12.0 GFLOP of real-DFT contractions and hold
+// an (i0 + L0) x 64 slab in shared memory, capping the embedded axis at 432;
+// here a block holds 32 rows or 16 columns of one axis, so every axis up to
+// 512 fits.
 //
 // Each length-L DFT is one Cooley-Tukey step L = P * Q with P, Q <= 32 (every
 // {2,3,5}-smooth L <= 512 splits so): input n = Q n1 + n2, output k = k1 + P k2,
@@ -336,13 +340,13 @@ __global__ void __launch_bounds__(NT) rows_forward_kernel(
 }
 
 // Pass 2.  Columns j < ncols = B * H of s1 (column j = (b, k1) with
-// k1 = j % H, i0 values each):
+// k1 = j % H, i0 values each; plane b weighted by w[b % W]):
 //   s2[j * o0 + m] = (1 / L0) sum_{k0 < L0} e^{+2 pi i k0 m / L0} Z[k0]  (m < o0),
 //   U[k0] = sum_{n < i0} s1[j * i0 + n] e^{-2 pi i k0 n / L0},
 // Z = U scaled by w as the real basis applies it (see the scale step), / L1.
 __global__ void __launch_bounds__(NT) columns_kernel(
     const float2* __restrict__ s1, float2* __restrict__ s2, const float* __restrict__ w,
-    Split fw, Split iv, int ncols, int H, int L1, int i0, int L0, int o0, float scale) {
+    Split fw, Split iv, int ncols, int H, int L1, int i0, int L0, int o0, int W, float scale) {
   extern __shared__ float4 smem4[];
   const int cst = L0 | 1;
   const int rs = a_stride(fw) > a_stride(iv) ? a_stride(fw) : a_stride(iv);
@@ -375,7 +379,8 @@ __global__ void __launch_bounds__(NT) columns_kernel(
   {
     const int c = threadIdx.x % COLS, kstep = blockDim.x / COLS;
     const int k1 = (j0 + c) % H, k1s = k1 ? L1 - k1 : 0;
-    const float *wc = w + k1, *ws = w + k1s;
+    const float* wl = w + (size_t)(((j0 + c) / H) % W) * L0 * L1;
+    const float *wc = wl + k1, *ws = wl + k1s;
     float2* col = cb + c * cst;
     for (int k0 = threadIdx.x / COLS; k0 <= L0 / 2; k0 += 4 * kstep) {
       float4 g[4];   // (w[k][k1], w[kr][k1], w[k][k1s], w[kr][k1s])
@@ -483,7 +488,8 @@ __global__ void __launch_bounds__(NT) rows_inverse_kernel(
   }
 }
 
-// Pass 4.  dots[b] = sum_{m < o0} rowdot[b * o0 + m], in a fixed order.
+// Pass 4.  dots[b] = sum_{m < o0} rowdot[b * o0 + m], in a fixed order (o0
+// counts the rows of all W planes of a sample).
 __global__ void __launch_bounds__(NT) dots_reduce_kernel(const float* __restrict__ rowdot,
                                                          float* __restrict__ dots, int o0) {
   __shared__ float red[NT];
@@ -559,13 +565,14 @@ size_t fft_sandwich_smem_bytes(int i1, int L0, int o1, int a0, int b0, int a1, i
   const size_t s3 = rows_inverse_smem(make_split(none, a1, b1, 1, swap3), a1 * b1 / 2 + 1, o1);
   return s1 > s2 ? (s1 > s3 ? s1 : s3) : (s2 > s3 ? s2 : s3);
 }
-// Kernels A and B-8.  x (B, i0, i1), w (L0, L1) full spectrum, y (B, o0, o1);
+// Kernels A and B-8, and B-5's route for large planes.  x (B, W, i0, i1), w
+// (W, L0, L1) full spectra (W = 1 for A and B-8), y (B, W, o0, o1), dots (B);
 // tab0 and tab1 the tables of L0 = a0 * b0 and L1 = a1 * b1; swap* the
 // orientations of pass 1, the forward and inverse transforms of pass 2, and
-// pass 3.  Scratch: s1 (B*H*i0 complex), s2 (B*H*o0 complex) and, with dots,
-// rowdot (B*o0 floats), H = L1/2 + 1.
+// pass 3.  Scratch: s1 (B*W*H*i0 complex), s2 (B*W*H*o0 complex) and, with
+// dots, rowdot (B*W*o0 floats), H = L1/2 + 1.
 int fft_sandwich(const float* x, const float* w, const float* tab0, const float* tab1,
-                 float* y, float* dots, float* s1, float* s2, float* rowdot, int B, int i0,
+                 float* y, float* dots, float* s1, float* s2, float* rowdot, int B, int W, int i0,
                  int i1, int L0, int L1, int o0, int o1, int a0, int b0, int a1, int b1,
                  int swap1, int swap2f, int swap2i, int swap3, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -578,28 +585,30 @@ int fft_sandwich(const float* x, const float* w, const float* tab0, const float*
   const Split p2i = make_split(t0, a0, b0, 1, swap2i);
   const Split p3 = make_split(t1, a1, b1, 1, swap3);
   const int H = L1 / 2 + 1;
+  const int P = B * W;   // planes
   float2* c1 = reinterpret_cast<float2*>(s1);
   float2* c2 = reinterpret_cast<float2*>(s2);
   {
-    const int nrows = B * i0;
+    const int nrows = P * i0;
     rows_forward_kernel<<<(nrows + ROWS - 1) / ROWS, NT, rows_forward_smem(p1, i1), stream>>>(
         x, c1, p1, nrows, i0, i1, H);
     if ((err = cudaGetLastError())) return (int)err;
   }
   {
-    const int ncols = B * H;
+    const int ncols = P * H;
     columns_kernel<<<(ncols + COLS - 1) / COLS, NT, columns_smem(p2f, p2i, L0), stream>>>(
-        c1, c2, w, p2f, p2i, ncols, H, L1, i0, L0, o0, (float)(1.0 / ((double)L0 * (double)L1)));
+        c1, c2, w, p2f, p2i, ncols, H, L1, i0, L0, o0, W,
+        (float)(1.0 / ((double)L0 * (double)L1)));
     if ((err = cudaGetLastError())) return (int)err;
   }
   {
-    const int nrows = B * o0;
+    const int nrows = P * o0;
     rows_inverse_kernel<<<(nrows + ROWS - 1) / ROWS, NT, rows_inverse_smem(p3, H, o1), stream>>>(
         c2, y, dots ? x : nullptr, dots ? rowdot : nullptr, p3, nrows, o0, H, L1, o1);
     if ((err = cudaGetLastError())) return (int)err;
   }
   if (dots) {
-    dots_reduce_kernel<<<B, NT, 0, stream>>>(rowdot, dots, o0);
+    dots_reduce_kernel<<<B, NT, 0, stream>>>(rowdot, dots, W * o0);
     if ((err = cudaGetLastError())) return (int)err;
   }
   return 0;

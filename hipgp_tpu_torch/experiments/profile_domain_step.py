@@ -7,11 +7,13 @@ whitening with ``--maxiter-cg`` PCG iterations, the ELBO and the natural
 gradient) on the first batch from the initial state (its work does not depend
 on the state): first by the host clock between
 synchronisations, then under torch.profiler, which splits the device time
-into kernel B-5 (its four launches), kernel B-6, the cuBLAS products (the
+into kernel B-5 (its resident kernel and the plane dots' reduction),
+kernel B-6, the cuBLAS products (the
 two outer-axis contractions per apply and the model's kn products), and
 everything else (the Knm build, the PCG vectors, the ELBO and the
-gradient).  The Knm build alone is also timed by the host clock.  Prints
-one JSON line.
+gradient).  The Knm build alone is also timed by the host clock, and the
+peak device memory of one step is read (`torch.cuda.max_memory_allocated`
+after a reset).  Prints one JSON line.
 
 Usage (on the card): python -m hipgp_tpu_torch.experiments.profile_domain_step
 """
@@ -32,7 +34,7 @@ __all__ = ["main"]
 
 TOP = 10
 # kernel-name fragments of each group (the CUDA sources' function names)
-GROUPS = {"B-5": ("row_gemm_kernel", "middle_kernel", "wp_dots_reduce_kernel"),
+GROUPS = {"B-5": ("wp_resident_kernel", "planedots_reduce_kernel"),
           "B-6": ("wp3_kernel",),
           "cuBLAS products": ("gemm", "Kernel2", "cutlass", "xmma")}
 
@@ -85,6 +87,12 @@ def main(argv=None):
 
     step_ms = _sync_ms(step, args.reps)
     knm_ms = _sync_ms(knm, args.reps)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    step()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    step_mib = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.reps):
@@ -102,7 +110,9 @@ def main(argv=None):
         "grid": list(model.dims), "embedded": list(model.edims),
         "batch": args.batch_size, "maxiter_cg": args.maxiter_cg,
         "use_wp3": mxu3d.USE_WP3, "step_ms": step_ms, "step_ms_profiled": prof_ms,
-        "knm_build_ms": knm_ms, "device_ms": dev_ms if dev_ms > 0 else None,
+        "knm_build_ms": knm_ms, "peak_memory_mib": peak_mib,
+        "step_peak_above_state_mib": step_mib,
+        "device_ms": dev_ms if dev_ms > 0 else None,
         "idle_share": (1.0 - dev_ms / prof_ms) if dev_ms > 0 else None,
         "device_ms_by_group": groups,
         "top_kernels": [{"name": e.key[:80], "ms_per_step": e.self_device_time_total

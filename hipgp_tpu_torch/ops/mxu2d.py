@@ -20,17 +20,20 @@ Two implementations of each function live here:
 * on a tensor on a CUDA device (f32 only; anything else raises), hand-written
   CUDA for Hopper: kernel A, ``csrc/sandwich_fft.cu``, the FFT-structured
   circulant sandwich (also kernel B-8's, `ops/pallas_transform.py`), and
-  kernel B-5, ``csrc/mxu2d.cu``, dense real-DFT contractions per plane;
+  kernel B-5, ``csrc/sandwich_wp.cu``, the plane-resident FFT sandwich (one
+  block per plane, radix-16/8/4/2/3/5 butterflies, `wp_fft_plan`), with kernel
+  A's three passes and a plane index for planes that do not fit one block
+  (`_wp_route`);
 * their plain PyTorch versions, :func:`sandwich_plain` and
   :func:`sandwich_wp_plain`, the einsum chain of
   `bttb._apply_spectrum_matmul` over the same rectangular tables, taken only
   for a tensor on the CPU.
 
-Kernel A computes the sandwich through the DFT of the zero-padded plane
-(one Cooley-Tukey step per axis, `fft_plan`): for a w even in each axis, as
-the solver's spectra are, that is crop(irfft2(w[:, :L1/2+1] * rfft2(pad(x))));
-its scale step also applies w's odd parts, as the real basis does, so it is
-the sandwich for any w.
+Both kernels compute the sandwich through the DFT of the zero-padded plane
+(kernel A: one Cooley-Tukey step per axis, `fft_plan`): for a w even in each
+axis, as the solver's spectra are, that is
+crop(irfft2(w[:, :L1/2+1] * rfft2(pad(x)))); their scale steps also apply w's
+odd parts, as the real basis does, so each is the sandwich for any w.
 
 Each wrapper counts its kernel launches in :data:`LAUNCHES`.
 
@@ -54,23 +57,29 @@ import torch
 from .bttb import _real_fourier_basis, fp32_matmul, needs_grad, no_backward
 
 __all__ = ["sandwich_apply", "sandwich_apply_selfdot", "sandwich_plain",
-           "sandwich_apply_wp", "sandwich_wp_plain", "fft_plan", "LAUNCHES",
-           "MXU2D_MAX_LEN", "reset_launches"]
+           "sandwich_apply_wp", "sandwich_wp_plain", "fft_plan", "wp_fft_plan",
+           "LAUNCHES", "MXU2D_MAX_LEN", "reset_launches"]
 
 # largest embedded axis the kernel path is used for (the solver gate)
 MXU2D_MAX_LEN = 512
 # launches of kernels A and B-5, per wrapper; a plain-version call counts nothing
 LAUNCHES: Dict[str, int] = {"sandwich_apply": 0, "sandwich_apply_selfdot": 0,
                             "sandwich_apply_wp": 0, "sandwich_apply_wp_selfdot": 0}
-# blocks a grid's y dimension may have (B-5's row GEMMs' row tiles)
-_GRID_Y_LIMIT = 65535
 # largest factor of kernel A's one-step Cooley-Tukey split (csrc/sandwich_fft.cu)
 _FFT_MAX_FACTOR = 32
 # shared memory one block may use on the card (sm_90)
 _SMEM_LIMIT = 232448
+# B-5's resident route (csrc/sandwich_wp.cu): the static shared memory of its
+# kernel (the dots reduction's NT floats), the stages a plan may have, and
+# the transform buffer it is given where the whole of a row or column pass
+# needs more (in float2: 33 rows of 128, 33 KB)
+_WP_STATIC_SMEM = 256 * 4
+_WP_MAX_STAGES = 8
+_WP_BUFFER = 33 * 128
 _TABLES: Dict[tuple, tuple] = {}
 _FFT_TABLES: Dict[tuple, torch.Tensor] = {}
-_LIB = None
+_WP_TABLES: Dict[tuple, torch.Tensor] = {}
+_WP_LIB = None
 _FFT_LIB = None
 
 
@@ -207,23 +216,128 @@ def _fft_launch_plan(i_shape, edims, o_shape):
     return p0 + p1, swaps
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+def wp_fft_plan(L: int) -> Tuple[int, ...]:
+    """Kernel B-5's radices of a length-L DFT (csrc/sandwich_wp.cu), the
+    first stage first: the power of two in as few stages as radices 16, 8, 4
+    and 2 allow (16s first; 2^5 as 8 * 4), then the 3s and the 5s, so that
+    an even radix leads wherever L is even (the pruned first stage runs the
+    half butterfly there); (1,) for L = 1.  Raises for a length that is not
+    {2,3,5}-smooth or needs more stages than the kernel takes."""
+    n, counts = L, {}
+    for f in (2, 3, 5):
+        counts[f] = 0
+        while n > 1 and n % f == 0:
+            n //= f
+            counts[f] += 1
+    if n != 1 or L < 1:
+        raise ValueError(f"length {L} is not {{2,3,5}}-smooth; kernel B-5 does not take it")
+    q, r = divmod(counts[2], 4)
+    twos = ([16] * (q - 1) + [8, 4] if r == 1 and q else
+            [16] * q + {0: [], 1: [2], 2: [4], 3: [8]}[r])
+    radices = twos + [3] * counts[3] + [5] * counts[5]
+    if len(radices) > _WP_MAX_STAGES:
+        raise ValueError(f"length {L} needs {len(radices)} butterfly stages; kernel B-5 "
+                         f"takes at most {_WP_MAX_STAGES}")
+    return tuple(radices) or (1,)
+
+
+def _wp_positions(L: int, radices) -> np.ndarray:
+    """Where the forward transform of kernel B-5 (decimation in frequency,
+    in place, `radices` first stage first) leaves each frequency: position
+    p = sum_t k_t L / (R_1 ... R_t) holds frequency k_1 + R_1 k_2 +
+    R_1 R_2 k_3 + ...; returns pos[frequency]."""
+    p = np.arange(L)
+    rem, freq, mult, span = p.copy(), np.zeros(L, dtype=np.int64), 1, L
+    for R in radices:
+        span //= R
+        freq += (rem // span) * mult
+        rem %= span
+        mult *= R
+    pos = np.empty(L, dtype=np.int64)
+    pos[freq] = p
+    return pos
+
+
+def _wp_table_np(L: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Kernel B-5's table of a length L: the twiddles e^{-2 pi i m / L},
+    m < L, in complex128, the position of each frequency after its forward
+    transform (`_wp_positions` of `wp_fft_plan`) and the frequency at each
+    position."""
+    tw = np.exp(-2j * np.pi * np.arange(L) / L)
+    pos = _wp_positions(L, wp_fft_plan(L))
+    return tw, pos, np.argsort(pos)
+
+
+def _wp_tables(L: int, device) -> torch.Tensor:
+    """:func:`_wp_table_np` as the kernel reads it, 4 L float32: the
+    twiddles as interleaved (re, im) pairs, the positions, the frequencies;
+    cached per length and device."""
+    key = (L, str(device))
+    if key not in _WP_TABLES:
+        tw, pos, freq = _wp_table_np(L)
+        flat = np.concatenate([np.stack([tw.real, tw.imag], axis=-1).ravel(),
+                               pos, freq]).astype(np.float32)
+        _WP_TABLES[key] = torch.as_tensor(flat).to(device).contiguous()
+    return _WP_TABLES[key]
+
+
+def _wp_resident_smem(L0: int, L1: int, SR: int, SH: int, WB: int) -> int:
+    """`wp_resident_smem_bytes` of csrc/sandwich_wp.cu: the two tables
+    (4 L floats each), SR x SH float2 of resident plane, WB float2 of
+    transform buffer."""
+    return 16 * (L0 + L1) + 8 * (SR * SH + WB)
+
+
+def _wp_route(i_shape, edims, o_shape):
+    """Kernel B-5's route for a crop, by the shape alone: ``("resident",
+    layout)`` where the resident half spectrum (max(i0, o0) rows of
+    (L1 + 1) // 2 columns, bins 0 and L1/2 packed in column 0), the tables
+    and a buffer of at least one transform fit
+    one block's shared memory (csrc/sandwich_wp.cu), else
+    ``("three-pass", None)`` (kernel A's passes with a plane index,
+    csrc/sandwich_fft.cu).  The layout: the transform buffer WB (float2; the
+    row passes whole where they fit `_WP_BUFFER`), the columns per group G and
+    the input and output row pairs per group RGi, RGo (each group's
+    transforms times their odd stride fit WB, the groups balanced), the
+    shared memory it asks for."""
+    (i0, _), (L0, L1), (o0, _) = i_shape, edims, o_shape
+    C = (L1 + 1) // 2
+    SH, SR = C | 1, max(i0, o0)
+    npi, npo = (i0 + 1) // 2, (o0 + 1) // 2
+    rows_full = max(npi | 1, npo | 1) * L1
+    cols_full = (C | 1) * L0
+    limit = _SMEM_LIMIT - _WP_STATIC_SMEM
+    least = max(L0, L1)
+    WB = max(least, min(max(rows_full, cols_full), _WP_BUFFER))
+    if _wp_resident_smem(L0, L1, SR, SH, WB) > limit:
+        WB = least
+    smem = _wp_resident_smem(L0, L1, SR, SH, WB)
+    if smem > limit:
+        return "three-pass", None
+
+    def groups(n, N):
+        m = WB // N
+        cap = m if m % 2 else m - 1        # (nt | 1) * N <= WB
+        return -(-n // -(-n // cap))
+
+    return "resident", dict(WB=WB, G=groups(C, L0), RGi=groups(npi, L1),
+                            RGo=groups(npo, L1), smem=smem)
+
+
+def _wp_lib():
+    global _WP_LIB
+    if _WP_LIB is None:
         from .. import _build
 
-        lib = _build.load("mxu2d")
+        lib = _build.load("sandwich_wp")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mxu2d_sandwich_wp.argtypes = [p] * 11 + [i] * 8 + [p]
-        lib.mxu2d_sandwich_wp.restype = ctypes.c_int
-        lib.mxu2d_row_tiles.argtypes = [i] * 4
-        lib.mxu2d_row_tiles.restype = ctypes.c_int
-        lib.mxu2d_middle_smem_bytes.argtypes = [i, i]
-        lib.mxu2d_middle_smem_bytes.restype = ctypes.c_size_t
-        lib.mxu2d_partial_floats.argtypes = [i, i, i]
-        lib.mxu2d_partial_floats.restype = ctypes.c_size_t
-        _LIB = lib
-    return _LIB
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.wp_resident.argtypes = [p] * 7 + [i] * 8 + [ip, i, ip, i] + [i] * 4 + [p]
+        lib.wp_resident.restype = ctypes.c_int
+        lib.wp_resident_smem_bytes.argtypes = [i] * 5
+        lib.wp_resident_smem_bytes.restype = ctypes.c_size_t
+        _WP_LIB = lib
+    return _WP_LIB
 
 
 def _fft_lib():
@@ -233,7 +347,7 @@ def _fft_lib():
 
         lib = _build.load("sandwich_fft")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fft_sandwich.argtypes = [p] * 9 + [i] * 15 + [p]
+        lib.fft_sandwich.argtypes = [p] * 9 + [i] * 16 + [p]
         lib.fft_sandwich.restype = ctypes.c_int
         lib.fft_sandwich_smem_bytes.argtypes = [i] * 11
         lib.fft_sandwich_smem_bytes.restype = ctypes.c_size_t
@@ -252,14 +366,17 @@ def _check_operands(x, w):
 
 
 def _launch_fft(x, w, o_shape, selfdot: bool):
-    """Kernel A on (B, i0, i1) planes with the full (L0, L1) spectrum w,
-    out to (B, o0, o1), on CUDA tensors: checks, allocates every output and
-    scratch buffer with torch.empty, launches on the current stream, raises
-    on a non-zero cudaError_t.  The caller counts the launch (kernel B-8 is
-    this launch with both crops full)."""
+    """Kernel A on (B, i0, i1) planes with the full (L0, L1) spectrum w, out
+    to (B, o0, o1); or, kernel B-5's three-pass route, on a (B, W, i0, i1)
+    stack with per-plane spectra w (W, L0, L1), out to (B, W, o0, o1), the
+    dots summed over each sample's planes.  On CUDA tensors: checks,
+    allocates every output and scratch buffer with torch.empty, launches on
+    the current stream, raises on a non-zero cudaError_t.  The caller counts
+    the launch (kernel B-8 is this launch with both crops full)."""
     _check_operands(x, w)
-    B, i0, i1 = x.shape
-    L0, L1 = w.shape
+    B, (i0, i1) = x.shape[0], tuple(x.shape[-2:])
+    W = x.shape[1] if x.ndim == 4 else 1
+    L0, L1 = w.shape[-2:]
     o0, o1 = o_shape
     if selfdot and (i0, i1) != (o0, o1):
         raise ValueError("the self-dot needs equal input and output crops")
@@ -270,12 +387,12 @@ def _launch_fft(x, w, o_shape, selfdot: bool):
                          "block has")
     dev = x.device
     H = L1 // 2 + 1
-    y = torch.empty((B, o0, o1), dtype=torch.float32, device=dev)
-    s1 = torch.empty((2 * B * H * i0,), dtype=torch.float32, device=dev)
-    s2 = torch.empty((2 * B * H * o0,), dtype=torch.float32, device=dev)
+    y = torch.empty(tuple(x.shape[:-2]) + (o0, o1), dtype=torch.float32, device=dev)
+    s1 = torch.empty((2 * B * W * H * i0,), dtype=torch.float32, device=dev)
+    s2 = torch.empty((2 * B * W * H * o0,), dtype=torch.float32, device=dev)
     if selfdot:
         dots = torch.empty((B,), dtype=torch.float32, device=dev)
-        rowdot = torch.empty((B * o0,), dtype=torch.float32, device=dev)
+        rowdot = torch.empty((B * W * o0,), dtype=torch.float32, device=dev)
         dots_p, rowdot_p = dots.data_ptr(), rowdot.data_ptr()
     else:
         dots = None
@@ -285,49 +402,57 @@ def _launch_fft(x, w, o_shape, selfdot: bool):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fft_sandwich(x.data_ptr(), w.data_ptr(), t0.data_ptr(), t1.data_ptr(),
                                y.data_ptr(), dots_p, s1.data_ptr(), s2.data_ptr(),
-                               rowdot_p, B, i0, i1, L0, L1, o0, o1, *splits, *swaps,
+                               rowdot_p, B, W, i0, i1, L0, L1, o0, o1, *splits, *swaps,
                                stream)
     if err != 0:
         raise RuntimeError(f"sandwich_fft kernel failed: cudaError_t {err}")
     return (y, dots) if selfdot else y
 
 
-def _launch_wp(x, w, tables, selfdot: bool):
-    """Kernel B-5 on a (B, W, i0, i1) stack with w (W, L0, L1), on CUDA
-    tensors: checks, allocates every output and scratch buffer with
-    torch.empty, launches on the current stream, raises on a non-zero
-    cudaError_t.  The caller counts the launch."""
-    q0a, q1a, q0s, q1s, (i0, i1), (o0, o1) = tables
-    L0, L1 = w.shape[-2:]
-    B, W = x.shape[:2]
+def _launch_wp(x, w, o_shape, selfdot: bool):
+    """Kernel B-5 on a (B, W, i0, i1) stack with w (W, L0, L1), out to
+    (B, W, o0, o1), on CUDA tensors, by the route `_wp_route` gives the shape:
+    the resident kernel, or kernel A's three passes with a plane index.
+    Checks, allocates every output and scratch buffer with torch.empty,
+    launches on the current stream, raises on a non-zero cudaError_t.  The
+    caller counts the launch."""
     _check_operands(x, w)
-    lib = _lib()
-    if lib.mxu2d_middle_smem_bytes(i0, L0) > _SMEM_LIMIT:
-        raise ValueError(f"input rows {i0} and embedded rows {L0} need more "
-                         "shared memory than one block has")
-    if lib.mxu2d_row_tiles(B, W, i0, o0) > _GRID_Y_LIMIT:
-        raise ValueError(f"{B * W} planes of {max(i0, o0)} rows are more than "
-                         "one launch of the row GEMM covers; split the batch")
+    B, W, i0, i1 = x.shape
+    L0, L1 = w.shape[-2:]
+    o0, o1 = o_shape
+    if selfdot and (i0, i1) != (o0, o1):
+        raise ValueError("the self-dot needs equal input and output crops")
+    route, lay = _wp_route((i0, i1), (L0, L1), (o0, o1))
+    if route == "three-pass":
+        return _launch_fft(x, w, o_shape, selfdot)
+    r0, r1 = wp_fft_plan(L0), wp_fft_plan(L1)
+    if B * W >= 2 ** 31:
+        raise ValueError(f"{B * W} planes are more than one launch's grid covers")
+    lib = _wp_lib()
+    SH = ((L1 + 1) // 2) | 1
+    smem = lib.wp_resident_smem_bytes(L0, L1, max(i0, o0), SH, lay["WB"])
+    if smem != lay["smem"]:
+        raise RuntimeError(f"B-5 resident layout: the kernel asks for {smem} bytes of "
+                           f"shared memory, the route chose {lay['smem']}")
     dev = x.device
     y = torch.empty((B, W, o0, o1), dtype=torch.float32, device=dev)
-    u = torch.empty((W * i0 * B * L1,), dtype=torch.float32, device=dev)
-    c = torch.empty((W * o0 * B * L1,), dtype=torch.float32, device=dev)
     if selfdot:
         dots = torch.empty((B,), dtype=torch.float32, device=dev)
-        partial = torch.empty((lib.mxu2d_partial_floats(B * W, o0, o1),),
-                              dtype=torch.float32, device=dev)
-        dots_p, partial_p = dots.data_ptr(), partial.data_ptr()
+        planedot = torch.empty((B * W,), dtype=torch.float32, device=dev)
+        dots_p, planedot_p = dots.data_ptr(), planedot.data_ptr()
     else:
         dots = None
-        dots_p = partial_p = None
-    ptrs = (x.data_ptr(), q0a.data_ptr(), q1a.data_ptr(), q0s.data_ptr(),
-            q1s.data_ptr(), w.data_ptr(), y.data_ptr(), dots_p, u.data_ptr(),
-            c.data_ptr(), partial_p)
+        dots_p = planedot_p = None
+    t0, t1 = _wp_tables(L0, dev), _wp_tables(L1, dev)
+    rad0, rad1 = (ctypes.c_int * len(r0))(*r0), (ctypes.c_int * len(r1))(*r1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mxu2d_sandwich_wp(*ptrs, B, W, i0, i1, L0, L1, o0, o1, stream)
+        err = lib.wp_resident(x.data_ptr(), w.data_ptr(), t0.data_ptr(), t1.data_ptr(),
+                              y.data_ptr(), planedot_p, dots_p, B, W, i0, i1, L0, L1, o0,
+                              o1, rad0, len(r0), rad1, len(r1), lay["G"], lay["RGi"],
+                              lay["RGo"], lay["WB"], stream)
     if err != 0:
-        raise RuntimeError(f"mxu2d sandwich kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"sandwich_wp kernel failed: cudaError_t {err}")
     return (y, dots) if selfdot else y
 
 
@@ -420,21 +545,22 @@ def sandwich_apply_wp(x: torch.Tensor, w: torch.Tensor, dims: Tuple[int, int],
     Returns (B, W, o0, o1); with ``selfdot`` (cropped in and out) also
     dots[b] = sum_l <x[b, l], y[b, l]>.  Kernel B-5 on a CUDA tensor, the
     plain version on a CPU tensor."""
-    tables = _tables(dims, edims, bool(in_expanded), bool(out_expanded),
-                     x.dtype, x.device)
-    i_shape = tables[4]
+    dims, edims = tuple(dims), tuple(edims)
+    i_shape, o_shape = _crops(dims, edims, bool(in_expanded), bool(out_expanded))
     if x.ndim != 4 or tuple(x.shape[2:]) != i_shape:
         raise ValueError(f"x must be (B, W, {i_shape[0]}, {i_shape[1]}), got "
                          f"{tuple(x.shape)}")
-    if w.ndim != 3 or w.shape[0] != x.shape[1] or tuple(w.shape[1:]) != tuple(edims):
+    if w.ndim != 3 or w.shape[0] != x.shape[1] or tuple(w.shape[1:]) != edims:
         raise ValueError(f"w must be ({x.shape[1]}, {edims[0]}, {edims[1]}) "
                          f"per-plane spectra, got {tuple(w.shape)}")
     if selfdot and (in_expanded or out_expanded):
         raise ValueError("the self-dot needs equal input and output crops")
     if x.device.type == "cpu":
+        tables = _tables(dims, edims, bool(in_expanded), bool(out_expanded),
+                         x.dtype, x.device)
         return sandwich_wp_plain(x, w, *tables[:4], selfdot=selfdot)
     if needs_grad(x, w):
         raise no_backward("kernel B-5")
-    out = _launch_wp(x, w, tables, selfdot=selfdot)
+    out = _launch_wp(x, w, o_shape, selfdot=selfdot)
     LAUNCHES["sandwich_apply_wp_selfdot" if selfdot else "sandwich_apply_wp"] += 1
     return out

@@ -1,6 +1,6 @@
 """Kernels A and B-8 (hipgp_tpu_torch/csrc/sandwich_fft.cu), the radix
 kernels B-2, B-3, B-4 and B-7 (hipgp_tpu_torch/csrc/radix.cu) and the 3-D
-sandwich kernels B-5 (csrc/mxu2d.cu) and B-6 (csrc/mxu3d.cu) against their
+sandwich kernels B-5 (csrc/sandwich_wp.cu) and B-6 (csrc/mxu3d.cu) against their
 plain PyTorch versions on a CUDA card.  Every test here needs the card and
 skips without one.
 
@@ -304,7 +304,8 @@ def test_planes_gram_solve_matches_plain_path(dev, M):
 
 
 # ---------------------------------------------------------------------------
-# the 3-D sandwich: kernel B-5 (csrc/mxu2d.cu) and kernel B-6 (csrc/mxu3d.cu)
+# the 3-D sandwich: kernel B-5 (csrc/sandwich_wp.cu, with kernel A's passes and a
+# plane index for planes above one block) and kernel B-6 (csrc/mxu3d.cu)
 # at the shapes of the dust map's main path (64 x 64 x 32 grid, embedded
 # (128, 128, 64), kernel order (32, 64, 64) -> (64, 128, 128))
 # ---------------------------------------------------------------------------
@@ -324,22 +325,39 @@ def _spectrum_3d(dev, dtype=torch.float32):
     return spec, w
 
 
-@pytest.mark.parametrize("B,mode", [(512, "selfdot"), (512, "out_expanded"),
-                                    (400, "selfdot"), (400, "out_expanded")])
-def test_wp_kernel_matches_plain(dev, B, mode):
-    # B-5 at the PCG, R^T and prediction-chunk shapes against its plain
-    # version in f32 and f64: <= 1e-5
-    _, w = _spectrum_3d(dev)
-    selfdot, out_exp = mode == "selfdot", mode == "out_expanded"
-    if out_exp:
-        w = torch.sqrt(w)
-    W, inner, einner = EDIMS_3D[0], DIMS_3D[1:], EDIMS_3D[1:]
-    x = torch.randn((B, W) + inner, device=dev, generator=torch.Generator(device=dev).manual_seed(B))
-    t32 = mxu2d._tables(inner, einner, False, out_exp, torch.float32, dev)
-    t64 = mxu2d._tables(inner, einner, False, out_exp, torch.float64, dev)
+@pytest.mark.parametrize("B,mode,weights", [
+    (512, "selfdot", "wK"), (512, "out_expanded", "sqrt"), (400, "selfdot", "wK"),
+    (400, "out_expanded", "sqrt"), (512, "selfdot", "1/wK"), (512, "in_expanded", "sqrt"),
+    (3, "selfdot", "wK"), (5, "out_expanded", "sqrt"), (2, "expanded_512", "stack")])
+def test_wp_kernel_matches_plain(dev, B, mode, weights):
+    # B-5 at the PCG (w = wK and 1/wK), R^T, prediction-chunk and pullback
+    # (expanded in) shapes, at odd batches, and a W = 3 stack expanded in and
+    # out at (512, 512) (kernel A's passes with a plane index; the dense
+    # kernel refused an expanded axis above 432) against its plain version
+    # in f32 and f64: <= 1e-5; the route is the one the shape gives
+    if mode == "expanded_512":
+        spec = _spec((256, 256), torch.float32, dev, ell=0.05)
+        w1 = bttb._full_weights(spec.eigs, spec.edims[-1])
+        w = torch.stack([w1, torch.sqrt(w1), 1.0 / w1]).contiguous()
+        W, inner, einner = 3, (256, 256), tuple(spec.edims)
+        in_exp = out_exp = True
+        route = "three-pass"
+    else:
+        _, w = _spectrum_3d(dev)
+        w = {"wK": w, "sqrt": torch.sqrt(w), "1/wK": 1.0 / w}[weights].contiguous()
+        W, inner, einner = EDIMS_3D[0], DIMS_3D[1:], EDIMS_3D[1:]
+        in_exp, out_exp = mode == "in_expanded", mode == "out_expanded"
+        route = "resident"
+    selfdot = mode == "selfdot"
+    t32 = mxu2d._tables(inner, einner, in_exp, out_exp, torch.float32, dev)
+    t64 = mxu2d._tables(inner, einner, in_exp, out_exp, torch.float64, dev)
+    assert mxu2d._wp_route(t32[4], einner, t32[5])[0] == route
+    x = torch.randn((B, W) + t32[4], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(B))
     key = "sandwich_apply_wp_selfdot" if selfdot else "sandwich_apply_wp"
     before = mxu2d.LAUNCHES[key]
-    got = mxu2d.sandwich_apply_wp(x, w, inner, einner, out_expanded=out_exp, selfdot=selfdot)
+    got = mxu2d.sandwich_apply_wp(x, w, inner, einner, in_expanded=in_exp,
+                                  out_expanded=out_exp, selfdot=selfdot)
     assert mxu2d.LAUNCHES[key] == before + 1
     want32 = mxu2d.sandwich_wp_plain(x, w, *t32[:4], selfdot=selfdot)
     want64 = mxu2d.sandwich_wp_plain(x.double(), w.double(), *t64[:4], selfdot=selfdot)
@@ -436,7 +454,7 @@ def test_3d_kernel_path_whiten_matches_plain_paths(dev):
 
 # ---------------------------------------------------------------------------
 # the training path: kernel A's backward, B-8 (the full-plane sandwich,
-# csrc/mxu2d.cu with full tables), B-7 (the two-diagonal middle,
+# csrc/sandwich_fft.cu with full crops), B-7 (the two-diagonal middle,
 # csrc/radix.cu) and the whitening's gradient
 # ---------------------------------------------------------------------------
 
