@@ -47,8 +47,15 @@ Phases, each printing one line of progress with its seconds:
                (128, 128, 128) with 64 rows at 2^20 (V = 4 packed planes
                throughout), with the protocol spectrum's weights, and B-7 (the
                two-diagonal middle) with the first two diagonals at each plan;
-               at the headline, times of kernel, plain version and one
-               torch.fft call by CUDA events, and B-7 against two B-4
+               at the headline, times of kernel, plain version and
+               torch.fft yardstick by CUDA events as in every phase, and
+               beside them their device times alone (CUDA-graph replay,
+               the kernels line's graph_ms, plain_graph_ms and
+               library_graph_ms), each kernel's share of its bound; the
+               yardstick is itself held to 1e-5 of f64: fft(n=A) and
+               ifft for B-2, ifft + slice + the two self-dots for B-3,
+               conj(T1) ifft(d' fft(T1 y)) over each plane for B-4 (one fft,
+               two products, two iffts for B-7); and B-7 against two B-4
                launches;
   6. main-1d - the paper's section 5.2 driver (run_pcg_vs_cholesky.main,
                Mat52, 3 chained reps) at M = 10 000, 131 072, 500 000 and
@@ -89,7 +96,8 @@ Phases, each printing one line of progress with its seconds:
                error is logged (the float32 spectrum's floor dominates it).
 Any failed check raises, so the script exits non-zero.  The line before the
 last is the card's name and power limit from nvidia-smi, the one before it a
-JSON object with one entry per kernel; the last line is
+JSON object with one entry per kernel (the radix kernels' entries add the
+graph-replay times of [kernels-1d]); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the port
 beside the script, it exits non-zero and prints no result.
 """
@@ -102,6 +110,8 @@ import time
 
 FP32_PEAK = 67e12     # FLOP/s, H100 SXM, CUDA cores (NVIDIA data sheet)
 HBM_RATE = 3.35e12    # bytes/s, H100 SXM
+# device-time-only (CUDA-graph replay) times of the radix kernels' entries
+GRAPH_KEYS = ("graph_ms", "plain_graph_ms", "library_graph_ms")
 KERNEL_SOURCE = "hipgp_tpu_torch/csrc/sandwich_fft.cu"   # kernels A and B-8
 WP_SOURCE = "hipgp_tpu_torch/csrc/sandwich_wp.cu"        # kernel B-5
 TPU_KERNEL = "hipgp_tpu/ops/mxu2d.py:201"   # pl.pallas_call of _make_kernel
@@ -139,6 +149,34 @@ def cuda_ms(torch, fn, warmup=3, reps=20):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, warmup=3, reps=20):
+    """Mean milliseconds of fn() on the card, device time only: ``reps``
+    calls captured in one CUDA graph (after ``warmup`` calls on a side
+    stream) and the graph replayed between two events.  For kernels as
+    short as the host's own cost of a wrapper call (its checks and
+    allocations, tens of microseconds), back-to-back calls time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -417,7 +455,7 @@ def phase_kernels_1d(torch, dev):
         tag = f"M={M} (A, B, C) = {(A, B, C)}"
 
         def record(name, label, got, want32, want64, kern, plain, bound, lib_fn=None,
-                   lib_ref=None):
+                   lib_ref=None, lib_err=None):
             torch.cuda.synchronize()
             errs, errs64, abs_err = [], [], 0.0
             for g, w32, w64 in zip(got, want32, want64):
@@ -434,20 +472,46 @@ def phase_kernels_1d(torch, dev):
             if not timed:
                 log(f"[kernels-1d] {name} {tag} {label}: {msg}")
                 return
+            # ms as in every phase (back-to-back calls between events), and
+            # the device time alone (graph replay) beside it
             ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
-            lib_ms = None
+            g_ms, g_plain = graph_ms(torch, kern), graph_ms(torch, plain)
+            lib_ms = g_lib = None
             if lib_fn is not None:
-                lib_err = rel(lib_fn(), lib_ref)
-                check(lib_err <= 1e-5, f"{name} ({label}) library call rel err {lib_err:.3e}")
-                lib_ms = cuda_ms(torch, lib_fn)
-                msg += f"; library rel err vs f64 {lib_err:.3e}, {lib_ms:.4f} ms"
-            log(f"[kernels-1d] {name} {tag} {label}: {msg}; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; FFT count), "
+                lib_e = lib_err(lib_fn()) if lib_err is not None else rel(lib_fn(), lib_ref)
+                check(lib_e <= 1e-5, f"{name} ({label}) library call rel err {lib_e:.3e}")
+                lib_ms, g_lib = cuda_ms(torch, lib_fn), graph_ms(torch, lib_fn)
+                msg += (f"; library rel err vs f64 {lib_e:.3e}, {lib_ms:.4f} ms "
+                        f"(graph {g_lib:.4f})")
+            log(f"[kernels-1d] {name} {tag} {label}: {msg}; kernel {ms:.4f} ms "
+                f"({100 * bound[0] / ms:.1f} % of its bound; graph {g_ms:.4f} ms, "
+                f"{100 * bound[0] / g_ms:.1f} %), plain {plain_ms:.4f} ms (graph "
+                f"{g_plain:.4f}), bound {bound[0]:.4f} ms ({bound[1]}; FFT count), "
                 f"dense-table operation time {bound[2]:.4f} ms")
             if name not in results:
                 results[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                                      bound_ms=bound[0], bound_by=bound[1],
-                                     library_ms=lib_ms)
+                                     library_ms=lib_ms, graph_ms=g_ms,
+                                     plain_graph_ms=g_plain, library_graph_ms=g_lib)
+
+        # the torch.fft chain of the middle (the yardstick of B-4 and B-7):
+        # conj(T1) ifft(d' fft(T1 y)) over each plane's B*C points, with
+        # d'[ka, kb + B kc] = d[ka, kb, kc] (stage order is natural order
+        # within a plane); T1 and d' are formed outside the timing
+        if timed:
+            n = torch.arange(N, device=dev, dtype=torch.float64)
+            ang = (-2.0 * math.pi / L) * torch.arange(A, device=dev,
+                                                       dtype=torch.float64)[:, None] * n
+            t1 = torch.polar(torch.ones_like(ang), ang).to(torch.complex64)
+            t1c = t1.conj()
+            flat = lambda d: d.permute(0, 2, 1).reshape(A, N).to(torch.complex64)
+
+        def middle_chain(yc, *ds):
+            f = fft.fft(t1 * yc, dim=-1)
+            return [fft.ifft(d * f, dim=-1, norm="forward") * t1c for d in ds]
+
+        def planes(z):   # (V, A, N) complex -> the kernels' (2, V, A, B, C) parts
+            return torch.stack([z.real, z.imag]).view(2, V, A, B, C)
 
         # B-2 forward, rows -> A (every apply's first stage; cropped on the
         # planes path)
@@ -486,34 +550,43 @@ def phase_kernels_1d(torch, dev):
         # B-4 with each of the three diagonals of the path
         y = rnd(2, V, A, B, C)
         y32 = y.float()
+        yc = torch.complex(y32[0], y32[1]).view(V, A, N)
         for label, d32 in weights.items():
             d64 = d32.double()
+            want64 = radix_fft.middle_plain(y[0], y[1], d64, p64)
+            dflat = flat(d32) if timed else None
             record("middle", f"d = {label}",
                    radix_fft.middle(y32[0], y32[1], d32, p32),
-                   radix_fft.middle_plain(y32[0], y32[1], d32, p32),
-                   radix_fft.middle_plain(y[0], y[1], d64, p64),
+                   radix_fft.middle_plain(y32[0], y32[1], d32, p32), want64,
                    lambda: radix_fft.middle(y32[0], y32[1], d32, p32),
                    lambda: radix_fft.middle_plain(y32[0], y32[1], d32, p32),
-                   radix_bound_ms("middle", V, A, B, C, A, A))
+                   radix_bound_ms("middle", V, A, B, C, A, A),
+                   lambda: middle_chain(yc, dflat)[0], torch.stack(want64).view(2, V, A, B, C),
+                   lambda z: rel(planes(z), torch.stack(want64).view(2, V, A, B, C)))
         # B-7 with the path's first two diagonals (those of K and C^-1): the
         # middle of `fused_circulant_apply_cropped_dual` (no solver calls it)
         (la, dA), (lb, dB) = list(weights.items())[:2]
+        want64 = radix_fft.middle_dual_plain(y[0], y[1], dA.double(), dB.double(), p64)
+        dAf, dBf = (flat(dA), flat(dB)) if timed else (None, None)
         record("middle_dual", f"dA = {la}, dB = {lb}",
                radix_fft.middle_dual(y32[0], y32[1], dA, dB, p32),
-               radix_fft.middle_dual_plain(y32[0], y32[1], dA, dB, p32),
-               radix_fft.middle_dual_plain(y[0], y[1], dA.double(), dB.double(), p64),
+               radix_fft.middle_dual_plain(y32[0], y32[1], dA, dB, p32), want64,
                lambda: radix_fft.middle_dual(y32[0], y32[1], dA, dB, p32),
                lambda: radix_fft.middle_dual_plain(y32[0], y32[1], dA, dB, p32),
-               radix_bound_ms("middle_dual", V, A, B, C, A, A))
+               radix_bound_ms("middle_dual", V, A, B, C, A, A),
+               lambda: middle_chain(yc, dAf, dBf), None,
+               lambda z: max(rel(planes(z[0]), torch.stack(want64[:2]).view(2, V, A, B, C)),
+                             rel(planes(z[1]), torch.stack(want64[2:]).view(2, V, A, B, C))))
         if timed:
             dual = lambda: radix_fft.middle_dual(y32[0], y32[1], dA, dB, p32)
             two = lambda: (radix_fft.middle(y32[0], y32[1], dA, p32),
                            radix_fft.middle(y32[0], y32[1], dB, p32))
-            d1, t1 = cuda_ms(torch, dual), cuda_ms(torch, two)
-            t2, d2 = cuda_ms(torch, two), cuda_ms(torch, dual)
-            log(f"[kernels-1d] middle_dual {tag}: one B-7 launch {0.5 * (d1 + d2):.4f} ms "
-                f"({d1:.4f}, {d2:.4f}) against two B-4 launches {0.5 * (t1 + t2):.4f} ms "
-                f"({t1:.4f}, {t2:.4f}), in turns")
+            for how, timer in (("events", cuda_ms), ("graph", graph_ms)):
+                d1, t1 = timer(torch, dual), timer(torch, two)
+                t2, d2 = timer(torch, two), timer(torch, dual)
+                log(f"[kernels-1d] middle_dual {tag} ({how}): one B-7 launch "
+                    f"{0.5 * (d1 + d2):.4f} ms ({d1:.4f}, {d2:.4f}) against two B-4 "
+                    f"launches {0.5 * (t1 + t2):.4f} ms ({t1:.4f}, {t2:.4f}), in turns")
         if not planes:   # the generic path launches no stage1_inv_dot
             continue
         # B-3 inverse A -> rows with the self-dots (every PCG apply's last stage)
@@ -534,17 +607,25 @@ def phase_kernels_1d(torch, dev):
               f"terms' scale")
         log(f"[kernels-1d] stage1_inv_dot {tag} dots: err {dot_err:.3e} of the terms' "
             f"scale vs plain f64")
-        ref = fft.ifft(torch.complex(z[0], z[1]), dim=1, norm="forward")[:, :rows]
+        def b3_chain():   # ifft + slice + the two self-dots
+            yc3 = fft.ifft(zc, dim=1, norm="forward")[:, :rows]
+            return (yc3, torch.sum(u32[0] * yc3.real, dim=(1, 2)),
+                    torch.sum(u32[1] * yc3.imag, dim=(1, 2)))
+
+        def b3_err(out):
+            yc3, dr, di = out
+            e = rel(torch.stack([yc3.real, yc3.imag]), torch.stack(want64[:2]))
+            for k, dk in ((2, dr), (3, di)):
+                e = max(e, float(torch.max((dk.double() - want64[k]).abs() / scale)))
+            return e
+
         record("stage1_inv_dot", f"inverse {A} -> {rows} rows with self-dots",
                got[:2], want32[:2], want64[:2],
                lambda: radix_fft.stage1_inv_dot(z32[0], z32[1], u32[0], u32[1], p32, rows),
                lambda: radix_fft.stage1_inv_dot_plain(z32[0], z32[1], u32[0], u32[1],
                                                       wr, wi),
-               radix_bound_ms("stage1_inv_dot", V, A, B, C, A, rows),
-               lambda: torch.view_as_real(fft.ifft(zc, dim=1, norm="forward")[:, :rows]),
-               torch.view_as_real(ref))
-    log("[kernels-1d] middle and middle_dual library_ms null: no single PyTorch call "
-        "computes the T1 / F_B / T2 / F_C / d / conjugate chain on stage-order planes")
+               radix_bound_ms("stage1_inv_dot", V, A, B, C, A, rows), b3_chain, None,
+               b3_err)
     log(f"[kernels-1d] done; {time.perf_counter() - t0:.2f} s")
     return results
 
@@ -1339,7 +1420,7 @@ def main():
             "replaces": RADIX_TPU_KERNELS[name], "launches": radix_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], **{k: r[k] for k in GRAPH_KEYS},
         })
         check(radix_launches[name] > 0, f"{name} never launched on the 1-D main path")
     for key, name, source, tpu, counts in (
@@ -1365,6 +1446,7 @@ def main():
         "replaces": DUAL_TPU_KERNEL, "launches": radix_launches["middle_dual"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        **{k: r[k] for k in GRAPH_KEYS},
     })
     # B-7 is on no solver path, as in the JAX package: [kernels-1d] holds it
     r = results["B-8"]

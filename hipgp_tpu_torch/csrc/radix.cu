@@ -1,30 +1,28 @@
-// Kernels B-2, B-3 and B-4: the packed radix circulant apply on a long 1-D
-// axis, hand-written for Hopper (sm_90a).
+// Kernels B-2, B-3, B-4 and B-7: the packed radix circulant apply on a long
+// 1-D axis, hand-written for Hopper (sm_90a) as register-radix FFTs.
 //
-// The apply y = F^{-1}(d * F x) on L = A * B * C points (C = 128, B in [8, 128],
-// A in [8, 2048], powers of two) runs as three stages on V complex planes,
-// each plane packing two real right-hand sides:
+// The apply y = F^{-1}(d * F x) on L = A * B * C points (C = 128, B in
+// {8, ..., 128}, A in {8, ..., 2048}, powers of two) runs as three stages on V
+// complex planes, each plane packing two real right-hand sides:
 //
 //   radix_stage1      replaces hipgp_tpu/ops/radix_fft.py:_make_s1_kernel
-//                     (pl.pallas_call in `_stage1_pallas`): the A-point DFT over
-//                     the outer axis of (V, rows, N = B*C) planes, forward
-//                     (exp(-2 pi i k a / A)) or inverse (its conjugate, no
-//                     scale), input rows >= in_rows taken as zero, only the
-//                     first out_rows output rows formed;
-//   radix_stage1_dot  replaces _make_s1_dot_kernel (`_stage1_inv_dot_pallas`):
-//                     the inverse stage 1 plus the per-v self-dots
+//                     (pl.pallas_call in `_stage1_pallas`, kernel B-2): the
+//                     A-point DFT over the outer axis of (V, rows, N = B*C)
+//                     planes, forward (exp(-2 pi i k a / A)) or inverse (its
+//                     conjugate, no scale), input rows >= in_rows zero, only
+//                     the first out_rows output rows formed;
+//   radix_stage1_dot  replaces _make_s1_dot_kernel (`_stage1_inv_dot_pallas`,
+//                     B-3): the inverse stage 1 plus the per-v self-dots
 //                     dr[v] = sum ur[v] * yr[v], di[v] = sum ui[v] * yi[v];
-//   radix_middle      replaces _make_middle_kernel (`_middle_pallas`): per
+//   radix_middle      replaces _make_middle_kernel (`_middle_pallas`, B-4): per
 //                     (B, C) plane ka of (V, A, B, C), the T1 twiddle
 //                     exp(-2 pi i ka (b C + c) / L), the B-point DFT over b,
 //                     the T2 twiddle exp(-2 pi i kb c / (B C)), the C-point DFT
 //                     over c, the product with d[ka, kb, kc] (stage order, 1/L
 //                     folded in), then the conjugate chain back;
 //   radix_middle_dual replaces _make_middle_kernel_dual (`_middle_pallas_dual`,
-//                     kernel B-7): the same chain with two diagonals dA, dB on
-//                     one forward half, giving both products (the core of
-//                     `fused_circulant_apply_cropped_dual`: C_dA x and C_dB x
-//                     for one x).
+//                     B-7): the same chain with two diagonals dA, dB on one
+//                     forward half.
 //
 // Bound on this card.  At the headline shape (V = 4, L = 2^21, A = B = C = 128,
 // 64 rows of data) every stage is bound by bytes: each moves its planes once
@@ -32,228 +30,317 @@
 // least work, the FFT formulation (5 n log2 n per complex n-point FFT), is
 // 0.29 GFLOP for stage 1 and 1.3 GFLOP for the middle (0.004 and 0.019 ms at
 // the 67 TFLOP/s FP32 peak).  The TPU kernels do the DFTs as dense 128 x 128
-// table products on the MXU; on the CUDA cores that formulation is the trap:
-// 3.2 GFLOP for stage 1 and 25.8 GFLOP for the middle, 0.385 ms at peak and 9x
-// the middle's bound.
+// table products on the MXU; on the CUDA cores that formulation would be 9x
+// the middle's bound, so every DFT here is an FFT.
 //
-// What the design does about it.  No dense table: every DFT here is a radix-2
-// FFT in shared memory (about 1/20 of the dense work at n = 128), with its
-// twiddles computed once per block by sincospif into small shared tables, so
-// the kernels stay near the byte bound in operations and read no table from
-// device memory.
-//   * Stage 1: one block owns T consecutive columns of one plane and all A rows
-//     (A * T = 8192 complex values, 64 KB), loads them once (coalesced along
-//     the columns), runs log2(A) decimation-in-frequency stages down the
-//     columns, and stores the rows k < out_rows from the bit-reversed positions.
-//     The rider's self-dot partials are summed per block in a fixed tree order
-//     and a second launch sums the blocks of each v in a fixed order: the dots
-//     are deterministic, with no atomics.
-//   * Middle: one block owns one (B, C) plane (128 KB of complex f32 at
-//     B = C = 128, within the 227 KB a block may use), reads it once, and
-//     keeps it in shared memory for the whole chain.  The forward DFTs are
-//     decimation in frequency (natural order in, bit-reversed out) and the
-//     inverse ones decimation in time (bit-reversed in, natural out), so the
-//     chain needs no reordering pass: T2 and d are read at the bit-reversed
-//     indices.  T1 is a product of a per-plane row and column factor,
-//     T2 a product of two small tables, so no per-element sincos is taken.
-//   * Dual middle (B-7): one plane of forward spectrum is all a block's shared
-//     memory holds, so the forward spectrum is parked in the second output
-//     (each thread stores, and later reloads, only the elements it owns, so no
-//     other thread's writes need to be visible), the first inverse half runs
-//     with dA in place, and the second with dB from the reloaded copy: one
-//     forward half instead of two, at the price of one extra write and read
-//     of the plane (5 passes of the plane through device memory against 4 for two
-//     single middles; 3 half chains of work against 4).  Bytes bind it, as they
-//     bind the single middle.
-// All arithmetic is full FP32 on the CUDA cores (no TF32).  This first version
-// does one shared-memory pass per radix-2 stage (28 passes of the plane in the
-// middle), so shared-memory bandwidth, not device memory, is expected to
-// bind it; higher radices in registers are the next step.
+// What the design does about it.  Every n-point DFT is at most three
+// register-radix steps (n = 128 is 16 x 8): a thread holds the R values of one
+// butterfly in registers, runs the whole R-point DFT there (radix-2 decimation
+// in time, unrolled, with constant twiddles), and one shared-memory exchange
+// separates two steps.  The steps run in place (a thread writes back to the
+// positions it read), so each exchange costs one barrier.  The forward
+// transforms decimate in frequency and leave the spectrum digit-reversed
+// (position k2 + R2 k1 holds frequency k1 + R1 k2); the inverse transforms
+// run the same steps mirrored from that order back to natural order, so no
+// reordering pass exists.  Twiddles and the T1/T2 factors are float64 tables
+// the wrapper builds once per plan (`radix_fft._kernel_table`), read through
+// the read-only cache.
+//   * Stage 1: a block owns T columns (32 at 32 <= A <= 128, 256 at A <= 16)
+//     and all A rows of one plane; a warp's lanes run along the columns, so at
+//     A <= 128 every device-memory access is a coalesced 128-byte row segment.
+//     The first step reads x straight from device memory and the last writes
+//     y, so a two-step A (32 ... 256) makes one exchange through shared memory
+//     (A * T * 8 bytes, 32 KB at A = 128), a three-step A (512 ... 2048) two,
+//     and A <= 16 none.  Pruned: input rows >= in_rows are
+//     never loaded, and where in_rows <= A/2 the first step's upper half is
+//     known zero and its first butterfly layer is skipped; where
+//     out_rows <= A/2 the last step forms only its lower half (the high digit
+//     of the frequency).  The rider's self-dots are summed in registers, by
+//     warp shuffles, then by thread 0 over the warps in order; a second launch
+//     sums the tiles of each v in order: deterministic, no atomics.
+//   * Middle: one block owns one (B, C) plane, kept in shared memory (rows of
+//     128 complex values padded to 137, 140 KB at B = 128), through seven
+//     phases with six barriers:
+//       1. column step 1 over b, read from y with T1's row factor (a warp reads
+//          consecutive c);   2. column step 2 with its twiddles, then T2 times
+//          T1's column factor (both depend on c only within a column);
+//       3. row step 1 over c;   4. row step 2, the product with d (read in
+//          runs of 16 consecutive kc of d's stage order, 64 bytes), and the
+//          inverse row step 2 on the same registers;   5. inverse row step 1;
+//       6. inverse column step 2 with conj T2;   7. inverse column step 1,
+//          conj T1, written to z (a warp writes consecutive c).
+//     The padding (one complex value after every 16 of a row, an odd row
+//     stride) makes every phase's shared-memory access free of bank conflicts
+//     at B >= 16.  Dual middle (B-7): phase 4 parks the forward spectrum in
+//     zB (each thread reloads only what it wrote), phases 4-7 run with dA into
+//     zA and again with dB from the reloaded spectrum into zB.
+// Overlap with device memory.  The middle's plane fills one SM (140 KB of
+// shared memory, 512 threads), so a second plane cannot be resident on it, and
+// prefetching the next plane into registers would double the 64 values a
+// thread already holds.  The traffic overlaps the transforms across SMs
+// instead: the blocks (about four waves at the headline, 512 planes on 132
+// SMs) drift out of step, so at any time some SMs load or store while the
+// rest compute; each block starts all its loads at once (64 per thread in
+// phase 1, 32 d values in phase 4), and its stores drain while the next block
+// on its SM loads.  Within one SM, loads, transforms and stores still take
+// turns: that is what stands between the middle and its byte bound.  Stage
+// 1's tiles are small (32 KB), so several blocks share an SM and overlap one
+// another directly.
+// All arithmetic is full FP32 on the CUDA cores (no TF32).
 //
 // Interface: plain C, returns the cudaError_t of the first failing call (0 on
-// success).  Launches on `stream`, never synchronises, allocates nothing.
+// success).  Launches on `stream`, never synchronises, allocates nothing.  The
+// shared-memory opt-in of every kernel is set once per process.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int S1_THREADS = 256;      // threads of a stage-1 block
-constexpr int S1_ELEMS = 8192;       // complex values of a stage-1 tile (64 KB)
-constexpr int S1_MAX_COLS = 64;      // columns of a stage-1 tile at most
-constexpr int MID_THREADS = 1024;    // threads of a middle block at most
 constexpr int RED_THREADS = 256;     // threads of the dot-reduction block
-constexpr int SMEM_LIMIT = 232448;   // shared memory one block may use (sm_90)
+constexpr int MC = 128;              // C
+constexpr int MC1 = 16, MC2 = 8;     // C = MC1 * MC2: the row steps' radices
+constexpr int MS = MC + MC / 16 + 1; // row stride of a middle plane (complex)
 
-__host__ __device__ inline int ilog2(int n) {
-    int l = 0;
-    while ((1 << l) < n) ++l;
-    return l;
+// ---------------------------------------------------------------------------
+// Complex arithmetic and the register DFT
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+    return make_float2(a.x + b.x, a.y + b.y);
 }
-
-__host__ inline bool is_pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
-
-// Columns of a stage-1 tile: A * T = S1_ELEMS, at most S1_MAX_COLS and N.
-__host__ inline int s1_cols(int A, int N) {
-    int t = S1_ELEMS / A;
-    if (t > S1_MAX_COLS) t = S1_MAX_COLS;
-    if (t < 1) t = 1;
-    if (t > N) t = N;
-    return t;
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+    return make_float2(a.x - b.x, a.y - b.y);
 }
-
-__host__ inline size_t s1_smem_bytes(int A, int T) {
-    return (size_t)2 * A * T * sizeof(float) + (size_t)(A / 2) * sizeof(float2);
-}
-
-// p with its low `bits` bits reversed.
-__device__ inline int bitrev(int p, int bits) {
-    return bits ? (int)(__brev((unsigned)p) >> (32 - bits)) : 0;
-}
-
-// exp(2 pi i num / den * sign); num / den is exact for a power-of-two den and
-// |num| < 2^24, and sincospif is accurate to an ulp.
-__device__ inline float2 unit(int num, int den, float sign) {
-    float s, c;
-    sincospif(2.0f * (float)num / (float)den, &s, &c);
-    return make_float2(c, sign * s);
-}
-
-__device__ inline float2 cmul(float2 a, float2 b) {
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
     return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
+// a * conj(b)
+__device__ __forceinline__ float2 cmulc(float2 a, float2 b) {
+    return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
+}
+template <bool CONJ>
+__device__ __forceinline__ float2 cmul_by(float2 a, float2 b) {
+    return CONJ ? cmulc(a, b) : cmul(a, b);
+}
+__device__ __forceinline__ float2 ld2(const float* re, const float* im, size_t i) {
+    return make_float2(re[i], im[i]);
+}
 
-__device__ inline float2 cconj(float2 a) { return make_float2(a.x, -a.y); }
+// cos(2 pi m / 16) for m in [0, 4]
+__host__ __device__ constexpr float cos16(int m) {
+    return m == 0 ? 1.0f : m == 1 ? 0.92387953251128674f
+         : m == 2 ? 0.70710678118654752f : m == 3 ? 0.38268343236508977f : 0.0f;
+}
 
-// One radix-2 stage of span h = 2^lh on 2^lntr transforms of length n = 2^ln
-// held in shared memory (re, im): element i of transform t sits at
-// t * ts + i * es.  Butterflies are numbered so that consecutive threads touch
-// consecutive addresses: across transforms for columns (es > 1), along the
-// transform for rows (es == 1).  tw[k] = exp(-2 pi i k / n) for k < n / 2;
-// wsign = -1 takes its conjugate.
-//   DIF (natural in, bit-reversed out): (u, v) -> (u + v, (u - v) w)
-//   DIT (bit-reversed in, natural out): (u, v) -> (u + w v, u - w v)
-template <bool DIF>
-__device__ void fft_stage(float* re, float* im, int ln, int lntr, int ts, int es,
-                          int lh, const float2* tw, float wsign) {
-    const int lhalf = ln - 1;
-    const int total = 1 << (lhalf + lntr);
-    const int h = 1 << lh;
-    for (int q = threadIdx.x; q < total; q += blockDim.x) {
-        int t, p;
-        if (es == 1) {
-            p = q & ((1 << lhalf) - 1);
-            t = q >> lhalf;
-        } else {
-            t = q & ((1 << lntr) - 1);
-            p = q >> lntr;
-        }
-        const int j = p & (h - 1);
-        const int i0 = ((p >> lh) << (lh + 1)) + j;
-        const int a0 = t * ts + i0 * es;
-        const int a1 = a0 + h * es;
-        float2 w = tw[j << (lhalf - lh)];
-        w.y *= wsign;
-        const float ur = re[a0], ui = im[a0], vr = re[a1], vi = im[a1];
-        if (DIF) {
-            re[a0] = ur + vr;
-            im[a0] = ui + vi;
-            const float dr = ur - vr, di = ui - vi;
-            re[a1] = dr * w.x - di * w.y;
-            im[a1] = dr * w.y + di * w.x;
-        } else {
-            const float tr = vr * w.x - vi * w.y, ti = vr * w.y + vi * w.x;
-            re[a0] = ur + tr;
-            im[a0] = ui + ti;
-            re[a1] = ur - tr;
-            im[a1] = ui - ti;
+// x * exp(SIGN 2 pi i k / R) for k < R / 2, R <= 16 (k is a constant once the
+// loops are unrolled, so the factor is a literal).
+template <int R, int SIGN>
+__device__ __forceinline__ float2 rot(int k, float2 x) {
+    const int m = k * (16 / R);   // the angle is 2 pi m / 16, m < 8
+    if (m == 0) return x;
+    if (m == 4) return SIGN < 0 ? make_float2(x.y, -x.x) : make_float2(-x.y, x.x);
+    const float c = m <= 4 ? cos16(m) : -cos16(8 - m);
+    const float s = SIGN * (m <= 4 ? cos16(4 - m) : cos16(m - 4));
+    return make_float2(x.x * c - x.y * s, x.x * s + x.y * c);
+}
+
+// y[k] = sum_n x[O + S n] exp(SIGN 2 pi i n k / R), by radix-2 decimation in
+// time.  HALF: the inputs of the top-level transform at n >= R_top / 2 are
+// zero, so every 2-point butterfly at the bottom has a zero second input.
+template <int R, int S, int O, int SIGN, bool HALF, int N>
+__device__ __forceinline__ void dft_rec(const float2 (&x)[N], float2 (&y)[R]) {
+    if constexpr (R == 1) {
+        y[0] = x[O];
+    } else if constexpr (R == 2 && HALF) {
+        y[0] = x[O];
+        y[1] = x[O];
+    } else {
+        float2 e[R / 2], o[R / 2];
+        dft_rec<R / 2, 2 * S, O, SIGN, HALF>(x, e);
+        dft_rec<R / 2, 2 * S, O + S, SIGN, HALF>(x, o);
+#pragma unroll
+        for (int k = 0; k < R / 2; ++k) {
+            const float2 t = rot<R, SIGN>(k, o[k]);
+            y[k] = cadd(e[k], t);
+            y[k + R / 2] = csub(e[k], t);
         }
     }
 }
 
-// A whole transform: log2(n) stages, each followed by a barrier.  The caller
-// puts a barrier between its writes of the data and this call.
-template <bool DIF>
-__device__ void fft(float* re, float* im, int ln, int lntr, int ts, int es,
-                    const float2* tw, float wsign) {
-    for (int s = 0; s < ln; ++s) {
-        fft_stage<DIF>(re, im, ln, lntr, ts, es, DIF ? ln - 1 - s : s, tw, wsign);
-        __syncthreads();
+// The R-point DFT of v in place, natural order in and out.
+template <int R, int SIGN, bool HALF = false>
+__device__ __forceinline__ void dft(float2 (&v)[R]) {
+    if constexpr (R > 1) {
+        float2 y[R];
+        dft_rec<R, 1, 0, SIGN, HALF>(v, y);
+#pragma unroll
+        for (int k = 0; k < R; ++k) v[k] = y[k];
     }
 }
 
-// Sums a and b over the block in a fixed tree order into out_a, out_b
-// (thread 0 writes).  red holds 2 * blockDim.x floats; blockDim.x is a power
-// of two.
-__device__ void block_sum2(float a, float b, float* red, float* out_a, float* out_b) {
-    const int n = blockDim.x, t = threadIdx.x;
-    red[t] = a;
-    red[n + t] = b;
-    __syncthreads();
-    for (int s = n >> 1; s > 0; s >>= 1) {
-        if (t < s) {
-            red[t] += red[t + s];
-            red[n + t] += red[n + t + s];
-        }
-        __syncthreads();
-    }
-    if (t == 0) {
-        *out_a = red[0];
-        *out_b = red[n];
-    }
+// ---------------------------------------------------------------------------
+// Stage 1 (B-2, B-3)
+// ---------------------------------------------------------------------------
+
+// The A-point DFT as up to three in-place steps of radices R1 >= R2 >= R3
+// (1 = absent), T columns a tile, NT = T * A / R1 threads a block.  The
+// wrapper's numpy model (tests/test_torch_radix_plan.py) uses the same
+// radices (`radix_fft._S1_RADICES`).
+template <int A> struct S1Plan;
+template <> struct S1Plan<8>    { static constexpr int R1 = 8,  R2 = 1,  R3 = 1, T = 256; };
+template <> struct S1Plan<16>   { static constexpr int R1 = 16, R2 = 1,  R3 = 1, T = 256; };
+template <> struct S1Plan<32>   { static constexpr int R1 = 8,  R2 = 4,  R3 = 1, T = 32; };
+template <> struct S1Plan<64>   { static constexpr int R1 = 8,  R2 = 8,  R3 = 1, T = 32; };
+template <> struct S1Plan<128>  { static constexpr int R1 = 16, R2 = 8,  R3 = 1, T = 32; };
+template <> struct S1Plan<256>  { static constexpr int R1 = 16, R2 = 16, R3 = 1, T = 16; };
+template <> struct S1Plan<512>  { static constexpr int R1 = 8,  R2 = 8,  R3 = 8, T = 8; };
+template <> struct S1Plan<1024> { static constexpr int R1 = 16, R2 = 8,  R3 = 8, T = 8; };
+template <> struct S1Plan<2048> { static constexpr int R1 = 16, R2 = 16, R3 = 8, T = 4; };
+
+template <int A> __host__ __device__ constexpr int s1_threads() { return S1Plan<A>::T * A / S1Plan<A>::R1; }
+template <int A> __host__ __device__ constexpr int s1_levels() {
+    return 1 + (S1Plan<A>::R2 > 1) + (S1Plan<A>::R3 > 1);
+}
+template <int A> constexpr size_t s1_smem() {
+    return s1_levels<A>() > 1 ? (size_t)A * S1Plan<A>::T * sizeof(float2) : 0;
 }
 
-// Stage 1 on one tile: blockIdx.x = column tile (T columns), blockIdx.y = v.
-// x: (V, in_rows, N), y: (V, out_rows, N), re/im.  With ur (the rider, shaped
-// like y) the block also writes its partial self-dots to pr/pi[v * tiles + tile].
-__global__ void __launch_bounds__(S1_THREADS)
+enum { FWD = 0, INV = 1, INV_DOT = 2 };
+
+// Stage 1 on one tile: blockIdx.x = column tile, blockIdx.y = v.  x: (V,
+// in_rows, N), y: (V, out_rows, N), re/im; twA[m] = exp(-2 pi i m / A).  With
+// KIND == INV_DOT the rider u (shaped like y) gives the block's self-dot
+// partials pr/pi[v * tiles + tile].  HALF: the forward's in_rows, the
+// inverse's out_rows, is at most A / 2.
+template <int A, int KIND, bool HALF>
+__global__ void __launch_bounds__(s1_threads<A>())
 stage1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
               float* __restrict__ yr, float* __restrict__ yi,
               const float* __restrict__ ur, const float* __restrict__ ui,
-              float* __restrict__ pr, float* __restrict__ pi,
-              int N, int lA, int lT, int in_rows, int out_rows, float sign) {
-    extern __shared__ float smem[];
-    const int A = 1 << lA, T = 1 << lT;
-    float* re = smem;
-    float* im = re + A * T;
-    float2* tw = reinterpret_cast<float2*>(im + A * T);
+              const float2* __restrict__ twA, float* __restrict__ pr,
+              float* __restrict__ pi, int N, int in_rows, int out_rows) {
+    using P = S1Plan<A>;
+    constexpr int R1 = P::R1, R2 = P::R2, R3 = P::R3, T = P::T, NT = s1_threads<A>();
+    constexpr int LEVELS = s1_levels<A>();
+    constexpr int RL = LEVELS == 3 ? R3 : LEVELS == 2 ? R2 : R1;   // last radix
+    constexpr int SIGN = KIND == FWD ? -1 : 1;
+    constexpr bool CONJ = SIGN > 0;
+    constexpr bool HALF_IN = HALF && KIND == FWD, HALF_OUT = HALF && KIND != FWD;
+    constexpr int KEEP = HALF_OUT ? RL / 2 : RL;   // outputs formed per item
+    extern __shared__ float2 tile[];
     const int v = blockIdx.y, j0 = blockIdx.x * T;
-
-    for (int k = threadIdx.x; k < A / 2; k += blockDim.x) tw[k] = unit(k, A, -1.0f);
-    const size_t ibase = (size_t)v * in_rows * N + j0;
-    for (int idx = threadIdx.x; idx < A * T; idx += blockDim.x) {
-        const int a = idx >> lT, t = idx & (T - 1);
-        float r = 0.0f, i = 0.0f;
-        if (a < in_rows) {
-            const size_t g = ibase + (size_t)a * N + t;
-            r = xr[g];
-            i = xi[g];
-        }
-        re[idx] = r;
-        im[idx] = i;
-    }
-    __syncthreads();
-    // columns: transform t at t, element a at a * T; sign -1 forward, +1 inverse
-    fft<true>(re, im, lA, lT, 1, T, tw, -sign);
-
-    const size_t obase = (size_t)v * out_rows * N + j0;
+    const size_t xo = (size_t)v * in_rows * N + j0, yo = (size_t)v * out_rows * N + j0;
     float sr = 0.0f, si = 0.0f;
-    for (int idx = threadIdx.x; idx < out_rows * T; idx += blockDim.x) {
-        const int k = idx >> lT, t = idx & (T - 1);
-        const int src = (bitrev(k, lA) << lT) + t;
-        const float r = re[src], i = im[src];
-        const size_t g = obase + (size_t)k * N + t;
-        yr[g] = r;
-        yi[g] = i;
-        if (ur != nullptr) {
-            sr += ur[g] * r;
-            si += ui[g] * i;
+
+    // The last step's output: frequency pre + (A / RL) kL in register kL.
+    auto emit = [&](const float2 (&w)[RL], int t, int pre) {
+#pragma unroll
+        for (int kl = 0; kl < KEEP; ++kl) {
+            const int k = pre + (A / RL) * kl;
+            if (k < out_rows) {
+                const size_t g = yo + (size_t)k * N + t;
+                yr[g] = w[kl].x;
+                yi[g] = w[kl].y;
+                if constexpr (KIND == INV_DOT) {
+                    sr += ur[g] * w[kl].x;
+                    si += ui[g] * w[kl].y;
+                }
+            }
+        }
+    };
+
+    // step 1: rows a1 + (A / R1) b of x, b < R1, into frequency k1 at the
+    // same rows
+    constexpr int NB = HALF_IN ? R1 / 2 : R1;
+#pragma unroll
+    for (int it = 0; it < (A / R1) * T / NT; ++it) {
+        const int q = threadIdx.x + it * NT;
+        const int t = q % T, a1 = q / T;
+        float2 w[R1];
+#pragma unroll
+        for (int b = 0; b < R1; ++b) {
+            const int row = a1 + (A / R1) * b;
+            w[b] = make_float2(0.0f, 0.0f);
+            if (b < NB && row < in_rows) w[b] = ld2(xr, xi, xo + (size_t)row * N + t);
+        }
+        dft<R1, SIGN, HALF_IN>(w);
+        if constexpr (LEVELS == 1) {
+            emit(w, t, a1);
+        } else {
+#pragma unroll
+            for (int k1 = 0; k1 < R1; ++k1) tile[(a1 + (A / R1) * k1) * T + t] = w[k1];
         }
     }
-    if (ur != nullptr) {
-        __syncthreads();   // re is reused for the reduction
-        const int tile = v * gridDim.x + blockIdx.x;
-        block_sum2(sr, si, re, pr + tile, pi + tile);
+    if constexpr (LEVELS > 1) {
+        __syncthreads();
+        if constexpr (LEVELS == 3) {
+            // step 2 in each block k1 of n2 = A / R1 positions: items a2 <
+            // m2 = n2 / R2 over the positions a2 + m2 b2, with the pending
+            // twiddle W_A^{(a2 + m2 b2) k1}
+            constexpr int n2 = A / R1, m2 = n2 / R2;
+#pragma unroll
+            for (int it = 0; it < R1 * m2 * T / NT; ++it) {
+                const int q = threadIdx.x + it * NT;
+                const int t = q % T, r = q / T, a2 = r % m2, k1 = r / m2;
+                float2 w[R2];
+#pragma unroll
+                for (int b = 0; b < R2; ++b) {
+                    const int a = a2 + m2 * b;
+                    w[b] = cmul_by<CONJ>(tile[(k1 * n2 + a) * T + t], twA[(a * k1) & (A - 1)]);
+                }
+                dft<R2, SIGN>(w);
+#pragma unroll
+                for (int k2 = 0; k2 < R2; ++k2) tile[(k1 * n2 + a2 + m2 * k2) * T + t] = w[k2];
+            }
+            __syncthreads();
+        }
+        // the last step: blocks of RL contiguous positions; block blk holds
+        // (k1) or (k1, k2) and the pending twiddle of its previous step
+#pragma unroll
+        for (int it = 0; it < (A / RL) * T / NT; ++it) {
+            const int q = threadIdx.x + it * NT;
+            const int t = q % T, blk = q / T;
+            int pre, twk;
+            if constexpr (LEVELS == 2) {
+                pre = blk;            // k1
+                twk = blk;            // W_A^{a k1}
+            } else {
+                const int k1 = blk / R2, k2 = blk % R2;
+                pre = k1 + R1 * k2;
+                twk = k2 * R1;        // W_{A / R1}^{a k2} = W_A^{a k2 R1}
+            }
+            float2 w[RL];
+#pragma unroll
+            for (int a = 0; a < RL; ++a)
+                w[a] = cmul_by<CONJ>(tile[(blk * RL + a) * T + t], twA[(a * twk) & (A - 1)]);
+            dft<RL, SIGN>(w);
+            emit(w, t, pre);
+        }
+    }
+    if constexpr (KIND == INV_DOT) {
+        __shared__ float red[2][NT / 32];
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) {
+            sr += __shfl_xor_sync(0xffffffffu, sr, m);
+            si += __shfl_xor_sync(0xffffffffu, si, m);
+        }
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        if (lane == 0) {
+            red[0][warp] = sr;
+            red[1][warp] = si;
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            float a = 0.0f, b = 0.0f;
+            for (int w = 0; w < NT / 32; ++w) {
+                a += red[0][w];
+                b += red[1][w];
+            }
+            const int tile_id = v * gridDim.x + blockIdx.x;
+            pr[tile_id] = a;
+            pi[tile_id] = b;
+        }
     }
 }
 
@@ -261,275 +348,628 @@ stage1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 __global__ void __launch_bounds__(RED_THREADS)
 dot_reduce_kernel(const float* __restrict__ pr, const float* __restrict__ pi,
                   float* __restrict__ dr, float* __restrict__ di, int tiles) {
-    __shared__ float red[2 * RED_THREADS];
+    __shared__ float red[2][RED_THREADS / 32];
     const int v = blockIdx.x;
     float a = 0.0f, b = 0.0f;
-    for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
-        a += pr[v * tiles + t];
-        b += pi[v * tiles + t];
+    for (int t = threadIdx.x; t < tiles; t += RED_THREADS) {
+        a += pr[(size_t)v * tiles + t];
+        b += pi[(size_t)v * tiles + t];
     }
-    block_sum2(a, b, red, dr + v, di + v);
-}
-
-// Twiddle tables of a middle block, in shared memory after its plane.
-struct MiddleTables {
-    float2* twB;   // exp(-2 pi i k / B), k < B/2
-    float2* twC;   // exp(-2 pi i k / C), k < C/2
-    float2* t1r;   // exp(-2 pi i ka b / (A B)), b < B
-    float2* t1c;   // exp(-2 pi i ka c / L), c < C
-    float2* t2h;   // exp(-2 pi i k / B), k < B
-    float2* t2l;   // exp(-2 pi i k / (B C)), k < C
-};
-
-// Fills the tables of plane ka (ends with a barrier).
-__device__ MiddleTables middle_setup(float2* tw, int ka, int A, int B, int C) {
-    const int P = B * C;
-    MiddleTables t;
-    t.twB = tw;
-    t.twC = t.twB + B / 2;
-    t.t1r = t.twC + C / 2;
-    t.t1c = t.t1r + B;
-    t.t2h = t.t1c + C;
-    t.t2l = t.t2h + B;
-    for (int k = threadIdx.x; k < B; k += blockDim.x) {
-        if (k < B / 2) t.twB[k] = unit(k, B, -1.0f);
-        t.t1r[k] = unit((ka * k) & (A * B - 1), A * B, -1.0f);
-        t.t2h[k] = unit(k, B, -1.0f);
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, m);
+        b += __shfl_xor_sync(0xffffffffu, b, m);
     }
-    for (int k = threadIdx.x; k < C; k += blockDim.x) {
-        if (k < C / 2) t.twC[k] = unit(k, C, -1.0f);
-        t.t1c[k] = unit(ka * k, A * P, -1.0f);
-        t.t2l[k] = unit(k, P, -1.0f);
+    if ((threadIdx.x & 31) == 0) {
+        red[0][threadIdx.x >> 5] = a;
+        red[1][threadIdx.x >> 5] = b;
     }
     __syncthreads();
+    if (threadIdx.x == 0) {
+        float s = 0.0f, u = 0.0f;
+        for (int w = 0; w < RED_THREADS / 32; ++w) {
+            s += red[0][w];
+            u += red[1][w];
+        }
+        dr[v] = s;
+        di[v] = u;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The middle (B-4, B-7)
+// ---------------------------------------------------------------------------
+
+// The radices over b: B = R1 * R2 (R2 = 1: one step); `radix_fft._MID_RADICES`.
+template <int B> struct MidPlan;
+template <> struct MidPlan<128> { static constexpr int R1 = 16, R2 = 8; };
+template <> struct MidPlan<64>  { static constexpr int R1 = 8,  R2 = 8; };
+template <> struct MidPlan<32>  { static constexpr int R1 = 8,  R2 = 4; };
+template <> struct MidPlan<16>  { static constexpr int R1 = 16, R2 = 1; };
+template <> struct MidPlan<8>   { static constexpr int R1 = 8,  R2 = 1; };
+
+// The plan's tables (complex), in the order of the wrapper's table after
+// stage 1's twA (A values):
+struct MidTab {
+    const float2* tw4;   // [a][k1] = W_C^{a k1}, a < 8, k1 < 16
+    const float2* twB;   // [m] = W_B^m, m < B
+    const float2* base;  // [k1][c] = W_{BC}^{k1 c}, k1 < R1
+    const float2* fac;   // [k2][c] = W_{BC}^{R1 k2 c}, k2 < R2
+    const float2* t1r;   // [ka][b] = W_{AB}^{ka b}
+    const float2* t1c;   // [ka][c] = W_L^{ka c}
+};
+// with W_n^m = exp(-2 pi i m / n).
+
+// Position of element p of a row in shared memory (one pad every 16).
+__device__ __forceinline__ int phys(int p) { return p + (p >> 4); }
+
+// The smem-to-smem phases (2, 3, 5, 6) take their items one at a time (the
+// compiler would otherwise hoist every item's loads and spill); phases 1 and
+// 7 (device memory) and 4 (d) unroll theirs, so all their loads are in flight
+// together.  128 registers a thread at 512 threads, no spills.
+template <int B>
+struct Mid {
+    static constexpr int R1 = MidPlan<B>::R1, R2 = MidPlan<B>::R2;
+    static constexpr int NT = B * MC / 16 < 512 ? B * MC / 16 : 512;
+    static constexpr int P = B * MC;
+
+    // Phase 1 (with phase 2 when R2 == 1): items (c, a1), the rows
+    // a1 + R2 b of y times T1's row factor, the R1-point DFT over b into k1 at
+    // rows a1 + R2 k1.
+    __device__ static void fwd_b1(const float* __restrict__ yr, const float* __restrict__ yi,
+                                  float2* s, const MidTab& t, int ka) {
+        constexpr int ITEMS = R2 * MC;
+        static_assert(ITEMS % NT == 0, "phase 1 items");
+#pragma unroll
+        for (int it = 0; it < ITEMS / NT; ++it) {
+            const int q = threadIdx.x + it * NT;
+            const int c = q % MC, a1 = q / MC;
+            float2 w[R1];
+#pragma unroll
+            for (int b = 0; b < R1; ++b) {
+                const int row = a1 + R2 * b;
+                w[b] = cmul(ld2(yr, yi, (size_t)row * MC + c), __ldg(t.t1r + ka * B + row));
+            }
+            dft<R1, -1>(w);
+            if constexpr (R2 == 1) {
+                const float2 tc = __ldg(t.t1c + ka * MC + c);
+#pragma unroll
+                for (int kb = 0; kb < R1; ++kb)
+                    s[kb * MS + phys(c)] = cmul(w[kb], cmul(__ldg(t.base + kb * MC + c), tc));
+            } else {
+#pragma unroll
+                for (int k1 = 0; k1 < R1; ++k1) s[(a1 + R2 * k1) * MS + phys(c)] = w[k1];
+            }
+        }
+    }
+
+    // Phase 2: items (c, k1), the rows k1 R2 + a times W_B^{a k1}, the
+    // R2-point DFT over a into k2, times T2[kb, c] T1's column factor, kb =
+    // k1 + R1 k2 (row k1 R2 + k2 holds kb).
+    __device__ static void fwd_b2(float2* s, const MidTab& t, int ka) {
+        constexpr int ITEMS = R1 * MC;
+        static_assert(ITEMS % NT == 0, "phase 2 items");
+#pragma unroll 1
+        for (int it = 0; it < ITEMS / NT; ++it) {
+            const int q = threadIdx.x + it * NT;
+            const int c = q % MC, k1 = q / MC;
+            float2 w[R2];
+#pragma unroll
+            for (int a = 0; a < R2; ++a)
+                w[a] = cmul(s[(k1 * R2 + a) * MS + phys(c)], __ldg(t.twB + a * k1));
+            dft<R2, -1>(w);
+            const float2 tt = cmul(__ldg(t.base + k1 * MC + c), __ldg(t.t1c + ka * MC + c));
+#pragma unroll
+            for (int k2 = 0; k2 < R2; ++k2)
+                s[(k1 * R2 + k2) * MS + phys(c)] = cmul(w[k2], cmul(tt, __ldg(t.fac + k2 * MC + c)));
+        }
+    }
+
+    // Phase 3: items (row, a), a < 8, the positions a + 8 m of the row, the
+    // 16-point DFT over m into k1 at positions a + 8 k1.
+    __device__ static void fwd_c1(float2* s) {
+        constexpr int ITEMS = MC2 * B;
+        static_assert(ITEMS % NT == 0, "phase 3 items");
+#pragma unroll 1
+        for (int it = 0; it < ITEMS / NT; ++it) {
+            const int q = threadIdx.x + it * NT;
+            const int row = q % B, a = q / B;
+            float2* r = s + row * MS;
+            float2 w[MC1];
+#pragma unroll
+            for (int m = 0; m < MC1; ++m) w[m] = r[phys(a + MC2 * m)];
+            dft<MC1, -1>(w);
+#pragma unroll
+            for (int k1 = 0; k1 < MC1; ++k1) r[phys(a + MC2 * k1)] = w[k1];
+        }
+    }
+
+    // Phase 4: items (row, k1), k1 < 16, the positions 8 k1 + a times
+    // W_C^{a k1}, the 8-point DFT over a into k2 (kc = k1 + 16 k2), times
+    // d[kb, kc], the inverse 8-point DFT back over a, times conj W_C^{a k1}.
+    // PARK: the spectrum is also written to (zr, zi) at (row, kc); RELOAD: it
+    // is read from there instead of formed (each thread reads back only what
+    // it wrote).
+    template <bool PARK, bool RELOAD>
+    __device__ static void c_mid(float2* s, const MidTab& t, const float* __restrict__ dp,
+                                 float* zr, float* zi) {
+        constexpr int ITEMS = MC1 * B;
+        static_assert(ITEMS % NT == 0, "phase 4 items");
+#pragma unroll
+        for (int it = 0; it < ITEMS / NT; ++it) {
+            const int q = threadIdx.x + it * NT;
+            const int k1 = q % MC1, row = q / MC1;
+            const int kb = row / R2 + R1 * (row % R2);
+            float2* r = s + row * MS;
+            float dv[MC2];
+#pragma unroll
+            for (int k2 = 0; k2 < MC2; ++k2) dv[k2] = __ldg(dp + kb * MC + k1 + MC1 * k2);
+            float2 w[MC2];
+            if constexpr (RELOAD) {
+#pragma unroll
+                for (int k2 = 0; k2 < MC2; ++k2) w[k2] = ld2(zr, zi, row * MC + k1 + MC1 * k2);
+            } else {
+#pragma unroll
+                for (int a = 0; a < MC2; ++a)
+                    w[a] = cmul(r[phys(MC2 * k1 + a)], __ldg(t.tw4 + a * MC1 + k1));
+                dft<MC2, -1>(w);
+                if constexpr (PARK) {
+#pragma unroll
+                    for (int k2 = 0; k2 < MC2; ++k2) {
+                        zr[row * MC + k1 + MC1 * k2] = w[k2].x;
+                        zi[row * MC + k1 + MC1 * k2] = w[k2].y;
+                    }
+                }
+            }
+#pragma unroll
+            for (int k2 = 0; k2 < MC2; ++k2) w[k2] = make_float2(w[k2].x * dv[k2], w[k2].y * dv[k2]);
+            dft<MC2, 1>(w);
+#pragma unroll
+            for (int a = 0; a < MC2; ++a)
+                r[phys(MC2 * k1 + a)] = cmulc(w[a], __ldg(t.tw4 + a * MC1 + k1));
+        }
+    }
+
+    // Phase 5: items (row, a), the positions a + 8 k1, the inverse 16-point
+    // DFT over k1 into c = a + 8 m (natural order).
+    __device__ static void inv_c1(float2* s) {
+        constexpr int ITEMS = MC2 * B;
+#pragma unroll 1
+        for (int it = 0; it < ITEMS / NT; ++it) {
+            const int q = threadIdx.x + it * NT;
+            const int row = q % B, a = q / B;
+            float2* r = s + row * MS;
+            float2 w[MC1];
+#pragma unroll
+            for (int k1 = 0; k1 < MC1; ++k1) w[k1] = r[phys(a + MC2 * k1)];
+            dft<MC1, 1>(w);
+#pragma unroll
+            for (int m = 0; m < MC1; ++m) r[phys(a + MC2 * m)] = w[m];
+        }
+    }
+
+    // Phase 6 (R2 > 1): items (c, k1), the rows k1 R2 + k2 times conj T2 and
+    // conj T1's column factor, the inverse R2-point DFT over k2 into a, times
+    // conj W_B^{a k1}.
+    __device__ static void inv_b2(float2* s, const MidTab& t, int ka) {
+        constexpr int ITEMS = R1 * MC;
+#pragma unroll 1
+        for (int it = 0; it < ITEMS / NT; ++it) {
+            const int q = threadIdx.x + it * NT;
+            const int c = q % MC, k1 = q / MC;
+            const float2 tt = cmul(__ldg(t.base + k1 * MC + c), __ldg(t.t1c + ka * MC + c));
+            float2 w[R2];
+#pragma unroll
+            for (int k2 = 0; k2 < R2; ++k2)
+                w[k2] = cmulc(s[(k1 * R2 + k2) * MS + phys(c)], cmul(tt, __ldg(t.fac + k2 * MC + c)));
+            dft<R2, 1>(w);
+#pragma unroll
+            for (int a = 0; a < R2; ++a)
+                s[(k1 * R2 + a) * MS + phys(c)] = cmulc(w[a], __ldg(t.twB + a * k1));
+        }
+    }
+
+    // Phase 7 (with phase 6 when R2 == 1): items (c, a1), the rows a1 + R2 k1,
+    // the inverse R1-point DFT over k1 into b = a1 + R2 m, times conj T1's row
+    // factor, into z.
+    __device__ static void inv_b1(const float2* s, const MidTab& t, int ka,
+                                  float* zr, float* zi) {
+        constexpr int ITEMS = R2 * MC;
+#pragma unroll
+        for (int it = 0; it < ITEMS / NT; ++it) {
+            const int q = threadIdx.x + it * NT;
+            const int c = q % MC, a1 = q / MC;
+            float2 w[R1];
+            if constexpr (R2 == 1) {
+                const float2 tc = __ldg(t.t1c + ka * MC + c);
+#pragma unroll
+                for (int kb = 0; kb < R1; ++kb)
+                    w[kb] = cmulc(s[kb * MS + phys(c)], cmul(__ldg(t.base + kb * MC + c), tc));
+            } else {
+#pragma unroll
+                for (int k1 = 0; k1 < R1; ++k1) w[k1] = s[(a1 + R2 * k1) * MS + phys(c)];
+            }
+            dft<R1, 1>(w);
+#pragma unroll
+            for (int m = 0; m < R1; ++m) {
+                const int row = a1 + R2 * m;
+                const float2 o = cmulc(w[m], __ldg(t.t1r + ka * B + row));
+                zr[(size_t)row * MC + c] = o.x;
+                zi[(size_t)row * MC + c] = o.y;
+            }
+        }
+    }
+
+    // The forward half through phase 3 (ends with a barrier).
+    __device__ static void forward(const float* yr, const float* yi, float2* s,
+                                   const MidTab& t, int ka) {
+        fwd_b1(yr, yi, s, t, ka);
+        __syncthreads();
+        if constexpr (R2 > 1) {
+            fwd_b2(s, t, ka);
+            __syncthreads();
+        }
+        fwd_c1(s);
+        __syncthreads();
+    }
+
+    // Phases 5-7 after phase 4 (begins with a barrier).
+    __device__ static void inverse(float2* s, const MidTab& t, int ka, float* zr, float* zi) {
+        __syncthreads();
+        inv_c1(s);
+        __syncthreads();
+        if constexpr (R2 > 1) {
+            inv_b2(s, t, ka);
+            __syncthreads();
+        }
+        inv_b1(s, t, ka, zr, zi);
+    }
+};
+
+template <int B> constexpr size_t mid_smem() { return (size_t)B * MS * sizeof(float2); }
+
+// The middle on plane ka of sample v, blockIdx.x = ka * V + v (the V planes
+// of one ka, which share d, run together).
+template <int B>
+__global__ void __launch_bounds__(Mid<B>::NT, 1)
+middle_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
+              const float* __restrict__ d, MidTab t, float* __restrict__ zr,
+              float* __restrict__ zi, int V) {
+    extern __shared__ float2 plane[];
+    constexpr int P = Mid<B>::P;
+    const int ka = blockIdx.x / V, v = blockIdx.x % V;
+    const int A = gridDim.x / V;
+    const size_t base = ((size_t)v * A + ka) * P;
+    Mid<B>::forward(yr + base, yi + base, plane, t, ka);
+    Mid<B>::template c_mid<false, false>(plane, t, d + (size_t)ka * P, nullptr, nullptr);
+    Mid<B>::inverse(plane, t, ka, zr + base, zi + base);
+}
+
+// Kernel B-7: the middle with two diagonals on one forward half.  The forward
+// spectrum is parked in zB, the inverse half runs with dA into zA, then with
+// dB from the reloaded spectrum into zB.
+template <int B>
+__global__ void __launch_bounds__(Mid<B>::NT, 1)
+middle_dual_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
+                   const float* __restrict__ dA, const float* __restrict__ dB, MidTab t,
+                   float* __restrict__ zAr, float* __restrict__ zAi, float* zBr,
+                   float* zBi, int V) {
+    extern __shared__ float2 plane[];
+    constexpr int P = Mid<B>::P;
+    const int ka = blockIdx.x / V, v = blockIdx.x % V;
+    const int A = gridDim.x / V;
+    const size_t base = ((size_t)v * A + ka) * P;
+    Mid<B>::forward(yr + base, yi + base, plane, t, ka);
+    Mid<B>::template c_mid<true, false>(plane, t, dA + (size_t)ka * P, zBr + base, zBi + base);
+    Mid<B>::inverse(plane, t, ka, zAr + base, zAi + base);
+    __syncthreads();   // every thread is done with the plane before phase 4 rewrites it
+    Mid<B>::template c_mid<false, true>(plane, t, dB + (size_t)ka * P, zBr + base, zBi + base);
+    Mid<B>::inverse(plane, t, ka, zBr + base, zBi + base);
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+__host__ inline bool is_pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
+
+int mid_radix1(int B) {
+    switch (B) {
+        case 128: return MidPlan<128>::R1;
+        case 64: return MidPlan<64>::R1;
+        case 32: return MidPlan<32>::R1;
+        case 16: return MidPlan<16>::R1;
+        case 8: return MidPlan<8>::R1;
+    }
+    return 0;
+}
+
+// Complex values of the plan table: twA, then the middle's tables.
+size_t table_complex(int A, int B) {
+    const int R1 = mid_radix1(B), R2 = R1 ? B / R1 : 0;
+    return (size_t)A + MC1 * MC2 + B + (size_t)(R1 + R2) * MC + (size_t)A * B + (size_t)A * MC;
+}
+
+MidTab mid_tables(const float* tab, int A, int B) {
+    const int R1 = mid_radix1(B), R2 = B / R1;
+    const float2* p = reinterpret_cast<const float2*>(tab) + A;
+    MidTab t;
+    t.tw4 = p;
+    t.twB = t.tw4 + MC1 * MC2;
+    t.base = t.twB + B;
+    t.fac = t.base + (size_t)R1 * MC;
+    t.t1r = t.fac + (size_t)R2 * MC;
+    t.t1c = t.t1r + (size_t)A * B;
     return t;
 }
 
-// The forward half on the plane at y + base: T1, F_B over b, T2, F_C over c,
-// into shared memory (re, im) in bit-reversed (kb, kc) order (ends with a
-// barrier).
-__device__ void middle_forward(const float* __restrict__ yr, const float* __restrict__ yi,
-                               size_t base, float* re, float* im, const MiddleTables& t,
-                               int lB, int lC) {
-    const int C = 1 << lC, P = 1 << (lB + lC);
-    // T1 on the way in
-    for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
-        const int b = idx >> lC, c = idx & (C - 1);
-        const float2 w = cmul(t.t1r[b], t.t1c[c]);
-        const float r = yr[base + idx], i = yi[base + idx];
-        re[idx] = r * w.x - i * w.y;
-        im[idx] = r * w.y + i * w.x;
-    }
-    __syncthreads();
-    // F_B over b (columns; row p then holds kb = bitrev(p))
-    fft<true>(re, im, lB, lC, 1, C, t.twB, 1.0f);
-    // T2 at (kb, c)
-    for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
-        const int p = idx >> lC, c = idx & (C - 1);
-        const int r = (bitrev(p, lB) * c) & (P - 1);
-        const float2 w = cmul(t.t2h[r >> lC], t.t2l[r & (C - 1)]);
-        const float x = re[idx], y = im[idx];
-        re[idx] = x * w.x - y * w.y;
-        im[idx] = x * w.y + y * w.x;
-    }
-    __syncthreads();
-    // F_C over c (rows; position q then holds kc = bitrev(q))
-    fft<true>(re, im, lC, lB, C, 1, t.twC, 1.0f);
+// Calls of cudaFuncSetAttribute, and kernels configured (both once each).
+int g_attribute_sets = 0;
+int g_kernels = 0;
+
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+    ++g_kernels;
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    ++g_attribute_sets;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// The inverse half: the product with the diagonal dp of this plane, read at
-// (kb, kc), conj F_C, conj T2, conj F_B, and conj T1 on the way out to
-// z + base.  Each thread first scales the elements it holds, so the caller
-// needs no barrier between its own writes of those elements and this call.
-__device__ void middle_inverse(float* re, float* im, const float* __restrict__ dp,
-                               float* zr, float* zi, size_t base, const MiddleTables& t,
-                               int lB, int lC) {
-    const int C = 1 << lC, P = 1 << (lB + lC);
-    for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
-        const int p = idx >> lC, q = idx & (C - 1);
-        const float s = __ldg(dp + (bitrev(p, lB) << lC) + bitrev(q, lC));
-        re[idx] *= s;
-        im[idx] *= s;
+template <int A>
+cudaError_t configure_stage1() {
+    cudaError_t err;
+    constexpr size_t s = s1_smem<A>();
+    if ((err = allow_smem(stage1_kernel<A, FWD, false>, s))) return err;
+    if ((err = allow_smem(stage1_kernel<A, FWD, true>, s))) return err;
+    if ((err = allow_smem(stage1_kernel<A, INV, false>, s))) return err;
+    if ((err = allow_smem(stage1_kernel<A, INV, true>, s))) return err;
+    if ((err = allow_smem(stage1_kernel<A, INV_DOT, false>, s))) return err;
+    return allow_smem(stage1_kernel<A, INV_DOT, true>, s);
+}
+
+template <int B>
+cudaError_t configure_middle() {
+    cudaError_t err;
+    if ((err = allow_smem(middle_kernel<B>, mid_smem<B>()))) return err;
+    return allow_smem(middle_dual_kernel<B>, mid_smem<B>());
+}
+
+// The shared-memory opt-in of every kernel of this file, once per process.
+cudaError_t configure_once() {
+    static bool done = false;
+    if (done) return cudaSuccess;
+    cudaError_t err;
+    if ((err = configure_stage1<8>()) || (err = configure_stage1<16>()) ||
+        (err = configure_stage1<32>()) || (err = configure_stage1<64>()) ||
+        (err = configure_stage1<128>()) || (err = configure_stage1<256>()) ||
+        (err = configure_stage1<512>()) || (err = configure_stage1<1024>()) ||
+        (err = configure_stage1<2048>()))
+        return err;
+    if ((err = configure_middle<8>()) || (err = configure_middle<16>()) ||
+        (err = configure_middle<32>()) || (err = configure_middle<64>()) ||
+        (err = configure_middle<128>()))
+        return err;
+    done = true;
+    return cudaSuccess;
+}
+
+template <int A, int KIND, bool HALF>
+int launch_s1(const float* xr, const float* xi, float* yr, float* yi, const float* ur,
+              const float* ui, const float* tab, float* pr, float* pi, int V, int N,
+              int in_rows, int out_rows, cudaStream_t stream) {
+    constexpr int T = S1Plan<A>::T;
+    dim3 grid(N / T, V);
+    stage1_kernel<A, KIND, HALF><<<grid, s1_threads<A>(), s1_smem<A>(), stream>>>(
+        xr, xi, yr, yi, ur, ui, reinterpret_cast<const float2*>(tab), pr, pi, N, in_rows,
+        out_rows);
+    return (int)cudaGetLastError();
+}
+
+template <int A, int KIND>
+int launch_s1_half(bool half, const float* xr, const float* xi, float* yr, float* yi,
+                   const float* ur, const float* ui, const float* tab, float* pr, float* pi,
+                   int V, int N, int in_rows, int out_rows, cudaStream_t stream) {
+    if (half)
+        return launch_s1<A, KIND, true>(xr, xi, yr, yi, ur, ui, tab, pr, pi, V, N, in_rows,
+                                        out_rows, stream);
+    return launch_s1<A, KIND, false>(xr, xi, yr, yi, ur, ui, tab, pr, pi, V, N, in_rows,
+                                     out_rows, stream);
+}
+
+template <int A>
+int launch_s1_kind(int kind, const float* xr, const float* xi, float* yr, float* yi,
+                   const float* ur, const float* ui, const float* tab, float* pr, float* pi,
+                   int V, int N, int in_rows, int out_rows, cudaStream_t stream) {
+    const bool half = 2 * (kind == FWD ? in_rows : out_rows) <= A;
+    if (kind == FWD)
+        return launch_s1_half<A, FWD>(half, xr, xi, yr, yi, ur, ui, tab, pr, pi, V, N,
+                                      in_rows, out_rows, stream);
+    if (kind == INV)
+        return launch_s1_half<A, INV>(half, xr, xi, yr, yi, ur, ui, tab, pr, pi, V, N,
+                                      in_rows, out_rows, stream);
+    return launch_s1_half<A, INV_DOT>(half, xr, xi, yr, yi, ur, ui, tab, pr, pi, V, N,
+                                      in_rows, out_rows, stream);
+}
+
+int s1_cols(int A) {
+    switch (A) {
+        case 8: return S1Plan<8>::T;
+        case 16: return S1Plan<16>::T;
+        case 32: return S1Plan<32>::T;
+        case 64: return S1Plan<64>::T;
+        case 128: return S1Plan<128>::T;
+        case 256: return S1Plan<256>::T;
+        case 512: return S1Plan<512>::T;
+        case 1024: return S1Plan<1024>::T;
+        case 2048: return S1Plan<2048>::T;
     }
-    __syncthreads();
-    // conj F_C: bit-reversed kc in, natural c out
-    fft<false>(re, im, lC, lB, C, 1, t.twC, -1.0f);
-    // conj T2
-    for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
-        const int p = idx >> lC, c = idx & (C - 1);
-        const int r = (bitrev(p, lB) * c) & (P - 1);
-        const float2 w = cconj(cmul(t.t2h[r >> lC], t.t2l[r & (C - 1)]));
-        const float x = re[idx], y = im[idx];
-        re[idx] = x * w.x - y * w.y;
-        im[idx] = x * w.y + y * w.x;
+    return 0;
+}
+
+template <int A>
+int s1_radices_of(int* r) {
+    r[0] = S1Plan<A>::R1;
+    r[1] = S1Plan<A>::R2;
+    r[2] = S1Plan<A>::R3;
+    return 1;
+}
+
+int s1_radices(int A, int* r) {
+    switch (A) {
+        case 8: return s1_radices_of<8>(r);
+        case 16: return s1_radices_of<16>(r);
+        case 32: return s1_radices_of<32>(r);
+        case 64: return s1_radices_of<64>(r);
+        case 128: return s1_radices_of<128>(r);
+        case 256: return s1_radices_of<256>(r);
+        case 512: return s1_radices_of<512>(r);
+        case 1024: return s1_radices_of<1024>(r);
+        case 2048: return s1_radices_of<2048>(r);
     }
-    __syncthreads();
-    // conj F_B: bit-reversed kb in, natural b out
-    fft<false>(re, im, lB, lC, 1, C, t.twB, -1.0f);
-    // conj T1 on the way out
-    for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
-        const int b = idx >> lC, c = idx & (C - 1);
-        const float2 w = cconj(cmul(t.t1r[b], t.t1c[c]));
-        const float x = re[idx], y = im[idx];
-        zr[base + idx] = x * w.x - y * w.y;
-        zi[base + idx] = x * w.y + y * w.x;
-    }
-}
-
-// The middle stages on plane ka = blockIdx.x of sample v = blockIdx.y.
-__global__ void __launch_bounds__(MID_THREADS)
-middle_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
-              const float* __restrict__ d, float* __restrict__ zr,
-              float* __restrict__ zi, int lA, int lB, int lC) {
-    extern __shared__ float smem[];
-    const int P = 1 << (lB + lC);
-    float* re = smem;
-    float* im = re + P;
-    const int ka = blockIdx.x, v = blockIdx.y;
-    const MiddleTables t = middle_setup(reinterpret_cast<float2*>(im + P), ka, 1 << lA,
-                                        1 << lB, 1 << lC);
-    const size_t base = ((size_t)v * (1 << lA) + ka) * P;
-    middle_forward(yr, yi, base, re, im, t, lB, lC);
-    middle_inverse(re, im, d + (size_t)ka * P, zr, zi, base, t, lB, lC);
-}
-
-// Kernel B-7: the middle stages with two diagonals on one forward half.  The
-// forward spectrum is parked in zB (each thread stores and later reloads the
-// elements it holds), the inverse half runs with dA into zA, then with dB from
-// the reloaded spectrum into zB.
-__global__ void __launch_bounds__(MID_THREADS)
-middle_dual_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
-                   const float* __restrict__ dA, const float* __restrict__ dB,
-                   float* __restrict__ zAr, float* __restrict__ zAi, float* zBr,
-                   float* zBi, int lA, int lB, int lC) {
-    extern __shared__ float smem[];
-    const int P = 1 << (lB + lC);
-    float* re = smem;
-    float* im = re + P;
-    const int ka = blockIdx.x, v = blockIdx.y;
-    const MiddleTables t = middle_setup(reinterpret_cast<float2*>(im + P), ka, 1 << lA,
-                                        1 << lB, 1 << lC);
-    const size_t base = ((size_t)v * (1 << lA) + ka) * P;
-    middle_forward(yr, yi, base, re, im, t, lB, lC);
-    for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
-        zBr[base + idx] = re[idx];
-        zBi[base + idx] = im[idx];
-    }
-    middle_inverse(re, im, dA + (size_t)ka * P, zAr, zAi, base, t, lB, lC);
-    __syncthreads();   // every thread is done with the plane before it is reloaded
-    for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
-        re[idx] = zBr[base + idx];
-        im[idx] = zBi[base + idx];
-    }
-    middle_inverse(re, im, dB + (size_t)ka * P, zBr, zBi, base, t, lB, lC);
-}
-
-size_t middle_smem_bytes(int B, int C) {
-    return (size_t)2 * B * C * sizeof(float)
-         + (size_t)(B / 2 + C / 2 + 2 * B + 2 * C) * sizeof(float2);
-}
-
-bool middle_args_ok(int V, int A, int B, int C) {
-    return V > 0 && is_pow2(A) && is_pow2(B) && is_pow2(C) && B >= 2 && C >= 2
-        && (size_t)A * B * C <= ((size_t)1 << 25)
-        && middle_smem_bytes(B, C) <= (size_t)SMEM_LIMIT;
-}
-
-int middle_threads(int B, int C) {
-    const int threads = B * C / 2;
-    return threads > MID_THREADS ? MID_THREADS : threads;
-}
-
-int set_smem(const void* kernel, size_t bytes) {
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)bytes);
+    return 0;
 }
 
 bool s1_args_ok(int V, int N, int A, int in_rows, int out_rows) {
-    return V > 0 && is_pow2(N) && N >= 1024 && is_pow2(A) && A >= 2 && A <= 2048
+    return V > 0 && is_pow2(N) && N >= 1024 && s1_cols(A) > 0 && N % s1_cols(A) == 0
         && in_rows >= 1 && in_rows <= A && out_rows >= 1 && out_rows <= A;
 }
 
-int launch_stage1(const float* xr, const float* xi, float* yr, float* yi,
-                  const float* ur, const float* ui, float* pr, float* pi,
-                  int V, int N, int A, int in_rows, int out_rows, float sign,
-                  cudaStream_t stream) {
-    const int T = s1_cols(A, N);
-    const size_t smem = s1_smem_bytes(A, T);
-    int err = set_smem((const void*)stage1_kernel, smem);
-    if (err) return err;
-    dim3 grid(N / T, V);
-    stage1_kernel<<<grid, S1_THREADS, smem, stream>>>(
-        xr, xi, yr, yi, ur, ui, pr, pi, N, ilog2(A), ilog2(T), in_rows, out_rows, sign);
+int launch_stage1(int kind, const float* xr, const float* xi, float* yr, float* yi,
+                  const float* ur, const float* ui, const float* tab, float* pr, float* pi,
+                  int V, int N, int A, int in_rows, int out_rows, cudaStream_t stream) {
+    cudaError_t err = configure_once();
+    if (err) return (int)err;
+#define S1_CASE(n)                                                                     \
+    case n:                                                                            \
+        return launch_s1_kind<n>(kind, xr, xi, yr, yi, ur, ui, tab, pr, pi, V, N, in_rows, \
+                                 out_rows, stream);
+    switch (A) {
+        S1_CASE(8) S1_CASE(16) S1_CASE(32) S1_CASE(64) S1_CASE(128) S1_CASE(256)
+        S1_CASE(512) S1_CASE(1024) S1_CASE(2048)
+    }
+#undef S1_CASE
+    return (int)cudaErrorInvalidValue;
+}
+
+bool middle_args_ok(int V, int A, int B, int C) {
+    return V > 0 && is_pow2(A) && A >= 8 && A <= 2048 && mid_radix1(B) > 0 && C == MC;
+}
+
+template <int B>
+int launch_middle_b(bool dual, const float* yr, const float* yi, const float* dA,
+                    const float* dB, const MidTab& t, float* zAr, float* zAi, float* zBr,
+                    float* zBi, int V, int A, cudaStream_t stream) {
+    const dim3 grid(A * V);
+    if (dual)
+        middle_dual_kernel<B><<<grid, Mid<B>::NT, mid_smem<B>(), stream>>>(
+            yr, yi, dA, dB, t, zAr, zAi, zBr, zBi, V);
+    else
+        middle_kernel<B><<<grid, Mid<B>::NT, mid_smem<B>(), stream>>>(yr, yi, dA, t, zAr, zAi, V);
     return (int)cudaGetLastError();
+}
+
+int launch_middle(bool dual, const float* yr, const float* yi, const float* dA,
+                  const float* dB, const float* tab, float* zAr, float* zAi, float* zBr,
+                  float* zBi, int V, int A, int B, int C, cudaStream_t stream) {
+    if (!middle_args_ok(V, A, B, C)) return (int)cudaErrorInvalidValue;
+    cudaError_t err = configure_once();
+    if (err) return (int)err;
+    const MidTab t = mid_tables(tab, A, B);
+#define MID_CASE(n) \
+    case n: return launch_middle_b<n>(dual, yr, yi, dA, dB, t, zAr, zAi, zBr, zBi, V, A, stream);
+    switch (B) {
+        MID_CASE(8) MID_CASE(16) MID_CASE(32) MID_CASE(64) MID_CASE(128)
+    }
+#undef MID_CASE
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
+// Floats of the plan table the kernels read (float64 values rounded to
+// float32, built by the wrapper): 2 * table_complex(A, B), 0 for a B the
+// middle does not take.
+size_t radix_table_floats(int A, int B) {
+    if (A <= 0 || mid_radix1(B) == 0) return 0;
+    return 2 * table_complex(A, B);
+}
+
+// The register radices of plan (A, B), which the wrapper's tables and its CPU
+// model follow: r[0..2] stage 1's A-point DFT (1 past its last step), r[3..4]
+// the middle's B-point DFT over b (r[4] = 1: one step), r[5..6] its C-point
+// DFT over c.  Returns 1, or 0 (r untouched) for a plan the kernels do not take.
+int radix_plan(int A, int B, int* r) {
+    int s1[3];
+    const int R1 = mid_radix1(B);
+    if (R1 == 0 || !s1_radices(A, s1)) return 0;
+    r[0] = s1[0];
+    r[1] = s1[1];
+    r[2] = s1[2];
+    r[3] = R1;
+    r[4] = B / R1;
+    r[5] = MC1;
+    r[6] = MC2;
+    return 1;
+}
+
 // Floats of one partial-dot array for radix_stage1_dot (the caller passes 2x).
 size_t radix_dot_partials(int V, int N, int A) {
-    if (V <= 0 || A <= 0 || N <= 0) return 0;
-    return (size_t)V * (N / s1_cols(A, N));
+    if (V <= 0 || N <= 0 || s1_cols(A) == 0) return 0;
+    return (size_t)V * (N / s1_cols(A));
 }
+
+// cudaFuncSetAttribute calls made so far, and kernels configured: each kernel
+// is configured once per process, on the first launch of any.
+int radix_attribute_sets(void) { return g_attribute_sets; }
+int radix_kernels_configured(void) { return g_kernels; }
 
 // y = the A-point DFT over the rows of x, forward (sign -1) or inverse (+1),
 // rows >= in_rows of x zero, rows < out_rows of y formed.
-// x: (V, in_rows, N), y: (V, out_rows, N).
-int radix_stage1(const float* xr, const float* xi, float* yr, float* yi, int V,
-                 int N, int A, int in_rows, int out_rows, int sign,
-                 cudaStream_t stream) {
+// x: (V, in_rows, N), y: (V, out_rows, N); tab: the plan table.
+int radix_stage1(const float* xr, const float* xi, float* yr, float* yi, const float* tab,
+                 int V, int N, int A, int in_rows, int out_rows, int sign, void* stream) {
     if (!s1_args_ok(V, N, A, in_rows, out_rows) || (sign != 1 && sign != -1))
         return (int)cudaErrorInvalidValue;
-    return launch_stage1(xr, xi, yr, yi, nullptr, nullptr, nullptr, nullptr, V, N, A,
-                         in_rows, out_rows, (float)sign, stream);
+    return launch_stage1(sign < 0 ? FWD : INV, xr, xi, yr, yi, nullptr, nullptr, tab,
+                         nullptr, nullptr, V, N, A, in_rows, out_rows, (cudaStream_t)stream);
 }
 
 // The inverse stage 1 of z (V, A, N) to y (V, out_rows, N), plus
 // dr[v] = sum ur[v] * yr[v] and di[v] = sum ui[v] * yi[v] (u like y).
 // partial: 2 * radix_dot_partials(V, N, A) floats of scratch.
-int radix_stage1_dot(const float* zr, const float* zi, const float* ur,
-                     const float* ui, float* yr, float* yi, float* dr, float* di,
-                     float* partial, int V, int N, int A, int out_rows,
-                     cudaStream_t stream) {
+int radix_stage1_dot(const float* zr, const float* zi, const float* ur, const float* ui,
+                     const float* tab, float* yr, float* yi, float* dr, float* di,
+                     float* partial, int V, int N, int A, int out_rows, void* stream) {
     if (!s1_args_ok(V, N, A, A, out_rows)) return (int)cudaErrorInvalidValue;
-    const int tiles = N / s1_cols(A, N);
+    const int tiles = N / s1_cols(A);
     float* pr = partial;
     float* pi = partial + (size_t)V * tiles;
-    int err = launch_stage1(zr, zi, yr, yi, ur, ui, pr, pi, V, N, A, A, out_rows,
-                            1.0f, stream);
+    cudaStream_t st = (cudaStream_t)stream;
+    int err = launch_stage1(INV_DOT, zr, zi, yr, yi, ur, ui, tab, pr, pi, V, N, A, A,
+                            out_rows, st);
     if (err) return err;
-    dot_reduce_kernel<<<V, RED_THREADS, 0, stream>>>(pr, pi, dr, di, tiles);
+    dot_reduce_kernel<<<V, RED_THREADS, 0, st>>>(pr, pi, dr, di, tiles);
     return (int)cudaGetLastError();
 }
 
 // The middle stages on y (V, A, B, C) with the stage-order diagonal d (A, B, C)
 // into z (V, A, B, C).
-int radix_middle(const float* yr, const float* yi, const float* d, float* zr,
-                 float* zi, int V, int A, int B, int C, cudaStream_t stream) {
-    if (!middle_args_ok(V, A, B, C)) return (int)cudaErrorInvalidValue;
-    const size_t smem = middle_smem_bytes(B, C);
-    int err = set_smem((const void*)middle_kernel, smem);
-    if (err) return err;
-    middle_kernel<<<dim3(A, V), middle_threads(B, C), smem, stream>>>(
-        yr, yi, d, zr, zi, ilog2(A), ilog2(B), ilog2(C));
-    return (int)cudaGetLastError();
+int radix_middle(const float* yr, const float* yi, const float* d, const float* tab,
+                 float* zr, float* zi, int V, int A, int B, int C, void* stream) {
+    return launch_middle(false, yr, yi, d, nullptr, tab, zr, zi, nullptr, nullptr, V, A, B,
+                         C, (cudaStream_t)stream);
 }
 
 // Kernel B-7: the middle stages on y (V, A, B, C) with two stage-order
 // diagonals dA, dB (A, B, C) sharing one forward half, into zA and zB
 // (V, A, B, C) each.
-int radix_middle_dual(const float* yr, const float* yi, const float* dA,
-                      const float* dB, float* zAr, float* zAi, float* zBr, float* zBi,
-                      int V, int A, int B, int C, cudaStream_t stream) {
-    if (!middle_args_ok(V, A, B, C)) return (int)cudaErrorInvalidValue;
-    const size_t smem = middle_smem_bytes(B, C);
-    int err = set_smem((const void*)middle_dual_kernel, smem);
-    if (err) return err;
-    middle_dual_kernel<<<dim3(A, V), middle_threads(B, C), smem, stream>>>(
-        yr, yi, dA, dB, zAr, zAi, zBr, zBi, ilog2(A), ilog2(B), ilog2(C));
-    return (int)cudaGetLastError();
+int radix_middle_dual(const float* yr, const float* yi, const float* dA, const float* dB,
+                      const float* tab, float* zAr, float* zAi, float* zBr, float* zBi,
+                      int V, int A, int B, int C, void* stream) {
+    return launch_middle(true, yr, yi, dA, dB, tab, zAr, zAi, zBr, zBi, V, A, B, C,
+                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -23,7 +23,9 @@ the weights line up with it element for element.
 Two implementations of each stage live here:
 
 * the hand-written CUDA kernels of ``csrc/radix.cu`` (B-2 ``stage1``, B-3
-  ``stage1_inv_dot``, B-4 ``middle``, B-7 ``middle_dual``), launched for
+  ``stage1_inv_dot``, B-4 ``middle``, B-7 ``middle_dual``), register-radix
+  FFTs whose radices are `_S1_RADICES` and `_MID_RADICES` and whose
+  twiddles come from the float64 plan table `_kernel_table`, launched for
   float32 tensors on a CUDA device (anything else raises);
 * their plain PyTorch versions (`stage1_plain`, `stage1_inv_dot_plain`,
   `middle_plain`, `middle_dual_plain`): dense DFT tables and complex
@@ -48,7 +50,7 @@ __all__ = ["RadixPlan", "make_plan", "permute_weights", "fused_circulant_apply",
            "radix_supported", "row_multiple", "stage_order_weights",
            "stage1", "stage1_inv_dot", "middle", "stage1_plain",
            "stage1_inv_dot_plain", "middle_plain", "pack_rows", "unpack_rows",
-           "LAUNCHES", "reset_launches"]
+           "LAUNCHES", "reset_launches", "attribute_sets"]
 
 _LANE = 128
 # launches of the radix kernels, per wrapper; a plain-version call counts nothing
@@ -215,6 +217,87 @@ def middle_dual_plain(yr, yi, dA, dB, plan: RadixPlan):
 
 
 # ---------------------------------------------------------------------------
+# The kernels' plan table
+# ---------------------------------------------------------------------------
+
+# Radices of the kernels' register steps (csrc/radix.cu `S1Plan`, `MidPlan`):
+# stage 1's A-point DFT, and the middle's B-point DFT (its C = 128 point DFT
+# is 16 x 8 at every plan).
+_S1_RADICES = {8: (8,), 16: (16,), 32: (8, 4), 64: (8, 8), 128: (16, 8),
+               256: (16, 16), 512: (8, 8, 8), 1024: (16, 8, 8), 2048: (16, 16, 8)}
+_MID_RADICES = {128: (16, 8), 64: (8, 8), 32: (8, 4), 16: (16, 1), 8: (8, 1)}
+_MC1, _MC2 = 16, 8
+
+
+def _unit(num, den) -> np.ndarray:
+    """exp(-2 pi i num / den) in float64, the integer product reduced first."""
+    return np.exp(-2j * np.pi * (np.asarray(num, dtype=np.int64) % den) / den)
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_table_np(L: int) -> Dict[str, np.ndarray]:
+    """The float64 tables the kernels read, by name, in the table's order:
+    twA[m] = W_A^m; tw4[a, k1] = W_C^{a k1} (a < 8, k1 < 16); twB[m] = W_B^m;
+    base[k1, c] = W_{BC}^{k1 c} (k1 < R1) and fac[k2, c] = W_{BC}^{R1 k2 c}
+    (k2 < R2), whose product is T2 at kb = k1 + R1 k2; t1r[ka, b] =
+    W_{AB}^{ka b} and t1c[ka, c] = W_L^{ka c}, whose product is T1; with
+    W_n^m = exp(-2 pi i m / n) and (R1, R2) the middle's radices over b."""
+    A, B, C = _factorize(L)
+    R1, R2 = _MID_RADICES[B]
+    ar = np.arange
+    return {
+        "twA": _unit(ar(A), A),
+        "tw4": _unit(np.outer(ar(_MC2), ar(_MC1)), C),
+        "twB": _unit(ar(B), B),
+        "base": _unit(np.outer(ar(R1), ar(C)), B * C),
+        "fac": _unit(np.outer(R1 * ar(R2), ar(C)), B * C),
+        "t1r": _unit(np.outer(ar(A), ar(B)), A * B),
+        "t1c": _unit(np.outer(ar(A), ar(C)), L),
+    }
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_table(L: int, device) -> torch.Tensor:
+    """`_kernel_table_np` flattened in order, as interleaved float32 (re, im)
+    on ``device``; cached per (L, device)."""
+    flat = np.concatenate([t.ravel() for t in _kernel_table_np(L).values()])
+    return torch.as_tensor(np.stack([flat.real, flat.imag], axis=-1).ravel(),
+                           dtype=torch.float32, device=device)
+
+
+def _kernel_plan(A: int, B: int):
+    """The kernels' own register radices at plan (A, B), from ``csrc/radix.cu``
+    (`radix_plan`): (stage 1's over a, the middle's over b, over c), in the
+    form of `_S1_RADICES`, `_MID_RADICES` and (`_MC1`, `_MC2`); None for a
+    plan the kernels do not take."""
+    r = (ctypes.c_int * 7)()
+    if not _lib().radix_plan(A, B, r):
+        return None
+    return tuple(x for x in r[:3] if x > 1), (r[3], r[4]), (r[5], r[6])
+
+
+@functools.lru_cache(maxsize=16)
+def _checked_table(L: int, dev) -> torch.Tensor:
+    """`_kernel_table` once the kernels' radices are checked to be the ones
+    the table was built for (and the CPU model follows), and its size the
+    kernels' count: a plan they do not take, or radices that differ in value
+    or order, raise."""
+    A, B, _ = _factorize(L)
+    plan = _kernel_plan(A, B)
+    if plan is None:
+        raise ValueError(f"radix kernels take no plan (A, B) = {(A, B)}")
+    mine = (_S1_RADICES.get(A), _MID_RADICES.get(B), (_MC1, _MC2))
+    if plan != mine:
+        raise ValueError(f"radix kernels' radices {plan} at (A, B) = {(A, B)}, "
+                         f"the tables' {mine}")
+    tab = _kernel_table(L, dev)
+    if tab.numel() != _lib().radix_table_floats(A, B):
+        raise ValueError(f"radix plan table of {tab.numel()} floats at (A, B) = "
+                         f"{(A, B)}, the kernels read {_lib().radix_table_floats(A, B)}")
+    return tab
+
+
+# ---------------------------------------------------------------------------
 # The kernels' wrappers
 # ---------------------------------------------------------------------------
 
@@ -225,18 +308,33 @@ def _lib():
 
         lib = _build.load("radix")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.radix_stage1.argtypes = [p] * 4 + [i] * 6 + [p]
+        lib.radix_stage1.argtypes = [p] * 5 + [i] * 6 + [p]
         lib.radix_stage1.restype = ctypes.c_int
-        lib.radix_stage1_dot.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.radix_stage1_dot.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.radix_stage1_dot.restype = ctypes.c_int
-        lib.radix_middle.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.radix_middle.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.radix_middle.restype = ctypes.c_int
-        lib.radix_middle_dual.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.radix_middle_dual.argtypes = [p] * 9 + [i] * 4 + [p]
         lib.radix_middle_dual.restype = ctypes.c_int
         lib.radix_dot_partials.argtypes = [i, i, i]
         lib.radix_dot_partials.restype = ctypes.c_size_t
+        lib.radix_table_floats.argtypes = [i, i]
+        lib.radix_table_floats.restype = ctypes.c_size_t
+        lib.radix_plan.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.radix_plan.restype = ctypes.c_int
+        for counter in (lib.radix_attribute_sets, lib.radix_kernels_configured):
+            counter.argtypes = []
+            counter.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def attribute_sets() -> Tuple[int, int]:
+    """(cudaFuncSetAttribute calls, kernels configured) of ``csrc/radix.cu``
+    so far in this process: the kernels are configured once, on the first
+    launch of any."""
+    lib = _lib()
+    return lib.radix_attribute_sets(), lib.radix_kernels_configured()
 
 
 def _check(name, ref, *tensors):
@@ -285,8 +383,9 @@ def stage1(xr: torch.Tensor, xi: torch.Tensor, plan: RadixPlan, out_rows: int,
     yr = torch.empty((V, out_rows, N), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
     with torch.cuda.device(xr.device):
+        tab = _checked_table(plan.L, xr.device)
         err = _lib().radix_stage1(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(),
-                                  yi.data_ptr(), V, N, plan.A, in_rows, out_rows,
+                                  yi.data_ptr(), tab.data_ptr(), V, N, plan.A, in_rows, out_rows,
                                   1 if inverse else -1, _stream(xr.device))
     _raise_on(err, "stage1")
     LAUNCHES["stage1"] += 1
@@ -321,7 +420,8 @@ def stage1_inv_dot(zr: torch.Tensor, zi: torch.Tensor, ur: torch.Tensor,
                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.radix_stage1_dot(zr.data_ptr(), zi.data_ptr(), ur.data_ptr(),
-                                   ui.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                                   ui.data_ptr(), _checked_table(plan.L, dev).data_ptr(),
+                                   yr.data_ptr(), yi.data_ptr(),
                                    dots[0].data_ptr(), dots[1].data_ptr(),
                                    partial.data_ptr(), V, N, A, out_rows,
                                    _stream(dev))
@@ -346,6 +446,7 @@ def middle(yr: torch.Tensor, yi: torch.Tensor, d_perm: torch.Tensor,
     zi = torch.empty_like(yr)
     with torch.cuda.device(yr.device):
         err = _lib().radix_middle(yr.data_ptr(), yi.data_ptr(), d_perm.data_ptr(),
+                                  _checked_table(plan.L, yr.device).data_ptr(),
                                   zr.data_ptr(), zi.data_ptr(), V, plan.A, plan.B,
                                   plan.C, _stream(yr.device))
     _raise_on(err, "middle")
@@ -370,8 +471,10 @@ def middle_dual(yr: torch.Tensor, yi: torch.Tensor, dA: torch.Tensor,
     _check("middle_dual", yr, yr, yi, dA, dB)
     out = [torch.empty_like(yr) for _ in range(4)]
     with torch.cuda.device(yr.device):
+        tab = _checked_table(plan.L, yr.device)
         err = _lib().radix_middle_dual(yr.data_ptr(), yi.data_ptr(), dA.data_ptr(),
-                                       dB.data_ptr(), *(z.data_ptr() for z in out),
+                                       dB.data_ptr(), tab.data_ptr(),
+                                       *(z.data_ptr() for z in out),
                                        V, plan.A, plan.B, plan.C, _stream(yr.device))
     _raise_on(err, "middle_dual")
     LAUNCHES["middle_dual"] += 1

@@ -149,7 +149,7 @@ def _randn(shape, dev, seed):
 @pytest.mark.parametrize("case", ["forward", "forward_cropped", "inverse",
                                   "inverse_cropped"])
 def test_radix_stage1_matches_plain(dev, L, case):
-    # f32 kernel (radix-2 FFT) against the plain dense-table version in f32
+    # f32 kernel (register-radix FFT) against the plain dense-table version in f32
     # and in f64 on the same inputs: f32 rounding of A-point sums
     p32, p64 = _plans(L, dev)
     A, N, V = p32.A, p32.B * p32.C, 4
@@ -249,6 +249,101 @@ def test_radix_selfdot_is_deterministic(dev):
     a = radix_fft.stage1_inv_dot(z[0], z[1], u[0], u[1], p32, A // 2)
     b = radix_fft.stage1_inv_dot(z[0], z[1], u[0], u[1], p32, A // 2)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_radix_middle_is_deterministic(dev):
+    # a second call of B-4 and of B-7 on the same inputs is bit-equal
+    L = 1 << 21
+    p32, _ = _plans(L, dev)
+    y = _randn((2, 2, p32.A, p32.B, p32.C), dev, 3).float()
+    d = radix_fft.permute_weights(_even_spectrum(L, dev, 4) / L, p32).float().contiguous()
+    a = radix_fft.middle(y[0], y[1], d, p32)
+    b = radix_fft.middle(y[0], y[1], d, p32)
+    assert all(torch.equal(x, z) for x, z in zip(a, b))
+    a = radix_fft.middle_dual(y[0], y[1], d, 2.0 * d, p32)
+    b = radix_fft.middle_dual(y[0], y[1], d, 2.0 * d, p32)
+    assert all(torch.equal(x, z) for x, z in zip(a, b))
+
+
+@pytest.mark.parametrize("rows", [8, 1001])
+def test_radix_stage1_crops_at_the_largest_plan(dev, rows):
+    # A = 2048 (three register steps, 4-column tiles): the forward stage from
+    # `rows` rows of data and the self-dot inverse back to them, at a crop of
+    # 8 rows (within the lower half: the pruned variants) and at an odd crop
+    p32, p64 = _plans(1 << 25, dev)
+    A, N, V = p32.A, p32.B * p32.C, 2
+    x = _randn((2, V, rows, N), dev, rows)
+    z = _randn((2, V, A, N), dev, rows + 1)
+    u = _randn((2, V, rows, N), dev, rows + 2)
+    x32, z32, u32 = x.float(), z.float(), u.float()
+    fwd = radix_fft.stage1(x32[0], x32[1], p32, A, inverse=False)
+    inv = radix_fft.stage1_inv_dot(z32[0], z32[1], u32[0], u32[1], p32, rows)
+    want_fwd = radix_fft.stage1_plain(x[0], x[1], *radix_fft._s1_tables(p64, rows, A, False))
+    want_inv = radix_fft.stage1_inv_dot_plain(z[0], z[1], u[0], u[1],
+                                              *radix_fft._s1_tables(p64, A, rows, True))
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert fwd[k].shape == (V, A, N) and inv[k].shape == (V, rows, N)
+        assert _rel(fwd[k], want_fwd[k]) <= 1e-5
+        assert _rel(inv[k], want_inv[k]) <= 1e-5
+    scale = torch.sqrt(torch.sum((u[0] * want_inv[0]) ** 2, dim=(1, 2)))
+    for k in (2, 3):
+        assert float(torch.max(torch.abs(inv[k].double() - want_inv[k]) / scale)) <= 1e-5
+
+
+def test_radix_kernels_set_their_shared_memory_attribute_once(dev):
+    # every kernel of csrc/radix.cu is configured on the first launch of any:
+    # later launches of every wrapper, at every plan, set no attribute again
+    def launch_all():
+        for L in (8192, 1 << 18, 1 << 21, 1 << 25):
+            p32, _ = _plans(L, dev)
+            A, B, C = p32.A, p32.B, p32.C
+            x = torch.randn((2, 1, A, B * C), device=dev)
+            radix_fft.stage1(x[0], x[1], p32, A, inverse=False)
+            radix_fft.stage1(x[0], x[1], p32, A // 2, inverse=True)
+            radix_fft.stage1_inv_dot(x[0], x[1], x[0, :, :8], x[1, :, :8], p32, 8)
+            y = x.view(2, 1, A, B, C)
+            d = torch.ones((A, B, C), device=dev)
+            radix_fft.middle(y[0], y[1], d, p32)
+            radix_fft.middle_dual(y[0], y[1], d, d, p32)
+        torch.cuda.synchronize()
+        return radix_fft.attribute_sets()
+
+    first = launch_all()
+    sets, kernels = first
+    assert kernels == 9 * 6 + 5 * 2   # stage 1: 9 plans x 6 variants; middle: 5 x 2
+    assert 0 < sets <= kernels
+    assert launch_all() == first
+
+
+@pytest.mark.parametrize("A", [8, 16, 32, 64, 128, 256, 512, 1024, 2048])
+def test_radix_kernels_take_the_wrappers_radices(dev, A):
+    # the built kernels' plan (radix_plan) is the one the tables and the CPU
+    # model (tests/test_torch_radix_plan.py) follow, at every (A, B) they take
+    for B in (8, 16, 32, 64, 128):
+        assert radix_fft._kernel_plan(A, B) == (
+            radix_fft._S1_RADICES[A], radix_fft._MID_RADICES[B],
+            (radix_fft._MC1, radix_fft._MC2))
+    assert radix_fft._kernel_plan(A, 256) is None
+    assert radix_fft._kernel_plan(4096, 128) is None
+
+
+def test_radix_table_check_refuses_radices_in_another_order(dev, monkeypatch):
+    # (8, 16) over b sizes the table as (16, 8) does, with other twiddles
+    caches = (radix_fft._kernel_table_np, radix_fft._kernel_table,
+              radix_fft._checked_table)
+    p32, _ = _plans(1 << 21, dev)
+    y = torch.randn((2, 1, p32.A, p32.B, p32.C), device=dev)
+    d = torch.ones((p32.A, p32.B, p32.C), device=dev)
+    monkeypatch.setitem(radix_fft._MID_RADICES, 128, (8, 16))
+    try:
+        for c in caches:
+            c.cache_clear()
+        with pytest.raises(ValueError, match="radices"):
+            radix_fft.middle(y[0], y[1], d, p32)
+    finally:
+        for c in caches:
+            c.cache_clear()
 
 
 def test_radix_wrappers_refuse_what_the_kernels_do_not_take(dev):
