@@ -76,9 +76,11 @@ Phases, each printing one line of progress with its seconds:
                with a plane index, a (2, 3, 512, 512) stack expanded in and
                out; each case's route, and the times of kernel, plain version
                and torch.fft chain beside its bound; the whole-sample kernel
-               B-6 at the self-dot shape (512, 32, 64, 64); a second call
-               bit-equal; B-6 against the B-5 pipeline (outer products
-               included);
+               B-6 (the cluster-resident FFT sandwich) at the self-dot shape
+               (512, 32, 64, 64) with the solver's spectrum, in float32 and
+               float64; a second call bit-equal; its bound by operations and
+               by bytes, its cluster size and active clusters; B-6 against
+               the B-5 pipeline (outer products included), in turns;
   9. main-3d - the paper's section 5.5 dust map (run_domain.main): 64 x 64 x
                32 inducing grid, SqExp with ell 0.07 and the analytic
                semi-integrated estimator, 10 240 line-integral observations
@@ -766,7 +768,8 @@ def wp3_bound_ms(B, dims, edims, selfdot):
     axis of the d0*d1 input rows, complex FFTs along the middle axis of the
     d0 * (L2/2 + 1) columns that hold data and along the outer axis of all
     L1 * (L2/2 + 1), the scale, the same back, and the self-dot; against x
-    and w read once and y written once.  Returns (ms, 'operations' | 'bytes')."""
+    and w read once and y written once.  Returns (ms, 'operations' | 'bytes',
+    the operations' ms, the bytes' ms)."""
     (d0, d1, d2), (W, L1, L2) = dims, edims
     half = L2 // 2 + 1
     one_way = (d0 * d1 * _fft_ops(L2, True) + d0 * half * _fft_ops(L1, False)
@@ -774,7 +777,8 @@ def wp3_bound_ms(B, dims, edims, selfdot):
     ops = B * (2 * one_way + 2 * W * L1 * half + (2 * d0 * d1 * d2 if selfdot else 0))
     nbytes = 4 * (2 * B * d0 * d1 * d2 + W * L1 * L2 + (B if selfdot else 0))
     t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * t_ops, 1e3 * t_bytes)
 
 
 def fft_chain(torch, x, w, edims, dims_out):
@@ -942,23 +946,30 @@ def phase_kernels_3d(torch, dev):
     lib_ms = cuda_ms(torch, lib, warmup=1, reps=5)
     bound = wp3_bound_ms(512, pdims, pedims, True)
     # the same function through the outer products and kernel B-5, in turns
+    # (pipeline, B-6, B-6, pipeline)
     saved = mxu3d.USE_WP3
     mxu3d.USE_WP3 = False
     pipe = lambda: mxu3d.sandwich_apply_3d_selfdot(x, wK, pdims, pedims)
     try:
         pipe_before = cuda_ms(torch, pipe)
-        wp3_ms = cuda_ms(torch, call)
+        wp3_a, wp3_b = cuda_ms(torch, call), cuda_ms(torch, call)
         pipe_after = cuda_ms(torch, pipe)
     finally:
         mxu3d.USE_WP3 = saved
-    pipe_ms = 0.5 * (pipe_before + pipe_after)
-    log(f"[kernels-3d] B-6 (512,) + {pdims} through {pedims} {label}: {msg}; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.fft chain {lib_ms:.4f} ms (rel "
-        f"err vs f64 {lib_err:.3e}, no self-dot), bound {bound[0]:.4f} ms ({bound[1]}; "
-        f"pruned FFT count)")
-    log(f"[kernels-3d] the whole self-dot apply: B-6 {wp3_ms:.4f} ms against the B-5 "
-        f"pipeline (outer matmul + B-5 + outer matmul) {pipe_ms:.4f} ms (mean of two "
-        f"runs around it); USE_WP3 = {mxu3d.USE_WP3}")
+    pipe_ms, wp3_ms = 0.5 * (pipe_before + pipe_after), 0.5 * (wp3_a + wp3_b)
+    clusters = mxu3d._wp3_clusters(pdims, pedims, x.device)
+    log(f"[kernels-3d] B-6 (512,) + {pdims} through {pedims} {label}: {msg}; a second "
+        f"call bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.fft chain "
+        f"{lib_ms:.4f} ms (rel err vs f64 {lib_err:.3e}, no self-dot), bound "
+        f"{bound[0]:.4f} ms ({bound[1]}; operations {bound[2]:.4f} ms by the pruned FFT "
+        f"count, bytes {bound[3]:.4f} ms), kernel at {100 * bound[0] / ms:.1f} % of it; "
+        f"clusters of {mxu3d.WP3_CLUSTER} CTAs, {clusters} active at once "
+        f"(cudaOccupancyMaxActiveClusters), the persistent grid {min(512, clusters)} "
+        f"clusters")
+    log(f"[kernels-3d] the whole self-dot apply: B-6 {wp3_ms:.4f} ms ({wp3_a:.4f}, "
+        f"{wp3_b:.4f}) against the B-5 pipeline (outer matmul + B-5 + outer matmul) "
+        f"{pipe_ms:.4f} ms ({pipe_before:.4f}, {pipe_after:.4f}), in turns; USE_WP3 = "
+        f"{mxu3d.USE_WP3}")
     results["B-6"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
     log(f"[kernels-3d] done; {time.perf_counter() - t0:.2f} s")

@@ -8,7 +8,7 @@ gradient) on the first batch from the initial state (its work does not depend
 on the state): first by the host clock between
 synchronisations, then under torch.profiler, which splits the device time
 into kernel B-5 (its resident kernel and the plane dots' reduction),
-kernel B-6, the cuBLAS products (the
+kernel B-6 (with its weights' layout launch), the cuBLAS products (the
 two outer-axis contractions per apply and the model's kn products), and
 everything else (the Knm build, the PCG vectors, the ELBO and the
 gradient).  The Knm build alone is also timed by the host clock, and the
@@ -35,7 +35,7 @@ __all__ = ["main"]
 TOP = 10
 # kernel-name fragments of each group (the CUDA sources' function names)
 GROUPS = {"B-5": ("wp_resident_kernel", "planedots_reduce_kernel"),
-          "B-6": ("wp3_kernel",),
+          "B-6": ("wp3_kernel", "weights_kernel"),
           "cuBLAS products": ("gemm", "Kernel2", "cutlass", "xmma")}
 
 

@@ -196,8 +196,10 @@ def main(argv=None):
     if args.fit_method == "full-batch":
         raise NotImplementedError(
             "--fit-method full-batch needs the closed-form HIPGP.batch_solve, "
-            "which is not ported yet (ROADMAP.md section A item 3); use "
-            "--fit-method natgrad")
+            "which is not ported yet (ROADMAP.md section A item 1); use "
+            "--fit-method natgrad (its 3-D solves are differentiable on the plain "
+            "path, which bttb.USE_MXU3D_PCG = False or USE_RADIX_FFT = False selects "
+            "on the card)")
 
     t_all = time.perf_counter()
     prob = domain_problem(args.nobs, args.ntest, args.noise_std, args.nx, args.nz,

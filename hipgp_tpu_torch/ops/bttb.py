@@ -61,6 +61,17 @@ USE_PALLAS_TRANSFORM = False
 # `solve._rt_mxu2d`); off, the 2-D float32 CUDA solve is the generic `pcg`
 # over `matmul_by_K` (through B-8 when USE_PALLAS_TRANSFORM is set).
 USE_MXU2D_PCG = True
+# The fused 3-D sandwich PCG and R^T (`solve._mxu3d_solver`: the outer-axis
+# products and kernel B-5, or kernel B-6) for float32 CUDA tensors; off, the
+# 3-D float32 CUDA solve is the generic, differentiable `pcg` over
+# `matmul_by_K`.  On, as in the JAX package.
+USE_MXU3D_PCG = True
+# The 1-D long-axis radix kernels B-2 to B-4 for float32 CUDA tensors: the
+# packed planes PCG (`solve._planes_solver`) and the radix apply of
+# `matmul_by_K` and its kin (`_radix_apply_ok`); off, the 1-D float32 CUDA
+# solve is the generic, differentiable `pcg` over the torch.fft apply.  On,
+# as in the JAX package.
+USE_RADIX_FFT = True
 
 
 def expanded_dims(dims: Sequence[int]) -> Tuple[int, ...]:
@@ -197,9 +208,10 @@ def no_backward(where: str):
     """The error for a gradient through a kernel whose backward is not
     ported yet: a silent zero or partial gradient would be wrong."""
     return NotImplementedError(
-        f"gradients through {where} are not ported yet (ROADMAP section A item 1: "
-        "the radix VJP and kernel B-5's VJP); run the plain path (CPU or float64) "
-        "to differentiate here")
+        f"gradients through {where} are not ported yet (ROADMAP section A item 2: "
+        "the radix VJP and kernel B-5's VJP); run the differentiable plain path "
+        "to differentiate here: the CPU, float64, or bttb.USE_RADIX_FFT = False "
+        "(1-D) or bttb.USE_MXU3D_PCG = False (3-D)")
 
 
 def _grid_points(xgrids: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -415,10 +427,13 @@ def _apply_spectrum_fft(spec: BTTBSpectrum, v: torch.Tensor,
     return y[crop].reshape(batch + (spec.M,))
 
 
-def _radix_apply_ok(spec: BTTBSpectrum, v: torch.Tensor) -> bool:
-    """The 1-D radix branch: a float32 tensor on a CUDA device and an
+def _radix_apply_ok(spec: BTTBSpectrum, dtype: torch.dtype,
+                    device: torch.device) -> bool:
+    """The 1-D radix branch: USE_RADIX_FFT, float32 on a CUDA device, and an
     embedding length the radix plan supports."""
-    if len(spec.dims) != 1 or v.dtype != torch.float32 or v.device.type != "cuda":
+    if len(spec.dims) != 1 or dtype != torch.float32 or not USE_RADIX_FFT:
+        return False
+    if torch.device(device).type != "cuda":
         return False
     from .radix_fft import radix_supported
 
@@ -454,7 +469,7 @@ def _apply_spectrum(spec: BTTBSpectrum, v: torch.Tensor, weights: torch.Tensor,
     if max(spec.edims) <= MATMUL_DFT_MAX_LEN:
         wfull = _full_weights(weights, spec.edims[-1])
         return _apply_spectrum_matmul(spec, v, wfull, in_expanded, out_expanded)
-    if _radix_apply_ok(spec, v):
+    if _radix_apply_ok(spec, v.dtype, v.device):
         if needs_grad(v, weights):
             raise no_backward("the 1-D radix apply (kernels B-2 to B-4)")
         return _apply_spectrum_radix(spec, v, weights, in_expanded, out_expanded)

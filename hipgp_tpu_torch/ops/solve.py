@@ -34,8 +34,10 @@ cotangent as the VJP of `matmul_by_K(spec, x)` at -lambda with the solution
 x held fixed.  ``whiten``'s R^T is differentiable on the plain path
 (autograd) and on the 2-D kernel path (kernel A's backward).  The 1-D
 planes path and the 3-D kernel path have no backward yet (the radix VJP and
-kernel B-5's VJP, ROADMAP section A item 1): there a required gradient
-raises NotImplementedError.
+kernel B-5's VJP, ROADMAP section A item 2): there a required gradient
+raises NotImplementedError.  `bttb.USE_RADIX_FFT` (1-D) and
+`bttb.USE_MXU3D_PCG` (3-D) off route those float32 CUDA solves to the
+differentiable plain path, as the JAX package's switches do.
 """
 from __future__ import annotations
 
@@ -64,10 +66,10 @@ PCG_STATS: Dict[str, int] = {"solves": 0, "iterations": 0}
 
 def _planes_solver_ok(spec: BTTBSpectrum, dtype: torch.dtype,
                       device: torch.device) -> bool:
-    """True when the packed planes-state PCG path applies: a 1-D grid whose
-    embedding length the radix plan supports, float32, on a CUDA device,
-    with a crop boundary of at least 8 rows."""
-    if len(spec.dims) != 1 or dtype != torch.float32:
+    """True when the packed planes-state PCG path applies: USE_RADIX_FFT, a
+    1-D grid whose embedding length the radix plan supports, float32, on a
+    CUDA device, with a crop boundary of at least 8 rows."""
+    if len(spec.dims) != 1 or dtype != torch.float32 or not bttb.USE_RADIX_FFT:
         return False
     if torch.device(device).type != "cuda":
         return False
@@ -106,10 +108,10 @@ def _mxu2d_solver_ok(spec: BTTBSpectrum, dtype: torch.dtype,
 
 def _mxu3d_solver_ok(spec: BTTBSpectrum, dtype: torch.dtype,
                      device: torch.device) -> bool:
-    """True when the fused 3-D sandwich PCG path applies: a 3-D grid whose
-    embedded axes are all > 1 and <= MXU2D_MAX_LEN, float32, on a CUDA
-    device."""
-    if len(spec.dims) != 3 or dtype != torch.float32:
+    """True when the fused 3-D sandwich PCG path applies: USE_MXU3D_PCG, a
+    3-D grid whose embedded axes are all > 1 and <= MXU2D_MAX_LEN, float32,
+    on a CUDA device."""
+    if len(spec.dims) != 3 or dtype != torch.float32 or not bttb.USE_MXU3D_PCG:
         return False
     if torch.device(device).type != "cuda":
         return False

@@ -464,22 +464,53 @@ def test_wp_kernel_matches_plain(dev, B, mode, weights):
     assert _rel(got, want32) <= 1e-5 and _rel(got, want64) <= 1e-5
 
 
-def test_wp3_kernel_matches_plain(dev):
-    # B-6 at the self-dot shape against its plain version in f32 and f64
-    _, w = _spectrum_3d(dev)
-    x = torch.randn((512,) + DIMS_3D, device=dev, generator=torch.Generator(device=dev).manual_seed(6))
+# B-6's shapes: the dust map's, and the small ones the CPU model of the
+# kernel holds against the plain version (tests/test_torch_wp3_plan.py)
+WP3_SHAPES = [(DIMS_3D, EDIMS_3D), ((8, 16, 16), (16, 32, 32)), ((5, 13, 9), (16, 32, 32)),
+              ((16, 32, 32), (32, 64, 64)), ((27, 30, 61), (64, 64, 128))]
+
+
+def _wp3_weights(dev, edims, even):
+    """The solver's spectrum at the dust map (else a random even w), or a
+    random w that is not even."""
+    if even and edims == EDIMS_3D:
+        return _spectrum_3d(dev)[1]
+    w = np.random.default_rng(len(edims) + edims[0]).uniform(0.1, 2.0, edims)
+    if even:
+        w = 0.5 * (w + w[np.ix_(*[(-np.arange(L)) % L for L in edims])])
+    return torch.as_tensor(w, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("shape", range(len(WP3_SHAPES)))
+@pytest.mark.parametrize("B", [1, 3, 512])
+@pytest.mark.parametrize("even", [True, False])
+@pytest.mark.parametrize("selfdot", [True, False])
+def test_wp3_kernel_matches_plain(dev, shape, B, even, selfdot):
+    # B-6 against its plain version in f32 and f64 (<= 1e-5 relative: f32
+    # rounding of two register steps per axis), for the solver's spectrum and
+    # a w that is not even; a repeated call bit-equal
+    dims, edims = WP3_SHAPES[shape]
+    assert mxu3d._wp3_ok(dims, edims, torch.float32)
+    w = _wp3_weights(dev, edims, even)
+    x = torch.randn((B,) + dims, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6 + B))
     before = mxu3d.LAUNCHES["sandwich_apply_wp3"]
-    y, dots = mxu3d.sandwich_apply_wp3(x, w, DIMS_3D, EDIMS_3D, selfdot=True)
-    assert mxu3d.LAUNCHES["sandwich_apply_wp3"] == before + 1
-    y32, d32 = mxu3d.sandwich_wp3_plain(x, w, DIMS_3D, EDIMS_3D, selfdot=True)
-    y64, d64 = mxu3d.sandwich_wp3_plain(x.double(), w.double(), DIMS_3D, EDIMS_3D,
-                                        selfdot=True)
+    got = mxu3d.sandwich_apply_wp3(x, w, dims, edims, selfdot=selfdot)
+    again = mxu3d.sandwich_apply_wp3(x, w, dims, edims, selfdot=selfdot)
+    assert mxu3d.LAUNCHES["sandwich_apply_wp3"] == before + 2
+    y32, d32 = mxu3d.sandwich_wp3_plain(x, w, dims, edims, selfdot=True)
+    y64, d64 = mxu3d.sandwich_wp3_plain(x.double(), w.double(), dims, edims, selfdot=True)
     torch.cuda.synchronize()
+    if selfdot:
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        y, dots = got
+        assert _rel(dots, d32) <= 1e-5 and _rel(dots, d64) <= 1e-5
+    else:
+        assert torch.equal(got, again)
+        y = got
     assert y.shape == x.shape
     assert _rel(y, y32) <= 1e-5 and _rel(y, y64) <= 1e-5
-    assert _rel(dots, d32) <= 1e-5 and _rel(dots, d64) <= 1e-5
-    y2 = mxu3d.sandwich_apply_wp3(x[:3], w, DIMS_3D, EDIMS_3D)
-    assert _rel(y2, y64[:3]) <= 1e-5
+    assert mxu3d._wp3_clusters(dims, edims, x.device) >= 1
 
 
 def test_3d_selfdots_are_deterministic(dev):
@@ -770,13 +801,71 @@ def test_gradient_guards_on_the_card(dev):
     spec = bttb.make_spectrum([grid], lambda a, b: kern(a, b, (0.1, ell)), jitter=1e-3)
     rhs = torch.randn((8, 131072), device=dev)
     assert solve._planes_solver_ok(spec, torch.float32, dev)
-    with pytest.raises(NotImplementedError, match="section A item 1"):
+    with pytest.raises(NotImplementedError, match="section A item 2"):
         solve.whiten(spec, rhs, maxiter=2)
     with pytest.raises(NotImplementedError, match="radix"):
         bttb.matmul_by_K(spec, rhs.requires_grad_())
     s3, _ = _spectrum_3d(dev)
     x3 = torch.randn((2, s3.M), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="section A item 1"):
+    with pytest.raises(NotImplementedError, match="section A item 2"):
         solve.whiten(s3, x3, maxiter=2)
     with torch.no_grad():
         assert solve.whiten(s3, x3, maxiter=2).shape == (2, s3.Mprime)
+
+
+def _switch_case(case, dev, dtype):
+    """A 1-D spectrum whose length the radix plan supports with the planes
+    path's 8 rows (Matern-5/2, M = 131 072), or a small 3-D one (SqExp on
+    16 x 16 x 8), with jitter 0.1 for a well-conditioned solve; and 4
+    right-hand sides from a seed."""
+    if case == "1d":
+        kern = Matern(2.5)
+        grid = torch.linspace(0.0, 1.0, 131072, dtype=dtype, device=dev)
+        spec = bttb.make_spectrum([grid], lambda a, b: kern(a, b, (0.1, 1.0 / 131072)),
+                                  jitter=0.1)
+    else:
+        kf = lambda a, b: 0.5 * torch.exp(
+            -0.5 * torch.sum(((a[:, None, :] - b[None, :, :]) / 0.2) ** 2, -1))
+        grids = [torch.linspace(-1.0, 1.0, m, dtype=dtype, device=dev) for m in (16, 16, 8)]
+        spec = bttb.make_spectrum(grids, kf, jitter=0.1)
+    b = np.random.default_rng(9).standard_normal((4, spec.M))
+    return spec, torch.as_tensor(b, dtype=dtype, device=dev)
+
+
+def _whiten_eigs_grad(spec, b):
+    """The whitening of b (20 fixed iterations) and the gradient of a fixed
+    projection of it with respect to spec.eigs."""
+    eigs = spec.eigs.detach().clone().requires_grad_()
+    s = dataclasses.replace(spec, eigs=eigs)
+    kn = solve.whiten(s, b, maxiter=20, tol=0.0, fixed_iters=True)
+    proj = torch.cos(torch.arange(kn.shape[-1], device=kn.device, dtype=kn.dtype))
+    (g,) = torch.autograd.grad(torch.sum(kn * proj), eigs)
+    return kn.detach(), g
+
+
+@pytest.mark.parametrize("case,switch", [("1d", "USE_RADIX_FFT"), ("3d", "USE_MXU3D_PCG")])
+def test_kernel_path_switch_routes_to_the_plain_path(dev, monkeypatch, case, switch):
+    # with the switch off, the f32 CUDA whitening takes the plain path: no
+    # kernel launch, and a gradient with respect to the spectrum that
+    # matches the f64 plain path (<= 1e-3 relative: f32 rounding of a
+    # well-conditioned 20-iteration solve); with it on, the kernel path
+    # raises for a required gradient
+    spec, b = _switch_case(case, dev, torch.float32)
+    ok = solve._planes_solver_ok if case == "1d" else solve._mxu3d_solver_ok
+    assert getattr(bttb, switch) and ok(spec, torch.float32, dev)
+    with pytest.raises(NotImplementedError, match="section A item 2"):
+        _whiten_eigs_grad(spec, b)
+    monkeypatch.setattr(bttb, switch, False)
+    assert not ok(spec, torch.float32, dev)
+    if case == "1d":
+        assert not bttb._radix_apply_ok(spec, torch.float32, dev)
+    counters = (radix_fft.LAUNCHES, mxu2d.LAUNCHES, mxu3d.LAUNCHES)
+    before = [dict(c) for c in counters]
+    kn32, g32 = _whiten_eigs_grad(spec, b)
+    torch.cuda.synchronize()
+    assert [dict(c) for c in counters] == before
+    spec64, b64 = _switch_case(case, dev, torch.float64)
+    kn64, g64 = _whiten_eigs_grad(spec64, b64)
+    assert bool(torch.isfinite(g32).all())
+    assert _rel(kn32, kn64) <= 1e-3 and _rel(g32, g64) <= 1e-3
+

@@ -141,24 +141,29 @@ def test_wp3_plain_matches_jax_einsum_operators(dims):
 
 
 def test_use_wp3_selects_the_whole_sample_path(monkeypatch):
-    # with USE_WP3 a float32 self-dot apply goes through B-6's wrapper (on
-    # the CPU its plain version): the same function as the B-5 pipeline
-    dims, edims = (5, 8, 8), (8, 14, 14)
+    # with USE_WP3 a float32 self-dot apply at a shape B-6's gate admits goes
+    # through B-6's wrapper (on the CPU its plain version): the same function
+    # as the B-5 pipeline; a shape the gate refuses stays on the pipeline
     rng = np.random.default_rng(2)
-    x = torch.as_tensor(rng.standard_normal((3,) + dims), dtype=torch.float32)
-    w = torch.as_tensor(rng.uniform(0.1, 2.0, edims), dtype=torch.float32)
     calls = []
     wrapped = mxu3d.sandwich_apply_wp3
     monkeypatch.setattr(mxu3d, "sandwich_apply_wp3",
                         lambda *a, **k: calls.append(1) or wrapped(*a, **k))
-    pipe = mxu3d.sandwich_apply_3d_selfdot(x, w, dims, edims)
-    assert not calls
-    monkeypatch.setattr(mxu3d, "USE_WP3", True)
-    whole = mxu3d.sandwich_apply_3d_selfdot(x, w, dims, edims)
-    assert calls == [1]
-    assert _rel(whole[0], pipe[0]) <= 1e-6 and _rel(whole[1], pipe[1]) <= 1e-6
-    # float64 fails B-6's gate, so the pipeline carries it even then
-    assert not mxu3d._wp3_ok(dims, edims, torch.float64)
+    for dims, edims, admitted in [((5, 13, 9), (16, 32, 32), True),
+                                  ((5, 8, 8), (8, 14, 14), False)]:
+        assert mxu3d._wp3_ok(dims, edims, torch.float32) == admitted
+        x = torch.as_tensor(rng.standard_normal((3,) + dims), dtype=torch.float32)
+        w = torch.as_tensor(rng.uniform(0.1, 2.0, edims), dtype=torch.float32)
+        calls.clear()
+        monkeypatch.setattr(mxu3d, "USE_WP3", False)
+        pipe = mxu3d.sandwich_apply_3d_selfdot(x, w, dims, edims)
+        assert not calls
+        monkeypatch.setattr(mxu3d, "USE_WP3", True)
+        whole = mxu3d.sandwich_apply_3d_selfdot(x, w, dims, edims)
+        assert calls == ([1] if admitted else [])
+        assert _rel(whole[0], pipe[0]) <= 1e-6 and _rel(whole[1], pipe[1]) <= 1e-6
+        # float64 fails B-6's gate, so the pipeline carries it even then
+        assert not mxu3d._wp3_ok(dims, edims, torch.float64)
 
 
 def test_best_perm_and_inverse_match_jax():
@@ -181,10 +186,22 @@ def test_mxu3d_gate():
     assert not solve._mxu3d_solver_ok(big, torch.float32, "cuda")
     planar = bttb.BTTBSpectrum(column=None, eigs=None, dims=(8, 8), edims=(14, 14))
     assert not solve._mxu3d_solver_ok(planar, torch.float32, "cuda")
-    # B-6's own gate: float32 and the middle slab in one block's shared memory
+    # B-6's own gate: float32, an embedding it is built for, the data in the
+    # lower half of each axis, the CTA's share in one block's shared memory
     assert mxu3d._wp3_ok((32, 64, 64), (64, 128, 128), torch.float32)
     assert not mxu3d._wp3_ok((32, 64, 64), (64, 128, 128), torch.float64)
     assert not mxu3d._wp3_ok((32, 400, 64), (64, 512, 128), torch.float32)
+
+
+def test_use_mxu3d_pcg_switches_the_3d_gate(monkeypatch):
+    # the JAX package's USE_MXU3D_PCG: on (the default), a float32 CUDA
+    # request takes the fused 3-D path; off, the plain path
+    tspec, _ = _specs((8, 8, 4))
+    dev = torch.device("cuda")
+    assert bttb.USE_MXU3D_PCG is True
+    assert solve._mxu3d_solver_ok(tspec, torch.float32, dev)
+    monkeypatch.setattr(bttb, "USE_MXU3D_PCG", False)
+    assert not solve._mxu3d_solver_ok(tspec, torch.float32, dev)
 
 
 _SOLVES = {}

@@ -295,8 +295,24 @@ def test_planes_gate_follows_the_protocol_table(M):
     assert not tsolve._planes_solver_ok(spec, torch.float32, "cpu")
     assert not tsolve._planes_solver_ok(spec, torch.float64, "cuda")
     v = torch.zeros(0, dtype=torch.float32)
-    assert not tbttb._radix_apply_ok(spec, v)   # a CPU tensor
+    assert not tbttb._radix_apply_ok(spec, v.dtype, v.device)   # a CPU tensor
     assert tr.radix_supported(edims[0]) == (M != 1000)
+
+
+@pytest.mark.parametrize("gate", ["planes", "radix_apply"])
+def test_use_radix_fft_switches_the_1d_gates(monkeypatch, gate):
+    # the JAX package's USE_RADIX_FFT: on (the default), a float32 CUDA
+    # request at a radix-supported length takes the planes solver and the
+    # radix apply; off, neither
+    M = 131_072
+    edims = tbttb.embedded_dims((M,))
+    spec = tbttb.BTTBSpectrum(column=None, eigs=None, dims=(M,), edims=edims)
+    ok = tsolve._planes_solver_ok if gate == "planes" else tbttb._radix_apply_ok
+    dev = torch.device("cuda")
+    assert tbttb.USE_RADIX_FFT is True
+    assert ok(spec, torch.float32, dev)
+    monkeypatch.setattr(tbttb, "USE_RADIX_FFT", False)
+    assert not ok(spec, torch.float32, dev)
 
 
 @pytest.mark.parametrize("M", [100, 300, 4100])
