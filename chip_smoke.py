@@ -38,6 +38,22 @@ Phases, each printing one line of progress with its seconds:
                hyper-gradients against the float64 plain path (limit 1e-2
                relative each), and with USE_PALLAS_TRANSFORM on (one B-8
                launch, the dK term; within 1e-4 of the flag-off run);
+     full-batch - the closed-form fit (HIPGP.batch_solve) on [main]'s data
+               and model: one batch of 20 000 rows, maxiter_cg 10, the mean
+               solve at 200 iterations and tol 1e-8, with the ELBO; 'gram'
+               then 'dense' (the 62 500^2 matrix and its factor, peak
+               torch.cuda.max_memory_allocated under 40 GB), each with the
+               counters zeroed just before and read just after (per
+               whitening solve 1 + 2k self-dots and one R^T: one solve for
+               'gram', two for 'dense'), the seconds of the sweep, the mean
+               stage and the ELBO; a prediction of the test points from each
+               state (RMSE below std(ftest)); theta2 of 'gram' against
+               'dense' within 1e-4;
+     accuracy-full-batch - 'gram' on a 64^2 grid, converged (maxiter_cg
+               200, the mean solve to tol 1e-10): the float32 kernel path
+               against the float64 plain path (theta1 <= 5e-3, ELBO <= 1e-4
+               relative), then one 'gram' solve with the cholesky whitening
+               (finite ELBO, RMSE below std(ftest));
   5. kernels-1d - each radix kernel (B-2 stage1, B-3 stage1_inv_dot, B-4
                middle) against its plain version in float32 and in float64 at
                every plan, crop and diagonal the 1-D path gives it at the
@@ -305,6 +321,17 @@ def library_ms(torch, mxu2d, x, w, dims, edims, tables, y64, name):
     return ms
 
 
+def _by_rows(fn, x, rows=2000):
+    """fn of x, applied to blocks of at most ``rows`` rows and concatenated
+    (a plain version row by row holds a batch of 20 000 within memory)."""
+    import torch
+
+    parts = [fn(x[i:i + rows]) for i in range(0, x.shape[0], rows)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
 def phase_kernel_a_case(torch, dev, mxu2d, gen, name, B, w, label, dims, edims, in_exp,
                         out_exp, timed, with_library=False):
     """Kernel A through one wrapper at one shape: against its plain version
@@ -321,7 +348,8 @@ def phase_kernel_a_case(torch, dev, mxu2d, gen, name, B, w, label, dims, edims, 
         kern = lambda: mxu2d.sandwich_apply(x, w, dims, edims, in_expanded=in_exp,
                                             out_expanded=out_exp)
     plain = lambda: mxu2d.sandwich_plain(x, w, *tables[:4], selfdot=selfdot)
-    got, want = kern(), plain()
+    got = kern()
+    want = _by_rows(lambda xs: mxu2d.sandwich_plain(xs, w, *tables[:4], selfdot=selfdot), x)
     torch.cuda.synchronize()
     y, yp = (got[0], want[0]) if selfdot else (got, want)
     check(y.shape == yp.shape == (B,) + tables[5], f"{name} shape {tuple(y.shape)}")
@@ -329,7 +357,8 @@ def phase_kernel_a_case(torch, dev, mxu2d, gen, name, B, w, label, dims, edims, 
     err_y = rel(y, yp)
     err_abs = float((y - yp).abs().max())
     t64 = mxu2d._tables(dims, edims, in_exp, out_exp, torch.float64, dev)
-    y64 = mxu2d.sandwich_plain(x.double(), w.double(), *t64[:4], selfdot=selfdot)
+    y64 = _by_rows(lambda xs: mxu2d.sandwich_plain(xs.double(), w.double(), *t64[:4],
+                                                   selfdot=selfdot), x)
     y64, d64 = (y64[0], y64[1]) if selfdot else (y64, None)
     err64 = rel(y, y64)
     msg = f"rel err y {err_y:.3e} (max abs {err_abs:.3e}; vs float64 {err64:.3e})"
@@ -988,7 +1017,8 @@ def phase_main_3d(torch):
     argv = ["--nx", str(DOMAIN["nx"]), "--nz", str(DOMAIN["nz"]), "--ell", str(DOMAIN_ELL),
             "--nobs", str(DOMAIN["nobs"]), "--ntest", str(DOMAIN["ntest"]),
             "--noise-std", str(DOMAIN["noise_std"]), "--batch-size", str(DOMAIN_BATCH),
-            "--maxiter-cg", "20", "--lr", "1e-2", "--epochs", "1"]
+            "--maxiter-cg", "20", "--lr", "1e-2", "--epochs", "1",
+            "--fit-method", "natgrad"]
     log(f"[main-3d] run_domain {' '.join(argv)} (cut from the section 14d protocol: "
         f"--nobs 10240 from 100 000, --ntest 1000 from 2 000, one epoch)")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1223,6 +1253,160 @@ def phase_train_grad(torch, dev, d, model, model64, state):
     return b8_launches
 
 
+FB_SOLVE = dict(batch_size=-1, maxiter_cg=10, mean_solver_maxiter=200,
+                mean_solver_tol=1e-8, compute_elbo=True)   # the JAX run_synthetic's settings
+FB_PEAK_LIMIT = 40e9      # bytes: 'dense' holds its 62 500^2 matrix and factor
+FB_ACC_GRID = 64          # [accuracy-full-batch]: inducing points per axis
+FB_ACC_MEAN_MAXITER = 6000   # the K + A PCG to convergence (tol 1e-10)
+FB_CONVERGED_MAXITER = 6000  # [full-batch]'s 'gram' once more, its mean PCG run out
+
+
+def _fb_launch_check(tag, lc, st, solves):
+    """Kernel A's launches of one batch_solve: per whitening solve 1 + 2k
+    self-dots (k from PCG_STATS) and one R^T, nothing else."""
+    want = {"sandwich_apply_selfdot": st["solves"] + 2 * st["iterations"],
+            "sandwich_apply": st["solves"], "sandwich_apply_wp": 0,
+            "sandwich_apply_wp_selfdot": 0}
+    log(f"[{tag}] {st['solves']} whitening solves, {st['iterations']} iterations -> "
+        f"expect {want}; counted {lc}")
+    check(st["solves"] == solves, f"{tag}: {st['solves']} whitening solves, expected "
+          f"{solves}")
+    check(lc == want, f"{tag}: kernel A launches {lc}, expected {want}")
+
+
+def phase_full_batch(torch, d, model, state0):
+    """The closed-form full-batch fit at M = 125^2 on [main]'s data: one batch
+    of 20 000 rows, 'gram' then 'dense' (the JAX run_synthetic's settings), each
+    with the counters zeroed just before and read just after, then a
+    prediction of the test points from each state; then 'gram' once more with
+    its mean PCG run to FB_CONVERGED_MAXITER iterations (not counted).
+    Returns kernel A's launches of the first two solves."""
+    import numpy as np
+
+    from hipgp_tpu_torch.infer import batch_predict
+    from hipgp_tpu_torch.models.hipgp import MEAN_PCG_STATS
+    from hipgp_tpu_torch.ops import mxu2d, solve
+
+    t_all = time.perf_counter()
+    fstd = float(np.std(d["ftest"]))
+    out, total = {}, {}
+    runs = (("gram", FB_SOLVE), ("dense", FB_SOLVE),
+            ("gram converged", {**FB_SOLVE, "mean_solver_maxiter": FB_CONVERGED_MAXITER}))
+    for solver, kw in runs:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        mxu2d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        MEAN_PCG_STATS.update(iterations=0, resnorm=math.nan, bnorm=math.nan)
+        new, elbo = model.batch_solve(state0, d["xobs"], d["yobs"], d["sobs"],
+                                      mean_solver=solver.split()[0], timings=timings, **kw)
+        torch.cuda.synchronize()
+        lc, st = dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS)
+        peak = torch.cuda.max_memory_allocated()
+        if solver != "gram converged":
+            for k, v in lc.items():
+                total[k] = total.get(k, 0) + v
+        elbo = float(elbo)
+        t1 = time.perf_counter()
+        mu, sig = batch_predict(model, new, d["xtest"], batch_size=4096,
+                                maxiter_cg=50)
+        mu, sig = mu.cpu().numpy(), sig.cpu().numpy()
+        rmse = float(np.sqrt(np.mean((mu - d["ftest"]) ** 2)))
+        log(f"[full-batch] {solver}: sweep {timings['sweep']:.3f} s, mean stage "
+            f"{timings['mean']:.3f} s, ELBO {timings['elbo']:.3f} s; peak "
+            f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB ({base / 1e9:.3f} GB "
+            f"allocated before); ELBO {elbo:.6f}; test RMSE {rmse:.5f} vs std(ftest) "
+            f"{fstd:.5f} (predict {time.perf_counter() - t1:.2f} s)")
+        if solver != "dense":
+            ms = MEAN_PCG_STATS
+            log(f"[full-batch] {solver}: mean-stage PCG on K + A (float64) "
+                f"{ms['iterations']} of {kw['mean_solver_maxiter']} iterations, final "
+                f"||r|| {ms['resnorm']:.3e} (tol {kw['mean_solver_tol']:g}), ||b_m|| "
+                f"{ms['bnorm']:.3e}, relative {ms['resnorm'] / ms['bnorm']:.3e}")
+        _fb_launch_check("full-batch", lc, st, 2 if solver == "dense" else 1)
+        check(math.isfinite(elbo), f"{solver}: non-finite ELBO {elbo}")
+        check(bool(np.isfinite(mu).all() and np.isfinite(sig).all()),
+              f"{solver}: non-finite prediction")
+        check(rmse < fstd, f"{solver}: test RMSE {rmse} not below std(ftest) {fstd}")
+        check(peak < FB_PEAK_LIMIT, f"{solver}: peak {peak / 1e9:.3f} GB")
+        out[solver] = new
+        del new
+    t2 = rel(out["gram"].theta2, out["dense"].theta2)
+    t1_ = rel(out["gram"].theta1, out["dense"].theta1)
+    t1c = rel(out["gram converged"].theta1, out["dense"].theta1)
+    t1g = rel(out["gram"].theta1, out["gram converged"].theta1)
+    log(f"[full-batch] gram vs dense: theta2 rel {t2:.3e} (limit 1e-4; both sum "
+        f"Lambda from the same whitening of the same rows, so this holds the two "
+        f"accumulations to each other, not kernel A, which [kernels] holds at "
+        f"B = 20 000); theta1 rel {t1_:.3e}, converged 'gram' vs dense {t1c:.3e}, "
+        f"'gram' at {FB_SOLVE['mean_solver_maxiter']} iterations vs converged "
+        f"{t1g:.3e} (not checked); {time.perf_counter() - t_all:.2f} s")
+    check(t2 <= 1e-4, f"theta2 gram vs dense {t2}")
+    return total
+
+
+def phase_accuracy_full_batch(torch, dev, d):
+    """'gram' with ziggy whitening on a 64^2 grid, both converged (maxiter_cg
+    200, mean_solver_tol 1e-10): the float32 kernel path against the float64
+    plain path (theta1 <= 5e-3, ELBO <= 1e-4 relative); then one 'gram'
+    solve with cholesky whitening (finite ELBO, RMSE below std(ftest))."""
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments.harness import make_model
+    from hipgp_tpu_torch.experiments.run_synthetic import build_model, marginal_sig2
+    from hipgp_tpu_torch.infer import batch_predict
+    from hipgp_tpu_torch.ops import mxu2d, solve
+
+    t0 = time.perf_counter()
+    sig2 = marginal_sig2(d["yobs"], d["sobs"])
+    kw = dict(batch_size=-1, maxiter_cg=200, mean_solver="gram",
+              mean_solver_maxiter=FB_ACC_MEAN_MAXITER, mean_solver_tol=1e-10,
+              compute_elbo=True)
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        m = build_model("SqExp", FB_ACC_GRID, len(d["xobs"]), sig2, 0.05, 0.01,
+                        dtype=dt, device=dev)
+        mxu2d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        timings = {}
+        new, elbo = m.batch_solve(m.init_state(), d["xobs"], d["yobs"], d["sobs"],
+                                  timings=timings, **kw)
+        torch.cuda.synchronize()
+        lc, st = dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS)
+        res[dt] = (new, float(elbo))
+        log(f"[accuracy-full-batch] {dt}: ELBO {float(elbo):.8f}; sweep "
+            f"{timings['sweep']:.3f} s, mean {timings['mean']:.3f} s; kernel A {lc}")
+        if dt == torch.float32:
+            _fb_launch_check("accuracy-full-batch", lc, st, 1)
+        else:
+            check(not any(lc.values()), f"the float64 path launched {lc}")
+    (n32, e32), (n64, e64) = res[torch.float32], res[torch.float64]
+    t1, t2 = rel(n32.theta1, n64.theta1), rel(n32.theta2, n64.theta2)
+    de = abs(e32 - e64) / abs(e64)
+    log(f"[accuracy-full-batch] 'gram' {FB_ACC_GRID}^2, f32 kernel path vs f64 plain "
+        f"path: theta1 rel {t1:.3e} (limit 5e-3), theta2 rel {t2:.3e}, ELBO rel "
+        f"{de:.3e} (limit 1e-4)")
+    check(t1 <= 5e-3, f"theta1 f32 vs f64 {t1}")
+    check(de <= 1e-4, f"ELBO f32 vs f64 {de}")
+    mc = make_model("mean-field", "SqExp", [np.linspace(-1, 1, FB_ACC_GRID)] * 2,
+                    len(d["xobs"]), sig2, 0.05, noise2_init=0.01 ** 2,
+                    whitened_type="cholesky", dtype=torch.float32, device=dev)
+    timings = {}
+    new, elbo = mc.batch_solve(mc.init_state(), d["xobs"], d["yobs"], d["sobs"],
+                               timings=timings, **FB_SOLVE, mean_solver="gram")
+    mu, _ = batch_predict(mc, new, d["xtest"], batch_size=4096)
+    rmse = float(np.sqrt(np.mean((mu.cpu().numpy() - d["ftest"]) ** 2)))
+    fstd = float(np.std(d["ftest"]))
+    log(f"[accuracy-full-batch] cholesky whitening, 'gram', {FB_ACC_GRID}^2 (M' = M): "
+        f"ELBO {float(elbo):.6f}, test RMSE {rmse:.5f} vs std(ftest) {fstd:.5f}; "
+        f"sweep {timings['sweep']:.3f} s, mean {timings['mean']:.3f} s; "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(math.isfinite(float(elbo)), f"cholesky ELBO {float(elbo)}")
+    check(rmse < fstd, f"cholesky test RMSE {rmse} not below std(ftest) {fstd}")
+
+
 def main():
     import torch
 
@@ -1282,6 +1466,9 @@ def main():
         ("sandwich_apply", 256, torch.sqrt(wK).contiguous(), "R^T, w = sqrt(wK)"),
         ("sandwich_apply", 2000, torch.sqrt(wK).contiguous(), "predict R^T"),
         ("sandwich_apply", 256, torch.sqrt(wK).contiguous(), "R^T pullback"),
+        # [full-batch]'s one batch of 20 000 rows (checked, not timed)
+        ("sandwich_apply_selfdot", 20_000, wK, "full-batch PCG apply, w = wK"),
+        ("sandwich_apply", 20_000, torch.sqrt(wK).contiguous(), "full-batch R^T"),
     ]
     for name, B, w, label in cases:
         selfdot = name == "sandwich_apply_selfdot"
@@ -1291,7 +1478,7 @@ def main():
         out_exp = not selfdot and not in_exp
         first = B == 256 and name not in results   # the natgrad-step shape
         r = phase_kernel_a_case(torch, dev, mxu2d, gen, name, B, w, label, dims, edims,
-                                in_exp, out_exp, timed=True, with_library=first)
+                                in_exp, out_exp, timed=B <= 2000, with_library=first)
         if first:
             results[name] = r
     # the largest embedding kernel A takes: M = 256^2 through (512, 512), where
@@ -1403,6 +1590,10 @@ def main():
     state_tr, train_launches = phase_train(torch, d, model, state0, step_s * 1e3)
     b8_launches = phase_train_grad(torch, dev, d, model, m64, state_tr)
 
+    # ---- the closed-form full-batch fit ----------------------------------------
+    fb_launches = phase_full_batch(torch, d, model, state0)
+    phase_accuracy_full_batch(torch, dev, d)
+
     # ---- 5.-7. the 1-D long-axis path ----------------------------------------
     radix_results = phase_kernels_1d(torch, dev)
     radix_launches = phase_main_1d(torch)
@@ -1469,6 +1660,8 @@ def main():
     })
     # B-8's launches: the training step of [train-grad] with USE_PALLAS_TRANSFORM on
     check(b8_launches > 0, "B-8 never launched on the training path")
+    for name in ("sandwich_apply_selfdot", "sandwich_apply"):
+        check(fb_launches[name] > 0, f"{name} never launched on the full-batch path")
     log(f"[done] total {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     try:

@@ -1,0 +1,301 @@
+"""Experiment harness: fit, predict, evaluate and save one run.
+
+Counterpart of `hipgp_tpu/experiments/harness.py` on one device, without
+figures: `make_model` builds the mean-field HIP-GP (ziggy or cholesky
+whitening), `fit_predict_and_save` fits it by natural-gradient SVI or the
+closed-form ``batch_solve`` and `evaluate_and_save` predicts and writes the
+JAX harness's artifacts under ``output_dir/name`` in its layout:
+``state.npz`` (+ sidecar) and ``meta.json``, ``elbo_trace.npy`` and the
+hyperparameter traces, ``predictions.npz``, ``errordf-summary.csv``,
+``noise_reduction.csv``, ``coverage_table.csv``, ``fit_params.json`` and
+``time_report.csv``.  The CSVs are written with the ``csv`` module, column
+for column as the JAX harness's pandas frames write them.
+
+Not ported: ``parallel`` ('dp', 'mp'; ROADMAP.md section A items 9 and 10)
+raises NotImplementedError, and so do the block, full-rank and SVGP model
+classes (section A items 5 and 7); ``block_sizes`` (item 5),
+``grid_shards`` (item 10), the parallel paths' ``predict_fn``, the
+figures (``make_plots``, ``grid_shape``, ``grid_extent``; `viz.py`, item 8)
+and ``eval_only_state`` (evaluate a saved state without a fit) are left
+out.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+import warnings
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..infer import FitConfig, batch_predict, svigp_fit
+from ..kernels import kernel_from_name
+from ..models import HIPGP
+from ..utils import checkpoint as ckpt
+from ..utils import metrics
+
+__all__ = ["fit_predict_and_save", "make_model", "evaluate_and_save",
+           "empirical_sig2_init"]
+
+
+def make_model(model_class: str, kernel_name: str, xinduce_grids: Sequence,
+               num_obs: int, sig2_init: float, ell_init: float,
+               noise2_init: float = 1.0, init_Svar: float = 1.0,
+               whitened_type: str = "ziggy", learn_kernel: bool = False,
+               learn_noise: bool = False, jitter: float = 1e-3,
+               support_integrated_obs: bool = False, dtype=torch.float32,
+               device="cuda") -> HIPGP:
+    """The JAX harness's model factory for ``model_class='mean-field'``;
+    the other classes are not ported yet."""
+    if model_class.startswith("block-diagonal") or model_class in ("block", "full-rank"):
+        raise NotImplementedError(f"model_class={model_class!r} is not ported yet "
+                                  "(ROADMAP.md section A item 5)")
+    if model_class == "SVGP":
+        raise NotImplementedError("model_class='SVGP' is not ported yet "
+                                  "(ROADMAP.md section A item 7)")
+    if model_class != "mean-field":
+        raise ValueError(f"model_class={model_class!r}; choose mean-field | "
+                         "block-diagonal | full-rank | SVGP")
+    return HIPGP(kernel_from_name(kernel_name), xinduce_grids, num_obs=num_obs,
+                 family="mean-field", whitened_type=whitened_type,
+                 sig2_init=sig2_init, ell_init=ell_init, noise2_init=noise2_init,
+                 init_Svar=init_Svar, learn_kernel=learn_kernel,
+                 learn_noise=learn_noise, jitter=jitter,
+                 support_integrated_obs=support_integrated_obs, dtype=dtype,
+                 device=device)
+
+
+def empirical_sig2_init(xobs: np.ndarray, yobs: np.ndarray) -> float:
+    """Distance-slope regression init of the marginal variance, clamped to
+    [1e-3, 1e2] var(y) (falling back to var(y) with a warning)."""
+    dobs = np.sqrt(np.sum(np.asarray(xobs) ** 2, axis=-1))
+    y = np.asarray(yobs).reshape(-1, 1)
+    slope, *_ = np.linalg.lstsq(dobs[:, None], y, rcond=None)
+    sig2 = float(slope[0, 0] ** 2)
+    vy = float(np.var(np.asarray(yobs)))
+    if not (1e-3 * vy <= sig2 <= 1e2 * vy):
+        fallback = vy if vy > 0 else 1.0
+        warnings.warn(
+            f"empirical sig2 init {sig2:.3e} is degenerate relative to "
+            f"var(y) = {vy:.3e}; falling back to var(y) = {fallback:.3e} — "
+            "pass an explicit sig2_init to override", RuntimeWarning)
+        return float(fallback)
+    return sig2
+
+
+def evaluate_and_save(odir: str, model, state, *, xtest=None, ftest=None, etest=None,
+                      xvalid=None, fvalid=None, evalid=None,
+                      xgrid=None, fgrid=None, egrid=None,
+                      do_integrated_predictions: bool = False,
+                      predict_maxiter_cg: int = 50,
+                      predict_ksemi_method: str = "analytic",
+                      predict_ksemi_samps: int = 200, elbo_trace=None,
+                      hyper_traces: Optional[Dict] = None,
+                      data_noise_std: Optional[float] = None,
+                      train_elbo: Optional[float] = None,
+                      predict_batch_size: int = 4096):
+    """Checkpoint, predict on valid/test/grid (latent and, with
+    ``do_integrated_predictions``, integrated) and write the metric CSVs.
+    Returns (pdict, eval_times)."""
+    os.makedirs(odir, exist_ok=True)
+    ckpt.save_checkpoint(odir, state)
+    if elbo_trace is not None:
+        np.save(os.path.join(odir, "elbo_trace.npy"), np.asarray(elbo_trace))
+    for nm, tr in (hyper_traces or {}).items():
+        if tr:
+            np.save(os.path.join(odir, f"{nm}_trace.npy"), np.asarray(tr))
+
+    pdict: Dict[str, np.ndarray] = {}
+    times: Dict[str, float] = {}
+
+    def _predict(x, integrated_obs=False):
+        kw = {}
+        if integrated_obs:
+            kw = dict(integrated_obs=True, semi_integrated_estimator=predict_ksemi_method,
+                      semi_integrated_samps=predict_ksemi_samps)
+        return batch_predict(model, state, x, batch_size=predict_batch_size,
+                             maxiter_cg=predict_maxiter_cg, **kw)
+
+    def run_predictions(tag, x, f_true, e_true):
+        if x is None:
+            return
+        t0 = time.time()
+        fmu, fsig = _predict(x)
+        times[f"f{tag}_eval"] = time.time() - t0
+        pdict[f"fmu_{tag}"] = fmu.cpu().numpy()
+        pdict[f"fsig_{tag}"] = fsig.cpu().numpy()
+        if f_true is not None:
+            pdict[f"f{tag}"] = np.asarray(f_true).reshape(-1)
+        if do_integrated_predictions:
+            t0 = time.time()
+            emu, esig = _predict(x, integrated_obs=True)
+            times[f"e{tag}_eval"] = time.time() - t0
+            pdict[f"emu_{tag}"] = emu.cpu().numpy()
+            pdict[f"esig_{tag}"] = esig.cpu().numpy()
+            if e_true is not None:
+                pdict[f"e{tag}"] = np.asarray(e_true).reshape(-1)
+
+    run_predictions("valid", xvalid, fvalid, evalid)
+    run_predictions("test", xtest, ftest, etest)
+    run_predictions("grid", xgrid, fgrid, egrid)
+    ckpt.save_predictions(os.path.join(odir, "predictions.npz"), pdict)
+
+    if "ftest" in pdict:
+        df = metrics.error_frame({"model": pdict}, data_type="test")
+        metrics.write_csv(os.path.join(odir, "errordf-summary.csv"), metrics.describe(df))
+        integrated = do_integrated_predictions and "etest" in pdict
+        if data_noise_std is not None:
+            metrics.write_csv(
+                os.path.join(odir, "noise_reduction.csv"),
+                metrics.noise_comparison_frame(pdict, data_noise_std,
+                                               integrated_obs=integrated,
+                                               train_elbo=train_elbo,
+                                               eval_valid="fvalid" in pdict))
+        z = {"model": df["f zscore"]}
+        if integrated:
+            z["model e"] = df["e zscore"]
+        metrics.write_csv(os.path.join(odir, "coverage_table.csv"),
+                          metrics.coverage_table(z))
+    return pdict, times
+
+
+def _time_rows(rows):
+    """The rows of time_report.csv as one frame: columns in order of first
+    appearance, empty where a row lacks one (pandas' list-of-dicts frame)."""
+    cols = []
+    for r in rows:
+        cols += [k for k in r if k not in cols]
+    return {c: [r.get(c, np.nan) for r in rows] for c in cols}
+
+
+def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
+                         model_class: str = "mean-field", kernel: str = "SqExp",
+                         sig2_init="empirical", ell_init: float = 0.05,
+                         noise2_init: float = 1.0, init_Svar: float = 1.0,
+                         whitened_type: str = "ziggy",
+                         jitter: float = 1e-3, fit_method: str = "natgrad",
+                         fit_config: Optional[FitConfig] = None,
+                         batch_solve_bsz: int = -1, maxiter_cg: int = 10,
+                         mean_solver: str = "dense", mean_solver_maxiter: int = 200,
+                         mean_solver_tol: float = 1e-8, theta2_warmstart: bool = False,
+                         natgrad_safe_lr: str = "warn",
+                         xtest=None, etest=None, ftest=None,
+                         xvalid=None, evalid=None, fvalid=None,
+                         xgrid=None, egrid=None, fgrid=None,
+                         output_dir: str = "./model-output/", eval_epochs: int = 0,
+                         parallel: Optional[str] = None,
+                         dtype=torch.float32, device="cuda",
+                         max_steps: Optional[int] = None):
+    """Fit and evaluate one model, saving every artifact under
+    ``output_dir/name`` (the JAX harness's single entry point, on one
+    device).  ``fit_method`` 'natgrad' runs `svigp_fit` (with
+    ``eval_epochs=k`` the full evaluation every k-th epoch into
+    ``epoch_output/epoch_N/``), 'full-batch' the closed-form
+    ``model.batch_solve`` with ``mean_solver`` ('dense', 'cg' or 'gram');
+    ``max_steps`` (the port's) ends a natgrad fit after that many steps.
+    Returns (model, state, report)."""
+    if parallel not in (None, "dp", "mp"):
+        raise ValueError(f"parallel={parallel!r}; choose None | 'dp' | 'mp'")
+    if parallel is not None:
+        raise NotImplementedError(
+            f"parallel={parallel!r} is not ported yet (ROADMAP.md section A item "
+            f"{9 if parallel == 'dp' else 10})")
+    odir = os.path.join(output_dir, name)
+    os.makedirs(odir, exist_ok=True)
+    xobs = np.asarray(xobs)
+    yobs = np.asarray(yobs).reshape(-1)
+    sobs = None if sobs is None else np.asarray(sobs).reshape(-1)
+    if sig2_init == "empirical":
+        sig2_init = empirical_sig2_init(xobs, yobs)
+    elif sig2_init == "marginal":
+        nvar = 0.0 if sobs is None else float(np.mean(sobs ** 2))
+        sig2_init = max(float(np.var(yobs)) - nvar, 1e-3)
+
+    cfg = dataclasses.replace(fit_config or FitConfig(), maxiter_cg=maxiter_cg)
+    integrated = cfg.integrated_obs
+    # the analytic semi-integrated covariances exist only for SqExp
+    if integrated and kernel != "SqExp" and cfg.semi_integrated_estimator == "analytic":
+        cfg = dataclasses.replace(cfg, semi_integrated_estimator="mc-biased",
+                                  predict_ksemi_method="mc-biased")
+    model = make_model(model_class, kernel, xinduce_grids, num_obs=len(xobs),
+                       sig2_init=float(sig2_init), ell_init=ell_init,
+                       noise2_init=noise2_init, init_Svar=init_Svar,
+                       whitened_type=whitened_type, learn_kernel=cfg.learn_kernel,
+                       learn_noise=cfg.learn_noise, jitter=jitter,
+                       support_integrated_obs=integrated, dtype=dtype, device=device)
+    state = model.init_state()
+
+    with open(os.path.join(odir, "fit_params.json"), "w") as f:
+        json.dump({"model_class": model_class, "kernel": kernel,
+                   "sig2_init": float(sig2_init), "ell_init": float(ell_init),
+                   "whitened_type": whitened_type, "fit_method": fit_method,
+                   "parallel": "none", "mesh_shape": None,
+                   **{k: v for k, v in dataclasses.asdict(cfg).items()
+                      if isinstance(v, (int, float, str, bool))}}, f, indent=2)
+
+    eval_kw = dict(xtest=xtest, ftest=ftest, etest=etest, xvalid=xvalid,
+                   fvalid=fvalid, evalid=evalid, xgrid=xgrid, fgrid=fgrid, egrid=egrid,
+                   do_integrated_predictions=integrated,
+                   predict_maxiter_cg=cfg.predict_maxiter_cg,
+                   predict_ksemi_method=cfg.predict_ksemi_method,
+                   predict_ksemi_samps=cfg.predict_ksemi_samps,
+                   data_noise_std=None if sobs is None else float(np.mean(sobs)))
+    epoch_eval_rows = []
+    epoch_callback = None
+    if eval_epochs and fit_method == "natgrad":
+        every = int(eval_epochs)
+
+        def epoch_callback(epoch, model_, state_, trace):
+            if (epoch + 1) % every and epoch != cfg.epochs - 1:
+                return
+            t0 = time.time()
+            _, etimes = evaluate_and_save(
+                os.path.join(odir, "epoch_output", f"epoch_{epoch}"), model_, state_,
+                elbo_trace=trace, **eval_kw)
+            epoch_eval_rows.append({"epoch": epoch, "eval_total": time.time() - t0,
+                                    **etimes})
+
+    t_start = time.time()
+    if fit_method == "natgrad":
+        state, report = svigp_fit(model, state, xobs, yobs, sobs, cfg, verbose=True,
+                                  theta2_warmstart=theta2_warmstart,
+                                  natgrad_safe_lr=natgrad_safe_lr,
+                                  max_steps=max_steps, epoch_callback=epoch_callback)
+        train_elbo = report["epoch_elbos"][-1] if report["epoch_elbos"] else None
+    elif fit_method == "full-batch":
+        state, elbo = model.batch_solve(
+            state, xobs, yobs, sobs, batch_size=batch_solve_bsz, maxiter_cg=maxiter_cg,
+            integrated_obs=integrated,
+            semi_integrated_estimator=cfg.semi_integrated_estimator,
+            semi_integrated_samps=cfg.num_semi_mc_samples, compute_elbo=True,
+            mean_solver=mean_solver, mean_solver_maxiter=mean_solver_maxiter,
+            mean_solver_tol=mean_solver_tol)
+        train_elbo = float(elbo)
+        report = {"elbo_trace": [train_elbo], "epoch_elbos": [train_elbo]}
+        print(f"batch solve elbo = {train_elbo:.5f}", flush=True)
+    else:
+        raise ValueError(f"fit_method={fit_method!r}")
+    fitting_time = time.time() - t_start
+
+    pdict, eval_times = evaluate_and_save(
+        odir, model, state, elbo_trace=report.get("elbo_trace"),
+        hyper_traces={"sig2": report.get("sig2_trace"), "ell": report.get("ell_trace"),
+                      "noisesq": report.get("noise2_trace")},
+        train_elbo=train_elbo, **eval_kw)
+
+    trow = {"fitting": fitting_time, **eval_times}
+    eval_by_epoch = {r["epoch"]: r for r in epoch_eval_rows}
+    rows = []
+    for i, ft in enumerate(report.get("epoch_times") or []):
+        row = {"epoch": i, "fitting": ft}
+        row.update({k: v for k, v in eval_by_epoch.get(i, {}).items() if k != "epoch"})
+        rows.append(row)
+    rows.append({"epoch": "total", **trow})
+    metrics.write_csv(os.path.join(odir, "time_report.csv"), _time_rows(rows))
+    report["time_report"] = trow
+    report["epoch_eval_rows"] = epoch_eval_rows
+    report["pdict"] = pdict
+    return model, state, report

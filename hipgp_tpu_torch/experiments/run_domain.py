@@ -1,23 +1,30 @@
 """Paper section 5.5: an interstellar-dust map from line-of-sight integrals.
 
 Counterpart of `hipgp_tpu/experiments/run_domain.py` for the mean-field
-model with natural-gradient SVI.  The observations are integrated
+model.  The observations are integrated
 extinctions e(x) = ||x|| int_0^1 rho(a x) da along rays from the origin to
 each star, with heteroscedastic noise; the model fits the latent 3-D density
 rho on an nx x nx x nz inducing grid.  Without ``--data-path`` a synthetic
 dust field (anisotropic Gaussian blobs, seed 0) is generated.
 
-The fit is the JAX experiment's natgrad protocol: sig2 from the distance-slope
-regression (`empirical_sig2_init`), the theta2 warm start, the step size
-clamped to half the estimated stability limit, then SVI; prediction of e at
-the test stars (integrated) and of the latent density on the central-z
-slice (point).  It prints and writes (with the ``csv`` module, into
-``--output-dir``) the e post-RMSE, the latent RMSE and correlation on the
-slice, the ELBO trace, rho and the lr used.  The closed-form full-batch fit
-(``--fit-method full-batch``, the JAX default) is not ported yet: it raises.
+sig2 comes from the distance-slope regression (`empirical_sig2_init`).  The
+fit is, as in JAX, by default the closed-form full batch
+(``--fit-method full-batch``: ``HIPGP.batch_solve`` over batches of
+``--batch-size`` rows with ``--mean-solver`` 'dense', 'cg' or 'gram'; the
+'matfree' and 'factored' solvers, which the paper-scale grid needs, are
+not ported yet: ROADMAP.md section A item 6), or the JAX experiment's
+natgrad protocol (``--fit-method natgrad``: the theta2 warm start, the step
+size clamped to half the estimated stability limit, then SVI).  Then e is
+predicted at the test stars (integrated) and the latent density on the
+central-z slice (point).  It prints and writes (with the ``csv`` module,
+into ``--output-dir``) the e post-RMSE, the latent RMSE and correlation on
+the slice, the ELBO trace, and for natgrad rho and the lr used.
 
-Usage: python -m hipgp_tpu_torch.experiments.run_domain --nx 64 --nz 32 --ell 0.07
-       (add --device cpu --nobs 300 --nx 8 --nz 4 --max-steps 3 for a small CPU run)
+Usage: python -m hipgp_tpu_torch.experiments.run_domain --fit-method natgrad
+           --nx 64 --nz 32 --ell 0.07
+       (add --device cpu --nobs 300 --nx 8 --nz 4 --max-steps 3 for a small CPU
+       run; without --fit-method natgrad, --device cpu --nobs 300 --nx 8 --nz 4
+       runs the dense closed-form fit)
 """
 from __future__ import annotations
 
@@ -25,7 +32,6 @@ import argparse
 import csv
 import os
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -34,6 +40,7 @@ from ..infer import FitConfig, batch_predict, svigp_fit
 from ..kernels import kernel_from_name
 from ..models import HIPGP
 from ..utils import metrics
+from .harness import empirical_sig2_init
 from .synthetic_data import integrated_obs
 
 __all__ = ["main", "synthetic_dust_field", "make_synthetic_domain_data",
@@ -88,24 +95,6 @@ def make_synthetic_domain_data(n: int, noise_std: float, seed: int = 0,
     sobs = rs.uniform(noise_std / 2, 3 * noise_std / 2, len(x))
     a = e + sobs * rs.standard_normal(len(x))
     return x, a, e, sobs, rho
-
-
-def empirical_sig2_init(xobs: np.ndarray, yobs: np.ndarray) -> float:
-    """Distance-slope regression init of the marginal variance, clamped to
-    [1e-3, 1e2] var(y) (falling back to var(y) with a warning)."""
-    dobs = np.sqrt(np.sum(np.asarray(xobs) ** 2, axis=-1))
-    y = np.asarray(yobs).reshape(-1, 1)
-    slope, *_ = np.linalg.lstsq(dobs[:, None], y, rcond=None)
-    sig2 = float(slope[0, 0] ** 2)
-    vy = float(np.var(np.asarray(yobs)))
-    if not (1e-3 * vy <= sig2 <= 1e2 * vy):
-        fallback = vy if vy > 0 else 1.0
-        warnings.warn(
-            f"empirical sig2 init {sig2:.3e} is degenerate relative to "
-            f"var(y) = {vy:.3e}; falling back to var(y) = {fallback:.3e}",
-            RuntimeWarning)
-        return float(fallback)
-    return sig2
 
 
 def _write_csv(path, header, rows):
@@ -180,26 +169,30 @@ def main(argv=None):
     p.add_argument("--nz", type=int, default=8, help="inducing points in z")
     p.add_argument("--kernel", default="SqExp")
     p.add_argument("--ell", type=float, default=0.2)
-    p.add_argument("--fit-method", default="natgrad", choices=["natgrad", "full-batch"])
+    p.add_argument("--fit-method", default="full-batch", choices=["natgrad", "full-batch"])
     p.add_argument("--epochs", type=int, default=5)
     p.add_argument("--max-steps", type=int, default=None,
                    help="stop after this many batch steps in all")
     p.add_argument("--batch-size", type=int, default=512)
     p.add_argument("--maxiter-cg", type=int, default=20)
     p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--mean-solver", default="dense",
+                   choices=["dense", "cg", "gram", "factored", "matfree"],
+                   help="full-batch mean solve ('factored' and 'matfree' are not "
+                        "ported yet)")
+    p.add_argument("--mean-solver-maxiter", type=int, default=200)
+    p.add_argument("--mean-solver-tol", type=float, default=1e-8)
     p.add_argument("--eval-grid", type=int, default=20,
                    help="xy evaluation grid size on the central-z slice")
     p.add_argument("--output-dir", default="./output-domain")
     p.add_argument("--device", default="cuda")
     p.add_argument("--f64", action="store_true")
     args = p.parse_args(argv)
-    if args.fit_method == "full-batch":
+    full_batch = args.fit_method == "full-batch"
+    if full_batch and args.mean_solver in ("factored", "matfree"):
         raise NotImplementedError(
-            "--fit-method full-batch needs the closed-form HIPGP.batch_solve, "
-            "which is not ported yet (ROADMAP.md section A item 1); use "
-            "--fit-method natgrad (its 3-D solves are differentiable on the plain "
-            "path, which bttb.USE_MXU3D_PCG = False or USE_RADIX_FFT = False selects "
-            "on the card)")
+            f"--mean-solver {args.mean_solver} is not ported yet (ROADMAP.md section "
+            "A item 6); use dense, cg or gram, or --fit-method natgrad")
 
     t_all = time.perf_counter()
     prob = domain_problem(args.nobs, args.ntest, args.noise_std, args.nx, args.nz,
@@ -216,9 +209,20 @@ def main(argv=None):
                     maxiter_cg=args.maxiter_cg, integrated_obs=True,
                     semi_integrated_estimator="analytic" if analytic else "mc-biased")
     t0 = time.perf_counter()
-    state, report = svigp_fit(model, model.init_state(), xobs, aobs, sobs_tr, cfg,
-                              verbose=False, theta2_warmstart=True,
-                              natgrad_safe_lr="clamp", max_steps=args.max_steps)
+    if full_batch:
+        state, elbo = model.batch_solve(
+            model.init_state(), xobs, aobs, sobs_tr, batch_size=args.batch_size,
+            maxiter_cg=args.maxiter_cg, integrated_obs=True,
+            semi_integrated_estimator=cfg.semi_integrated_estimator,
+            semi_integrated_samps=cfg.num_semi_mc_samples, compute_elbo=True,
+            mean_solver=args.mean_solver, mean_solver_maxiter=args.mean_solver_maxiter,
+            mean_solver_tol=args.mean_solver_tol)
+        report = {"elbo_trace": [float(elbo)], "steps": 0, "epoch_times": [],
+                  "warmstart_s": 0.0, "natgrad_rho": None, "lr_used": None}
+    else:
+        state, report = svigp_fit(model, model.init_state(), xobs, aobs, sobs_tr, cfg,
+                                  verbose=False, theta2_warmstart=True,
+                                  natgrad_safe_lr="clamp", max_steps=args.max_steps)
     fit_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -235,6 +239,7 @@ def main(argv=None):
 
     trace = report["elbo_trace"]
     out = {
+        "fit_method": args.fit_method,
         "steps": report["steps"],
         "warmstart_s": report["warmstart_s"],
         "fit_s": fit_s,
@@ -261,13 +266,15 @@ def main(argv=None):
                list(enumerate(trace)))
     lat = (f"; latent RMSE {out['latent_rmse']:.5f}, slice corr "
            f"{out['latent_corr']:.4f}" if fgrid is not None else "")
-    print(f"device {args.device}: grid {model.dims} -> embedded {model.edims}, "
-          f"rho {out['natgrad_rho']:.1f}, lr used {out['lr_used']:.3g}; "
-          f"{out['steps']} steps at {out['step_ms']:.1f} ms (warm start "
-          f"{out['warmstart_s']:.2f} s), ELBO {out['first_elbo']:.4f} -> "
-          f"{out['last_elbo']:.4f}; e post-RMSE {out['e_post_rmse']:.5f} "
-          f"(rms(e_test) {out['e_rms']:.5f}){lat}; predict {predict_s:.2f} s",
-          flush=True)
+    fit = (f"full batch ({args.mean_solver}) in {fit_s:.2f} s, ELBO "
+           f"{out['last_elbo']:.4f}" if full_batch else
+           f"rho {out['natgrad_rho']:.1f}, lr used {out['lr_used']:.3g}; "
+           f"{out['steps']} steps at {out['step_ms']:.1f} ms (warm start "
+           f"{out['warmstart_s']:.2f} s), ELBO {out['first_elbo']:.4f} -> "
+           f"{out['last_elbo']:.4f}")
+    print(f"device {args.device}: grid {model.dims} -> embedded {model.edims}, {fit}; "
+          f"e post-RMSE {out['e_post_rmse']:.5f} (rms(e_test) {out['e_rms']:.5f}){lat}; "
+          f"predict {predict_s:.2f} s", flush=True)
     return out
 
 

@@ -1,35 +1,42 @@
 """The paper's synthetic 2-D regression protocol on the PyTorch port.
 
 Counterpart of `hipgp_tpu/experiments/run_synthetic.py` for the mean-field
-model with natural-gradient SVI: the same defaults (N = 20 000 observations
-and 2 000 test points of the "medium" random sin/tanh surface, noise 0.01,
-M = 125^2 inducing points on [-1, 1]^2, SqExp with ell 0.05, batch 256,
-maxiter_cg 10, 10 epochs), the same model construction as the JAX harness
-(sig2 from the marginal variance of y, init_Svar 1, jitter 1e-3), one fit and
-one prediction.  It prints the test RMSE and mean log-likelihood and writes
-no file.
+model: the same defaults (N = 20 000 observations and 2 000 test points of
+the "medium" random sin/tanh surface, noise 0.01, M = 125^2 inducing points
+on [-1, 1]^2, SqExp with ell 0.05, batch 256, maxiter_cg 10, 10 epochs) and
+the same flags: ``--fit-method`` natgrad (SVI) or full-batch (the
+closed-form ``batch_solve`` with ``--mean-solver`` dense, cg or gram),
+``--ell-sweep MIN MAX STEP`` (the lengthscale picked by the closed-form
+ELBO before the fit, written to ``ell_sweep.csv``), ``--integrated-obs``.
+Each model of ``--models`` (mean-field only) runs through the harness
+(`harness.fit_predict_and_save`: sig2 from the marginal variance of y,
+init_Svar 1, jitter 1e-3), which writes its artifacts under
+``--output-dir``; the summary of every model goes to
+``errordf-summary.csv`` there.  It prints the test RMSE and mean
+log-likelihood.  ``--device``, ``--steps`` and ``--f64`` are the port's.
 
 Usage: python -m hipgp_tpu_torch.experiments.run_synthetic --epochs 1
-       (add --device cpu --nobs 2000 --num-inducing 32 for a small CPU run)
+       (add --device cpu --nobs 2000 --num-inducing 32 for a small CPU run;
+       --fit-method full-batch --mean-solver gram for the closed form)
 """
 from __future__ import annotations
 
 import argparse
+import csv
+import os
 import time
 
 import numpy as np
 import torch
 
-from ..infer import FitConfig, batch_predict, svigp_fit
+from ..infer import FitConfig, ell_fit
 from ..kernels import kernel_from_name
 from ..models import HIPGP
 from ..utils import metrics
+from .harness import fit_predict_and_save, make_model
 from .synthetic_data import make_two_dim_data
 
 __all__ = ["main", "build_model", "marginal_sig2"]
-
-# rows per prediction chunk (the JAX harness's predict_batch_size)
-PREDICT_BATCH = 4096
 
 
 def marginal_sig2(yobs, sobs) -> float:
@@ -59,12 +66,14 @@ def main(argv=None):
     p.add_argument("--num-inducing", type=int, default=125,
                    help="inducing grid points per dimension")
     p.add_argument("--gridnum", type=int, default=64,
-                   help="evaluation grid points per dimension (sets the centring)")
+                   help="evaluation grid points per dimension")
+    p.add_argument("--models", nargs="+", default=["mean-field"], choices=["mean-field"])
     p.add_argument("--kernel", default="SqExp")
     p.add_argument("--ell", type=float, default=0.05)
+    p.add_argument("--fit-method", default="natgrad", choices=["natgrad", "full-batch"])
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--steps", type=int, default=None,
-                   help="stop after this many batch steps in all")
+                   help="stop the natgrad fit after this many batch steps in all")
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--theta2-warmstart", action="store_true",
@@ -72,48 +81,91 @@ def main(argv=None):
     p.add_argument("--no-schedule-lr", action="store_true",
                    help="constant natgrad lr")
     p.add_argument("--maxiter-cg", type=int, default=10)
+    p.add_argument("--integrated-obs", action="store_true")
+    p.add_argument("--ell-sweep", type=float, nargs=3, metavar=("MIN", "MAX", "STEP"),
+                   default=None,
+                   help="grid-search the lengthscale by batch-solve ELBO before fitting")
+    p.add_argument("--mean-solver", default="dense", choices=["dense", "cg", "gram"])
+    p.add_argument("--output-dir", default="./output-synthetic")
     p.add_argument("--device", default="cuda")
     p.add_argument("--f64", action="store_true")
     args = p.parse_args(argv)
 
-    d = make_two_dim_data(Nobs=args.nobs, Ntest=args.ntest,
-                          noise_std=args.noise_std,
+    os.makedirs(args.output_dir, exist_ok=True)
+    d = make_two_dim_data(Nobs=args.nobs, Ntest=args.ntest, noise_std=args.noise_std,
                           function_complexity=args.function_complexity,
-                          gridnum=args.gridnum)
+                          do_integrated=args.integrated_obs, gridnum=args.gridnum)
+    yobs = d["aobs"] if args.integrated_obs else d["yobs"]
     dtype = torch.float64 if args.f64 else torch.float32
-    model = build_model(args.kernel, args.num_inducing, len(d["xobs"]),
-                        marginal_sig2(d["yobs"], d["sobs"]), args.ell,
-                        args.noise_std, dtype=dtype, device=args.device)
+    grids = [np.linspace(-1, 1, args.num_inducing)] * 2
     cfg = FitConfig(epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
-                    maxiter_cg=args.maxiter_cg,
+                    maxiter_cg=args.maxiter_cg, integrated_obs=args.integrated_obs,
                     schedule_lr=not args.no_schedule_lr)
-    t0 = time.perf_counter()
-    state, report = svigp_fit(model, model.init_state(), d["xobs"], d["yobs"],
-                              d["sobs"], cfg,
-                              theta2_warmstart=args.theta2_warmstart,
-                              max_steps=args.steps)
-    fit_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mu, sig = batch_predict(model, state, d["xtest"], batch_size=PREDICT_BATCH,
-                            maxiter_cg=cfg.predict_maxiter_cg)
-    mu, sig = mu.cpu().numpy(), sig.cpu().numpy()
-    predict_s = time.perf_counter() - t0
-    summary = metrics.error_summary(d["ftest"], mu, sig)
-    out = {
-        "steps": report["steps"],
-        "first_elbo": report["elbo_trace"][0],
-        "last_elbo": report["elbo_trace"][-1],
-        "fit_s": fit_s,
-        "predict_s": predict_s,
-        "test_rmse": summary["rmse"],
-        "test_loglike": summary["loglike"],
-        "ftest_std": float(np.std(d["ftest"])),
-    }
-    print(f"device {args.device}: {report['steps']} steps in {fit_s:.2f} s, "
-          f"ELBO {out['first_elbo']:.4f} -> {out['last_elbo']:.4f}; "
-          f"test RMSE {out['test_rmse']:.5f} (std(ftest) {out['ftest_std']:.5f}), "
-          f"mean loglike {out['test_loglike']:.4f}", flush=True)
-    return out
+
+    ell = args.ell
+    if args.ell_sweep is not None:
+        probe = make_model("mean-field", args.kernel, grids, num_obs=len(d["xobs"]),
+                           sig2_init=float(np.var(yobs)), ell_init=args.ell,
+                           noise2_init=args.noise_std ** 2,
+                           support_integrated_obs=args.integrated_obs, dtype=dtype,
+                           device=args.device)
+        _, ell, ells, elbos = ell_fit(
+            probe, probe.init_state(), d["xobs"], yobs, d["sobs"],
+            ell_min=args.ell_sweep[0], ell_max=args.ell_sweep[1],
+            ell_step_size=args.ell_sweep[2], batch_solve_bsz=args.batch_size,
+            maxiter_cg=args.maxiter_cg, integrated_obs=args.integrated_obs)
+        metrics.write_csv(os.path.join(args.output_dir, "ell_sweep.csv"),
+                          {"ell": ells, "elbo": elbos})
+        print(f"ell sweep selected ell = {ell}", flush=True)
+
+    summaries, outs = [], []
+    for model_class in args.models:
+        name = f"{model_class}-{args.kernel}"
+        print(f"=== {name} ===", flush=True)
+        t0 = time.perf_counter()
+        model, state, report = fit_predict_and_save(
+            name=name, xobs=d["xobs"], yobs=yobs, sobs=d["sobs"], xinduce_grids=grids,
+            model_class=model_class, kernel=args.kernel, sig2_init="marginal",
+            ell_init=ell, noise2_init=args.noise_std ** 2, fit_method=args.fit_method,
+            fit_config=cfg, maxiter_cg=args.maxiter_cg, mean_solver=args.mean_solver,
+            theta2_warmstart=args.theta2_warmstart, xtest=d["xtest"],
+            ftest=d["ftest"], etest=d["etest"], xgrid=d["xgrid"], fgrid=d["fgrid"],
+            output_dir=args.output_dir, dtype=dtype, device=args.device,
+            max_steps=args.steps)
+        wall_s = time.perf_counter() - t0
+        with open(os.path.join(args.output_dir, name, "noise_reduction.csv")) as f:
+            rows = list(csv.reader(f))[1:]
+        summaries.append({"model": name, **{r[0]: float(r[1]) for r in rows}})
+        pd_ = report["pdict"]
+        summary = metrics.error_summary(pd_["ftest"], pd_["fmu_test"], pd_["fsig_test"])
+        trace = report["elbo_trace"]
+        out = {
+            "model": name,
+            "fit_method": args.fit_method,
+            "steps": report.get("steps", 0),
+            "first_elbo": trace[0],
+            "last_elbo": trace[-1],
+            "fit_s": report["time_report"]["fitting"],
+            "predict_s": report["time_report"]["ftest_eval"],
+            "wall_s": wall_s,
+            "test_rmse": summary["rmse"],
+            "test_loglike": summary["loglike"],
+            "ftest_std": float(np.std(d["ftest"])),
+        }
+        outs.append(out)
+        print(f"device {args.device}: {name} {args.fit_method}"
+              + (f" ({args.mean_solver})" if args.fit_method == "full-batch"
+                 else f", {out['steps']} steps")
+              + f" in {out['fit_s']:.2f} s, ELBO {out['first_elbo']:.4f} -> "
+              f"{out['last_elbo']:.4f}; test RMSE {out['test_rmse']:.5f} (std(ftest) "
+              f"{out['ftest_std']:.5f}), mean loglike {out['test_loglike']:.4f}",
+              flush=True)
+    cols = []
+    for r in summaries:
+        cols += [k for k in r if k not in cols]
+    metrics.write_csv(os.path.join(args.output_dir, "errordf-summary.csv"),
+                      {c: [r.get(c, np.nan) for r in summaries] for c in cols})
+    return outs[0] if len(outs) == 1 else outs
 
 
 if __name__ == "__main__":

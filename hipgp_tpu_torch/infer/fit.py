@@ -10,8 +10,12 @@ the log-hyperparameters and applies Adam to them (``optax.adam(kernel_lr)``
 under the JAX package's ``optax.multi_transform``); the gradients of what
 is not learned are zeroed.  After the theta2 warm start a power iteration
 estimates the natural-gradient stability limit (``natgrad_safe_lr``).
-Shuffling, checkpoints and resume are not ported yet.  A non-finite epoch
-raises.
+With ``shuffle`` every epoch draws one permutation of the rows from
+``np.random.default_rng(seed)``, as the JAX package does.  A non-finite
+epoch raises unless ``error_on_nonfinite`` is off.  Checkpoints during the
+fit and resume with optimizer state are not ported yet (ROADMAP.md section
+A item 1).  ``ell_fit`` grid-searches the lengthscale by the closed-form
+``batch_solve`` ELBO.
 
 Data is padded to a whole number of batches and masked, as in the JAX
 package, so every batch has the same shape.
@@ -21,21 +25,23 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["FitConfig", "svigp_fit", "batch_predict", "make_optimizer",
+__all__ = ["FitConfig", "svigp_fit", "ell_fit", "batch_predict",
+           "predictive_variance_correction", "make_optimizer",
            "prepare_batches", "batch_step", "natgrad_stability_rho",
            "HyperAdam", "zero_frozen"]
 
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
-    """Training configuration: the fields of the JAX package's FitConfig that
-    the natgrad fit reads, with its defaults."""
+    """Training configuration: the JAX package's FitConfig fields, with its
+    defaults."""
 
+    fit_method: str = "natgrad"
     epochs: int = 50
     batch_size: int = 256
     lr: float = 1e-2
@@ -49,6 +55,16 @@ class FitConfig:
     semi_integrated_estimator: str = "analytic"
     num_semi_mc_samples: int = 10
     predict_maxiter_cg: int = 50
+    predict_ksemi_method: str = "analytic"
+    predict_ksemi_samps: int = 200
+    batch_log_interval: int = 0  # > 0: print every k-th batch ELBO
+    epoch_log_interval: int = 1
+    only_eval_last_epoch: bool = False
+    shuffle: bool = False  # the reference does not shuffle
+    seed: int = 0
+    # raise when an epoch's mean ELBO is NaN/Inf; off, grind on to the end
+    # (the reference's behaviour)
+    error_on_nonfinite: bool = True
 
 
 def prepare_batches(x: torch.Tensor, y: torch.Tensor,
@@ -209,7 +225,8 @@ def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30) -> fl
 
 def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
               verbose: bool = True, theta2_warmstart: bool = False,
-              max_steps: Optional[int] = None, natgrad_safe_lr: str = "warn"):
+              max_steps: Optional[int] = None, natgrad_safe_lr: str = "warn",
+              epoch_callback: Optional[Callable] = None):
     """Fit the variational parameters by natural-gradient SVI.
 
     ``theta2_warmstart``: one Lambda-only pass over the data sets theta2 to
@@ -220,25 +237,28 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
     warm metric removes that transient at the cost of one data pass.
 
     ``natgrad_safe_lr``: 'warn' (default) | 'clamp' | 'off'.  After the warm
-    start, :func:`natgrad_stability_rho` on the first batch estimates the
-    stability limit lr_crit = 2/rho; 'warn' warns when ``config.lr`` exceeds
-    0.5 lr_crit, 'clamp' lowers the lr to 0.5 lr_crit instead.
+    start of a natgrad fit (``config.fit_method``),
+    :func:`natgrad_stability_rho` on the first batch estimates the stability
+    limit lr_crit = 2/rho; 'warn' warns when ``config.lr`` exceeds 0.5
+    lr_crit, 'clamp' lowers the lr to 0.5 lr_crit instead.
 
     ``max_steps`` ends the fit after that many batch steps in all (None:
     run every epoch to its end).  With ``config.learn_noise`` the per-point
     noise is dropped and the model's noise is learned, as in the JAX
-    package.  Returns (state, report); the report holds the per-batch ELBO
-    trace, the per-epoch mean ELBOs and wall-clock seconds, the per-epoch
-    sig2 and ell (with ``learn_kernel``) and noise2 (with ``learn_noise``)
-    traces, the number of steps run, the warm start's seconds, and
-    ``natgrad_rho``, ``natgrad_lr_crit`` and ``lr_used``."""
+    package.  ``config.shuffle`` permutes the rows once per epoch with
+    ``np.random.default_rng(config.seed)``.  ``epoch_callback(epoch, model,
+    state, trace)`` runs after every epoch (only the last with
+    ``config.only_eval_last_epoch``).  Returns (state, report); the report
+    holds the per-batch ELBO trace, the per-epoch mean ELBOs and wall-clock
+    seconds, the per-epoch sig2 and ell (with ``learn_kernel``) and noise2
+    (with ``learn_noise``) traces, the number of steps run, the warm start's
+    seconds, and ``natgrad_rho``, ``natgrad_lr_crit`` and ``lr_used``."""
     dt_, dev = model.dtype, model.device
     as_t = lambda a: torch.as_tensor(a).to(dtype=dt_, device=dev)
     noise = None if config.learn_noise else noise_std_train
-    xb, yb, sb, w = prepare_batches(
-        as_t(xtrain), as_t(ytrain), None if noise is None else as_t(noise),
-        config.batch_size,
-    )
+    x_raw, y_raw = as_t(xtrain), as_t(ytrain).reshape(-1)
+    s_raw = None if noise is None else as_t(noise).reshape(-1)
+    xb, yb, sb, w = prepare_batches(x_raw, y_raw, s_raw, config.batch_size)
     # the Monte-Carlo estimator's draws (one generator for the whole fit)
     gen = torch.Generator().manual_seed(0)
     t0 = time.perf_counter()
@@ -246,7 +266,8 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
         state = _theta2_warmstart(model, state, xb, sb, w, config, generator=gen)
     warmstart_s = time.perf_counter() - t0
     rho = lr_crit = None
-    if natgrad_safe_lr != "off" and theta2_warmstart:
+    if (natgrad_safe_lr != "off" and theta2_warmstart
+            and config.fit_method == "natgrad"):
         if natgrad_safe_lr not in ("warn", "clamp"):
             raise ValueError(f"natgrad_safe_lr={natgrad_safe_lr!r}: expected "
                              "'warn', 'clamp', or 'off'")
@@ -271,12 +292,19 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
                               "or reduce config.lr", UserWarning, stacklevel=2)
     opt = make_optimizer(config)
     nb = xb.shape[0]
+    if config.shuffle:
+        shuffle_rng = np.random.default_rng(config.seed)
     trace, epoch_elbos, epoch_times = [], [], []
     sig2_trace, ell_trace, noise2_trace = [], [], []
     steps = 0
     for epoch in range(config.epochs):
         if max_steps is not None and steps >= max_steps:
             break
+        if config.shuffle:
+            perm = torch.as_tensor(shuffle_rng.permutation(x_raw.shape[0]), device=dev)
+            xb, yb, sb, w = prepare_batches(x_raw[perm], y_raw[perm],
+                                            None if s_raw is None else s_raw[perm],
+                                            config.batch_size)
         t0 = time.perf_counter()
         elbos = []
         for b in range(nb):
@@ -292,20 +320,29 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
         epoch_times.append(dt)
         trace.extend(elbos_np.tolist())
         epoch_elbos.append(float(elbos_np.mean()))
-        if not np.isfinite(epoch_elbos[-1]):
+        if config.error_on_nonfinite and not np.isfinite(epoch_elbos[-1]):
             raise RuntimeError(
                 f"epoch {epoch} mean ELBO is non-finite ({epoch_elbos[-1]}): "
                 "the natural-gradient lr is likely above the stability limit "
-                "at this lengthscale and grid; lower config.lr or use "
-                "theta2_warmstart")
+                "at this lengthscale and grid; lower config.lr, use "
+                "theta2_warmstart or the closed-form batch_solve, or set "
+                "config.error_on_nonfinite=False to grind on")
         if config.learn_kernel:
             sig2_trace.append(float(torch.exp(state.log_sig2)))
             ell_trace.append(float(torch.exp(state.log_ell.reshape(-1)[0])))
         if config.learn_noise:
             noise2_trace.append(float(torch.exp(state.log_noise2)))
-        if verbose:
+        if verbose and config.batch_log_interval > 0:
+            for bi in range(0, len(elbos_np), config.batch_log_interval):
+                print(f"  ... batch {bi}/{len(elbos_np)}: elbo {elbos_np[bi]:.4f}",
+                      flush=True)
+        if (verbose and config.epoch_log_interval
+                and epoch % config.epoch_log_interval == 0):
             print(f"epoch {epoch:4d}: elbo {epoch_elbos[-1]:.4f} ({dt:.2f}s)",
                   flush=True)
+        if epoch_callback is not None and (
+                not config.only_eval_last_epoch or epoch == config.epochs - 1):
+            epoch_callback(epoch, model, state, trace)
     report = {
         "elbo_trace": trace,
         "epoch_elbos": epoch_elbos,
@@ -349,3 +386,55 @@ def batch_predict(model, state, x, batch_size: int = 100, **predict_kwargs):
         mus.append(mu)
         sigs.append(sig)
     return torch.cat(mus)[:N], torch.cat(sigs)[:N]
+
+
+def ell_fit(model, state, xobs, yobs, sobs, ell_min: float, ell_max: float,
+            ell_step_size: float, batch_solve_bsz: int = -1, maxiter_cg: int = 10,
+            integrated_obs: bool = False,
+            semi_integrated_estimator: str = "analytic",
+            semi_integrated_samps: int = 10, verbose: bool = True,
+            parallel: Optional[str] = None, **solve_kwargs):
+    """Grid-search the lengthscale by the closed-form ``batch_solve`` ELBO
+    over ``np.arange(ell_min, ell_max + ell_step_size, ell_step_size)``, on
+    one device (``solve_kwargs`` go to ``batch_solve``: ``mean_solver`` and
+    its settings).  Returns (best_state, best_ell, ell_list, elbo_list).
+    ``parallel`` ('dp' or 'mp') is not ported (ROADMAP.md section A items 9
+    and 10)."""
+    if parallel not in (None, "dp", "mp"):
+        raise ValueError(f"parallel={parallel!r}; choose None | 'dp' | 'mp'")
+    if parallel is not None:
+        raise NotImplementedError(
+            f"ell_fit(parallel={parallel!r}) is not ported yet (ROADMAP.md "
+            f"section A item {9 if parallel == 'dp' else 10})")
+    as_t = lambda a: torch.as_tensor(a, dtype=model.dtype, device=model.device)
+    x, y = as_t(xobs), as_t(yobs)
+    s = None if sobs is None else as_t(sobs)
+    ells = np.arange(ell_min, ell_max + ell_step_size, ell_step_size)
+    best = (-np.inf, None, None)
+    elbo_list = []
+    for ell in ells:
+        st = state.replace(log_ell=as_t(float(np.log(ell))))
+        st, elbo = model.batch_solve(
+            st, x, y, s, batch_size=batch_solve_bsz, maxiter_cg=maxiter_cg,
+            integrated_obs=integrated_obs,
+            semi_integrated_estimator=semi_integrated_estimator,
+            semi_integrated_samps=semi_integrated_samps, compute_elbo=True,
+            **solve_kwargs)
+        elbo_f = float(elbo)
+        elbo_list.append(elbo_f)
+        if verbose:
+            print(f"ell={ell:.4f} elbo={elbo_f:.5f}", flush=True)
+        if elbo_f > best[0]:
+            best = (elbo_f, float(ell), st)
+    return best[2], best[1], list(map(float, ells)), elbo_list
+
+
+def predictive_variance_correction(model, state, xobs, aobs, sobs, **kwargs) -> float:
+    """Post-hoc predictive-std rescale factor
+    sqrt(max(sum d^2 - sum s^2, 0) / sum fsig^2), d = aobs - fmu
+    (``kwargs`` go to `batch_predict`)."""
+    fmu, fsig = batch_predict(model, state, xobs, **kwargs)
+    a = torch.as_tensor(aobs).to(dtype=fmu.dtype, device=fmu.device).reshape(-1)
+    s = torch.as_tensor(sobs).to(dtype=fmu.dtype, device=fmu.device).reshape(-1)
+    num = torch.sum((a - fmu) ** 2) - torch.sum(s ** 2)
+    return float(torch.sqrt(torch.clamp(num, min=0.0) / torch.sum(fsig ** 2)))

@@ -1,36 +1,54 @@
 """HIP-GP: hierarchical inducing-point GP with a BTTB-structured prior.
 
 Counterpart of `hipgp_tpu/models/hipgp.py`, for the mean-field family with
-circulant ('ziggy') whitening and the expectation-family parameters.  The
-model object is a plain container (kernel, grids, sizes, dtype, device); all
-learnable state lives in the
-:class:`HIPGPState` dataclass, and every method is a function of
-(state, data).  ``elbo_and_grads`` returns the natural gradient as a state-
-shaped dataclass and, with ``compute_hyper_grads``, the gradient of the ELBO
-in the three log-hyperparameters, taken by autograd through the kernel, the
-spectrum and the whitening solve (`ops/solve.py`, implicit differentiation).
-Observations are points, or line integrals of the field (``integrated_obs``:
-the ray from the origin to each x, paper section 5.5) with the
-semi-integrated cross-covariances of `kernels/interdomain.py`.  The block and
-full-rank families, the cholesky whitening and the closed-form batch solve
-are not ported yet.
+the expectation-family parameters, and both whitened spaces: 'ziggy' (the
+expanded circulant basis, M' = prod(2 m_d - 2), kn = R^T K^{-1} Kmn by PCG)
+and 'cholesky' (the dense L^{-1} basis, M' = M).  The model object is a
+plain container (kernel, grids, sizes, dtype, device); all learnable state
+lives in the :class:`HIPGPState` dataclass, and every method is a function
+of (state, data).  ``elbo_and_grads`` returns the natural gradient as a
+state-shaped dataclass and, with ``compute_hyper_grads``, the gradient of the
+ELBO in the three log-hyperparameters, taken by autograd through the kernel,
+the spectrum and the whitening solve (`ops/solve.py`, implicit
+differentiation).  ``batch_solve`` is the closed-form full-batch optimum of
+the family, with the mean solved densely ('dense'), by CG over the stacked
+kn ('cg') or through the original-space data Gram ('gram').  Observations
+are points, or line integrals of the field (``integrated_obs``: the ray
+from the origin to each x, paper section 5.5) with the semi-integrated
+cross-covariances of `kernels/interdomain.py`.  The block and full-rank
+families and the standard parameterization (ROADMAP.md section A item 5)
+and the 'factored' and 'matfree' mean solvers (section A item 6) are not
+ported yet: they raise NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..infer.fit import prepare_batches
 from ..kernels.interdomain import DoublyDiagInterpolator, k_semi_mc, k_semi_sqexp
-from ..ops import make_spectrum, whiten
-from ..ops.bttb import BTTBSpectrum, embedded_dims
+from ..ops import (make_spectrum, matmul_by_Cinv, matmul_by_K, matmul_by_RT,
+                   pcg_result, spd_solve, whiten)
+from ..ops.bttb import BTTBSpectrum, embedded_dims, fp32_matmul
 from ..utils import stats
 
-__all__ = ["HIPGP", "HIPGPState"]
+__all__ = ["HIPGP", "HIPGPState", "MEAN_PCG_STATS"]
 
 LN2PI = math.log(2.0 * math.pi)
+# dtype of the 'gram' solver's M-space accumulators and mean solve: the data
+# Gram A = sum ivar Knm Knm^T summed in float32 moves the mean
+# z = (K + A)^{-1} b_m by more than 5e-3 relative on the 2-D protocol's
+# data, whatever the mean solver's precision or iterations; summed in
+# float64 from the same float32 Knm it does not
+# (tests/test_torch_fullbatch.py::test_gram_accumulates_in_float64)
+GRAM_ACC_DTYPE = torch.float64
+# the last mean-stage PCG ('cg', and 'gram' under 'ziggy'): iterations run,
+# final ||r||_2 and ||b||_2 (mean_solver_tol is on ||r||_2)
+MEAN_PCG_STATS = {"iterations": 0, "resnorm": float("nan"), "bnorm": float("nan")}
 # floor of the latent predictive variance Knn - kn.kn (the JAX default)
 VAR_CLAMP = 1e-5
 
@@ -51,21 +69,60 @@ class HIPGPState:
         return dataclasses.replace(self, **changes)
 
 
+class _StageClock:
+    """Seconds between marks into ``timings`` (a dict, or None for no
+    timing), the card synchronised at each mark."""
+
+    def __init__(self, timings: Optional[dict], device: torch.device):
+        self.timings, self.cuda = timings, torch.device(device).type == "cuda"
+        self.t = time.perf_counter() if timings is not None else None
+
+    def mark(self, name: str):
+        if self.timings is None:
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.timings[name] = t - self.t
+        self.t = t
+
+
+def _mean_pcg(matvec, b, precond, maxiter, tol):
+    """PCG on one right-hand side b (n,), its iterations and residual
+    recorded in MEAN_PCG_STATS."""
+    res = pcg_result(matvec, b[None, :], precond=precond, maxiter=maxiter, tol=tol)
+    MEAN_PCG_STATS.update(iterations=res.iters, resnorm=float(res.resnorm[0]),
+                          bnorm=float(b.norm()))
+    return res.x[0]
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md section A item {item})")
+
+
 class HIPGP:
-    """Mean-field HIP-GP with circulant whitening and expectation-family
-    natural parameters (the JAX package's defaults) over the inducing grid
-    ``xgrids`` (1-D tensors or arrays).  The other arguments are the JAX
-    constructor's; ``support_integrated_obs`` builds the doubly-integrated
-    diagonal's table, which line-integral observations need, and
+    """Mean-field HIP-GP with expectation-family natural parameters (the
+    JAX package's defaults) over the inducing grid ``xgrids`` (1-D tensors
+    or arrays), whitened by the circulant basis (``whitened_type='ziggy'``)
+    or the dense Cholesky factor of Kmm (``'cholesky'``: M' = M, no
+    spectrum).  The other arguments are the JAX constructor's;
+    ``support_integrated_obs`` builds the doubly-integrated diagonal's
+    table, which line-integral observations need, and
     ``learn_kernel``/``learn_noise`` are stored as the JAX model stores them
-    (the fit's `FitConfig` decides what is learned).  Runs on ``device``
-    (CUDA unless the caller asks for the CPU) in ``dtype``."""
+    (the fit's `FitConfig` decides what is learned).  ``family`` and
+    ``parameterization`` take only 'mean-field' and 'expectation-family'.
+    Runs on ``device`` (CUDA unless the caller asks for the CPU) in
+    ``dtype``."""
 
     def __init__(
         self,
         kernel,
         xgrids: Sequence,
         num_obs: int,
+        family: str = "mean-field",
+        whitened_type: str = "ziggy",
+        parameterization: str = "expectation-family",
         jitter: float = 1e-3,
         sig2_init: float = 1.0,
         ell_init: float = 0.05,
@@ -77,7 +134,20 @@ class HIPGP:
         dtype: torch.dtype = torch.float32,
         device="cuda",
     ):
+        if family not in ("mean-field", "block", "full-rank"):
+            raise ValueError(f"unknown family {family!r}")
+        if whitened_type not in ("ziggy", "cholesky"):
+            raise ValueError(f"unknown whitened_type {whitened_type!r}")
+        if parameterization not in ("expectation-family", "standard"):
+            raise ValueError(f"unknown parameterization {parameterization!r}")
+        if family != "mean-field":
+            raise _not_ported(f"the {family} family", 5)
+        if parameterization != "expectation-family":
+            raise _not_ported("the standard parameterization", 5)
         self.kernel = kernel
+        self.family = family
+        self.whitened_type = whitened_type
+        self.parameterization = parameterization
         self.jitter = float(jitter)
         self.N = int(num_obs)
         self.learn_kernel = learn_kernel
@@ -96,7 +166,8 @@ class HIPGP:
         self.xinduce = torch.stack([m.reshape(-1) for m in mesh], dim=-1)  # (M, D)
         self.M = math.prod(self.dims)
         self.ndim = len(self.dims)
-        self.edims = embedded_dims(self.dims)
+        self.edims = (embedded_dims(self.dims) if whitened_type == "ziggy"
+                      else self.dims)
         self.Mprime = math.prod(self.edims)
         self.diag_interp = (DoublyDiagInterpolator(kernel)
                             if support_integrated_obs else None)
@@ -137,6 +208,12 @@ class HIPGP:
         return make_spectrum(self.xgrids, lambda x, y: self.kernel(x, y, p),
                              jitter=self.jitter)
 
+    def _kmm_chol(self, state: HIPGPState) -> torch.Tensor:
+        """Cholesky factor L of Kmm + jitter I (M x M)."""
+        Kmm = self.kernel(self.xinduce, self.xinduce, self.kernel_params(state))
+        Kmm = Kmm + self.jitter * torch.eye(self.M, dtype=Kmm.dtype, device=Kmm.device)
+        return torch.linalg.cholesky(Kmm)
+
     def make_grams(self, state: HIPGPState, x: torch.Tensor,
                    integrated_obs: bool = False,
                    semi_integrated_estimator: str = "analytic",
@@ -170,12 +247,18 @@ class HIPGP:
         return Knm, self.diag_interp(x, params)
 
     def compute_kn(self, state: HIPGPState, Knm: torch.Tensor,
-                   maxiter_cg: int = 10,
+                   maxiter_cg: int = 10, tol: float = 1e-8,
                    spec: Optional[BTTBSpectrum] = None) -> torch.Tensor:
-        """kn = R^T K^{-1} Kmn, the whitened cross-covariances (bsz, M')."""
+        """kn, the whitened cross-covariances (bsz, M'): R^T K^{-1} Kmn by
+        PCG (``maxiter_cg``, ``tol``) under 'ziggy', L^{-1} Kmn under
+        'cholesky'."""
+        if self.whitened_type == "cholesky":
+            L = self._kmm_chol(state)
+            return torch.linalg.solve_triangular(
+                L, Knm.transpose(-1, -2), upper=False).transpose(-1, -2)
         if spec is None:
             spec = self.spectrum(state)
-        return whiten(spec, Knm, maxiter=maxiter_cg)
+        return whiten(spec, Knm, maxiter=maxiter_cg, tol=tol)
 
     # ------------------------------------------------------------------
     # variational family
@@ -319,6 +402,276 @@ class HIPGP:
         return elbo, grads
 
     # ------------------------------------------------------------------
+    # closed-form full-batch solve
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def accumulate_lam_b(self, state: HIPGPState, x: torch.Tensor, y: torch.Tensor,
+                         ivar: torch.Tensor, maxiter_cg: int = 10,
+                         integrated_obs: bool = False,
+                         semi_integrated_estimator: str = "analytic",
+                         semi_integrated_samps: int = 10,
+                         generator: Optional[torch.Generator] = None,
+                         spec: Optional[BTTBSpectrum] = None,
+                         big: Optional[torch.Tensor] = None):
+        """One batch's additive contributions to the information-form solve:
+        (lam, b, big) WITHOUT prior identities, with lam = sum ivar kn^2,
+        b = kn^T (ivar y) and big = sum ivar kn kn^T (M' x M').  ``ivar`` is
+        the per-row inverse noise variance with any padding mask folded in.
+        With ``big`` given, the batch's Gram is added to it in place (the
+        dense solve's one accumulator) and it is returned; kn is freed on
+        return either way.  No graph is recorded."""
+        Knm, _ = self.make_grams(state, x, integrated_obs, semi_integrated_estimator,
+                                 semi_integrated_samps, generator)
+        kn = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg, spec=spec)
+        del Knm
+        lam = self.get_lam(ivar, kn, bscale=1.0, add_identity=False)
+        b = kn.T @ (ivar * y.reshape(-1))
+        # sum ivar kn kn^T as (s kn)^T (s kn), s = sqrt(ivar), with kn scaled
+        # in place: no second (bsz, M') buffer beside the M' x M' accumulator
+        kn.mul_(torch.sqrt(ivar)[:, None])
+        with fp32_matmul():
+            if big is None:
+                big = kn.T @ kn
+            else:
+                big.addmm_(kn.T, kn)
+        return lam, b, big
+
+    @torch.no_grad()
+    def finalize_from_lam_b(self, state: HIPGPState, lam: torch.Tensor,
+                            b: torch.Tensor, big: torch.Tensor) -> HIPGPState:
+        """Turn accumulated (lam, b, big), prior identities NOT included,
+        into the optimal variational state: theta2 = -(lam + 1)/2 and
+        theta1 = mhat * (lam + 1) with (big + I) mhat = b.  The identity is
+        added to ``big`` in place, and only its Cholesky factor is allocated
+        beside it."""
+        lam = lam + 1.0
+        big.diagonal().add_(1.0)
+        mhat = spd_solve(big, b)
+        return state.replace(theta1=mhat * lam, theta2=-0.5 * lam)
+
+    def _state_from_lam_mhat(self, state: HIPGPState, lam: torch.Tensor,
+                             mhat: torch.Tensor) -> HIPGPState:
+        """The optimal state from the accumulated Lambda (WITHOUT the prior
+        identity) and the already-solved optimal mean mhat: the shared tail
+        of the 'cg' and 'gram' mean solvers."""
+        lam_with_I = lam + 1.0
+        return state.replace(theta1=mhat * lam_with_I, theta2=-0.5 * lam_with_I)
+
+    def _gram_sweep(self, state, spec, batches, flags, maxiter_cg):
+        """The one data sweep of the 'gram' solver: per-point kn for Lambda
+        (the reference's truncation semantics) and, beside it, the
+        original-space data Gram A = sum ivar Knm Knm^T (M x M), b_m =
+        sum ivar y Knm and the four ELBO scalars sum ivar y^2,
+        sum ivar Knn, sum ivar kn.kn and sum w (-log s - log(2 pi)/2).
+        A and b_m are accumulated in full FP32 (no TF32): the Woodbury mean
+        and the ELBO's data quadratic are differences of large terms, so
+        they and the four scalars are summed in GRAM_ACC_DTYPE (float64: on
+        the H100 a DGEMM runs on the FP64 tensor cores at the FP32 rate)."""
+        xb, yb, w, nsp = batches
+        acc, dev = GRAM_ACC_DTYPE, self.device
+        lam = torch.zeros((self.Mprime,), dtype=self.dtype, device=dev)
+        A = torch.zeros((self.M, self.M), dtype=acc, device=dev)
+        bm = torch.zeros((self.M,), dtype=acc, device=dev)
+        sy2, sKnn, sknkn, slog = (torch.zeros((), dtype=acc, device=dev) for _ in range(4))
+        for i in range(xb.shape[0]):
+            Knm, Knn = self.make_grams(state, xb[i], **flags)
+            kn = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg, spec=spec)
+            yv, wb, nsb = yb[i], w[i], nsp[i]
+            ivar = wb / (nsb * nsb)
+            lam += self.get_lam(ivar, kn, bscale=1.0, add_identity=False)
+            with fp32_matmul():
+                knkn = torch.einsum("bi,bi->b", kn, kn)
+            del kn
+            Knm, ivar, yv = Knm.to(acc), ivar.to(acc), yv.to(acc)
+            A.addmm_(Knm.T, Knm * ivar[:, None])
+            bm += Knm.T @ (ivar * yv)
+            del Knm
+            sknkn += torch.sum(ivar * knkn)
+            sy2 += torch.sum(ivar * yv * yv)
+            sKnn += torch.sum(ivar * Knn.reshape(-1))
+            slog += torch.sum(wb.to(acc) * (-torch.log(nsb.to(acc)) - 0.5 * LN2PI))
+        return lam, A, bm, sy2, sKnn, sknkn, slog
+
+    def _gram_mean_stage(self, state, spec, A, bm, maxiter, tol):
+        """(mhat, z) with z = (K + A)^{-1} b_m: under 'ziggy' by PCG on K + A
+        with the circulant preconditioner, mhat = R^T z; under 'cholesky'
+        by a dense SPD solve of Kmm + A, mhat = L^T z.  In A's dtype (the
+        model's Kmm or spectrum cast to it); mhat comes back in the model's
+        dtype, z in A's."""
+        acc = A.dtype
+        if self.whitened_type == "cholesky":
+            Kmm = self.kernel(self.xinduce, self.xinduce, self.kernel_params(state)).to(acc)
+            Kmm = Kmm + self.jitter * torch.eye(self.M, dtype=acc, device=Kmm.device)
+            z = spd_solve(Kmm + A, bm)
+            return (self._kmm_chol(state).to(acc).T @ z).to(self.dtype), z
+        cast = lambda t: None if t is None else t.to(acc)
+        spec = dataclasses.replace(spec, column=cast(spec.column), eigs=cast(spec.eigs),
+                                   ecolumn=cast(spec.ecolumn))
+
+        def kpa_mv(v):
+            with fp32_matmul():
+                return matmul_by_K(spec, v) + v @ A
+
+        z = _mean_pcg(kpa_mv, bm, lambda v: matmul_by_Cinv(spec, v), maxiter, tol)
+        return matmul_by_RT(spec, z[None, :])[0].to(self.dtype), z
+
+    def _gram_elbo_stage(self, z, A, bm, sy2, sKnn, sknkn, slog, lam, new_state, N):
+        """The ELBO from the sweep's accumulators: kn.m = Knm (K+A)^{-1} b_m
+        exactly (R R^T = K), so the data quadratic collapses onto (A, b_m,
+        z); kn.kn and kn S kn come from the swept kn.  Summed in A's dtype,
+        returned in the model's."""
+        acc = A.dtype
+        qm, qS = self.standard_params(new_state)
+        quad = z @ (A @ z) - 2.0 * (z @ bm) + sy2
+        sSkn = torch.sum(qS.to(acc) * lam.to(acc))
+        total_an = -0.5 * (quad + sKnn - sknkn + sSkn) + slog
+        kl = self.kl_to_prior(qm.to(acc), qS.to(acc))
+        return (total_an / N - kl / self.N).to(self.dtype)
+
+    def _batch_solve_gram(self, state, spec, batches, N, flags, clock, *,
+                          maxiter_cg, mean_solver_maxiter, mean_solver_tol,
+                          compute_elbo):
+        """The one-sweep 'gram' solver: `_gram_sweep` (per-point kn for
+        Lambda, and A, b_m and the ELBO scalars beside it), `_gram_mean_stage`
+        (the Woodbury mean m = R (K + A)^{-1} b_m), `_gram_elbo_stage`; no
+        second sweep.  Without noise_std the rows' noise is
+        exp(log_noise2 / 2), the homoscedastic case of the same formulas."""
+        xb, yb, w, sb = batches
+        nsp = torch.exp(0.5 * state.log_noise2) * torch.ones_like(w) if sb is None else sb
+        lam, A, bm, sy2, sKnn, sknkn, slog = self._gram_sweep(
+            state, spec, (xb, yb, w, nsp), flags, maxiter_cg)
+        clock.mark("sweep")
+        mhat, z = self._gram_mean_stage(state, spec, A, bm, mean_solver_maxiter,
+                                        mean_solver_tol)
+        new_state = self._state_from_lam_mhat(state, lam, mhat)
+        clock.mark("mean")
+        if not compute_elbo:
+            return new_state
+        elbo = self._gram_elbo_stage(z, A, bm, sy2, sKnn, sknkn, slog, lam, new_state, N)
+        clock.mark("elbo")
+        return new_state, elbo
+
+    @torch.no_grad()
+    def batch_solve(self, state: HIPGPState, xobs, yobs, noise_std=None,
+                    batch_size: int = -1, maxiter_cg: int = 10,
+                    integrated_obs: bool = False,
+                    semi_integrated_estimator: str = "analytic",
+                    semi_integrated_samps: int = 10,
+                    generator: Optional[torch.Generator] = None,
+                    compute_elbo: bool = False, mean_solver: str = "dense",
+                    mean_solver_maxiter: int = 200, mean_solver_tol: float = 1e-8,
+                    timings: Optional[dict] = None):
+        """Closed-form optimal q: accumulate (Lambda, b) over batches of
+        ``batch_size`` rows (-1: one batch), then S = Lambda^{-1}, m = S b.
+        Returns ``new_state``, or ``(new_state, elbo)`` with ``compute_elbo``.
+
+        The data are padded to a batch multiple and masked (zero weights,
+        noise padded with 1); without ``noise_std`` the rows' inverse noise
+        variance is w exp(-log_noise2).  ``generator`` draws the Monte-Carlo
+        estimator's points.  ``mean_solver`` decides how the mean-field
+        optimal mean solves (I + sum_n ivar_n kn_n kn_n^T) m = b:
+
+        * 'dense' holds that M' x M' matrix (accumulated, and the identity
+          added, in place; factored by Cholesky with only its factor beside
+          it) and re-whitens the data in a second sweep for the ELBO;
+        * 'cg' keeps the stacked kn (N x M') and solves by CG with matvecs
+          m -> m + kn^T (ivar * (kn m)); the ELBO reuses the stacked kn;
+        * 'gram' sweeps the data once, accumulating the original-space data
+          Gram A = sum_n ivar_n Knm_n Knm_n^T (M x M) beside Lambda, and
+          solves m = R (K + A)^{-1} b_m (the Woodbury collapse, exact;
+          `_gram_mean_stage`); the ELBO comes from the sweep's scalars.
+
+        'factored' and 'matfree' are not ported (ROADMAP.md section A item
+        6).  ``timings``, a dict, receives the seconds of the sweep, the
+        mean stage and the ELBO ('sweep', 'mean', 'elbo'; the card
+        synchronised at each boundary)."""
+        if mean_solver in ("factored", "matfree"):
+            raise _not_ported(f"mean_solver={mean_solver!r}", 6)
+        if mean_solver not in ("dense", "cg", "gram"):
+            raise ValueError(f"mean_solver={mean_solver!r}")
+        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=self.device)
+        x = as_t(xobs)
+        N = x.shape[0]
+        xb, yb, sb, w = prepare_batches(
+            x, as_t(yobs), None if noise_std is None else as_t(noise_std),
+            batch_size if 0 < batch_size < N else N)
+        flags = dict(integrated_obs=integrated_obs,
+                     semi_integrated_estimator=semi_integrated_estimator,
+                     semi_integrated_samps=semi_integrated_samps, generator=generator)
+        clock = _StageClock(timings, self.device)
+        spec = self.spectrum(state) if self.whitened_type == "ziggy" else None
+
+        if mean_solver == "gram":
+            return self._batch_solve_gram(
+                state, spec, (xb, yb, w, sb), N, flags, clock, maxiter_cg=maxiter_cg,
+                mean_solver_maxiter=mean_solver_maxiter,
+                mean_solver_tol=mean_solver_tol, compute_elbo=compute_elbo)
+
+        def ivar_of(i):
+            if sb is not None:
+                return w[i] / (sb[i] * sb[i])
+            return w[i] * torch.exp(-state.log_noise2)
+
+        lam = torch.zeros((self.Mprime,), dtype=self.dtype, device=self.device)
+        b = torch.zeros_like(lam)
+        if mean_solver == "dense":
+            big = torch.zeros((self.Mprime, self.Mprime), dtype=self.dtype,
+                              device=self.device)
+            for i in range(xb.shape[0]):
+                lam_i, b_i, big = self.accumulate_lam_b(
+                    state, xb[i], yb[i], ivar_of(i), maxiter_cg=maxiter_cg,
+                    spec=spec, big=big, **flags)
+                lam, b = lam + lam_i, b + b_i
+            clock.mark("sweep")
+            new_state = self.finalize_from_lam_b(state, lam, b, big)
+            del big
+            clock.mark("mean")
+        else:
+            kns, ivars = [], []
+            for i in range(xb.shape[0]):
+                Knm, _ = self.make_grams(state, xb[i], **flags)
+                kn = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg, spec=spec)
+                ivar = ivar_of(i)
+                lam = lam + self.get_lam(ivar, kn, bscale=1.0, add_identity=False)
+                b = b + kn.T @ (ivar * yb[i])
+                kns.append(kn)
+                ivars.append(ivar)
+            kn_all, ivar_all = torch.cat(kns), torch.cat(ivars)
+            clock.mark("sweep")
+
+            def big_mv(v):
+                # v + kn^T diag(ivar) kn v, never forming the M' x M' Gram
+                with fp32_matmul():
+                    return v + (ivar_all * (kn_all @ v.T).T) @ kn_all
+
+            mhat = _mean_pcg(big_mv, b, None, mean_solver_maxiter, mean_solver_tol)
+            new_state = self._state_from_lam_mhat(state, lam, mhat)
+            clock.mark("mean")
+        if not compute_elbo:
+            return new_state
+
+        qm, qS = self.standard_params(new_state)
+        params = self.kernel_params(new_state)
+        total_an = torch.zeros((), dtype=self.dtype, device=self.device)
+        bsz = xb.shape[1]
+        for i in range(xb.shape[0]):
+            if mean_solver == "cg":
+                # the stacked kn of the solve: only the prior diagonal is new
+                kn = kn_all[i * bsz:(i + 1) * bsz]
+                Knn = (self.diag_interp(xb[i], params) if integrated_obs
+                       else self.kernel.diag(xb[i], params))
+            else:
+                Knm, Knn = self.make_grams(state, xb[i], **flags)
+                kn = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg, spec=spec)
+            an = self.batch_an(new_state, yb[i], None if sb is None else sb[i], kn,
+                               Knn, qm, qS)
+            total_an = total_an + torch.sum(an * w[i])
+        elbo = total_an / N - self.kl_to_prior(qm, qS) / self.N
+        clock.mark("elbo")
+        return new_state, elbo
+
+    # ------------------------------------------------------------------
     # prediction
     # ------------------------------------------------------------------
 
@@ -326,10 +679,11 @@ class HIPGP:
                 integrated_obs: bool = False,
                 semi_integrated_estimator: str = "analytic",
                 semi_integrated_samps: int = 10,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                var_clamp: float = VAR_CLAMP):
         """(mu*, sig*): posterior mean and marginal std at x (of the line
-        integrals with ``integrated_obs``); the latent variance is floored at
-        VAR_CLAMP."""
+        integrals with ``integrated_obs``); the latent variance Knn - kn.kn
+        is floored at ``var_clamp``."""
         Knm, Knn_diag = self.make_grams(state, x, integrated_obs,
                                         semi_integrated_estimator,
                                         semi_integrated_samps, generator)
@@ -337,6 +691,6 @@ class HIPGP:
         qm, qS = self.standard_params(state)
         mu = kn @ qm
         ktilde = torch.clamp(Knn_diag.reshape(-1) - torch.sum(kn * kn, dim=-1),
-                             min=VAR_CLAMP)
+                             min=var_clamp)
         sig = torch.sqrt(ktilde + self.compute_knSkn(kn, qS))
         return mu, sig

@@ -23,7 +23,8 @@ from .pallas_transform import circulant_apply_2d
 from .radix_fft import (fused_circulant_apply, fused_circulant_apply_cropped,
                         fused_circulant_apply_cropped_dual,
                         fused_circulant_apply_cropped_selfdot)
-from .solve import cholesky_whiten, gram_solve, inv_matmul, whiten
+from .solve import (cholesky_whiten, gram_solve, inv_matmul, spd_inverse, spd_solve,
+                    whiten)
 
 __all__ = [
     "BTTBSpectrum",
@@ -54,5 +55,7 @@ __all__ = [
     "cholesky_whiten",
     "gram_solve",
     "inv_matmul",
+    "spd_inverse",
+    "spd_solve",
     "whiten",
 ]

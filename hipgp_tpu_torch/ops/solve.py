@@ -1,7 +1,7 @@
 """Structured solves: K^{-1} B by PCG and the whitening kn = R^T K^{-1} v.
 
 Counterpart of `hipgp_tpu/ops/solve.py` (`inv_matmul`, `whiten`,
-`cholesky_whiten`, the packed-planes 1-D solver `_planes_solver` /
+`cholesky_whiten`, `spd_solve`, `spd_inverse`, the packed-planes 1-D solver `_planes_solver` /
 `_rt_planes` and the fused 2-D solver `_mxu2d_solver` / `_rt_mxu2d`).  The
 dispatch keeps the JAX package's order, with its backend test replaced by a
 device test:
@@ -57,7 +57,8 @@ from .radix_fft import (fused_circulant_apply_cropped,
                         pack_rows, permute_weights, radix_supported,
                         row_multiple, stage_order_weights, unpack_rows)
 
-__all__ = ["inv_matmul", "whiten", "gram_solve", "cholesky_whiten", "PCG_STATS"]
+__all__ = ["inv_matmul", "whiten", "gram_solve", "cholesky_whiten", "spd_solve",
+           "spd_inverse", "PCG_STATS"]
 
 # solves and iterations run by the fused kernel-path PCG (the self-dot
 # applies per solve are 1 + 2 * iterations)
@@ -401,3 +402,26 @@ def cholesky_whiten(Kmm: torch.Tensor, Knm: torch.Tensor,
     Lc = torch.linalg.cholesky(Kmm)
     sol = torch.linalg.solve_triangular(Lc, Knm.transpose(-1, -2), upper=False)
     return sol.transpose(-1, -2)
+
+
+def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b for symmetric positive-definite A by Cholesky and two
+    triangular solves; leading batch dims on A and b, and b one dim short of
+    A for a single right-hand side.  Only the factor is allocated beside A
+    (the dense full-batch solve keeps its M' x M' matrix and factor alive
+    together, nothing more)."""
+    L = torch.linalg.cholesky(A)
+    squeeze = b.ndim == A.ndim - 1
+    if squeeze:
+        b = b[..., None]
+    # two triangular solves on L itself (torch.cholesky_solve works on a
+    # column-major copy of the factor: a third M' x M' buffer on the card)
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+    return x[..., 0] if squeeze else x
+
+
+def spd_inverse(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of a symmetric positive-definite matrix (batched) by Cholesky."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return spd_solve(A, eye.expand(A.shape))

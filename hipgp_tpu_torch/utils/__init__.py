@@ -1,4 +1,5 @@
-"""KL divergences, prediction metrics and chained timing."""
-from . import metrics, stats, timing
+"""KL divergences, prediction metrics and frames, state checkpoints and
+chained timing."""
+from . import checkpoint, metrics, stats, timing
 
-__all__ = ["metrics", "stats", "timing"]
+__all__ = ["checkpoint", "metrics", "stats", "timing"]

@@ -869,3 +869,57 @@ def test_kernel_path_switch_routes_to_the_plain_path(dev, monkeypatch, case, swi
     assert bool(torch.isfinite(g32).all())
     assert _rel(kn32, kn64) <= 1e-3 and _rel(g32, g64) <= 1e-3
 
+
+
+def _fb_data():
+    from hipgp_tpu_torch.experiments.synthetic_data import make_two_dim_data
+
+    return make_two_dim_data(Nobs=600, Ntest=10, noise_std=0.05, gridnum=8, seed=1)
+
+
+def _fb_model(dtype, device, grid=24):
+    from hipgp_tpu_torch.experiments.run_synthetic import build_model
+
+    d = _fb_data()
+    return build_model("SqExp", grid, 600, float(np.var(d["yobs"])), 0.1, 0.05,
+                       dtype=dtype, device=device), d
+
+
+@pytest.mark.parametrize("solver", ["gram", "dense"])
+def test_batch_solve_on_the_card_matches_the_cpu_plain_path(dev, solver):
+    # the closed-form fit on a 24^2 grid (embedded 46^2), 600 rows in 3
+    # batches: the f32 kernel path on the card against the f64 plain path on
+    # the CPU, the whitening run to its tolerance (maxiter_cg 100) and the
+    # mean solve converged; theta1 within the f32 whitening's 5e-3, the
+    # ELBO within 1e-4 ([accuracy-full-batch]'s limits)
+    kw = dict(batch_size=200, maxiter_cg=100, mean_solver=solver,
+              mean_solver_maxiter=3000, mean_solver_tol=1e-10, compute_elbo=True)
+    out = {}
+    for dtype, device in ((torch.float32, dev), (torch.float64, "cpu")):
+        m, d = _fb_model(dtype, device)
+        st, elbo = m.batch_solve(m.init_state(), d["xobs"], d["yobs"], d["sobs"], **kw)
+        out[device == "cpu"] = (st, float(elbo))
+    (s32, e32), (s64, e64) = out[False], out[True]
+    assert bool(torch.isfinite(s32.theta1).all()) and np.isfinite(e32)
+    assert _rel(s32.theta2.cpu(), s64.theta2) <= 1e-4
+    assert _rel(s32.theta1.cpu(), s64.theta1) <= 5e-3
+    assert abs(e32 - e64) <= 1e-4 * abs(e64)
+
+
+@pytest.mark.parametrize("solver", ["gram", "dense", "cg"])
+def test_batch_solve_kernel_a_launches(dev, solver):
+    # every batch of the sweep is one whitening solve through kernel A:
+    # 1 + 2k self-dots (k from PCG_STATS) and one R^T; 'dense' whitens the
+    # data again for the ELBO, 'cg' reuses its stacked kn
+    m, d = _fb_model(torch.float32, dev)
+    mxu2d.reset_launches()
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    m.batch_solve(m.init_state(), d["xobs"], d["yobs"], d["sobs"], batch_size=200,
+                  maxiter_cg=10, mean_solver=solver, compute_elbo=True)
+    torch.cuda.synchronize()
+    st = dict(solve.PCG_STATS)
+    assert st["solves"] == (6 if solver == "dense" else 3)
+    assert dict(mxu2d.LAUNCHES) == {
+        "sandwich_apply_selfdot": st["solves"] + 2 * st["iterations"],
+        "sandwich_apply": st["solves"], "sandwich_apply_wp": 0,
+        "sandwich_apply_wp_selfdot": 0}

@@ -238,10 +238,11 @@ def test_metrics_match_error_frame():
                                df["f loglike"].mean(), rtol=1e-14)
 
 
-def test_run_synthetic_main_runs_on_cpu(capsys):
+def test_run_synthetic_main_runs_on_cpu(capsys, tmp_path):
     out = run_synthetic.main(["--device", "cpu", "--nobs", "600", "--ntest", "100",
                               "--num-inducing", "12", "--epochs", "1", "--steps", "2",
-                              "--f64", "--theta2-warmstart"])
+                              "--f64", "--theta2-warmstart",
+                              "--output-dir", str(tmp_path)])
     assert out["steps"] == 2
     assert np.isfinite(out["test_rmse"]) and np.isfinite(out["last_elbo"])
     assert "test RMSE" in capsys.readouterr().out

@@ -356,14 +356,15 @@ def test_run_domain_reads_a_data_file(tmp_path):
     np.testing.assert_allclose(np.sort(prob["aobs"]), np.sort(e[np.isin(e, prob["aobs"])]))
     out = run_domain.main(["--device", "cpu", "--data-path", str(path), "--dataset", "gaia",
                            "--ntest", "50", "--nx", "8", "--nz", "4", "--max-steps", "2",
-                           "--output-dir", str(tmp_path / "out")])
+                           "--fit-method", "natgrad", "--output-dir", str(tmp_path / "out")])
     assert out["steps"] == 2 and "latent_rmse" not in out
     assert np.isfinite(out["e_post_rmse"])
 
 
 def test_run_domain_main_runs_on_cpu(tmp_path, capsys):
     out = run_domain.main(["--device", "cpu", "--nobs", "300", "--nx", "8", "--nz", "4",
-                           "--max-steps", "3", "--output-dir", str(tmp_path)])
+                           "--max-steps", "3", "--fit-method", "natgrad",
+                           "--output-dir", str(tmp_path)])
     assert out["steps"] == 3
     assert np.isfinite(out["e_post_rmse"]) and np.isfinite(out["latent_corr"])
     assert out["lr_used"] == pytest.approx(min(1e-2, 1.0 / out["natgrad_rho"]))
@@ -374,4 +375,5 @@ def test_run_domain_main_runs_on_cpu(tmp_path, capsys):
         assert len(list(csv.reader(f))) == 4
     assert "e post-RMSE" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_domain.main(["--fit-method", "full-batch", "--device", "cpu"])
+        run_domain.main(["--fit-method", "full-batch", "--mean-solver", "factored",
+                         "--device", "cpu"])
