@@ -72,7 +72,13 @@ Phases, each printing one line of progress with its seconds:
                ifft for B-2, ifft + slice + the two self-dots for B-3,
                conj(T1) ifft(d' fft(T1 y)) over each plane for B-4 (one fft,
                two products, two iffts for B-7); and B-7 against two B-4
-               launches;
+               launches; radix_middle_wgrad (B-4's weight cotangent) on the
+               B-2 forwards of x at the crop and g uncropped at every plan,
+               at the headline with the training step's 128 planes, timed
+               beside its bound and the torch.fft yardstick (fft of both
+               sides, the product, the sum over v); and the radix apply's
+               backward (gx, gd) at the R^T's crop against the plain stages
+               in f32 and f64;
   6. main-1d - the paper's section 5.2 driver (run_pcg_vs_cholesky.main,
                Mat52, 3 chained reps) at M = 10 000, 131 072, 500 000 and
                2^20, one size per call with the counters zeroed just before
@@ -84,6 +90,18 @@ Phases, each printing one line of progress with its seconds:
                the plain stages (limit 1e-4) and against the float64 plain
                path on the card: pcg_scan over torch.fft, then matmul_by_RT
                (limit 5e-3);
+     train-1d - the 1-D long axis learning its hyperparameters: HIPGP on the
+               section 5.2 operator at M = 2^20, 5 120 observations of a 1-D
+               MLP function plus noise 0.1 (seed 42), the theta2 warm start,
+               then 10 svigp_fit steps at batch 256 and maxiter_cg 20 with
+               learn_kernel and learn_noise (kernel_lr 1e-3); ms per step,
+               hypers before and after, the ELBO trace, peak memory; the
+               launches of B-2, B-3, B-4 and radix_middle_wgrad checked
+               exactly against PCG_STATS;
+     train-grad-1d - one batch of 32 rows from the trained state: the f32
+               kernel-path hyper-gradients against the f64 plain path (limit
+               1e-2 relative each), the f32 plain path (USE_RADIX_FFT off)
+               logged;
   8. kernels-3d - the weight-plane kernel B-5 against its plain version in
                float32 and float64 at every shape the 3-D path gives it (the
                PCG self-dot applies (512, 64, 64, 64) with wK and 1/wK, R^T out
@@ -96,7 +114,10 @@ Phases, each printing one line of progress with its seconds:
                (512, 32, 64, 64) with the solver's spectrum, in float32 and
                float64; a second call bit-equal; its bound by operations and
                by bytes, its cluster size and active clusters; B-6 against
-               the B-5 pipeline (outer products included), in turns;
+               the B-5 pipeline (outer products included), in turns; B-5's
+               backward at the R^T's shapes (gx, a B-5 launch at the swapped
+               crops; gw, the per-plane analysis product) against the plain
+               sandwich's autograd in f32 and f64;
   9. main-3d - the paper's section 5.5 dust map (run_domain.main): 64 x 64 x
                32 inducing grid, SqExp with ell 0.07 and the analytic
                semi-integrated estimator, 10 240 line-integral observations
@@ -111,7 +132,15 @@ Phases, each printing one line of progress with its seconds:
                the float32 kernel-path whiten against the same float32 path
                with the plain stages (limit 1e-4) and, at ell 0.07, against
                the float64 plain path (limit 5e-3); at ell 0.2 the float64
-               error is logged (the float32 spectrum's floor dominates it).
+               error is logged (the float32 spectrum's floor dominates it);
+     train-3d - the dust map learning its hyperparameters: main-3d's model and
+               data, the warm start, 10 svigp_fit steps at batch 512 and
+               maxiter_cg 20 with learn_kernel and learn_noise; ms per step,
+               the hypers, peak memory; B-6's self-dot applies and B-5's R^T
+               and pullback launches checked exactly;
+     train-grad-3d - 64 integrated rows from that state: the f32 kernel-path
+               hyper-gradients against the f64 plain path (limit 1e-2), the
+               f32 plain path (USE_MXU3D_PCG off) logged.
 Any failed check raises, so the script exits non-zero.  The line before the
 last is the card's name and power limit from nvidia-smi, the one before it a
 JSON object with one entry per kernel (the radix kernels' entries add the
@@ -399,7 +428,9 @@ def radix_bound_ms(kind, V, A, B, C, in_rows, out_rows):
     """Least time for a radix stage's work on the card, the larger of
       * operations: the FFT formulation (5 n log2 n per complex n-point FFT):
         stage 1 is V * B*C A-point FFTs; the middle is the (B, C)-plane FFT
-        of every (v, ka) both ways plus the product with d; the self-dot
+        of every (v, ka) both ways plus the product with d; its weight
+        cotangent the forward (B, C)-plane FFT of both inputs plus 4
+        operations a point for Re[X conj(G)] and the sum; the self-dot
         adds 2 operations per output element of each part;
       * bytes: the input planes (and rider, and d) read once, the output
         planes (and dots) written once; over the memory rate.
@@ -411,6 +442,10 @@ def radix_bound_ms(kind, V, A, B, C, in_rows, out_rows):
         ops = V * A * (2 * _fft_ops(N, False) + 2 * N)
         dense = V * A * 2 * 3 * 2 * (B * B * C + B * C * C)
         nbytes = 4 * (2 * 2 * V * A * N + A * N)
+    elif kind == "middle_wgrad":   # two forward halves, the product, the sum over v
+        ops = V * A * (2 * _fft_ops(N, False) + 4 * N)
+        dense = V * A * 2 * 3 * 2 * (B * B * C + B * C * C)
+        nbytes = 4 * (4 * V * A * N + A * N)
     elif kind == "middle_dual":   # one forward half, two products, two inverse halves
         ops = V * A * (3 * _fft_ops(N, False) + 4 * N)
         dense = V * A * 3 * 3 * 2 * (B * B * C + B * C * C)
@@ -460,6 +495,44 @@ def radix_operands(torch, M, dev):
                    "sqrt(eigs)/L": perm(torch.sqrt(spec.eigs))}
         rows = p32.A
     return p32, p64, rows, planes, {k: v.contiguous() for k, v in weights.items()}
+
+
+def radix_backward_check(torch, dev, p32, p64, rows, V):
+    """The radix apply's backward at the planes R^T's crop (rows -> A): gx
+    (B-2, B-4, B-2 with the crops swapped) and gd (two B-2 forwards and
+    radix_middle_wgrad) on the card in f32 against the same Function with
+    the plain stages in f32 and in f64, limit 1e-5 each; launches exact."""
+    from hipgp_tpu_torch.ops import radix_fft
+
+    A, N = p32.A, p32.B * p32.C
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, V, rows * N), generator=gen, device=dev, dtype=torch.float64)
+    c = torch.randn((2, V, A * N), generator=gen, device=dev, dtype=torch.float64)
+    d = torch.rand((p32.A, p32.B, p32.C), generator=gen, device=dev,
+                   dtype=torch.float64) / p32.L
+
+    def grads(dt, plan):
+        xr, xi = (t.to(dt, copy=True).requires_grad_() for t in x)
+        dp = d.to(dt, copy=True).requires_grad_()
+        yr, yi = radix_fft.fused_circulant_apply_cropped(xr, xi, dp, plan, rows, A)
+        loss = torch.sum(yr * c[0].to(dt) + yi * c[1].to(dt))
+        return torch.autograd.grad(loss, (xr, xi, dp))
+
+    before = dict(radix_fft.LAUNCHES)
+    got = grads(torch.float32, p32)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in radix_fft.LAUNCHES.items() if v != before[k]}
+    check(moved == {"stage1": 6, "middle": 2, "middle_wgrad": 1},
+          f"radix apply forward + backward launched {moved}")
+    with plain_radix_stages(radix_fft):
+        want32 = grads(torch.float32, p32)
+        want64 = grads(torch.float64, p64)
+    errs = [(rel(g, w32), rel(g, w64)) for g, w32, w64 in zip(got, want32, want64)]
+    log(f"[kernels-1d] the radix apply's backward, {rows} -> {A} rows, V = {V}: rel err "
+        f"(vs plain stages f32, vs f64) gxr {errs[0][0]:.3e}, {errs[0][1]:.3e}; gxi "
+        f"{errs[1][0]:.3e}, {errs[1][1]:.3e}; gd {errs[2][0]:.3e}, {errs[2][1]:.3e}; "
+        f"launches {moved}")
+    check(all(max(e) <= 1e-5 for e in errs), f"radix apply backward rel errs {errs}")
 
 
 def phase_kernels_1d(torch, dev):
@@ -613,11 +686,49 @@ def phase_kernels_1d(torch, dev):
             two = lambda: (radix_fft.middle(y32[0], y32[1], dA, p32),
                            radix_fft.middle(y32[0], y32[1], dB, p32))
             for how, timer in (("events", cuda_ms), ("graph", graph_ms)):
-                d1, t1 = timer(torch, dual), timer(torch, two)
-                t2, d2 = timer(torch, two), timer(torch, dual)
+                d1, w1 = timer(torch, dual), timer(torch, two)
+                w2, d2 = timer(torch, two), timer(torch, dual)
                 log(f"[kernels-1d] middle_dual {tag} ({how}): one B-7 launch "
                     f"{0.5 * (d1 + d2):.4f} ms ({d1:.4f}, {d2:.4f}) against two B-4 "
-                    f"launches {0.5 * (t1 + t2):.4f} ms ({t1:.4f}, {t2:.4f}), in turns")
+                    f"launches {0.5 * (w1 + w2):.4f} ms ({w1:.4f}, {w2:.4f}), in turns")
+        # radix_middle_wgrad (B-4's weight cotangent) on the B-2 forwards of
+        # x from the crop's rows and of g uncropped, as the apply's backward
+        # hands them over (the R^T's on the planes path; the dK term's has
+        # x uncropped too); at the headline with the training step's 128
+        # planes (a batch of 256 rows)
+        Vw = 128 if timed else V
+        xs, gs = rnd(2, Vw, rows, N), rnd(2, Vw, A, N)
+        w64 = [t.view(Vw, A, B, C) for t in
+               radix_fft.stage1_plain(xs[0], xs[1], *radix_fft._s1_tables(p64, rows, A, False))
+               + radix_fft.stage1_plain(gs[0], gs[1], *radix_fft._s1_tables(p64, A, A, False))]
+        del xs, gs
+        w32 = [t.float().contiguous() for t in w64]
+        want64 = radix_fft.middle_wgrad_plain(*w64, p64)
+        del w64
+        if timed:
+            # the torch.fft yardstick: fft(T1 y) of both sides over each
+            # plane's B*C points, the product and the sum over v, in the
+            # plane's natural order kb + B kc
+            xc, gc = (torch.complex(a, b).view(Vw, A, N) for a, b in (w32[:2], w32[2:]))
+
+            def wgrad_chain():
+                X, G = fft.fft(t1 * xc, dim=-1), fft.fft(t1 * gc, dim=-1)
+                return torch.sum(X.real * G.real + X.imag * G.imag, dim=0)
+
+            wgrad_err = lambda z: rel(z.view(A, C, B).permute(0, 2, 1), want64)
+        else:
+            wgrad_chain = wgrad_err = None
+        record("middle_wgrad", f"V = {Vw}, x from {rows} rows, g from {A}",
+               (radix_fft.middle_wgrad(*w32, p32),),
+               (radix_fft.middle_wgrad_plain(*w32, p32),), (want64,),
+               lambda: radix_fft.middle_wgrad(*w32, p32),
+               lambda: radix_fft.middle_wgrad_plain(*w32, p32),
+               radix_bound_ms("middle_wgrad", Vw, A, B, C, A, A),
+               wgrad_chain, None, wgrad_err)
+        del w32, want64
+        if timed:
+            del xc, gc
+            radix_backward_check(torch, dev, p32, p64, rows, V)
         if not planes:   # the generic path launches no stage1_inv_dot
             continue
         # B-3 inverse A -> rows with the self-dots (every PCG apply's last stage)
@@ -701,10 +812,11 @@ def phase_main_1d(torch):
                       f"M={M}: {st} fused solves, expected {calls} of {k} iterations")
                 want = {"middle": (2 * k + 2) * calls,
                         "stage1_inv_dot": (2 * k + 1) * calls,
-                        "stage1": (2 * k + 3) * calls, "middle_dual": 0}
+                        "stage1": (2 * k + 3) * calls, "middle_dual": 0, "middle_wgrad": 0}
             else:   # generic PCG: 2k+1 operator applies and one R^T, uncropped
                 want = {"middle": (2 * k + 2) * calls, "stage1_inv_dot": 0,
-                        "stage1": 2 * (2 * k + 2) * calls, "middle_dual": 0}
+                        "stage1": 2 * (2 * k + 2) * calls, "middle_dual": 0,
+                        "middle_wgrad": 0}
             check(lc == want, f"M={M} launches {lc}, expected {want}")
             for name in total:
                 total[name] += lc[name]
@@ -715,9 +827,11 @@ def phase_main_1d(torch):
 @contextlib.contextmanager
 def plain_radix_stages(radix_fft):
     """Route the radix applies through the plain versions of the three
-    stages, on whatever device their tensors are (the reference of
-    [accuracy-1d]; nothing is launched or counted meanwhile)."""
-    saved = radix_fft.stage1, radix_fft.stage1_inv_dot, radix_fft.middle
+    stages and of the weight cotangent, on whatever device their tensors
+    are (the reference of [accuracy-1d] and of the apply's backward;
+    nothing is launched or counted meanwhile)."""
+    saved = (radix_fft.stage1, radix_fft.stage1_inv_dot, radix_fft.middle,
+             radix_fft.middle_wgrad)
 
     def stage1(xr, xi, plan, out_rows, inverse):
         tables = radix_fft._s1_tables(plan, xr.shape[1], out_rows, inverse)
@@ -728,11 +842,12 @@ def plain_radix_stages(radix_fft):
         return radix_fft.stage1_inv_dot_plain(zr, zi, ur, ui, *tables)
 
     radix_fft.stage1, radix_fft.stage1_inv_dot = stage1, stage1_inv_dot
-    radix_fft.middle = radix_fft.middle_plain
+    radix_fft.middle, radix_fft.middle_wgrad = radix_fft.middle_plain, radix_fft.middle_wgrad_plain
     try:
         yield
     finally:
-        radix_fft.stage1, radix_fft.stage1_inv_dot, radix_fft.middle = saved
+        (radix_fft.stage1, radix_fft.stage1_inv_dot, radix_fft.middle,
+         radix_fft.middle_wgrad) = saved
 
 
 def phase_accuracy_1d(torch, dev):
@@ -834,6 +949,46 @@ def domain_setup(torch, dev, ell, dtype):
     return prob, model, state, model.spectrum(state)
 
 
+def wp_backward_check(torch, dev, mxu2d, w, inner, einner, gen, B=512):
+    """B-5's backward at the R^T's crop (cropped in, expanded out), B
+    samples: gx (B-5 with the crops swapped, one launch) and gw (the
+    per-plane analysis product summed over b, plain PyTorch in full FP32)
+    against the plain sandwich's autograd in f32 and in f64, limit 1e-5
+    each; the backward's time beside the forward's."""
+    W = w.shape[0]
+    x = torch.randn((B, W) + tuple(inner), generator=gen, device=dev)
+    g = torch.randn((B, W) + tuple(einner), generator=gen, device=dev)
+
+    def kernel_grads():
+        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = mxu2d.sandwich_apply_wp(xx, ww, inner, einner, out_expanded=True)
+        return torch.autograd.grad(torch.sum(y * g), (xx, ww))
+
+    def plain_grads(dt):
+        t = mxu2d._tables(inner, einner, False, True, dt, dev)
+        xx, ww = x.to(dt, copy=True).requires_grad_(), w.to(dt, copy=True).requires_grad_()
+        y = mxu2d.sandwich_wp_plain(xx, ww, *t[:4])
+        return torch.autograd.grad(torch.sum(y * g.to(dt)), (xx, ww))
+
+    before = mxu2d.LAUNCHES["sandwich_apply_wp"]
+    got = kernel_grads()
+    torch.cuda.synchronize()
+    n = mxu2d.LAUNCHES["sandwich_apply_wp"] - before
+    check(n == 2, f"B-5 forward + backward launched {n} times, expected 2")
+    errs = []
+    for dt in (torch.float32, torch.float64):
+        want = plain_grads(dt)
+        errs.append([rel(a, b) for a, b in zip(got, want)])
+        del want
+    ms_kernel = cuda_ms(torch, kernel_grads, warmup=1, reps=5)
+    ms_plain = cuda_ms(torch, lambda: plain_grads(torch.float32), warmup=1, reps=5)
+    log(f"[kernels-3d] B-5's backward at the R^T ({B}, {W}) + {tuple(inner)} -> "
+        f"{tuple(einner)}: rel err gx {errs[0][0]:.3e} (vs f64 {errs[1][0]:.3e}), gw "
+        f"{errs[0][1]:.3e} (vs f64 {errs[1][1]:.3e}); forward + backward {ms_kernel:.4f} ms "
+        f"(B-5 twice, gw in PyTorch), the plain sandwich's autograd {ms_plain:.4f} ms")
+    check(all(e <= 1e-5 for row in errs for e in row), f"B-5 backward rel errs {errs}")
+
+
 def phase_kernels_3d(torch, dev):
     """B-5 against its plain version (f32 and f64) at every shape the 3-D path
     gives it, B-6 at the self-dot shape; dots, determinism, times, bounds and
@@ -924,8 +1079,15 @@ def phase_kernels_3d(torch, dev):
             results["B-5"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound[0], bound_by=bound[1],
                                   library_ms=lib_ms)
+        if crop == "in":   # the R^T's pullback: the launch of B-5's backward
+            results["B-5 backward"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound[0], bound_by=bound[1],
+                                           library_ms=lib_ms)
         log(f"[kernels-3d] B-5 ({B}, {W}) + {t32[4]} -> {t32[5]} {label}: {msg}")
         del x, got
+
+    # ---- B-5's backward at the R^T's shapes ---------------------------------
+    wp_backward_check(torch, dev, mxu2d, sq, inner, einner, gen)
 
     # ---- B-5 on planes above one block: expanded (512, 512), W = 3 --------
     # (kernel A's three passes with a plane index; the dense kernel refused
@@ -1251,6 +1413,275 @@ def phase_train_grad(torch, dev, d, model, model64, state):
               f"hyper-gradients vs {key}: {errs}")
     log(f"[train-grad] done; {time.perf_counter() - t0:.2f} s")
     return b8_launches
+
+
+TRAIN_1D = dict(M=HEADLINE_M, nobs=5120, noise_std=0.1, batch=256, steps=10)
+TRAIN_3D_STEPS = 10
+TRAIN_GRAD_1D_ROWS = 32
+TRAIN_LONG_K = 20   # maxiter_cg of the 1-D and 3-D training phases
+
+
+def radix_train_launches(st, forward_only, steps):
+    """The radix launches of ``forward_only`` whitenings without a gradient
+    and ``steps`` learn-kernel steps, with st = PCG_STATS over them (solves
+    = forward_only + 2 steps): every solve's 1 + 2k self-dot applies are a
+    B-2 forward, a B-4 and a B-3 each; every R^T a B-2 forward, a B-4 and
+    a B-2 inverse; a step adds the R^T's backward (gx: B-2, B-4, B-2; gd:
+    two B-2 forwards and radix_middle_wgrad) and the dK term (the apply
+    forward, B-2, B-4, B-2, and its gd, two B-2 forwards and
+    radix_middle_wgrad)."""
+    applies = st["solves"] + 2 * st["iterations"]
+    return {"stage1": applies + 2 * forward_only + 10 * steps,
+            "stage1_inv_dot": applies,
+            "middle": applies + forward_only + 3 * steps,
+            "middle_dual": 0, "middle_wgrad": 2 * steps}
+
+
+def wp_train_launches(st, forward_only, steps, use_wp3):
+    """The 3-D launches of ``forward_only`` whitenings and ``steps``
+    learn-kernel steps (st = PCG_STATS): every solve's 1 + 2k self-dot
+    applies through B-6 (or B-5 with USE_WP3 off), every R^T a B-5 launch,
+    every step's R^T backward one more (gx; gw is PyTorch, the dK term the
+    einsum chain)."""
+    applies = st["solves"] + 2 * st["iterations"]
+    return {"sandwich_apply_wp3": applies if use_wp3 else 0,
+            "sandwich_apply_wp_selfdot": 0 if use_wp3 else applies,
+            "sandwich_apply_wp": forward_only + 2 * steps,
+            "sandwich_apply": 0, "sandwich_apply_selfdot": 0}
+
+
+def train_1d_setup(torch, dev, dtype):
+    """[train-1d]'s model and data (`profile_train_1d.train_1d_problem`):
+    HIPGP mean-field on the section 5.2 operator at M = 2^20 (Matern-5/2,
+    sig2 0.1, ell one grid spacing on [0, 1], jitter 1e-3, as
+    protocol_spectrum_1d builds it), learning its hyperparameters; 5 120
+    observations of make_one_dim_function(seed=0) taken on [-1, 1] and
+    rescaled onto [0, 1], plus noise 0.1, drawn from seed 42."""
+    from hipgp_tpu_torch.experiments.profile_train_1d import train_1d_problem
+
+    return train_1d_problem(TRAIN_1D["M"], TRAIN_1D["nobs"], TRAIN_1D["noise_std"],
+                            dtype=dtype, device=dev)
+
+
+def phase_train_1d(torch, dev):
+    """The 1-D long axis learning its hyperparameters: the theta2 warm start,
+    then TRAIN_1D['steps'] svigp_fit steps at batch 256 and maxiter_cg 20
+    with learn_kernel and learn_noise (kernel_lr 1e-3), gradients through the
+    planes PCG, the R^T's and the dK term's radix backward; the counters
+    zeroed just before and read just after, checked exactly.  Returns
+    (model, state, launches)."""
+    import numpy as np
+
+    from hipgp_tpu_torch.infer import FitConfig, svigp_fit
+    from hipgp_tpu_torch.ops import radix_fft, solve
+
+    t0 = time.perf_counter()
+    model, x, y = train_1d_setup(torch, dev, torch.float32)
+    state0 = model.init_state()
+    spec = model.spectrum(state0)
+    check(solve._planes_solver_ok(spec, torch.float32, dev),
+          "[train-1d] the model's solve is not the planes path")
+    del spec
+    steps, bsz = TRAIN_1D["steps"], TRAIN_1D["batch"]
+    cfg = FitConfig(epochs=1, batch_size=bsz, lr=1e-2, maxiter_cg=TRAIN_LONG_K,
+                    learn_kernel=True, learn_noise=True, kernel_lr=1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    radix_fft.reset_launches()
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    state, report = svigp_fit(model, state0, x, y, None, cfg, verbose=False,
+                              theta2_warmstart=True, max_steps=steps)
+    torch.cuda.synchronize()
+    lc, st = dict(radix_fft.LAUNCHES), dict(solve.PCG_STATS)
+    peak = torch.cuda.max_memory_allocated()
+    nb = -(-TRAIN_1D["nobs"] // bsz)
+    step_ms = 1e3 * report["epoch_times"][0] / report["steps"]
+    trace = np.asarray(report["elbo_trace"])
+    before, after = _hypers(torch, state0), _hypers(torch, state)
+    log(f"[train-1d] M = {model.M} (L = {model.Mprime}), {TRAIN_1D['nobs']} observations, "
+        f"{report['steps']} steps at batch {bsz}, maxiter_cg {TRAIN_LONG_K}: "
+        f"{step_ms:.2f} ms/step (host clock over the steps, ending in a sync); warm "
+        f"start {report['warmstart_s']:.2f} s; peak torch.cuda.max_memory_allocated "
+        f"{peak / 1e9:.3f} GB")
+    log(f"[train-1d] (sig2, ell, noise2) {before} -> {after}")
+    log(f"[train-1d] ELBO trace {[round(float(e), 4) for e in trace]}")
+    check(report["steps"] == steps, f"[train-1d] {report['steps']} steps")
+    check(bool(np.isfinite(trace).all()), "[train-1d] non-finite ELBO")
+    check(all(math.isfinite(v) for v in after), f"[train-1d] non-finite hypers {after}")
+    check(all(a != b for a, b in zip(after, before)), f"[train-1d] hypers did not move")
+    # the warm start (one whitening per batch) and the rho estimate (one) run
+    # forward only; every step solves twice
+    check(st["solves"] == nb + 1 + 2 * steps, f"[train-1d] {st['solves']} solves")
+    want = radix_train_launches(st, nb + 1, steps)
+    log(f"[train-1d] {st['solves']} PCG solves ({nb} warm-start batches, the rho "
+        f"estimate, 2 per step), {st['iterations']} iterations; launches expected "
+        f"{want} = per solve 1 + 2k applies (a B-2 forward, a B-4 and a B-3 each), per "
+        f"whitening an R^T (B-2, B-4, B-2), per step the R^T's backward (gx: B-2, B-4, "
+        f"B-2; gd: 2 B-2 and radix_middle_wgrad) and the dK term (B-2, B-4, B-2 and its "
+        f"gd: 2 B-2 and radix_middle_wgrad); counted {lc}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(lc == want, f"[train-1d] launches {lc}, expected {want}")
+    return model, state, lc
+
+
+def _grad_run(torch, model, st, x, y, integrated, tag, counters, reset):
+    """One elbo_and_grads with compute_hyper_grads at TRAIN_LONG_K
+    iterations: (elbo, [-d elbo / d hypers], launches, PCG_STATS)."""
+    from hipgp_tpu_torch.ops import solve
+
+    reset()
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    elbo, g = model.elbo_and_grads(st, x, y, None, maxiter_cg=TRAIN_LONG_K,
+                                   integrated_obs=integrated, compute_hyper_grads=True)
+    torch.cuda.synchronize()
+    lc = {k: v for c in counters for k, v in c.items()}
+    out = (float(elbo), [float(getattr(g, k)) for k in HYPERS], lc, dict(solve.PCG_STATS))
+    log(f"[{tag}] ELBO {out[0]:.6f}, -d elbo / d (log_sig2, log_ell, log_noise2) = "
+        f"{out[1]}; launches { {k: v for k, v in lc.items() if v} }, PCG {out[3]}")
+    return out
+
+
+def _compare_grads(tag, out):
+    """The f32 kernel path's hyper-gradients against the f64 plain path
+    (limit 1e-2 relative each) and, logged, against the f32 plain path."""
+    for key, limit in (("plain64", 1e-2), ("plain32", None)):
+        errs = [abs(a - b) / abs(b) for a, b in zip(out["kernel"][1], out[key][1])]
+        log(f"[{tag}] f32 kernel path vs {key}: rel err per hyper-gradient "
+            f"{[f'{e:.3e}' for e in errs]}" + (f" (limit {limit:g})" if limit else
+                                                " (logged)"))
+        if limit:
+            check(all(math.isfinite(e) and e <= limit for e in errs),
+                  f"[{tag}] hyper-gradients vs {key}: {errs}")
+
+
+def _state_as(state, dtype):
+    return state.__class__(**{f: getattr(state, f).to(dtype) for f in
+                              ("theta1", "theta2") + HYPERS})
+
+
+def phase_train_grad_1d(torch, dev, state):
+    """One batch of TRAIN_GRAD_1D_ROWS rows at M = 2^20 from [train-1d]'s
+    state: the f32 kernel-path hyper-gradients against the f64 plain path on
+    the card (limit 1e-2 relative each), and the f32 plain path
+    (USE_RADIX_FFT off) logged; the kernel path's launches exact."""
+    from hipgp_tpu_torch.ops import bttb, radix_fft
+
+    t0 = time.perf_counter()
+    out = {}
+    for key, dt, flag in (("kernel", torch.float32, True), ("plain32", torch.float32, False),
+                          ("plain64", torch.float64, False)):
+        model, x, y = train_1d_setup(torch, dev, dt)
+        n = TRAIN_GRAD_1D_ROWS
+        as_t = lambda a: torch.as_tensor(a[:n], dtype=dt, device=dev)
+        saved = bttb.USE_RADIX_FFT
+        bttb.USE_RADIX_FFT = flag
+        try:
+            out[key] = _grad_run(torch, model, _state_as(state, dt), as_t(x), as_t(y),
+                                 False, "train-grad-1d", (radix_fft.LAUNCHES,),
+                                 radix_fft.reset_launches)
+        finally:
+            bttb.USE_RADIX_FFT = saved
+        lc, st = out[key][2], out[key][3]
+        want = (radix_train_launches(st, 0, 1) if key == "kernel"
+                else dict.fromkeys(radix_fft.LAUNCHES, 0))
+        check(lc == want, f"[train-grad-1d] {key} launches {lc}, expected {want}")
+        del model
+    _compare_grads("train-grad-1d", out)
+    log(f"[train-grad-1d] done; {time.perf_counter() - t0:.2f} s")
+
+
+def phase_train_3d(torch, dev):
+    """The dust map learning its hyperparameters: [main-3d]'s model and data
+    (64 x 64 x 32 grid, SqExp ell 0.07, the analytic semi-integrated
+    estimator, 10 240 observations), the theta2 warm start, the clamped lr,
+    then TRAIN_3D_STEPS svigp_fit steps at batch 512 and maxiter_cg 20 with
+    learn_kernel and learn_noise (kernel_lr 1e-3); the counters zeroed just
+    before and read just after, checked exactly.  Returns (state,
+    launches)."""
+    import numpy as np
+
+    from hipgp_tpu_torch.infer import FitConfig, svigp_fit
+    from hipgp_tpu_torch.ops import mxu2d, mxu3d, solve
+
+    t0 = time.perf_counter()
+    prob, model, state0, spec = domain_setup(torch, dev, DOMAIN_ELL, torch.float32)
+    check(solve._mxu3d_solver_ok(spec, torch.float32, dev),
+          "[train-3d] the model's solve is not the 3-D kernel path")
+    del spec
+    steps = TRAIN_3D_STEPS
+    cfg = FitConfig(epochs=1, batch_size=DOMAIN_BATCH, lr=1e-2, maxiter_cg=TRAIN_LONG_K,
+                    integrated_obs=True, semi_integrated_estimator="analytic",
+                    learn_kernel=True, learn_noise=True, kernel_lr=1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mxu2d.reset_launches()
+    mxu3d.reset_launches()
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    state, report = svigp_fit(model, state0, prob["xobs"], prob["aobs"], None, cfg,
+                              verbose=False, theta2_warmstart=True,
+                              natgrad_safe_lr="clamp", max_steps=steps)
+    torch.cuda.synchronize()
+    lc, st = {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}, dict(solve.PCG_STATS)
+    peak = torch.cuda.max_memory_allocated()
+    nb = -(-len(prob["xobs"]) // DOMAIN_BATCH)
+    step_ms = 1e3 * report["epoch_times"][0] / report["steps"]
+    trace = np.asarray(report["elbo_trace"])
+    before, after = _hypers(torch, state0), _hypers(torch, state)
+    log(f"[train-3d] grid {model.dims} -> {model.edims}, {len(prob['xobs'])} line "
+        f"integrals, {report['steps']} steps at batch {DOMAIN_BATCH}, maxiter_cg "
+        f"{TRAIN_LONG_K}, lr used {report['lr_used']:.4g}: {step_ms:.2f} ms/step (host "
+        f"clock over the steps, ending in a sync) against [main-3d]'s natgrad step; warm "
+        f"start {report['warmstart_s']:.2f} s; peak torch.cuda.max_memory_allocated "
+        f"{peak / 1e9:.3f} GB")
+    log(f"[train-3d] (sig2, ell, noise2) {before} -> {after}")
+    log(f"[train-3d] ELBO trace {[round(float(e), 4) for e in trace]}")
+    check(report["steps"] == steps, f"[train-3d] {report['steps']} steps")
+    check(bool(np.isfinite(trace).all()), "[train-3d] non-finite ELBO")
+    check(all(math.isfinite(v) for v in after), f"[train-3d] non-finite hypers {after}")
+    check(all(a != b for a, b in zip(after, before)), "[train-3d] hypers did not move")
+    check(st["solves"] == nb + 1 + 2 * steps, f"[train-3d] {st['solves']} solves")
+    want = wp_train_launches(st, nb + 1, steps, mxu3d.USE_WP3)
+    log(f"[train-3d] {st['solves']} PCG solves ({nb} warm-start batches, the rho "
+        f"estimate, 2 per step), {st['iterations']} iterations; launches expected {want} "
+        f"= per solve 1 + 2k self-dot applies through {'B-6' if mxu3d.USE_WP3 else 'B-5'}, "
+        f"per whitening an R^T through B-5, per step its pullback (B-5's backward gx); "
+        f"counted {lc}; {time.perf_counter() - t0:.2f} s")
+    check(lc == want, f"[train-3d] launches {lc}, expected {want}")
+    # B-5's launches beyond one R^T per whitening (solves less steps) are
+    # its backward's, the pullbacks
+    lc["B-5 backward"] = lc["sandwich_apply_wp"] - (st["solves"] - steps)
+    return state, lc
+
+
+def phase_train_grad_3d(torch, dev, state):
+    """64 integrated rows of [main-3d]'s data from [train-3d]'s state, as
+    [accuracy-3d] takes them: the f32 kernel-path hyper-gradients against the
+    f64 plain path on the card (limit 1e-2 relative each), and the f32 plain
+    path (USE_MXU3D_PCG off) logged; the kernel path's launches exact."""
+    from hipgp_tpu_torch.ops import bttb, mxu2d, mxu3d
+
+    t0 = time.perf_counter()
+    out = {}
+    reset = lambda: (mxu2d.reset_launches(), mxu3d.reset_launches())
+    for key, dt, flag in (("kernel", torch.float32, True), ("plain32", torch.float32, False),
+                          ("plain64", torch.float64, False)):
+        prob, model, _, _ = domain_setup(torch, dev, DOMAIN_ELL, dt)
+        as_t = lambda a: torch.as_tensor(a[:64], dtype=dt, device=dev)
+        saved = bttb.USE_MXU3D_PCG
+        bttb.USE_MXU3D_PCG = flag
+        try:
+            out[key] = _grad_run(torch, model, _state_as(state, dt), as_t(prob["xobs"]),
+                                 as_t(prob["aobs"]), True, "train-grad-3d",
+                                 (mxu2d.LAUNCHES, mxu3d.LAUNCHES), reset)
+        finally:
+            bttb.USE_MXU3D_PCG = saved
+        lc, st = out[key][2], out[key][3]
+        want = (wp_train_launches(st, 0, 1, mxu3d.USE_WP3) if key == "kernel"
+                else dict.fromkeys(lc, 0))
+        check(lc == want, f"[train-grad-3d] {key} launches {lc}, expected {want}")
+        del model
+    _compare_grads("train-grad-3d", out)
+    log(f"[train-grad-3d] done; {time.perf_counter() - t0:.2f} s")
 
 
 FB_SOLVE = dict(batch_size=-1, maxiter_cg=10, mean_solver_maxiter=200,
@@ -1598,11 +2029,18 @@ def main():
     radix_results = phase_kernels_1d(torch, dev)
     radix_launches = phase_main_1d(torch)
     phase_accuracy_1d(torch, dev)
+    _, state_1d, train_1d_launches = phase_train_1d(torch, dev)
+    phase_train_grad_1d(torch, dev, state_1d)
+    del state_1d
+    torch.cuda.empty_cache()
 
     # ---- 8.-10. the 3-D dust map ----------------------------------------------
     results_3d = phase_kernels_3d(torch, dev)
     launches_3d = phase_main_3d(torch)
     phase_accuracy_3d(torch, dev)
+    state_3d, train_3d_launches = phase_train_3d(torch, dev)
+    phase_train_grad_3d(torch, dev, state_3d)
+    del state_3d
 
     kernels = []
     for name in ("sandwich_apply_selfdot", "sandwich_apply"):
@@ -1625,6 +2063,17 @@ def main():
             "library_ms": r["library_ms"], **{k: r[k] for k in GRAPH_KEYS},
         })
         check(radix_launches[name] > 0, f"{name} never launched on the 1-D main path")
+    # B-4's weight cotangent: its launches on the 1-D training path [train-1d]
+    r = radix_results["middle_wgrad"]
+    kernels.append({
+        "name": "radix_fft.middle_wgrad", "route": "cuda", "source": RADIX_SOURCE,
+        "replaces": RADIX_TPU_KERNELS["middle"], "launches": train_1d_launches["middle_wgrad"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], **{k: r[k] for k in GRAPH_KEYS},
+    })
+    for name in ("stage1", "stage1_inv_dot", "middle", "middle_wgrad"):
+        check(train_1d_launches[name] > 0, f"{name} never launched on the 1-D training path")
     for key, name, source, tpu, counts in (
             ("B-5", "mxu2d.sandwich_apply_wp", WP_SOURCE, WP_TPU_KERNEL,
              ("sandwich_apply_wp", "sandwich_apply_wp_selfdot")),
@@ -1642,6 +2091,17 @@ def main():
         # applies (set by the B-6 / B-5-pipeline measurement of [kernels-3d])
         if key == "B-5" or mxu3d.USE_WP3:
             check(n > 0, f"{name} never launched on the 3-D main path")
+    # B-5's backward (its launch at the R^T's swapped crops, the pullback):
+    # its launches on the 3-D training path [train-3d]
+    r = results_3d["B-5 backward"]
+    n = train_3d_launches["B-5 backward"]
+    kernels.append({
+        "name": "mxu2d.sandwich_apply_wp.backward", "route": "cuda", "source": WP_SOURCE,
+        "replaces": WP_TPU_KERNEL, "launches": n, "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    })
+    check(n > 0, "B-5's backward never launched on the 3-D training path")
     r = radix_results["middle_dual"]
     kernels.append({
         "name": "radix_fft.middle_dual", "route": "cuda", "source": RADIX_SOURCE,

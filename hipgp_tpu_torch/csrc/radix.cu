@@ -22,7 +22,13 @@
 //                     folded in), then the conjugate chain back;
 //   radix_middle_dual replaces _make_middle_kernel_dual (`_middle_pallas_dual`,
 //                     B-7): the same chain with two diagonals dA, dB on one
-//                     forward half.
+//                     forward half;
+//   radix_middle_wgrad B-4's weight cotangent, the d-cotangent of the JAX
+//                     package's custom VJP of the apply (`_get_apply`'s bwd,
+//                     hipgp_tpu/ops/radix_fft.py:818, computed there by XLA
+//                     einsums in `_forward_stages`): dbar[ka, kb, kc] =
+//                     sum_v Re[X conj(G)] with X, G the forward middle (T1,
+//                     B-DFT, T2, C-DFT) of the two stage-1 outputs.
 //
 // Bound on this card.  At the headline shape (V = 4, L = 2^21, A = B = C = 128,
 // 64 rows of data) every stage is bound by bytes: each moves its planes once
@@ -74,6 +80,17 @@
 //     at B >= 16.  Dual middle (B-7): phase 4 parks the forward spectrum in
 //     zB (each thread reloads only what it wrote), phases 4-7 run with dA into
 //     zA and again with dB from the reloaded spectrum into zB.
+//   * Weight cotangent: the forward half only, twice per (v, ka): x's
+//     spectrum (phase 4's 8-point DFTs) is parked in device memory, since a
+//     second plane does not fit beside the first (2 x 140 KB > 227 KB), and
+//     read back by the thread that wrote it when g's spectrum forms; the
+//     products sum over v in shared memory beside the plane (72 KB more at
+//     B = 128; in registers they spilled), in order.  Bound by
+//     bytes like the middle (x and g read once, 16 bytes a point per v); the
+//     park adds 16 bytes a point per v, most of it in L2 (one plane per
+//     SM, 17 MB in flight).  A ka owns 1 block at A >= the SM count, else V
+//     is split over ceil(SMs / A) blocks whose sums a second launch adds in
+//     order: deterministic, no atomics.
 // Overlap with device memory.  The middle's plane fills one SM (140 KB of
 // shared memory, 512 threads), so a second plane cannot be resident on it, and
 // prefetching the next plane into registers would double the 64 values a
@@ -101,6 +118,8 @@ constexpr int RED_THREADS = 256;     // threads of the dot-reduction block
 constexpr int MC = 128;              // C
 constexpr int MC1 = 16, MC2 = 8;     // C = MC1 * MC2: the row steps' radices
 constexpr int MS = MC + MC / 16 + 1; // row stride of a middle plane (complex)
+constexpr int WS = MC + MC1;         // row stride of the weight cotangent's sums
+                                     // (two rows of a warp on other banks)
 
 // ---------------------------------------------------------------------------
 // Complex arithmetic and the register DFT (csrc/fft_steps.cuh)
@@ -467,6 +486,20 @@ struct Mid {
         }
     }
 
+    // Phase 4's forward half alone, for item `it` of this thread: the
+    // positions 8 k1 + a of its row times W_C^{a k1}, the 8-point DFT over a
+    // into w[k2], kc = k1 + 16 k2; the row holds kb = row / R2 + R1 (row % R2).
+    __device__ static void c_spectrum(const float2* s, const MidTab& t, int it, int& row,
+                                      int& k1, float2 (&w)[MC2]) {
+        const int q = threadIdx.x + it * NT;
+        k1 = q % MC1;
+        row = q / MC1;
+        const float2* r = s + row * MS;
+#pragma unroll
+        for (int a = 0; a < MC2; ++a) w[a] = cmul(r[phys(MC2 * k1 + a)], __ldg(t.tw4 + a * MC1 + k1));
+        dft<MC2, -1>(w);
+    }
+
     // Phase 5: items (row, a), the positions a + 8 k1, the inverse 16-point
     // DFT over k1 into c = a + 8 m (natural order).
     __device__ static void inv_c1(float2* s) {
@@ -564,6 +597,10 @@ struct Mid {
 };
 
 template <int B> constexpr size_t mid_smem() { return (size_t)B * MS * sizeof(float2); }
+// the weight cotangent's: the plane and its sums (214 KB at B = 128)
+template <int B> constexpr size_t wgrad_smem() {
+    return mid_smem<B>() + (size_t)B * WS * sizeof(float);
+}
 
 // The middle on plane ka of sample v, blockIdx.x = ka * V + v (the V planes
 // of one ka, which share d, run together).
@@ -602,6 +639,86 @@ middle_dual_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
     __syncthreads();   // every thread is done with the plane before phase 4 rewrites it
     Mid<B>::template c_mid<false, true>(plane, t, dB + (size_t)ka * P, zBr + base, zBi + base);
     Mid<B>::inverse(plane, t, ka, zBr + base, zBi + base);
+}
+
+// B-4's weight cotangent: out[ka, kb, kc] = sum over the block's v of
+// Re[X_v conj(G_v)], X = M x and G = M g the forward middle (phases 1-4's
+// forward half) of the stage-1 outputs x and g, in d's stage order.  Block
+// (ka, s), blockIdx.x = s * A + ka, takes v = s * per ... min(V, (s + 1) per)
+// - 1 in order and writes its sum to out + blockIdx.x * P.  One plane fills
+// the shared memory, so X is parked in park + blockIdx.x * P (device memory:
+// each thread reads back only what it wrote) while g's plane is transformed;
+// the sums stay in shared memory beside the plane (rows of WS floats), each
+// thread on the positions of its own items (in registers they spilled at
+// B = 128).
+template <int B>
+__global__ void __launch_bounds__(Mid<B>::NT, 1)
+middle_wgrad_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                    const float* __restrict__ gr, const float* __restrict__ gi, MidTab t,
+                    float2* park, float* __restrict__ out, int V, int A, int per) {
+    extern __shared__ float2 plane[];
+    using Mb = Mid<B>;
+    constexpr int P = Mb::P, NI = MC1 * B / Mb::NT;
+    float* acc = reinterpret_cast<float*>(plane + B * MS);
+    const int ka = blockIdx.x % A, s = blockIdx.x / A;
+    float2* pk = park + (size_t)blockIdx.x * P;
+    // item it of this thread: row q / 16, k1 = q % 16, its sums at
+    // acc[row * WS + k1 + 16 k2]
+    auto at = [](int it) {
+        const int q = threadIdx.x + it * Mb::NT;
+        return (q / MC1) * WS + q % MC1;
+    };
+#pragma unroll
+    for (int it = 0; it < NI; ++it)
+#pragma unroll
+        for (int k2 = 0; k2 < MC2; ++k2) acc[at(it) + MC1 * k2] = 0.0f;
+    const int v1 = min(V, (s + 1) * per);
+    for (int v = s * per; v < v1; ++v) {
+        const size_t base = ((size_t)v * A + ka) * P;
+        Mb::forward(xr + base, xi + base, plane, t, ka);
+#pragma unroll
+        for (int it = 0; it < NI; ++it) {
+            int row, k1;
+            float2 w[MC2];
+            Mb::c_spectrum(plane, t, it, row, k1, w);
+#pragma unroll
+            for (int k2 = 0; k2 < MC2; ++k2) pk[row * MC + k1 + MC1 * k2] = w[k2];
+        }
+        __syncthreads();   // the plane is read before g's forward rewrites it
+        Mb::forward(gr + base, gi + base, plane, t, ka);
+#pragma unroll
+        for (int it = 0; it < NI; ++it) {
+            int row, k1;
+            float2 w[MC2];
+            Mb::c_spectrum(plane, t, it, row, k1, w);
+#pragma unroll
+            for (int k2 = 0; k2 < MC2; ++k2) {
+                const float2 X = pk[row * MC + k1 + MC1 * k2];
+                acc[at(it) + MC1 * k2] += X.x * w[k2].x + X.y * w[k2].y;
+            }
+        }
+        __syncthreads();   // likewise before the next v's forward
+    }
+    float* o = out + (size_t)blockIdx.x * P;
+#pragma unroll
+    for (int it = 0; it < NI; ++it) {
+        const int q = threadIdx.x + it * Mb::NT;
+        const int k1 = q % MC1, row = q / MC1;
+        const int kb = row / Mb::R2 + Mb::R1 * (row % Mb::R2);
+#pragma unroll
+        for (int k2 = 0; k2 < MC2; ++k2) o[kb * MC + k1 + MC1 * k2] = acc[at(it) + MC1 * k2];
+    }
+}
+
+// out[i] = sum over s < S of part[s * n + i], in order.
+__global__ void __launch_bounds__(RED_THREADS)
+wgrad_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, size_t n, int S) {
+    for (size_t i = (size_t)blockIdx.x * RED_THREADS + threadIdx.x; i < n;
+         i += (size_t)gridDim.x * RED_THREADS) {
+        float a = 0.0f;
+        for (int s = 0; s < S; ++s) a += part[(size_t)s * n + i];
+        out[i] = a;
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -668,6 +785,7 @@ template <int B>
 cudaError_t configure_middle() {
     cudaError_t err;
     if ((err = allow_smem(middle_kernel<B>, mid_smem<B>()))) return err;
+    if ((err = allow_smem(middle_wgrad_kernel<B>, wgrad_smem<B>()))) return err;
     return allow_smem(middle_dual_kernel<B>, mid_smem<B>());
 }
 
@@ -821,6 +939,16 @@ int launch_middle(bool dual, const float* yr, const float* yi, const float* dA,
     return (int)cudaErrorInvalidValue;
 }
 
+template <int B>
+int launch_wgrad_b(const float* xr, const float* xi, const float* gr, const float* gi,
+                   const MidTab& t, float2* park, float* out, int V, int A, int splits,
+                   cudaStream_t stream) {
+    const int per = (V + splits - 1) / splits;
+    middle_wgrad_kernel<B><<<A * splits, Mid<B>::NT, wgrad_smem<B>(), stream>>>(
+        xr, xi, gr, gi, t, park, out, V, A, per);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -907,6 +1035,39 @@ int radix_middle_dual(const float* yr, const float* yi, const float* dA, const f
                       int V, int A, int B, int C, void* stream) {
     return launch_middle(true, yr, yi, dA, dB, tab, zAr, zAi, zBr, zBi, V, A, B, C,
                          (cudaStream_t)stream);
+}
+
+// B-4's weight cotangent: dbar (A, B, C) = sum over v of Re[(M x)(v) conj
+// (M g)(v)], M the forward middle, of the stage-1 outputs x and g
+// (V, A, B, C).  The V planes are split over `splits` blocks per ka (1 <=
+// splits <= V); park: 2 * A * splits * B * C floats of scratch; partial:
+// splits * A * B * C floats, summed in order into dbar by a second launch
+// (unused, may be null, when splits == 1: the blocks write dbar).
+int radix_middle_wgrad(const float* xr, const float* xi, const float* gr, const float* gi,
+                       const float* tab, float* park, float* partial, float* dbar, int V,
+                       int A, int B, int C, int splits, void* stream) {
+    if (!middle_args_ok(V, A, B, C) || splits < 1 || splits > V ||
+        (splits > 1 && partial == nullptr))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t cerr = configure_once();
+    if (cerr) return (int)cerr;
+    const MidTab t = mid_tables(tab, A, B);
+    cudaStream_t st = (cudaStream_t)stream;
+    float2* pk = reinterpret_cast<float2*>(park);
+    float* out = splits == 1 ? dbar : partial;
+    int err = (int)cudaErrorInvalidValue;
+#define WG_CASE(n) \
+    case n: err = launch_wgrad_b<n>(xr, xi, gr, gi, t, pk, out, V, A, splits, st); break;
+    switch (B) {
+        WG_CASE(8) WG_CASE(16) WG_CASE(32) WG_CASE(64) WG_CASE(128)
+    }
+#undef WG_CASE
+    if (err || splits == 1) return err;
+    const size_t n = (size_t)A * B * C;
+    const int blocks = (int)((n + RED_THREADS - 1) / RED_THREADS < 4096
+                                 ? (n + RED_THREADS - 1) / RED_THREADS : 4096);
+    wgrad_reduce_kernel<<<blocks, RED_THREADS, 0, st>>>(partial, dbar, n, splits);
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

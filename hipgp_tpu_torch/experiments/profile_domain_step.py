@@ -4,8 +4,10 @@ Builds the section 5.5 problem as `run_domain` does (synthetic field, the
 nx x nx x nz grid, SqExp at ``--ell``, sig2 by the empirical init, float32)
 and times the natgrad step (`infer.fit.batch_step`: the integrated Knm, the
 whitening with ``--maxiter-cg`` PCG iterations, the ELBO and the natural
-gradient) on the first batch from the initial state (its work does not depend
-on the state): first by the host clock between
+gradient; with ``--learn`` the training step with ``learn_kernel`` and
+``learn_noise``, whose hyper-gradients solve again and run B-5's backward)
+on the first batch from the initial state (its work does not depend on the
+state, but for the PCG's early exit): first by the host clock between
 synchronisations, then under torch.profiler, which splits the device time
 into kernel B-5 (its resident kernel and the plane dots' reduction),
 kernel B-6 (with its weights' layout launch), the cuBLAS products (the
@@ -65,6 +67,8 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=512)
     p.add_argument("--maxiter-cg", type=int, default=20)
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--learn", action="store_true",
+                   help="the training step: learn_kernel and learn_noise")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_domain_step needs a CUDA device")
@@ -76,13 +80,17 @@ def main(argv=None):
     model = domain_model("SqExp", prob["grids"], len(prob["xobs"]), sig2, args.ell,
                          device=dev)
     cfg = FitConfig(batch_size=args.batch_size, maxiter_cg=args.maxiter_cg,
-                    integrated_obs=True, lr=1e-4)
+                    integrated_obs=True, lr=1e-4, learn_kernel=args.learn,
+                    learn_noise=args.learn)
     as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    # a learned noise replaces the per-point one, as in svigp_fit
     xb, yb, sb, w = prepare_batches(as_t(prob["xobs"]), as_t(prob["aobs"]),
-                                    as_t(prob["sobs"]), cfg.batch_size)
+                                    None if args.learn else as_t(prob["sobs"]),
+                                    cfg.batch_size)
     state = model.init_state()
     opt = make_optimizer(cfg)
-    step = lambda: batch_step(model, cfg, opt, state, xb[0], yb[0], sb[0], w[0])
+    step = lambda: batch_step(model, cfg, opt, state, xb[0], yb[0],
+                              None if sb is None else sb[0], w[0])
     knm = lambda: model.make_grams(state, xb[0], integrated_obs=True)
 
     step_ms = _sync_ms(step, args.reps)
@@ -108,7 +116,7 @@ def main(argv=None):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP]
     row = {
         "grid": list(model.dims), "embedded": list(model.edims),
-        "batch": args.batch_size, "maxiter_cg": args.maxiter_cg,
+        "batch": args.batch_size, "maxiter_cg": args.maxiter_cg, "learn": args.learn,
         "use_wp3": mxu3d.USE_WP3, "step_ms": step_ms, "step_ms_profiled": prof_ms,
         "knm_build_ms": knm_ms, "peak_memory_mib": peak_mib,
         "step_peak_above_state_mib": step_mib,

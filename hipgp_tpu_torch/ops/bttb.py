@@ -18,8 +18,8 @@ plan supports, for a float32 tensor on a CUDA device, the packed radix apply
 (`ops/radix_fft.py`, kernels B-2 to B-4); and torch.fft otherwise.  All
 matvecs act on the last axis; leading batch dimensions are kept.  They are
 differentiable in the vector and the spectrum (so, through `make_spectrum`,
-in the kernel's hyperparameters), except on the 1-D radix branch, whose
-kernels have no backward yet: there a required gradient raises.
+in the kernel's hyperparameters) on every branch: the radix branch through
+the radix apply's backward (`radix_fft.fused_circulant_apply`).
 """
 from __future__ import annotations
 
@@ -205,13 +205,13 @@ def needs_grad(*tensors) -> bool:
 
 
 def no_backward(where: str):
-    """The error for a gradient through a kernel whose backward is not
-    ported yet: a silent zero or partial gradient would be wrong."""
+    """The error for a gradient through a solver-internal apply (the fused
+    self-dot applies of the PCG), which has no backward, as in the JAX
+    package: a silent zero or partial gradient would be wrong."""
     return NotImplementedError(
-        f"gradients through {where} are not ported yet (ROADMAP section A item 2: "
-        "the radix VJP and kernel B-5's VJP); run the differentiable plain path "
-        "to differentiate here: the CPU, float64, or bttb.USE_RADIX_FFT = False "
-        "(1-D) or bttb.USE_MXU3D_PCG = False (3-D)")
+        f"{where} is solver-internal and has no backward, as in the JAX "
+        "package; gradients flow through inv_matmul / whiten, whose backward "
+        "solves again and differentiates the operator")
 
 
 def _grid_points(xgrids: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -470,8 +470,6 @@ def _apply_spectrum(spec: BTTBSpectrum, v: torch.Tensor, weights: torch.Tensor,
         wfull = _full_weights(weights, spec.edims[-1])
         return _apply_spectrum_matmul(spec, v, wfull, in_expanded, out_expanded)
     if _radix_apply_ok(spec, v.dtype, v.device):
-        if needs_grad(v, weights):
-            raise no_backward("the 1-D radix apply (kernels B-2 to B-4)")
         return _apply_spectrum_radix(spec, v, weights, in_expanded, out_expanded)
     return _apply_spectrum_fft(spec, v, weights, in_expanded, out_expanded)
 

@@ -42,8 +42,12 @@ Each wrapper counts its kernel launches in :data:`LAUNCHES`.
 the operator is linear in x and its pullback is the same sandwich with the
 two crops swapped (P_i and P_o exchange; diag(w) and Q are symmetric), so gx
 is kernel A again on a CUDA tensor; gw = sum_b analysis(x_b) * analysis(g_b)
-is plain PyTorch, as in JAX.  The self-dot and weight-plane variants are
-solver-internal and not differentiable, as in JAX.
+is plain PyTorch, as in JAX.  :func:`sandwich_apply_wp` without the self-dot
+is differentiable the same way, per plane (the JAX package's
+`_get_sandwich_wp`): gx is kernel B-5 with the crops swapped, gw[l] =
+sum_b analysis(x_bl) * analysis(g_bl).  The self-dot variants are
+solver-internal and not differentiable, as in JAX: a required gradient
+raises there.
 """
 from __future__ import annotations
 
@@ -465,8 +469,9 @@ def _check_shapes(x, w, i_shape, edims):
 
 
 def _analysis(x: torch.Tensor, dims, edims, expanded: bool) -> torch.Tensor:
-    """Q0^T P^T x Q1 per sample, (B, i0, i1) -> (B, L0, L1), with the crop
-    ``expanded`` selects (the JAX package's `_analysis_einsum`)."""
+    """Q0^T P^T x Q1 per plane, (..., i0, i1) -> (..., L0, L1), with the crop
+    ``expanded`` selects (the JAX package's `_analysis_einsum` and
+    `_analysis_einsum_wp`)."""
     q0a, q1a = _tables(dims, edims, expanded, expanded, x.dtype, x.device)[:2]
     with fp32_matmul():
         return torch.matmul(q0a, torch.matmul(x, q1a))
@@ -526,11 +531,11 @@ def sandwich_apply_selfdot(x: torch.Tensor, w: torch.Tensor,
     (y, dots) with dots[b] = sum(x[b] * y[b])."""
     dims, edims = tuple(dims), tuple(edims)
     _check_shapes(x, w, dims, edims)
+    if needs_grad(x, w):
+        raise no_backward("the self-dot sandwich (kernel A)")
     if x.device.type == "cpu":
         tables = _tables(dims, edims, False, False, x.dtype, x.device)
         return sandwich_plain(x, w, *tables[:4], selfdot=True)
-    if needs_grad(x, w):
-        raise no_backward("the self-dot sandwich (solver-internal)")
     out = _launch_fft(x, w, dims, selfdot=True)
     LAUNCHES["sandwich_apply_selfdot"] += 1
     return out
@@ -555,12 +560,46 @@ def sandwich_apply_wp(x: torch.Tensor, w: torch.Tensor, dims: Tuple[int, int],
                          f"per-plane spectra, got {tuple(w.shape)}")
     if selfdot and (in_expanded or out_expanded):
         raise ValueError("the self-dot needs equal input and output crops")
-    if x.device.type == "cpu":
-        tables = _tables(dims, edims, bool(in_expanded), bool(out_expanded),
-                         x.dtype, x.device)
-        return sandwich_wp_plain(x, w, *tables[:4], selfdot=selfdot)
+    if not selfdot:
+        return _SandwichWP.apply(x, w, dims, edims, bool(in_expanded), bool(out_expanded))
     if needs_grad(x, w):
-        raise no_backward("kernel B-5")
-    out = _launch_wp(x, w, o_shape, selfdot=selfdot)
-    LAUNCHES["sandwich_apply_wp_selfdot" if selfdot else "sandwich_apply_wp"] += 1
+        raise no_backward("the self-dot weight-plane sandwich (kernel B-5)")
+    if x.device.type == "cpu":
+        tables = _tables(dims, edims, False, False, x.dtype, x.device)
+        return sandwich_wp_plain(x, w, *tables[:4], selfdot=True)
+    out = _launch_wp(x, w, o_shape, selfdot=True)
+    LAUNCHES["sandwich_apply_wp_selfdot"] += 1
     return out
+
+
+class _SandwichWP(torch.autograd.Function):
+    """Kernel B-5 (or its plain version on the CPU) with the backward of the
+    JAX package's `_get_sandwich_wp`: gx is B-5 with the crops swapped,
+    gw[l] = sum_b analysis(x_bl) * analysis(g_bl)."""
+
+    @staticmethod
+    def forward(ctx, x, w, dims, edims, in_expanded, out_expanded):
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
+                              w if ctx.needs_input_grad[0] else None)
+        ctx.crops = (dims, edims, in_expanded, out_expanded)
+        if x.device.type == "cpu":
+            tables = _tables(dims, edims, in_expanded, out_expanded, x.dtype, x.device)
+            return sandwich_wp_plain(x, w, *tables[:4])
+        y = _launch_wp(x, w, _crops(dims, edims, in_expanded, out_expanded)[1],
+                       selfdot=False)
+        LAUNCHES["sandwich_apply_wp"] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dims, edims, in_expanded, out_expanded = ctx.crops
+        g = g.contiguous()
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = sandwich_apply_wp(g, w, dims, edims, in_expanded=out_expanded,
+                                   out_expanded=in_expanded)
+        if ctx.needs_input_grad[1]:
+            gw = torch.sum(_analysis(x, dims, edims, in_expanded)
+                           * _analysis(g, dims, edims, out_expanded), dim=0)
+        return gx, gw, None, None, None, None

@@ -99,7 +99,9 @@ def sandwich_apply_3d(x: torch.Tensor, w: torch.Tensor, dims, edims, *,
 
     x: (B, i0, i1, i2) with i = ``edims`` when ``in_expanded`` else
     ``dims``; w: (L0, L1, L2) full spectrum in the same axis order (axis 0 is
-    the outer axis).  Returns (B, o0, o1, o2): outer products and kernel B-5."""
+    the outer axis).  Returns (B, o0, o1, o2): outer products and kernel B-5;
+    differentiable in x and w (autograd through the products, B-5's
+    backward for the planes)."""
     L0 = edims[0]
     i0 = L0 if in_expanded else dims[0]
     o0 = L0 if out_expanded else dims[0]
@@ -262,17 +264,18 @@ def sandwich_apply_wp3(x: torch.Tensor, w: torch.Tensor, dims, edims,
     """The whole cropped 3-D sandwich of each sample of a (B, d0, d1, d2)
     stack with the (W, L1, L2) spectrum w; with ``selfdot`` also
     dots[b] = <x[b], y[b]>.  Kernel B-6 on a CUDA tensor, its plain version
-    on a CPU tensor."""
+    on a CPU tensor.  Solver-internal: a required gradient raises, as the
+    JAX package gives it no backward."""
     if x.ndim != 4 or tuple(x.shape[1:]) != tuple(dims):
         raise ValueError(f"x must be (B, {', '.join(map(str, dims))}), got "
                          f"{tuple(x.shape)}")
     if tuple(w.shape) != tuple(edims):
         raise ValueError(f"w must be the full {tuple(edims)} spectrum, got "
                          f"{tuple(w.shape)}")
+    if needs_grad(x, w):
+        raise no_backward("the whole-sample sandwich (kernel B-6)")
     if x.device.type == "cpu":
         return sandwich_wp3_plain(x, w, dims, edims, selfdot=selfdot)
-    if needs_grad(x, w):
-        raise no_backward("kernel B-6")
     return _launch_wp3(x, w, tuple(dims), tuple(edims), selfdot)
 
 

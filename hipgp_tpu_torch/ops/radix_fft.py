@@ -31,9 +31,18 @@ Two implementations of each stage live here:
   `middle_plain`, `middle_dual_plain`): dense DFT tables and complex
   matmuls, taken only for a tensor on the CPU.
 
-Each wrapper counts its kernel launches in :data:`LAUNCHES`.  The
-gradients of the applies (the JAX package's custom VJP) are not ported yet;
-`bttb` and `solve` raise where one would be needed.
+Each wrapper counts its kernel launches in :data:`LAUNCHES`.
+
+The cropped apply (`fused_circulant_apply_cropped`, and through it
+`fused_circulant_apply`) is differentiable in xr, xi and d_perm, with the
+backward of the JAX package's custom VJP (`_get_apply`): the x-cotangent is
+the same apply with the crops swapped (B-2, B-4, B-2 on the cotangent); the
+d-cotangent is sum_v Re[(M F1 x) conj(M F1 g)] in stage order, F1 stage 1
+(B-2 forward of x at the input crop and of g at the output crop) and M the
+forward middle, summed by ``radix_middle_wgrad`` (`middle_wgrad`, plain
+version `middle_wgrad_plain`).  The self-dot apply is solver-internal and
+not differentiable, as in the JAX package: a required gradient raises there;
+the two-diagonal apply has no backward either.
 """
 from __future__ import annotations
 
@@ -44,18 +53,21 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .bttb import needs_grad, no_backward
+
 __all__ = ["RadixPlan", "make_plan", "permute_weights", "fused_circulant_apply",
            "fused_circulant_apply_cropped", "fused_circulant_apply_cropped_selfdot",
            "fused_circulant_apply_cropped_dual", "middle_dual", "middle_dual_plain",
            "radix_supported", "row_multiple", "stage_order_weights",
-           "stage1", "stage1_inv_dot", "middle", "stage1_plain",
-           "stage1_inv_dot_plain", "middle_plain", "pack_rows", "unpack_rows",
+           "stage1", "stage1_inv_dot", "middle", "middle_wgrad", "stage1_plain",
+           "stage1_inv_dot_plain", "middle_plain", "middle_wgrad_plain",
+           "wgrad_splits", "pack_rows", "unpack_rows",
            "LAUNCHES", "reset_launches", "attribute_sets"]
 
 _LANE = 128
 # launches of the radix kernels, per wrapper; a plain-version call counts nothing
 LAUNCHES: Dict[str, int] = {"stage1": 0, "stage1_inv_dot": 0, "middle": 0,
-                            "middle_dual": 0}
+                            "middle_dual": 0, "middle_wgrad": 0}
 _LIB = None
 
 
@@ -216,6 +228,16 @@ def middle_dual_plain(yr, yi, dA, dB, plan: RadixPlan):
     return _middle_inverse(y * dA, *tables) + _middle_inverse(y * dB, *tables)
 
 
+def middle_wgrad_plain(xr, xi, gr, gi, plan: RadixPlan):
+    """B-4's weight cotangent: (V, A, B, C) stage-1 outputs x and g -> the
+    (A, B, C) sum over v of Re[X conj(G)], X and G their forward middles
+    (T1, the B-point DFT, T2, the C-point DFT; d_perm's stage order)."""
+    tables = _middle_tables(plan.L, xr.dtype, xr.device)
+    X = _middle_forward(torch.complex(xr, xi), *tables)
+    G = _middle_forward(torch.complex(gr, gi), *tables)
+    return torch.sum(X.real * G.real + X.imag * G.imag, dim=0)
+
+
 # ---------------------------------------------------------------------------
 # The kernels' plan table
 # ---------------------------------------------------------------------------
@@ -316,6 +338,8 @@ def _lib():
         lib.radix_middle.restype = ctypes.c_int
         lib.radix_middle_dual.argtypes = [p] * 9 + [i] * 4 + [p]
         lib.radix_middle_dual.restype = ctypes.c_int
+        lib.radix_middle_wgrad.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.radix_middle_wgrad.restype = ctypes.c_int
         lib.radix_dot_partials.argtypes = [i, i, i]
         lib.radix_dot_partials.restype = ctypes.c_size_t
         lib.radix_table_floats.argtypes = [i, i]
@@ -481,6 +505,45 @@ def middle_dual(yr: torch.Tensor, yi: torch.Tensor, dA: torch.Tensor,
     return tuple(out)
 
 
+def wgrad_splits(V: int, A: int, sms: int) -> int:
+    """Blocks per ka of ``radix_middle_wgrad``: enough that the A * splits
+    blocks cover the ``sms`` streaming multiprocessors (one plane fills
+    one), at most one per plane."""
+    return max(1, min(V, -(-sms // A)))
+
+
+def middle_wgrad(xr: torch.Tensor, xi: torch.Tensor, gr: torch.Tensor,
+                 gi: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
+    """B-4's weight cotangent on (V, A, B, C) stage-1 outputs x and g (see
+    `middle_wgrad_plain`): returns the (A, B, C) sum.  Kernel
+    ``radix_middle_wgrad`` on a CUDA tensor (summed in a fixed order), the
+    plain version on a CPU tensor."""
+    V = xr.shape[0]
+    shape = (V, plan.A, plan.B, plan.C)
+    if any(tuple(t.shape) != shape for t in (xr, xi, gr, gi)):
+        raise ValueError(f"middle_wgrad takes four {shape} planes, got "
+                         f"{[tuple(t.shape) for t in (xr, xi, gr, gi)]}")
+    if xr.device.type == "cpu":
+        return middle_wgrad_plain(xr, xi, gr, gi, plan)
+    _check("middle_wgrad", xr, xr, xi, gr, gi)
+    dev = xr.device
+    splits = wgrad_splits(V, plan.A, torch.cuda.get_device_properties(dev).multi_processor_count)
+    park = torch.empty((2 * splits * plan.L,), dtype=torch.float32, device=dev)
+    partial = (torch.empty((splits * plan.L,), dtype=torch.float32, device=dev)
+               if splits > 1 else None)
+    dbar = torch.empty(shape[1:], dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().radix_middle_wgrad(xr.data_ptr(), xi.data_ptr(), gr.data_ptr(),
+                                        gi.data_ptr(), _checked_table(plan.L, dev).data_ptr(),
+                                        park.data_ptr(),
+                                        None if partial is None else partial.data_ptr(),
+                                        dbar.data_ptr(), V, plan.A, plan.B, plan.C, splits,
+                                        _stream(dev))
+    _raise_on(err, "middle_wgrad")
+    LAUNCHES["middle_wgrad"] += 1
+    return dbar
+
+
 # ---------------------------------------------------------------------------
 # The applies
 # ---------------------------------------------------------------------------
@@ -509,6 +572,48 @@ def _forward_and_middle(xr, xi, d_perm, plan: RadixPlan, in_rows: int):
     return zr.view(V, A, B * C), zi.view(V, A, B * C)
 
 
+def _apply_stages(xr, xi, d_perm, plan: RadixPlan, in_rows: int, out_rows: int):
+    """The cropped apply's three launches: B-2 forward, B-4, B-2 inverse."""
+    V = xr.shape[0]
+    zr, zi = _forward_and_middle(xr, xi, d_perm, plan, in_rows)
+    yr, yi = stage1(zr, zi, plan, out_rows, inverse=True)
+    n = out_rows * plan.B * plan.C
+    return yr.view(V, n), yi.view(V, n)
+
+
+class _RadixApply(torch.autograd.Function):
+    """The cropped apply with the backward of the JAX package's `_get_apply`:
+    the x-cotangent is the apply with the crops swapped; the d-cotangent is
+    `middle_wgrad` of the B-2 forwards of x (input crop) and of the
+    cotangent g (output crop)."""
+
+    @staticmethod
+    def forward(ctx, xr, xi, d_perm, plan, in_rows, out_rows):
+        ctx.plan, ctx.rows = plan, (in_rows, out_rows)
+        want_x = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        want_d = ctx.needs_input_grad[2]
+        ctx.save_for_backward(xr if want_d else None, xi if want_d else None,
+                              d_perm if want_x else None)
+        return _apply_stages(xr, xi, d_perm, plan, in_rows, out_rows)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        xr, xi, d_perm = ctx.saved_tensors
+        plan, (in_rows, out_rows) = ctx.plan, ctx.rows
+        gr, gi = gr.contiguous(), gi.contiguous()
+        gxr = gxi = gd = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            gxr, gxi = _apply_stages(gr, gi, d_perm, plan, out_rows, in_rows)
+        if ctx.needs_input_grad[2]:
+            V, A, B, C = gr.shape[0], plan.A, plan.B, plan.C
+            fx = stage1(xr.reshape(V, in_rows, B * C), xi.reshape(V, in_rows, B * C),
+                        plan, A, inverse=False)
+            fg = stage1(gr.reshape(V, out_rows, B * C), gi.reshape(V, out_rows, B * C),
+                        plan, A, inverse=False)
+            gd = middle_wgrad(*(t.view(V, A, B, C) for t in fx + fg), plan)
+        return gxr, gxi, gd, None, None, None
+
+
 def fused_circulant_apply_cropped(xr, xi, d_perm, plan: RadixPlan,
                                   in_rows: int, out_rows: int):
     """Cropped-IO packed circulant apply y = P_out C_d P_in^T x.
@@ -516,12 +621,11 @@ def fused_circulant_apply_cropped(xr, xi, d_perm, plan: RadixPlan,
     xr, xi: (V, in_rows * B * C), the leading slab of the embedded vector
     (everything beyond it is zero).  Returns (V, out_rows * B * C): the
     leading slab of C_d applied to the embedded input.  d_perm is the
-    `permute_weights` layout."""
-    V = xr.shape[0]
-    zr, zi = _forward_and_middle(xr, xi, d_perm, plan, in_rows)
-    yr, yi = stage1(zr, zi, plan, out_rows, inverse=True)
-    n = out_rows * plan.B * plan.C
-    return yr.view(V, n), yi.view(V, n)
+    `permute_weights` layout.  Differentiable in xr, xi and d_perm (see the
+    module docstring); without a gradient the three launches run directly."""
+    if needs_grad(xr, xi, d_perm):
+        return _RadixApply.apply(xr, xi, d_perm, plan, in_rows, out_rows)
+    return _apply_stages(xr, xi, d_perm, plan, in_rows, out_rows)
 
 
 def fused_circulant_apply(xr, xi, d_perm, plan: RadixPlan):
@@ -539,6 +643,8 @@ def fused_circulant_apply_cropped_selfdot(xr, xi, d_perm, plan: RadixPlan,
     apply, so the inverse stage emits them."""
     if in_rows != out_rows:
         raise ValueError("the self-dot needs matching in/out crops")
+    if needs_grad(xr, xi, d_perm):
+        raise no_backward("the self-dot radix apply")
     V = xr.shape[0]
     N = plan.B * plan.C
     zr, zi = _forward_and_middle(xr, xi, d_perm, plan, in_rows)

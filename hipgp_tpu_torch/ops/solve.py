@@ -31,13 +31,18 @@ does it: the forward runs the dispatched solver with no graph through its
 iterations; the backward solves again, lambda = K^{-1} g with the same
 solver, returns lambda for the right-hand side, and takes the spectrum's
 cotangent as the VJP of `matmul_by_K(spec, x)` at -lambda with the solution
-x held fixed.  ``whiten``'s R^T is differentiable on the plain path
-(autograd) and on the 2-D kernel path (kernel A's backward).  The 1-D
-planes path and the 3-D kernel path have no backward yet (the radix VJP and
-kernel B-5's VJP, ROADMAP section A item 2): there a required gradient
-raises NotImplementedError.  `bttb.USE_RADIX_FFT` (1-D) and
-`bttb.USE_MXU3D_PCG` (3-D) off route those float32 CUDA solves to the
-differentiable plain path, as the JAX package's switches do.
+x held fixed (on the 1-D radix path that VJP is the radix apply's backward:
+two B-2 forwards and ``radix_middle_wgrad``).  ``whiten``'s R^T is
+differentiable on every path: the plain path by autograd, the 2-D kernel
+path through kernel A's backward, the 1-D planes path through the radix
+apply's backward and then, as in the JAX package, through
+sqrt(`_planes_weights`) and `stage_order_weights`'s float64 plain chain to
+``spec.ecolumn`` and min(``spec.eigs``), the 3-D kernel path through the
+outer products and kernel B-5's backward.  The PCG's fused self-dot applies
+are solver-internal and have no backward, as in JAX; the forward solve runs
+them with no graph.  `bttb.USE_RADIX_FFT` (1-D) and `bttb.USE_MXU3D_PCG`
+(3-D) off route those float32 CUDA solves to the plain path, as the JAX
+package's switches do.
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ import torch
 
 from . import bttb
 from .bttb import (BTTBSpectrum, _full_weights, fp32_matmul, matmul_by_Cinv,
-                   matmul_by_K, matmul_by_RT, needs_grad, no_backward)
+                   matmul_by_K, matmul_by_RT)
 from .cg import _beta, _guarded_steps, pcg, pcg_scan
 from .mxu2d import MXU2D_MAX_LEN, sandwich_apply, sandwich_apply_selfdot
 from .mxu3d import best_perm, sandwich_apply_3d, sandwich_apply_3d_selfdot
@@ -347,11 +352,6 @@ def inv_matmul(spec: BTTBSpectrum, rhs: torch.Tensor, *, maxiter: int = 20,
     """K^{-1} @ rhs with rhs of shape (..., M), by PCG with the circulant
     preconditioner (plain CG with ``do_precond=False``); differentiable in
     rhs and ``spec.eigs`` (implicitly, see the module docstring)."""
-    if needs_grad(rhs, spec.eigs, spec.ecolumn) and do_precond:
-        if _planes_solver_ok(spec, rhs.dtype, rhs.device):
-            raise no_backward("the 1-D planes solve (kernels B-2 to B-4)")
-        if _mxu3d_solver_ok(spec, rhs.dtype, rhs.device):
-            raise no_backward("the 3-D kernel-path solve (kernel B-5)")
     opts = (maxiter, tol, do_precond, fixed_iters)
     return _InvMatmul.apply(rhs, spec.eigs, _detached(spec, spec.eigs.detach()), opts)
 
@@ -360,19 +360,15 @@ def whiten(spec: BTTBSpectrum, Knm: torch.Tensor, *, maxiter: int = 20,
            tol: float = 1e-8, do_precond: bool = True,
            fixed_iters: bool = False) -> torch.Tensor:
     """kn = R^T K^{-1} Knm: (..., M) -> (..., M') whitened cross-covariances;
-    differentiable in Knm and ``spec.eigs`` (not on the 1-D planes and 3-D
-    kernel paths)."""
+    differentiable in Knm and the spectrum (``spec.eigs``, and on the 1-D
+    planes path ``spec.ecolumn``)."""
     d = inv_matmul(spec, Knm, maxiter=maxiter, tol=tol, do_precond=do_precond,
                    fixed_iters=fixed_iters)
     if _planes_solver_ok(spec, d.dtype, d.device):
-        if needs_grad(d, spec.eigs, spec.ecolumn):
-            raise no_backward("the 1-D planes R^T (kernels B-2 to B-4)")
         return _rt_planes(spec, d)
     if _mxu2d_solver_ok(spec, d.dtype, d.device):
         return _rt_mxu2d(spec, d)
     if _mxu3d_solver_ok(spec, d.dtype, d.device):
-        if needs_grad(d, spec.eigs):
-            raise no_backward("the 3-D kernel-path R^T (kernel B-5)")
         return _rt_mxu3d(spec, d)
     return matmul_by_RT(spec, d)
 

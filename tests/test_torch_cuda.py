@@ -306,12 +306,15 @@ def test_radix_kernels_set_their_shared_memory_attribute_once(dev):
             d = torch.ones((A, B, C), device=dev)
             radix_fft.middle(y[0], y[1], d, p32)
             radix_fft.middle_dual(y[0], y[1], d, d, p32)
+            radix_fft.middle_wgrad(y[0], y[1], y[1], y[0], p32)
         torch.cuda.synchronize()
         return radix_fft.attribute_sets()
 
     first = launch_all()
     sets, kernels = first
-    assert kernels == 9 * 6 + 5 * 2   # stage 1: 9 plans x 6 variants; middle: 5 x 2
+    # stage 1: 9 plans x 6 variants; the middle, its weight cotangent and the
+    # dual middle: 5 x 3
+    assert kernels == 9 * 6 + 5 * 3
     assert 0 < sets <= kernels
     assert launch_all() == first
 
@@ -793,24 +796,42 @@ def test_whiten_gradient_on_the_card_matches_f64_cpu(dev, route):
 
 
 def test_gradient_guards_on_the_card(dev):
-    # the 1-D planes/radix branch and the 3-D B-5 branch have no backward
-    # yet: a required gradient raises; without one they run
+    # the 1-D planes/radix branch and the 3-D B-5 branch are differentiable
+    # through their kernels (the radix apply's backward, B-5's); the
+    # solver-internal self-dot applies (kernel A's, B-6) still raise for a
+    # required gradient, and run without one
     ell = torch.tensor(1.0 / 131072, device=dev, requires_grad=True)
     kern = Matern(2.5)
     grid = torch.linspace(0.0, 1.0, 131072, device=dev)
     spec = bttb.make_spectrum([grid], lambda a, b: kern(a, b, (0.1, ell)), jitter=1e-3)
     rhs = torch.randn((8, 131072), device=dev)
     assert solve._planes_solver_ok(spec, torch.float32, dev)
-    with pytest.raises(NotImplementedError, match="section A item 2"):
-        solve.whiten(spec, rhs, maxiter=2)
-    with pytest.raises(NotImplementedError, match="radix"):
-        bttb.matmul_by_K(spec, rhs.requires_grad_())
-    s3, _ = _spectrum_3d(dev)
+    before = radix_fft.LAUNCHES["middle_wgrad"]
+    (g,) = torch.autograd.grad(torch.sum(solve.whiten(spec, rhs, maxiter=2) ** 2), ell)
+    # the R^T's and the dK term's weight cotangents
+    assert radix_fft.LAUNCHES["middle_wgrad"] == before + 2
+    assert bool(torch.isfinite(g))
+    v = rhs.clone().requires_grad_()
+    (gv,) = torch.autograd.grad(torch.sum(bttb.matmul_by_K(spec, v)), v)
+    assert gv.shape == v.shape and bool(torch.isfinite(gv).all())
+    s3, w3 = _spectrum_3d(dev)
     x3 = torch.randn((2, s3.M), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="section A item 2"):
-        solve.whiten(s3, x3, maxiter=2)
+    before = mxu2d.LAUNCHES["sandwich_apply_wp"]
+    (g3,) = torch.autograd.grad(torch.sum(solve.whiten(s3, x3, maxiter=2) ** 2), x3)
+    assert mxu2d.LAUNCHES["sandwich_apply_wp"] == before + 2   # R^T and its pullback
+    assert bool(torch.isfinite(g3).all())
+    xs = torch.randn((2,) + DIMS_3D, device=dev)
+    with pytest.raises(NotImplementedError, match="solver-internal"):
+        mxu3d.sandwich_apply_wp3(xs, w3.clone().requires_grad_(), DIMS_3D, EDIMS_3D,
+                                 selfdot=True)
+    s2 = _spec((24, 20), torch.float32, dev)
+    w2 = bttb._full_weights(s2.eigs, s2.edims[-1]).requires_grad_()
+    with pytest.raises(NotImplementedError, match="solver-internal"):
+        mxu2d.sandwich_apply_selfdot(torch.randn((2, 24, 20), device=dev), w2, s2.dims,
+                                     s2.edims)
     with torch.no_grad():
-        assert solve.whiten(s3, x3, maxiter=2).shape == (2, s3.Mprime)
+        assert mxu3d.sandwich_apply_wp3(xs, w3, DIMS_3D, EDIMS_3D, selfdot=True)[0].shape \
+            == xs.shape
 
 
 def _switch_case(case, dev, dtype):
@@ -834,9 +855,11 @@ def _switch_case(case, dev, dtype):
 
 def _whiten_eigs_grad(spec, b):
     """The whitening of b (20 fixed iterations) and the gradient of a fixed
-    projection of it with respect to spec.eigs."""
+    projection of it with respect to spec.eigs.  The embedded column is
+    dropped, so that every path's weights (the planes path's R^T included,
+    which otherwise reads them from the column) come from spec.eigs."""
     eigs = spec.eigs.detach().clone().requires_grad_()
-    s = dataclasses.replace(spec, eigs=eigs)
+    s = dataclasses.replace(spec, eigs=eigs, ecolumn=None)
     kn = solve.whiten(s, b, maxiter=20, tol=0.0, fixed_iters=True)
     proj = torch.cos(torch.arange(kn.shape[-1], device=kn.device, dtype=kn.dtype))
     (g,) = torch.autograd.grad(torch.sum(kn * proj), eigs)
@@ -848,13 +871,19 @@ def test_kernel_path_switch_routes_to_the_plain_path(dev, monkeypatch, case, swi
     # with the switch off, the f32 CUDA whitening takes the plain path: no
     # kernel launch, and a gradient with respect to the spectrum that
     # matches the f64 plain path (<= 1e-3 relative: f32 rounding of a
-    # well-conditioned 20-iteration solve); with it on, the kernel path
-    # raises for a required gradient
+    # well-conditioned 20-iteration solve); with it on, the kernel path's
+    # gradient (the radix apply's or B-5's backward) matches it too
     spec, b = _switch_case(case, dev, torch.float32)
+    spec64, b64 = _switch_case(case, dev, torch.float64)
+    kn64, g64 = _whiten_eigs_grad(spec64, b64)
     ok = solve._planes_solver_ok if case == "1d" else solve._mxu3d_solver_ok
     assert getattr(bttb, switch) and ok(spec, torch.float32, dev)
-    with pytest.raises(NotImplementedError, match="section A item 2"):
-        _whiten_eigs_grad(spec, b)
+    before = dict(radix_fft.LAUNCHES)
+    knk, gk = _whiten_eigs_grad(spec, b)
+    torch.cuda.synchronize()
+    if case == "1d":
+        assert radix_fft.LAUNCHES["middle_wgrad"] == before["middle_wgrad"] + 2
+    assert _rel(knk, kn64) <= 1e-3 and _rel(gk, g64) <= 1e-3
     monkeypatch.setattr(bttb, switch, False)
     assert not ok(spec, torch.float32, dev)
     if case == "1d":
@@ -864,8 +893,6 @@ def test_kernel_path_switch_routes_to_the_plain_path(dev, monkeypatch, case, swi
     kn32, g32 = _whiten_eigs_grad(spec, b)
     torch.cuda.synchronize()
     assert [dict(c) for c in counters] == before
-    spec64, b64 = _switch_case(case, dev, torch.float64)
-    kn64, g64 = _whiten_eigs_grad(spec64, b64)
     assert bool(torch.isfinite(g32).all())
     assert _rel(kn32, kn64) <= 1e-3 and _rel(g32, g64) <= 1e-3
 
@@ -923,3 +950,166 @@ def test_batch_solve_kernel_a_launches(dev, solver):
         "sandwich_apply_selfdot": st["solves"] + 2 * st["iterations"],
         "sandwich_apply": st["solves"], "sandwich_apply_wp": 0,
         "sandwich_apply_wp_selfdot": 0}
+
+
+# ---------------------------------------------------------------------------
+# the backwards of the 1-D and 3-D paths: the radix apply's (B-2, B-4 and
+# radix_middle_wgrad) and kernel B-5's
+# ---------------------------------------------------------------------------
+
+# one length per B the middle takes (8, 16, 32, 64, 128 at A = 8) and the
+# headline plan (128, 128, 128)
+WGRAD_LENGTHS = [8192, 1 << 14, 32768, 1 << 16, 1 << 17, 1 << 21]
+
+
+@pytest.mark.parametrize("L", WGRAD_LENGTHS)
+@pytest.mark.parametrize("V", [1, 3, 40])
+def test_radix_middle_wgrad_matches_plain(dev, L, V):
+    # radix_middle_wgrad (V split over blocks or not) against its plain
+    # version in f32 and f64 on the same inputs: <= 1e-5 (f32 rounding of
+    # the two forward halves and the sum over v); a second call bit-equal
+    p32, p64 = _plans(L, dev)
+    shape = (V, p32.A, p32.B, p32.C)
+    x = _randn((4,) + shape, dev, L + V)
+    x32 = x.float()
+    before = radix_fft.LAUNCHES["middle_wgrad"]
+    got = radix_fft.middle_wgrad(*x32, p32)
+    again = radix_fft.middle_wgrad(*x32, p32)
+    assert radix_fft.LAUNCHES["middle_wgrad"] == before + 2
+    want32 = radix_fft.middle_wgrad_plain(*x32, p32)
+    want64 = radix_fft.middle_wgrad_plain(*x, p64)
+    torch.cuda.synchronize()
+    assert got.shape == shape[1:] and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert _rel(got, want32) <= 1e-5 and _rel(got, want64) <= 1e-5
+
+
+@pytest.mark.parametrize("L,rows", MAIN_PATH_CROPS)
+@pytest.mark.parametrize("crop", ["R^T", "full"])
+def test_radix_apply_backward_matches_plain(dev, L, rows, crop):
+    # the radix apply's VJP on the card (gx: B-2, B-4, B-2 with the crops
+    # swapped; gd: two B-2 forwards and radix_middle_wgrad) at the planes
+    # path's R^T crop (rows -> A) and uncropped (the dK term's apply)
+    # against the same Function on the CPU in f64 with the plain stages:
+    # <= 1e-5 each; launches exact
+    p32 = radix_fft.make_plan(L, torch.float32, dev)
+    p64 = radix_fft.make_plan(L, torch.float64, "cpu")
+    A, N, V = p32.A, p32.B * p32.C, 3
+    in_rows = rows if crop == "R^T" else A
+    rng = np.random.default_rng(L + rows)
+    x = rng.standard_normal((2, V, in_rows * N))
+    c = rng.standard_normal((2, V, A * N))
+    d = radix_fft.permute_weights(_even_spectrum(L, "cpu", L) / L, p64)
+
+    def grads(dt, where, plan):
+        xr, xi = (torch.as_tensor(a, dtype=dt, device=where).requires_grad_() for a in x)
+        dp = d.to(dtype=dt, device=where).contiguous().requires_grad_()
+        yr, yi = radix_fft.fused_circulant_apply_cropped(xr, xi, dp, plan, in_rows, A)
+        cr, ci = (torch.as_tensor(a, dtype=dt, device=where) for a in c)
+        return torch.autograd.grad(torch.sum(yr * cr + yi * ci), (xr, xi, dp))
+
+    before = dict(radix_fft.LAUNCHES)
+    g32 = grads(torch.float32, dev, p32)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in radix_fft.LAUNCHES.items() if v != before[k]}
+    assert moved == {"stage1": 6, "middle": 2, "middle_wgrad": 1}
+    g64 = grads(torch.float64, "cpu", p64)
+    for got, want in zip(g32, g64):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert _rel(got.cpu(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["out_expanded", "in_expanded", "cropped"])
+def test_wp_backward_matches_plain(dev, mode):
+    # B-5's VJP on the card (gx: B-5 with the crops swapped; gw: the
+    # per-plane analysis product summed over b, plain PyTorch in full FP32)
+    # at the dust map's R^T shapes with 16 samples, against the same
+    # Function on the CPU in f64: <= 1e-5 each; gx one B-5 launch
+    _, w = _spectrum_3d(dev)
+    w = torch.sqrt(w).contiguous()
+    W, inner, einner = EDIMS_3D[0], DIMS_3D[1:], EDIMS_3D[1:]
+    in_exp, out_exp = mode == "in_expanded", mode == "out_expanded"
+    i_shape = einner if in_exp else inner
+    o_shape = einner if out_exp else inner
+    rng = np.random.default_rng(len(mode))
+    x = rng.standard_normal((16, W) + i_shape)
+    c = rng.standard_normal((16, W) + o_shape)
+
+    def grads(where, dt):
+        tx = torch.as_tensor(x, dtype=dt, device=where).requires_grad_()
+        tw = w.to(dtype=dt, device=where).requires_grad_()
+        y = mxu2d.sandwich_apply_wp(tx, tw, inner, einner, in_expanded=in_exp,
+                                    out_expanded=out_exp)
+        return torch.autograd.grad(torch.sum(y * torch.as_tensor(c, dtype=dt, device=where)),
+                                   (tx, tw))
+
+    before = mxu2d.LAUNCHES["sandwich_apply_wp"]
+    g32 = grads(dev, torch.float32)
+    torch.cuda.synchronize()
+    assert mxu2d.LAUNCHES["sandwich_apply_wp"] == before + 2
+    g64 = grads("cpu", torch.float64)
+    for got, want in zip(g32, g64):
+        assert got.shape == want.shape
+        assert _rel(got.cpu(), want) <= 1e-5
+
+
+def _learn_step_model(case, dev):
+    """A learn-kernel, learn-noise model in f32 on the card and one
+    minibatch: the 1-D section 5.2 operator at M = 131 072 (Matern-5/2, sig2
+    0.1, ell one grid spacing; the planes path's smallest size) with 64
+    noisy point observations of a sine, or the integrated dust-map model on
+    a 16 x 16 x 8 grid (SqExp, ell 0.2) with 64 line integrals."""
+    from hipgp_tpu_torch.experiments import run_domain
+    from hipgp_tpu_torch.models import HIPGP
+
+    rng = np.random.default_rng(3)
+    if case == "1d":
+        M = 131072
+        x = rng.uniform(0.0, 1.0, (64, 1))
+        y = np.sin(12.0 * x[:, 0]) + 0.1 * rng.standard_normal(64)
+        model = HIPGP(Matern(2.5), [np.linspace(0.0, 1.0, M)], num_obs=64,
+                      sig2_init=0.1, ell_init=1.0 / M, noise2_init=0.01, jitter=1e-3,
+                      learn_kernel=True, learn_noise=True, device=dev)
+    else:
+        from hipgp_tpu_torch.kernels import SqExp
+
+        x, y, _, _, _ = run_domain.make_synthetic_domain_data(64, 0.1)
+        grids = [np.linspace(-1.0, 1.0, n) for n in (16, 16, 8)]
+        model = HIPGP(SqExp(), grids, num_obs=64, sig2_init=0.5, ell_init=0.2,
+                      noise2_init=0.01, jitter=1e-3, learn_kernel=True, learn_noise=True,
+                      support_integrated_obs=True, device=dev)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    return model, t(x), t(y)
+
+
+@pytest.mark.parametrize("case,switch", [("1d", "USE_RADIX_FFT"), ("3d", "USE_MXU3D_PCG")])
+def test_learn_kernel_step_matches_the_plain_path(dev, monkeypatch, case, switch):
+    # one elbo_and_grads with compute_hyper_grads on the kernel path (the
+    # planes PCG or the 3-D fused PCG, the R^T and its backward through
+    # the radix kernels or B-5, the dK term through radix_middle_wgrad on
+    # 1-D) against the same step with the switch off (the plain path, no
+    # launch), both f32: each hyper-gradient within 1e-3 relative
+    model, x, y = _learn_step_model(case, dev)
+    state = model.init_state()
+    kw = dict(maxiter_cg=10, integrated_obs=case == "3d", compute_hyper_grads=True)
+    counters = (radix_fft.LAUNCHES, mxu2d.LAUNCHES, mxu3d.LAUNCHES)
+    out = {}
+    for on in (True, False):
+        monkeypatch.setattr(bttb, switch, on)
+        before = [dict(c) for c in counters]
+        elbo, g = model.elbo_and_grads(state, x, y, None, **kw)
+        torch.cuda.synchronize()
+        moved = [{k: v - b[k] for k, v in c.items() if v != b[k]}
+                 for c, b in zip(counters, before)]
+        out[on] = (float(elbo), [float(getattr(g, k)) for k in
+                                 ("log_sig2", "log_ell", "log_noise2")])
+        if not on:
+            assert moved == [{}, {}, {}]
+        elif case == "1d":
+            assert moved[0]["middle_wgrad"] == 2
+        else:
+            assert moved[1]["sandwich_apply_wp"] == 2   # R^T and its pullback
+    (e1, g1), (e0, g0) = out[True], out[False]
+    assert np.isfinite(e1) and abs(e1 - e0) <= 1e-3 * abs(e0)
+    for a, b in zip(g1, g0):
+        assert np.isfinite(a) and abs(a - b) <= 1e-3 * abs(b), (g1, g0)

@@ -352,32 +352,6 @@ def test_inv_matmul_gradient_matches_finite_differences():
     assert abs(float(g) - float(fd)) <= 1e-6 * abs(float(fd))
 
 
-@pytest.mark.parametrize("branch", ["planes", "mxu3d"])
-def test_gradient_through_unported_backward_raises(monkeypatch, branch):
-    # the 1-D planes and 3-D kernel branches have no backward yet: a
-    # required gradient raises instead of returning one that lacks the R^T
-    # or dK term; without a gradient the same call solves
-    dims = (24,) if branch == "planes" else (5, 4, 3)
-    grids = [_t(np.linspace(0.0, 1.0, m)) for m in dims]
-    ell = torch.tensor(0.3, dtype=torch.float64, requires_grad=True)
-    spec = tbttb.make_spectrum(grids, lambda x, y: tkernels.SqExp()(x, y, (1.0, ell)),
-                               jitter=1e-3)
-    rhs = _t(np.random.default_rng(8).standard_normal((2, spec.M)))
-    monkeypatch.setattr(tsolve, f"_{branch}_solver_ok", lambda spec, dtype, device: True)
-    with pytest.raises(NotImplementedError, match="section A item 2"):
-        tsolve.whiten(spec, rhs, maxiter=5)
-    with pytest.raises(NotImplementedError, match="section A item 2"):
-        tsolve.inv_matmul(spec, rhs.requires_grad_(), maxiter=5)
-
-
-def test_radix_apply_with_gradient_raises(monkeypatch):
-    _, ts = _specs_1d()
-    monkeypatch.setattr(tbttb, "_radix_apply_ok", lambda spec, dtype, device: True)
-    v = _t(np.ones((2, ts.M))).requires_grad_()
-    with pytest.raises(NotImplementedError, match="radix"):
-        tbttb.matmul_by_K(ts, v)
-
-
 def _specs_1d():
     g = np.linspace(0.0, 1.0, 700)
     js = jbttb.make_spectrum([jnp.asarray(g)],
