@@ -76,7 +76,9 @@ Phases, each printing one line of progress with its seconds:
                B-2 forwards of x at the crop and g uncropped at every plan,
                at the headline with the training step's 128 planes, timed
                beside its bound and the torch.fft yardstick (fft of both
-               sides, the product, the sum over v); and the radix apply's
+               sides, the product, the sum over v), with its ptxas
+               registers and spills, its shared memory a CTA and its
+               resident two-CTA clusters logged; and the radix apply's
                backward (gx, gd) at the R^T's crop against the plain stages
                in f32 and f64;
   6. main-1d - the paper's section 5.2 driver (run_pcg_vs_cholesky.main,
@@ -151,6 +153,7 @@ beside the script, it exits non-zero and prints no result.
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -419,6 +422,24 @@ def rel(a, b):
     return float((a.double() - b.double()).norm() / b.double().norm())
 
 
+def ptxas_resources(log, kernel):
+    """ptxas -v's registers and spills of every instance of ``kernel`` in a
+    build log: {template argument: (registers, spill stores, spill loads)}."""
+    out, cur, spill = {}, None, (None, None)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur, spill = m.group(1), (None, None)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur and kernel in cur:
+            arg = re.search(kernel + r"ILi(\d+)E", cur)
+            out[int(arg.group(1)) if arg else cur] = (int(m.group(1)), *spill)
+    return out
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError("check failed: " + msg)
@@ -540,6 +561,7 @@ def phase_kernels_1d(torch, dev):
     plan, crop rows and diagonals the main path gives it at every size of
     [main-1d]; times at the headline.  Returns the per-kernel record of the
     kernels line (launches filled in later)."""
+    from hipgp_tpu_torch import _build
     from hipgp_tpu_torch.ops import radix_fft
 
     t0 = time.perf_counter()
@@ -728,6 +750,18 @@ def phase_kernels_1d(torch, dev):
         del w32, want64
         if timed:
             del xc, gc
+            # the weight cotangent's resources: ptxas's registers and spills
+            # of each instance (from this run's build), the dynamic shared
+            # memory a CTA and the clusters resident at once
+            smem, clusters = radix_fft.wgrad_kernel_info(B)
+            res = ptxas_resources(_build.LOGS.get("radix", ""), "middle_wgrad_kernel")
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            log(f"[kernels-1d] middle_wgrad_kernel resources: ptxas (registers, spill "
+                f"stores, spill loads) by B {res or 'not in this run (library cached)'}; "
+                f"{smem} bytes of dynamic shared memory a CTA at B = {B}; clusters of "
+                f"{radix_fft.WGRAD_CLUSTER} CTAs, {clusters} resident at once "
+                f"(cudaOccupancyMaxActiveClusters); {radix_fft.wgrad_splits(Vw, A, sms)} "
+                f"split(s) a ka at V = {Vw}, A = {A} on {sms} SMs")
             radix_backward_check(torch, dev, p32, p64, rows, V)
         if not planes:   # the generic path launches no stage1_inv_dot
             continue

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "LOGS", "build_all", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "hipgp_tpu_torch"
@@ -34,6 +34,9 @@ NVCC_FLAGS = (
 )
 # loaded libraries by source name; each wrapper module sets the signatures
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the compiler's output of each source built in this process (with
+# ``verbose``: ptxas's registers, spills and shared memory of every kernel)
+LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -84,6 +87,7 @@ def build_all(names: Sequence[str] = None, verbose: bool = False) -> Dict[str, f
     for name, (proc, tmp, out, t0) in jobs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        LOGS[name] = log
         if proc.returncode != 0:
             os.unlink(tmp)
             failed.append(f"nvcc failed for {name}.cu:\n{log}")

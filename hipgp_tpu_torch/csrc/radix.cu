@@ -80,17 +80,32 @@
 //     at B >= 16.  Dual middle (B-7): phase 4 parks the forward spectrum in
 //     zB (each thread reloads only what it wrote), phases 4-7 run with dA into
 //     zA and again with dB from the reloaded spectrum into zB.
-//   * Weight cotangent: the forward half only, twice per (v, ka): x's
-//     spectrum (phase 4's 8-point DFTs) is parked in device memory, since a
-//     second plane does not fit beside the first (2 x 140 KB > 227 KB), and
-//     read back by the thread that wrote it when g's spectrum forms; the
-//     products sum over v in shared memory beside the plane (72 KB more at
-//     B = 128; in registers they spilled), in order.  Bound by
-//     bytes like the middle (x and g read once, 16 bytes a point per v); the
-//     park adds 16 bytes a point per v, most of it in L2 (one plane per
-//     SM, 17 MB in flight).  A ka owns 1 block at A >= the SM count, else V
-//     is split over ceil(SMs / A) blocks whose sums a second launch adds in
-//     order: deterministic, no atomics.
+//   * Weight cotangent: the forward half only, of x and of g, for every
+//     (v, ka).  Bound by bytes like the middle: x and g are read once, 16
+//     bytes a point per v (4.3 GB, 1.2846 ms at the training step's 128
+//     planes, A = B = C = 128), against 0.58 ms of FFT operations.  One
+//     plane fills a block's shared memory, so a two-CTA cluster per
+//     (ka, split) holds the pair: rank 0 transforms x_v in its shared memory
+//     while rank 1 transforms g_v in its own, each leaves its spectrum in
+//     place (phase 4's forward half written back), and after a cluster
+//     barrier each CTA forms Re[X conj G] for half of the rows, reading the
+//     partner's plane over distributed shared memory; a second cluster
+//     barrier comes before the next v's forward.  No spectrum goes to device
+//     memory.  Each thread's sums (16 at B = 128, 8 below) stay in registers
+//     over the v loop (ptxas: 128 registers, no spills at B = 128).  Each
+//     plane's real half (64 KB at B = 128) arrives in the shared memory
+//     left beside the plane by one 1-D bulk copy (TMA, completing on an
+//     mbarrier), issued by one thread as soon as phase 1 of the previous
+//     plane has read it, so it lands while that plane's phases 2-4 and the
+//     product run; phase 1 reads only the imaginary half from device
+//     memory.  A ka's V planes are split over
+//     wgrad_splits(V, A, SMs) = min(V, max(1, SMs / 2 / A)) clusters (one
+//     wave of clusters at A <= 64), in contiguous runs of v, whose sums a
+//     second launch adds in split order: deterministic, no atomics.  On an
+//     H100 80GB HBM3 at 700 W it takes 3.28 ms at the headline, 39 % of its
+//     byte bound: the loads are hidden, and the four transform phases (70 %
+//     of a CTA's cycles, `experiments/profile_wgrad_phases.py`) and the
+//     product over distributed shared memory (19 %) set the time.
 // Overlap with device memory.  The middle's plane fills one SM (140 KB of
 // shared memory, 512 threads), so a second plane cannot be resident on it, and
 // prefetching the next plane into registers would double the 64 values a
@@ -109,8 +124,12 @@
 // success).  Launches on `stream`, never synchronises, allocates nothing.  The
 // shared-memory opt-in of every kernel is set once per process.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -118,8 +137,7 @@ constexpr int RED_THREADS = 256;     // threads of the dot-reduction block
 constexpr int MC = 128;              // C
 constexpr int MC1 = 16, MC2 = 8;     // C = MC1 * MC2: the row steps' radices
 constexpr int MS = MC + MC / 16 + 1; // row stride of a middle plane (complex)
-constexpr int WS = MC + MC1;         // row stride of the weight cotangent's sums
-                                     // (two rows of a warp on other banks)
+constexpr int WCL = 2;               // CTAs of a weight-cotangent cluster
 
 // ---------------------------------------------------------------------------
 // Complex arithmetic and the register DFT (csrc/fft_steps.cuh)
@@ -362,7 +380,10 @@ __device__ __forceinline__ int phys(int p) { return p + (p >> 4); }
 // The smem-to-smem phases (2, 3, 5, 6) take their items one at a time (the
 // compiler would otherwise hoist every item's loads and spill); phases 1 and
 // 7 (device memory) and 4 (d) unroll theirs, so all their loads are in flight
-// together.  128 registers a thread at 512 threads, no spills.
+// together.  128 registers a thread at 512 threads, no spills.  The weight
+// cotangent keeps 16 sums a thread in registers and reads phase 1's real
+// half from shared memory: it takes phase 1's items one at a time (unrolled,
+// they spilled 272 bytes at B = 128) and phase 2's two at a time.
 template <int B>
 struct Mid {
     static constexpr int R1 = MidPlan<B>::R1, R2 = MidPlan<B>::R2;
@@ -371,13 +392,14 @@ struct Mid {
 
     // Phase 1 (with phase 2 when R2 == 1): items (c, a1), the rows
     // a1 + R2 b of y times T1's row factor, the R1-point DFT over b into k1 at
-    // rows a1 + R2 k1.
+    // rows a1 + R2 k1.  SERIAL: the items one at a time (the weight
+    // cotangent, whose sums stay in registers beside them).
+    template <bool SERIAL = false>
     __device__ static void fwd_b1(const float* __restrict__ yr, const float* __restrict__ yi,
                                   float2* s, const MidTab& t, int ka) {
         constexpr int ITEMS = R2 * MC;
         static_assert(ITEMS % NT == 0, "phase 1 items");
-#pragma unroll
-        for (int it = 0; it < ITEMS / NT; ++it) {
+        auto item = [&](int it) {
             const int q = threadIdx.x + it * NT;
             const int c = q % MC, a1 = q / MC;
             float2 w[R1];
@@ -396,17 +418,25 @@ struct Mid {
 #pragma unroll
                 for (int k1 = 0; k1 < R1; ++k1) s[(a1 + R2 * k1) * MS + phys(c)] = w[k1];
             }
+        };
+        if constexpr (SERIAL) {
+#pragma unroll 1
+            for (int it = 0; it < ITEMS / NT; ++it) item(it);
+        } else {
+#pragma unroll
+            for (int it = 0; it < ITEMS / NT; ++it) item(it);
         }
     }
 
     // Phase 2: items (c, k1), the rows k1 R2 + a times W_B^{a k1}, the
     // R2-point DFT over a into k2, times T2[kb, c] T1's column factor, kb =
-    // k1 + R1 k2 (row k1 R2 + k2 holds kb).
+    // k1 + R1 k2 (row k1 R2 + k2 holds kb).  PAIRS: two items at a time (the
+    // weight cotangent, whose phase 1 leaves the registers for it).
+    template <bool PAIRS = false>
     __device__ static void fwd_b2(float2* s, const MidTab& t, int ka) {
         constexpr int ITEMS = R1 * MC;
         static_assert(ITEMS % NT == 0, "phase 2 items");
-#pragma unroll 1
-        for (int it = 0; it < ITEMS / NT; ++it) {
+        auto item = [&](int it) {
             const int q = threadIdx.x + it * NT;
             const int c = q % MC, k1 = q / MC;
             float2 w[R2];
@@ -418,6 +448,13 @@ struct Mid {
 #pragma unroll
             for (int k2 = 0; k2 < R2; ++k2)
                 s[(k1 * R2 + k2) * MS + phys(c)] = cmul(w[k2], cmul(tt, __ldg(t.fac + k2 * MC + c)));
+        };
+        if constexpr (PAIRS) {
+#pragma unroll 2
+            for (int it = 0; it < ITEMS / NT; ++it) item(it);
+        } else {
+#pragma unroll 1
+            for (int it = 0; it < ITEMS / NT; ++it) item(it);
         }
     }
 
@@ -597,9 +634,10 @@ struct Mid {
 };
 
 template <int B> constexpr size_t mid_smem() { return (size_t)B * MS * sizeof(float2); }
-// the weight cotangent's: the plane and its sums (214 KB at B = 128)
+// the weight cotangent's: the plane, the staged real half of the next plane
+// and the staging mbarrier (205 840 bytes at B = 128)
 template <int B> constexpr size_t wgrad_smem() {
-    return mid_smem<B>() + (size_t)B * WS * sizeof(float);
+    return mid_smem<B>() + (size_t)B * MC * sizeof(float) + 16;
 }
 
 // The middle on plane ka of sample v, blockIdx.x = ka * V + v (the V planes
@@ -641,72 +679,155 @@ middle_dual_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
     Mid<B>::inverse(plane, t, ka, zBr + base, zBi + base);
 }
 
-// B-4's weight cotangent: out[ka, kb, kc] = sum over the block's v of
+// The staging of the weight cotangent's planes: a 1-D bulk copy (TMA) from
+// device memory into shared memory that completes on an mbarrier.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// One thread: the barrier, one arrival a phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One thread, after a block barrier that ends every read of dst: bytes
+// (a multiple of 16, both addresses 16-byte aligned) from src to dst,
+// completing the barrier's next phase.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1], %2, [%3];"
+                 ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// Every thread: wait until the barrier's phase of this parity is complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}"
+                     : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    } while (!done);
+}
+
+#ifdef WGRAD_PHASE_CLOCKS
+// Per-phase clocks of the weight cotangent for
+// experiments/profile_wgrad_phases.py, built only with -DWGRAD_PHASE_CLOCKS
+// (the kernel's own build has no marks): thread 0 of each CTA sums the
+// clocks since its last mark by phase and adds them to the device counters
+// when it is done.
+__device__ unsigned long long wgrad_phase_clocks[8];
+#define WG_PHASE_START() unsigned long long wg_t0 = clock64(), wg_c[8] = {0}
+#define WG_PHASE(i)                                      \
+    do {                                                 \
+        if (threadIdx.x == 0) {                          \
+            const unsigned long long wg_t = clock64();   \
+            wg_c[i] += wg_t - wg_t0;                     \
+            wg_t0 = wg_t;                                \
+        }                                                \
+    } while (0)
+#define WG_PHASE_END()                                                   \
+    do {                                                                 \
+        if (threadIdx.x == 0)                                            \
+            for (int i = 0; i < 8; ++i) atomicAdd(&wgrad_phase_clocks[i], wg_c[i]); \
+    } while (0)
+#else
+#define WG_PHASE_START()
+#define WG_PHASE(i)
+#define WG_PHASE_END()
+#endif
+
+// B-4's weight cotangent: out[ka, kb, kc] = sum over the cluster's v of
 // Re[X_v conj(G_v)], X = M x and G = M g the forward middle (phases 1-4's
-// forward half) of the stage-1 outputs x and g, in d's stage order.  Block
-// (ka, s), blockIdx.x = s * A + ka, takes v = s * per ... min(V, (s + 1) per)
-// - 1 in order and writes its sum to out + blockIdx.x * P.  One plane fills
-// the shared memory, so X is parked in park + blockIdx.x * P (device memory:
-// each thread reads back only what it wrote) while g's plane is transformed;
-// the sums stay in shared memory beside the plane (rows of WS floats), each
-// thread on the positions of its own items (in registers they spilled at
-// B = 128).
+// forward half) of the stage-1 outputs x and g, in d's stage order.  A
+// cluster of WCL = 2 CTAs, cluster p = blockIdx.x / 2 = s * A + ka, takes
+// the v of split s of `splits` (a contiguous run, in order) and writes its
+// sum to out + p * P; rank 0 transforms x, rank 1 g.  Each CTA's items of
+// the product are the rows [rank B/2, (rank + 1) B/2) of the planes, thread
+// q's i-th item row rank B/2 + j / 128 and position j % 128, j = q + i NT:
+// a warp reads 32 consecutive positions of a row (conflict-free, and one
+// run of the partner's plane a request, 256 bytes and a pad).
 template <int B>
 __global__ void __launch_bounds__(Mid<B>::NT, 1)
 middle_wgrad_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     const float* __restrict__ gr, const float* __restrict__ gi, MidTab t,
-                    float2* park, float* __restrict__ out, int V, int A, int per) {
+                    float* __restrict__ out, int V, int A, int splits) {
     extern __shared__ float2 plane[];
     using Mb = Mid<B>;
-    constexpr int P = Mb::P, NI = MC1 * B / Mb::NT;
-    float* acc = reinterpret_cast<float*>(plane + B * MS);
-    const int ka = blockIdx.x % A, s = blockIdx.x / A;
-    float2* pk = park + (size_t)blockIdx.x * P;
-    // item it of this thread: row q / 16, k1 = q % 16, its sums at
-    // acc[row * WS + k1 + 16 k2]
-    auto at = [](int it) {
-        const int q = threadIdx.x + it * Mb::NT;
-        return (q / MC1) * WS + q % MC1;
-    };
+    constexpr int P = Mb::P, NT = Mb::NT, NI = MC1 * B / NT, PER = B / 2 * MC / NT;
+    float* stage = reinterpret_cast<float*>(plane + B * MS);   // the next plane's real half
+    uint64_t* full = reinterpret_cast<uint64_t*>(stage + P);
+    const cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int p = blockIdx.x / WCL, ka = p % A, s = p / A;
+    const float* yr = rank ? gr : xr;
+    const float* yi = rank ? gi : xi;
+    const float2* peer = cluster.map_shared_rank(plane, rank ^ 1);
+    const int v0 = (int)((long long)s * V / splits), v1 = (int)((long long)(s + 1) * V / splits);
+    float acc[PER];
 #pragma unroll
-    for (int it = 0; it < NI; ++it)
-#pragma unroll
-        for (int k2 = 0; k2 < MC2; ++k2) acc[at(it) + MC1 * k2] = 0.0f;
-    const int v1 = min(V, (s + 1) * per);
-    for (int v = s * per; v < v1; ++v) {
-        const size_t base = ((size_t)v * A + ka) * P;
-        Mb::forward(xr + base, xi + base, plane, t, ka);
-#pragma unroll
-        for (int it = 0; it < NI; ++it) {
-            int row, k1;
-            float2 w[MC2];
-            Mb::c_spectrum(plane, t, it, row, k1, w);
-#pragma unroll
-            for (int k2 = 0; k2 < MC2; ++k2) pk[row * MC + k1 + MC1 * k2] = w[k2];
-        }
-        __syncthreads();   // the plane is read before g's forward rewrites it
-        Mb::forward(gr + base, gi + base, plane, t, ka);
-#pragma unroll
-        for (int it = 0; it < NI; ++it) {
-            int row, k1;
-            float2 w[MC2];
-            Mb::c_spectrum(plane, t, it, row, k1, w);
-#pragma unroll
-            for (int k2 = 0; k2 < MC2; ++k2) {
-                const float2 X = pk[row * MC + k1 + MC1 * k2];
-                acc[at(it) + MC1 * k2] += X.x * w[k2].x + X.y * w[k2].y;
-            }
-        }
-        __syncthreads();   // likewise before the next v's forward
+    for (int i = 0; i < PER; ++i) acc[i] = 0.0f;
+    if (threadIdx.x == 0) {
+        mbar_init(full);
+        if (v0 < v1) bulk_load(stage, yr + ((size_t)v0 * A + ka) * P, P * sizeof(float), full);
     }
-    float* o = out + (size_t)blockIdx.x * P;
+    __syncthreads();   // the barrier is initialised before anyone waits on it
+    WG_PHASE_START();
+    for (int v = v0; v < v1; ++v) {
+        const size_t base = ((size_t)v * A + ka) * P;
+        mbar_wait(full, (v - v0) & 1);
+        WG_PHASE(0);
+        Mb::template fwd_b1<true>(stage, yi + base, plane, t, ka);
+        __syncthreads();
+        WG_PHASE(1);
+        // the stage is read: the next plane's real half lands while this
+        // one is transformed
+        if (threadIdx.x == 0 && v + 1 < v1)
+            bulk_load(stage, yr + base + (size_t)A * P, P * sizeof(float), full);
+        if constexpr (Mb::R2 > 1) {
+            Mb::template fwd_b2<true>(plane, t, ka);
+            __syncthreads();
+        }
+        WG_PHASE(2);
+        Mb::fwd_c1(plane);
+        __syncthreads();
+        WG_PHASE(3);
+        // phase 4's forward half, written back in place: row r holds
+        // kb = r / R2 + R1 (r % R2), position 8 k1 + k2 holds kc = k1 + 16 k2
 #pragma unroll
-    for (int it = 0; it < NI; ++it) {
-        const int q = threadIdx.x + it * Mb::NT;
-        const int k1 = q % MC1, row = q / MC1;
-        const int kb = row / Mb::R2 + Mb::R1 * (row % Mb::R2);
+        for (int it = 0; it < NI; ++it) {
+            int row, k1;
+            float2 w[MC2];
+            Mb::c_spectrum(plane, t, it, row, k1, w);
 #pragma unroll
-        for (int k2 = 0; k2 < MC2; ++k2) o[kb * MC + k1 + MC1 * k2] = acc[at(it) + MC1 * k2];
+            for (int k2 = 0; k2 < MC2; ++k2) plane[row * MS + phys(MC2 * k1 + k2)] = w[k2];
+        }
+        WG_PHASE(4);
+        cluster.sync();   // both spectra are complete
+        WG_PHASE(5);
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+            const int j = threadIdx.x + i * NT;
+            const int at = (rank * (B / 2) + j / MC) * MS + phys(j % MC);
+            const float2 a = plane[at], b = peer[at];
+            acc[i] += a.x * b.x + a.y * b.y;
+        }
+        WG_PHASE(6);
+        cluster.sync();   // both planes are read before the next v's forward
+        WG_PHASE(7);
+    }
+    WG_PHASE_END();
+    float* o = out + (size_t)p * P;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+        const int j = threadIdx.x + i * NT;
+        const int row = rank * (B / 2) + j / MC, pos = j % MC;
+        o[(row / Mb::R2 + Mb::R1 * (row % Mb::R2)) * MC + pos / MC2 + MC1 * (pos % MC2)] = acc[i];
     }
 }
 
@@ -726,6 +847,7 @@ wgrad_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, siz
 // ---------------------------------------------------------------------------
 
 __host__ inline bool is_pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
+__host__ inline int clampi(int x, int lo, int hi) { return x < lo ? lo : x > hi ? hi : x; }
 
 int mid_radix1(int B) {
     switch (B) {
@@ -939,19 +1061,62 @@ int launch_middle(bool dual, const float* yr, const float* yi, const float* dA,
     return (int)cudaErrorInvalidValue;
 }
 
+// V planes of a ka over this many clusters: one wave of the SMs / WCL
+// clusters the card holds at A <= 64 (one cluster a ka above), at most one
+// a plane (`radix_fft.wgrad_splits`).
+int wgrad_splits(int V, int A, int sms) { return clampi(sms / WCL / A, 1, V); }
+
+template <int B>
+void wgrad_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int clusters,
+                  cudaStream_t stream) {
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3(clusters * WCL, 1, 1);
+    cfg.blockDim = dim3(Mid<B>::NT, 1, 1);
+    cfg.dynamicSmemBytes = wgrad_smem<B>();
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = WCL;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+}
+
 template <int B>
 int launch_wgrad_b(const float* xr, const float* xi, const float* gr, const float* gi,
-                   const MidTab& t, float2* park, float* out, int V, int A, int splits,
+                   const MidTab& t, float* out, int V, int A, int splits,
                    cudaStream_t stream) {
-    const int per = (V + splits - 1) / splits;
-    middle_wgrad_kernel<B><<<A * splits, Mid<B>::NT, wgrad_smem<B>(), stream>>>(
-        xr, xi, gr, gi, t, park, out, V, A, per);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    wgrad_config<B>(cfg, attr, A * splits, stream);
+    cudaError_t err = cudaLaunchKernelEx(&cfg, middle_wgrad_kernel<B>, xr, xi, gr, gi, t, out,
+                                         V, A, splits);
+    if (err) return (int)err;
     return (int)cudaGetLastError();
+}
+
+template <int B>
+int wgrad_clusters_b(int* n) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    wgrad_config<B>(cfg, attr, 1, 0);
+    return (int)cudaOccupancyMaxActiveClusters(n, middle_wgrad_kernel<B>, &cfg);
 }
 
 }  // namespace
 
 extern "C" {
+
+#ifdef WGRAD_PHASE_CLOCKS
+// The weight cotangent's per-phase clocks (8) into out; zeroed after when
+// `reset`.
+int radix_wgrad_phase_clocks(unsigned long long* out, int reset) {
+    cudaError_t err = cudaMemcpyFromSymbol(out, wgrad_phase_clocks, sizeof(wgrad_phase_clocks));
+    if (err || !reset) return (int)err;
+    unsigned long long zero[8] = {0};
+    return (int)cudaMemcpyToSymbol(wgrad_phase_clocks, zero, sizeof(zero));
+}
+#endif
 
 // Floats of the plan table the kernels read (float64 values rounded to
 // float32, built by the wrapper): 2 * table_complex(A, B), 0 for a B the
@@ -1039,35 +1204,64 @@ int radix_middle_dual(const float* yr, const float* yi, const float* dA, const f
 
 // B-4's weight cotangent: dbar (A, B, C) = sum over v of Re[(M x)(v) conj
 // (M g)(v)], M the forward middle, of the stage-1 outputs x and g
-// (V, A, B, C).  The V planes are split over `splits` blocks per ka (1 <=
-// splits <= V); park: 2 * A * splits * B * C floats of scratch; partial:
-// splits * A * B * C floats, summed in order into dbar by a second launch
-// (unused, may be null, when splits == 1: the blocks write dbar).
+// (V, A, B, C; xr and gr 16-byte aligned, the bulk copies' rule).  The V
+// planes of a ka are split over wgrad_splits(V, A, sms) clusters; when that
+// is more than one, partial (partial_floats >= splits * A * B * C) takes
+// their sums, added in order into dbar by a second launch (else partial is
+// unused and may be null: the clusters write dbar).
 int radix_middle_wgrad(const float* xr, const float* xi, const float* gr, const float* gi,
-                       const float* tab, float* park, float* partial, float* dbar, int V,
-                       int A, int B, int C, int splits, void* stream) {
-    if (!middle_args_ok(V, A, B, C) || splits < 1 || splits > V ||
-        (splits > 1 && partial == nullptr))
+                       const float* tab, float* partial, size_t partial_floats, float* dbar,
+                       int V, int A, int B, int C, int sms, void* stream) {
+    if (!middle_args_ok(V, A, B, C) || sms < 1 ||
+        ((uintptr_t)xr | (uintptr_t)gr) % 16 != 0)
+        return (int)cudaErrorInvalidValue;
+    const int splits = wgrad_splits(V, A, sms);
+    const size_t n = (size_t)A * B * C;
+    if (splits > 1 && (partial == nullptr || partial_floats < (size_t)splits * n))
         return (int)cudaErrorInvalidValue;
     cudaError_t cerr = configure_once();
     if (cerr) return (int)cerr;
     const MidTab t = mid_tables(tab, A, B);
     cudaStream_t st = (cudaStream_t)stream;
-    float2* pk = reinterpret_cast<float2*>(park);
     float* out = splits == 1 ? dbar : partial;
     int err = (int)cudaErrorInvalidValue;
 #define WG_CASE(n) \
-    case n: err = launch_wgrad_b<n>(xr, xi, gr, gi, t, pk, out, V, A, splits, st); break;
+    case n: err = launch_wgrad_b<n>(xr, xi, gr, gi, t, out, V, A, splits, st); break;
     switch (B) {
         WG_CASE(8) WG_CASE(16) WG_CASE(32) WG_CASE(64) WG_CASE(128)
     }
 #undef WG_CASE
     if (err || splits == 1) return err;
-    const size_t n = (size_t)A * B * C;
     const int blocks = (int)((n + RED_THREADS - 1) / RED_THREADS < 4096
                                  ? (n + RED_THREADS - 1) / RED_THREADS : 4096);
     wgrad_reduce_kernel<<<blocks, RED_THREADS, 0, st>>>(partial, dbar, n, splits);
     return (int)cudaGetLastError();
+}
+
+// The weight cotangent at plan B: its dynamic shared memory a CTA (bytes),
+// and *clusters the card keeps resident at once (cudaOccupancyMaxActiveClusters).
+size_t radix_wgrad_smem_bytes(int B) {
+    switch (B) {
+        case 8: return wgrad_smem<8>();
+        case 16: return wgrad_smem<16>();
+        case 32: return wgrad_smem<32>();
+        case 64: return wgrad_smem<64>();
+        case 128: return wgrad_smem<128>();
+    }
+    return 0;
+}
+
+int radix_wgrad_max_clusters(int B, int* clusters) {
+    cudaError_t err = configure_once();
+    if (err) return (int)err;
+    switch (B) {
+        case 8: return wgrad_clusters_b<8>(clusters);
+        case 16: return wgrad_clusters_b<16>(clusters);
+        case 32: return wgrad_clusters_b<32>(clusters);
+        case 64: return wgrad_clusters_b<64>(clusters);
+        case 128: return wgrad_clusters_b<128>(clusters);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -61,10 +61,13 @@ __all__ = ["RadixPlan", "make_plan", "permute_weights", "fused_circulant_apply",
            "radix_supported", "row_multiple", "stage_order_weights",
            "stage1", "stage1_inv_dot", "middle", "middle_wgrad", "stage1_plain",
            "stage1_inv_dot_plain", "middle_plain", "middle_wgrad_plain",
-           "wgrad_splits", "pack_rows", "unpack_rows",
+           "wgrad_splits", "wgrad_kernel_info", "WGRAD_CLUSTER", "pack_rows", "unpack_rows",
            "LAUNCHES", "reset_launches", "attribute_sets"]
 
 _LANE = 128
+# CTAs of a ``radix_middle_wgrad`` cluster (``WCL`` of csrc/radix.cu): one
+# transforms x's plane, the other g's
+WGRAD_CLUSTER = 2
 # launches of the radix kernels, per wrapper; a plain-version call counts nothing
 LAUNCHES: Dict[str, int] = {"stage1": 0, "stage1_inv_dot": 0, "middle": 0,
                             "middle_dual": 0, "middle_wgrad": 0}
@@ -323,33 +326,41 @@ def _checked_table(L: int, dev) -> torch.Tensor:
 # The kernels' wrappers
 # ---------------------------------------------------------------------------
 
+def _bind(lib):
+    """Sets the C signatures of a built ``csrc/radix.cu`` on ``lib``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.radix_stage1.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.radix_stage1.restype = ctypes.c_int
+    lib.radix_stage1_dot.argtypes = [p] * 10 + [i] * 4 + [p]
+    lib.radix_stage1_dot.restype = ctypes.c_int
+    lib.radix_middle.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.radix_middle.restype = ctypes.c_int
+    lib.radix_middle_dual.argtypes = [p] * 9 + [i] * 4 + [p]
+    lib.radix_middle_dual.restype = ctypes.c_int
+    lib.radix_middle_wgrad.argtypes = [p] * 6 + [ctypes.c_size_t, p] + [i] * 5 + [p]
+    lib.radix_middle_wgrad.restype = ctypes.c_int
+    lib.radix_wgrad_smem_bytes.argtypes = [i]
+    lib.radix_wgrad_smem_bytes.restype = ctypes.c_size_t
+    lib.radix_wgrad_max_clusters.argtypes = [i, ctypes.POINTER(i)]
+    lib.radix_wgrad_max_clusters.restype = ctypes.c_int
+    lib.radix_dot_partials.argtypes = [i, i, i]
+    lib.radix_dot_partials.restype = ctypes.c_size_t
+    lib.radix_table_floats.argtypes = [i, i]
+    lib.radix_table_floats.restype = ctypes.c_size_t
+    lib.radix_plan.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.radix_plan.restype = ctypes.c_int
+    for counter in (lib.radix_attribute_sets, lib.radix_kernels_configured):
+        counter.argtypes = []
+        counter.restype = ctypes.c_int
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         from .. import _build
 
-        lib = _build.load("radix")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.radix_stage1.argtypes = [p] * 5 + [i] * 6 + [p]
-        lib.radix_stage1.restype = ctypes.c_int
-        lib.radix_stage1_dot.argtypes = [p] * 10 + [i] * 4 + [p]
-        lib.radix_stage1_dot.restype = ctypes.c_int
-        lib.radix_middle.argtypes = [p] * 6 + [i] * 4 + [p]
-        lib.radix_middle.restype = ctypes.c_int
-        lib.radix_middle_dual.argtypes = [p] * 9 + [i] * 4 + [p]
-        lib.radix_middle_dual.restype = ctypes.c_int
-        lib.radix_middle_wgrad.argtypes = [p] * 8 + [i] * 5 + [p]
-        lib.radix_middle_wgrad.restype = ctypes.c_int
-        lib.radix_dot_partials.argtypes = [i, i, i]
-        lib.radix_dot_partials.restype = ctypes.c_size_t
-        lib.radix_table_floats.argtypes = [i, i]
-        lib.radix_table_floats.restype = ctypes.c_size_t
-        lib.radix_plan.argtypes = [i, i, ctypes.POINTER(i)]
-        lib.radix_plan.restype = ctypes.c_int
-        for counter in (lib.radix_attribute_sets, lib.radix_kernels_configured):
-            counter.argtypes = []
-            counter.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = _bind(_build.load("radix"))
     return _LIB
 
 
@@ -506,10 +517,19 @@ def middle_dual(yr: torch.Tensor, yi: torch.Tensor, dA: torch.Tensor,
 
 
 def wgrad_splits(V: int, A: int, sms: int) -> int:
-    """Blocks per ka of ``radix_middle_wgrad``: enough that the A * splits
-    blocks cover the ``sms`` streaming multiprocessors (one plane fills
-    one), at most one per plane."""
-    return max(1, min(V, -(-sms // A)))
+    """Clusters per ka of ``radix_middle_wgrad`` (``wgrad_splits`` of
+    ``csrc/radix.cu``): the ``sms // WGRAD_CLUSTER`` clusters the card holds
+    at once shared among the A values of ka, so that A * splits clusters
+    make one wave at A <= 64; at least one, at most one per plane."""
+    return max(1, min(V, sms // WGRAD_CLUSTER // A))
+
+
+def wgrad_kernel_info(B: int) -> Tuple[int, int]:
+    """(dynamic shared memory of a CTA in bytes, clusters resident at once)
+    of ``radix_middle_wgrad`` at plan B on the current card."""
+    n = ctypes.c_int(0)
+    _raise_on(_lib().radix_wgrad_max_clusters(B, ctypes.byref(n)), "middle_wgrad")
+    return _lib().radix_wgrad_smem_bytes(B), n.value
 
 
 def middle_wgrad(xr: torch.Tensor, xi: torch.Tensor, gr: torch.Tensor,
@@ -526,18 +546,22 @@ def middle_wgrad(xr: torch.Tensor, xi: torch.Tensor, gr: torch.Tensor,
     if xr.device.type == "cpu":
         return middle_wgrad_plain(xr, xi, gr, gi, plan)
     _check("middle_wgrad", xr, xr, xi, gr, gi)
+    if xr.data_ptr() % 16 or gr.data_ptr() % 16:
+        raise ValueError("middle_wgrad kernel needs xr and gr 16-byte aligned "
+                         "(their planes arrive by bulk copies)")
     dev = xr.device
-    splits = wgrad_splits(V, plan.A, torch.cuda.get_device_properties(dev).multi_processor_count)
-    park = torch.empty((2 * splits * plan.L,), dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = wgrad_splits(V, plan.A, sms)
+    # the only scratch: the splits' sums, when a ka's planes are split
     partial = (torch.empty((splits * plan.L,), dtype=torch.float32, device=dev)
                if splits > 1 else None)
     dbar = torch.empty(shape[1:], dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().radix_middle_wgrad(xr.data_ptr(), xi.data_ptr(), gr.data_ptr(),
                                         gi.data_ptr(), _checked_table(plan.L, dev).data_ptr(),
-                                        park.data_ptr(),
                                         None if partial is None else partial.data_ptr(),
-                                        dbar.data_ptr(), V, plan.A, plan.B, plan.C, splits,
+                                        0 if partial is None else partial.numel(),
+                                        dbar.data_ptr(), V, plan.A, plan.B, plan.C, sms,
                                         _stream(dev))
     _raise_on(err, "middle_wgrad")
     LAUNCHES["middle_wgrad"] += 1

@@ -128,12 +128,15 @@ def test_middle_wgrad_plain_matches_jax_forward_stages(L, rows):
                          sg[1].view(V, A, B, C), tp)
 
 
-@pytest.mark.parametrize("V,A,sms,want", [(128, 128, 132, 2), (4, 128, 132, 2),
-                                          (1, 128, 132, 1), (16, 8, 132, 16),
-                                          (128, 8, 132, 17), (3, 2048, 132, 1)])
+@pytest.mark.parametrize("V,A,sms,want", [(128, 128, 132, 1), (4, 128, 132, 1),
+                                          (1, 128, 132, 1), (16, 8, 132, 8),
+                                          (128, 8, 132, 8), (3, 2048, 132, 1),
+                                          (3, 8, 132, 3), (128, 16, 132, 4),
+                                          (128, 64, 132, 1), (40, 32, 114, 1)])
 def test_wgrad_splits_cover_the_card(V, A, sms, want):
-    # the blocks per ka of radix_middle_wgrad: at least the SM count in
-    # all, at most one per plane
+    # the two-CTA clusters per ka of radix_middle_wgrad: the sms / 2
+    # clusters of one wave shared among the A values of ka, at least one,
+    # at most one per plane
     assert trf.wgrad_splits(V, A, sms) == want
 
 

@@ -962,10 +962,12 @@ def test_batch_solve_kernel_a_launches(dev, solver):
 WGRAD_LENGTHS = [8192, 1 << 14, 32768, 1 << 16, 1 << 17, 1 << 21]
 
 
-@pytest.mark.parametrize("L", WGRAD_LENGTHS)
-@pytest.mark.parametrize("V", [1, 3, 40])
+# V = 2 at A = 8: two clusters a ka, one plane pair each; V = 128 at the
+# headline: the training step's 128 planes, one cluster a ka
+@pytest.mark.parametrize("L,V", [(L, V) for L in WGRAD_LENGTHS for V in (1, 2, 3, 40)]
+                         + [(1 << 21, 128)])
 def test_radix_middle_wgrad_matches_plain(dev, L, V):
-    # radix_middle_wgrad (V split over blocks or not) against its plain
+    # radix_middle_wgrad (V split over clusters or not) against its plain
     # version in f32 and f64 on the same inputs: <= 1e-5 (f32 rounding of
     # the two forward halves and the sum over v); a second call bit-equal
     p32, p64 = _plans(L, dev)
@@ -982,6 +984,39 @@ def test_radix_middle_wgrad_matches_plain(dev, L, V):
     assert got.shape == shape[1:] and got.dtype == torch.float32
     assert torch.equal(got, again)
     assert _rel(got, want32) <= 1e-5 and _rel(got, want64) <= 1e-5
+
+
+@pytest.mark.parametrize("L,V", [(8192, 3), (8192, 40), (1 << 21, 2)])
+def test_radix_middle_wgrad_scratch_is_only_the_partials(dev, L, V):
+    # no spectrum goes to device memory: a call allocates dbar and, where a
+    # ka's planes are split over clusters, the splits' partial sums, nothing
+    # else
+    p32, _ = _plans(L, dev)
+    x32 = _randn((4, V, p32.A, p32.B, p32.C), dev, L).float()
+    radix_fft.middle_wgrad(*x32, p32)   # the plan table, built once a plan
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = radix_fft.wgrad_splits(V, p32.A, sms)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = radix_fft.middle_wgrad(*x32, p32)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    assert extra == 4 * L * (1 + (splits if splits > 1 else 0))
+    assert out.shape == (p32.A, p32.B, p32.C)
+
+
+def test_radix_middle_wgrad_refuses_unaligned_planes(dev):
+    # the planes' real parts arrive by bulk copies: x and g start 16-byte
+    # aligned, or the wrapper raises before a launch
+    p32, _ = _plans(8192, dev)
+    n = 2 * p32.L
+    buf = torch.randn((4 * n + 1,), device=dev)
+    x = [buf[1 + k * n:1 + (k + 1) * n].view(2, p32.A, p32.B, p32.C) for k in range(4)]
+    before = radix_fft.LAUNCHES["middle_wgrad"]
+    with pytest.raises(ValueError):
+        radix_fft.middle_wgrad(*x, p32)
+    assert radix_fft.LAUNCHES["middle_wgrad"] == before
 
 
 @pytest.mark.parametrize("L,rows", MAIN_PATH_CROPS)

@@ -10,7 +10,12 @@ in float64 against NumPy's FFT and against the plain versions
 at every plan of the card tests' lengths, at the 1-D main path's crops, at
 8 rows and at an odd crop at A = 2048, with the solver's three diagonals and
 with a diagonal that is not even.  The middle's shared-memory layout is
-checked too: each phase's half-warp accesses hit distinct bank pairs.
+checked too: each phase's half-warp accesses hit distinct bank pairs.  The
+weight cotangent (``radix_middle_wgrad``, a two-CTA cluster) is modelled the
+same way: its two CTAs' product items, the stage-order index each writes,
+and the sum over v in the kernel's order (the split's run of v, the splits
+in order) against `middle_wgrad_plain`; its cluster size, split rule and
+shared memory are held to the source.
 The radices are the kernels' own: the dicts are held here to the plan
 specialisations of the CUDA source (`S1Plan`, `MidPlan`, `MC1`/`MC2`), and on
 the card the wrapper holds them to the built kernels' `radix_plan` before
@@ -407,3 +412,145 @@ def test_middle_shared_memory_layout_has_no_bank_conflicts(B):
         for a in range(MC2):
             addrs = [(q // MC1) * MS + _phys(MC2 * (q % MC1) + a) for q in lanes]
             assert pairs(addrs) == 16
+
+
+# ---------------------------------------------------------------------------
+# B-4's weight cotangent (radix_middle_wgrad): a two-CTA cluster a (ka, split)
+# ---------------------------------------------------------------------------
+
+SMS = 132   # the H100's streaming multiprocessors
+WGRAD_CASES = [8192, 1 << 14, 32768, 1 << 16, 1 << 17, 1 << 21]   # B = 8 ... 128; the headline
+
+
+def _wgrad_items(B):
+    """The product's items of the kernel, per (rank, thread q, item i):
+    (row of the plane, kc it writes, position it reads in the row); thread
+    q's i-th item is j = q + i NT of its rank's half of the rows."""
+    NT = min(512, B * MC // 16)
+    PER = B // 2 * MC // NT
+    assert PER * NT * 2 == B * MC
+    rank, q, i = np.meshgrid(np.arange(2), np.arange(NT), np.arange(PER), indexing="ij")
+    j = q + i * NT
+    row, pos = rank * (B // 2) + j // MC, j % MC
+    return row, pos // MC2 + MC1 * (pos % MC2), pos
+
+
+def _spectrum_rows(state):
+    """Phase 4's forward half written back in place: item (row, k1) turns
+    positions 8 k1 + a (times W_C^{a k1}) into kc = k1 + 16 k2 at position
+    8 k1 + k2.  Returns the plane state (..., B, C) after it."""
+    L = 1 << 21   # any plan: tw4 depends on C only
+    tw4 = radix_fft._kernel_table_np(L)["tw4"].T   # [k1, a]
+    *lead, B, _ = state.shape
+    s = state.reshape(*lead, B, MC1, MC2) * tw4
+    return _einsum("...ja,an->...jn", s, _F(MC2, -1)).reshape(*lead, B, MC)
+
+
+@pytest.mark.parametrize("B", [8, 16, 32, 64, 128])
+def test_wgrad_halves_cover_each_point_once(B):
+    # the two CTAs' items cover every (kb, kc) of a plane exactly once, each
+    # read at the position phase 4's write-back left kc in, and written to
+    # d's stage order at kb = row / R2 + R1 (row % R2)
+    R1, R2 = radix_fft._MID_RADICES[B]
+    row, kc, pos = _wgrad_items(B)
+    kb = row // R2 + R1 * (row % R2)
+    flat = (kb * MC + kc).ravel()
+    assert np.array_equal(np.sort(flat), np.arange(B * MC))
+    # write-back: item (row, k1) puts kc = k1 + 16 k2 at position 8 k1 + k2
+    k1, k2 = np.meshgrid(np.arange(MC1), np.arange(MC2), indexing="ij")
+    where = np.empty(MC, dtype=int)
+    where[k1 + MC1 * k2] = MC2 * k1 + k2
+    assert np.array_equal(pos, where[kc])
+    # the rows of each rank are its own half
+    assert set(row[0].ravel()) == set(range(B // 2))
+    assert set(row[1].ravel()) == set(range(B // 2, B))
+    # a warp's 32 items: consecutive positions of one row (256 contiguous
+    # bytes of the partner's plane but the pad), and each half-warp's
+    # 64-bit reads on 16 distinct bank pairs
+    for r in range(2):
+        for q0 in range(0, row.shape[1], 32):
+            for i in range(row.shape[2]):
+                w_row, w_pos = row[r, q0:q0 + 32, i], pos[r, q0:q0 + 32, i]
+                assert len(set(w_row)) == 1 and np.array_equal(np.diff(w_pos), np.ones(31))
+                for h in (0, 16):
+                    addrs = w_row[h:h + 16] * MS + _phys(pos[r, q0 + h:q0 + h + 16, i])
+                    assert len({a % 16 for a in addrs}) == 16
+
+
+@pytest.mark.parametrize("L", WGRAD_CASES)
+@pytest.mark.parametrize("V", [1, 3, 40])
+def test_wgrad_model_matches_plain(L, V):
+    # the kernel step by step in float64: phases 1-3 (`_middle_forward_model`),
+    # phase 4's forward half written back, the product of each rank's half
+    # of the rows, summed over v in the kernel's order (the split's
+    # contiguous run of v, then the splits in order by the second launch)
+    # and written in stage order; against middle_wgrad_plain (every plane
+    # where A = 8; at the headline eight planes against its own chain on
+    # them): <= 1e-12
+    A, B, C = radix_fft._factorize(L)
+    R1, R2 = radix_fft._MID_RADICES[B]
+    kas = list(range(A)) if A <= 16 else [0, 1, 5, A // 2 - 1, A // 2, A // 2 + 1, A - 2, A - 1]
+    K = len(kas)
+    rng = np.random.default_rng(L + V)
+    x, g = _crandn(rng, V, K, B, C), _crandn(rng, V, K, B, C)
+    X, G = (_spectrum_rows(_middle_forward_model(y, kas, L)) for y in (x, g))
+    row, kc, pos = _wgrad_items(B)
+    row, kc, pos = row.ravel(), kc.ravel(), pos.ravel()
+    terms = (X.real * G.real + X.imag * G.imag)[:, :, row, pos]   # (V, K, items)
+    splits = radix_fft.wgrad_splits(V, A, SMS)
+    part = np.zeros((splits, K, row.size))
+    for s in range(splits):
+        for v in range(s * V // splits, (s + 1) * V // splits):
+            part[s] += terms[v]
+    acc = np.zeros((K, row.size))
+    for s in range(splits):
+        acc += part[s]
+    got = np.empty((K, B, C))
+    got[:, row // R2 + R1 * (row % R2), kc] = acc
+    if K == A:
+        plan = radix_fft.make_plan(L, torch.float64)
+        t = lambda z: torch.as_tensor(np.ascontiguousarray(z))
+        want = radix_fft.middle_wgrad_plain(t(x.real), t(x.imag), t(g.real), t(g.imag),
+                                            plan).numpy()
+    else:
+        t1, t2, wb, wc = radix_fft._middle_tables(L, torch.float64, torch.device("cpu"))
+        Xp, Gp = (radix_fft._middle_forward(torch.as_tensor(y), t1[kas], t2, wb, wc)
+                  for y in (x, g))
+        want = torch.sum(Xp.real * Gp.real + Xp.imag * Gp.imag, dim=0).numpy()
+    assert _rel(got, want) <= 1e-12
+
+
+def _source_fn(name, src):
+    m = re.search(r"\b" + name + r"\(([^)]*)\)\s*\{\s*return ([^;]*);", src)
+    assert m, name
+    args = [a.split()[-1] for a in m.group(1).split(",") if a.strip()]
+    return args, m.group(2)
+
+
+def test_wgrad_cluster_and_splits_mirror_the_source():
+    # radix_fft.WGRAD_CLUSTER and wgrad_splits are the source's WCL and
+    # wgrad_splits (the rule the launcher applies; the wrapper sizes the
+    # partial sums by it); the shared memory a CTA, the plane, the staged
+    # real half and the mbarrier, fits one block at every B
+    src = (Path(radix_fft.__file__).resolve().parent.parent / "csrc" / "radix.cu").read_text()
+    assert f"constexpr int WCL = {radix_fft.WGRAD_CLUSTER};" in src
+    args, body = _source_fn("wgrad_splits", src)
+    assert args == ["V", "A", "sms"]
+    env = {"WCL": radix_fft.WGRAD_CLUSTER, "clampi": lambda x, lo, hi: min(max(x, lo), hi)}
+    for sms in (16, 78, 114, 132):
+        for A in (8, 16, 32, 64, 128, 256, 2048):
+            for V in (1, 2, 3, 7, 8, 40, 128, 1000):
+                want = radix_fft.wgrad_splits(V, A, sms)
+                assert eval(body.replace("/", "//"), {"__builtins__": {}},
+                            {**env, "V": V, "A": A, "sms": sms}) == want
+                assert 1 <= want <= V
+                # one wave of clusters where A leaves room, else one a ka
+                assert A * want <= max(A, sms // radix_fft.WGRAD_CLUSTER)
+    _, body = _source_fn("wgrad_smem", src)
+    for B in (8, 16, 32, 64, 128):
+        smem = eval(body.replace("mid_smem<B>()", "mid_smem").replace("(size_t)", "")
+                    .replace("sizeof(float)", "4"), {"__builtins__": {}},
+                    {"mid_smem": B * MS * 8, "B": B, "MC": MC})
+        assert smem == B * MS * 8 + B * MC * 4 + 16 and smem <= 232448
+        assert (B * MS * 8) % 16 == 0   # the staged half is 16-byte aligned
+    assert smem == 205_840
