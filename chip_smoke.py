@@ -13,8 +13,13 @@ Phases, each printing one line of progress with its seconds:
                with TF32 off; times by CUDA events after a warm-up: the
                kernel and the plain version in turns, the torch.fft chain,
                the bound; B-8 against the einsum chain in turns (the
-               measurement behind bttb.USE_PALLAS_TRANSFORM); and the
-               self-dot and pullback at M = 256^2 through (512, 512);
+               measurement behind bttb.USE_PALLAS_TRANSFORM); the
+               self-dot and pullback at M = 256^2 through (512, 512); and the
+               'factored' g-stage's shape, (2 048, 64, 64) through (128, 128):
+               the first 2 048 rows of the Cholesky factor of
+               [full-batch-factored]'s data Gram (localized columns, not
+               random draws) through the self-dot at wK and 1/wK and the
+               R^T, timed (their own entries of the kernels line);
   3. main    - the paper's 2-D synthetic protocol: 20 000 + 2 000 points from
                seed 42, the M = 125^2 mean-field model, one natural-gradient
                epoch (79 steps at batch 256, maxiter_cg 10, after the theta2
@@ -48,12 +53,25 @@ Phases, each printing one line of progress with its seconds:
                'gram', two for 'dense'), the seconds of the sweep, the mean
                stage and the ELBO; a prediction of the test points from each
                state (RMSE below std(ftest)); theta2 of 'gram' against
-               'dense' within 1e-4;
+               'dense' within 1e-4; then 'factored' (kappa ~3e3 is above the
+               float32 trust region: the RuntimeWarning, and the state and
+               ELBO of 'gram' within 1e-6) and 'matfree' (theta2 as 'gram''s
+               within 1e-4, its mean PCG's iterations and relative residual,
+               the same launch and memory checks);
      accuracy-full-batch - 'gram' on a 64^2 grid, converged (maxiter_cg
                200, the mean solve to tol 1e-10): the float32 kernel path
                against the float64 plain path (theta1 <= 5e-3, ELBO <= 1e-4
                relative), then one 'gram' solve with the cholesky whitening
                (finite ELBO, RMSE below std(ftest));
+     full-batch-factored - 'factored' on the same data at 64^2 (kappa under
+               1e3): at the default float32 jitter (logged; where its bracket
+               guard fires, held to 'gram'), then at factor_jitter 1e-10 (the
+               float64 default; the port factors A in float64): no fallback,
+               both guards' numbers, stage seconds and peak, ELBO finite,
+               RMSE below std(ftest), kernel-A launches exact (two g-stage
+               solves of 2 048 factor rows, and the prediction's); then
+               converged against [accuracy-full-batch]'s float32 'gram':
+               theta2 max-relative and ELBO within 1e-2;
   5. kernels-1d - each radix kernel (B-2 stage1, B-3 stage1_inv_dot, B-4
                middle) against its plain version in float32 and in float64 at
                every plan, crop and diagonal the 1-D path gives it at the
@@ -119,7 +137,9 @@ Phases, each printing one line of progress with its seconds:
                the B-5 pipeline (outer products included), in turns; B-5's
                backward at the R^T's shapes (gx, a B-5 launch at the swapped
                crops; gw, the per-plane analysis product) against the plain
-               sandwich's autograd in f32 and f64;
+               sandwich's autograd in f32 and f64; B-5 at
+               [accuracy-full-batch-3d]'s shapes, (512, 30, 32, 32) through
+               (64, 64) planes (B-6's gate does not take that embedding);
   9. main-3d - the paper's section 5.5 dust map (run_domain.main): 64 x 64 x
                32 inducing grid, SqExp with ell 0.07 and the analytic
                semi-integrated estimator, 10 240 line-integral observations
@@ -135,6 +155,18 @@ Phases, each printing one line of progress with its seconds:
                with the plain stages (limit 1e-4) and, at ell 0.07, against
                the float64 plain path (limit 5e-3); at ell 0.2 the float64
                error is logged (the float32 spectrum's floor dominates it);
+     full-batch-3d - run_domain's paper-scale full-batch fit, 'matfree', at
+               main-3d's settings and cut (the mean PCG at 200 iterations,
+               tol 1e-8 relative): seconds of the sweep, the mean stage (and
+               an iteration) and the ELBO, iterations and residual, peak
+               memory under 16 GB, ELBO finite, e post-RMSE below
+               rms(e_test); B-6 and B-5 launches exact against PCG_STATS (the
+               float64 mean PCG launches nothing);
+     accuracy-full-batch-3d - 'matfree' on a 32 x 32 x 16 grid, 2 048 line
+               integrals, ell 0.07, converged: float32 on the kernel path
+               against float32 'gram' (theta2 <= 1e-6, theta1 <= 5e-3, ELBO
+               <= 1e-4) and against float64 on the plain path (theta1 <= 5e-3,
+               ELBO <= 1e-4);
      train-3d - the dust map learning its hyperparameters: main-3d's model and
                data, the warm start, 10 svigp_fit steps at batch 512 and
                maxiter_cg 20 with learn_kernel and learn_noise; ms per step,
@@ -179,6 +211,9 @@ B8_TPU_KERNEL = "hipgp_tpu/ops/pallas_transform.py:99"   # _pallas_apply
 # natgrad protocol, cut to 10 240 observations and 1 000 test stars)
 DOMAIN = dict(nobs=10_240, ntest=1000, noise_std=0.1, nx=64, nz=32)
 DOMAIN_ELL = 0.07
+# [accuracy-full-batch-3d]: a 32 x 32 x 16 grid (M = 16 384, so 'gram''s
+# float64 A is 2.1 GB) and 2 048 line integrals of the same dust field
+FB3_ACC = dict(nobs=2048, ntest=100, noise_std=0.1, nx=32, nz=16)
 DOMAIN_BATCH = 512
 HEADLINE_M = 1 << 20      # the 1-D headline: L = 2^21, (A, B, C) = (128, 128, 128)
 SIZES_1D = (10_000, 131_072, 500_000, HEADLINE_M)
@@ -365,15 +400,18 @@ def _by_rows(fn, x, rows=2000):
 
 
 def phase_kernel_a_case(torch, dev, mxu2d, gen, name, B, w, label, dims, edims, in_exp,
-                        out_exp, timed, with_library=False):
+                        out_exp, timed, with_library=False, x=None):
     """Kernel A through one wrapper at one shape: against its plain version
     in float32 and float64 (limit 1e-5, dots too); with ``timed``, the
     kernel and the plain version in turns, the torch.fft chain, the bound
-    and, ``with_library``, the conv2d yardstick.  Returns its record of the
-    kernels line (None when not ``timed``)."""
+    and, ``with_library``, the conv2d yardstick.  The input is ``x``, or
+    normal draws from ``gen``.  Returns its record of the kernels line (None
+    when not ``timed``)."""
     selfdot = name == "sandwich_apply_selfdot"
     tables = mxu2d._tables(dims, edims, in_exp, out_exp, torch.float32, dev)
-    x = torch.randn((B,) + tables[4], generator=gen, device=dev, dtype=torch.float32)
+    if x is None:
+        x = torch.randn((B,) + tables[4], generator=gen, device=dev, dtype=torch.float32)
+    check(tuple(x.shape) == (B,) + tables[4], f"{name} input {tuple(x.shape)}")
     if selfdot:
         kern = lambda: mxu2d.sandwich_apply_selfdot(x, w, dims, edims)
     else:
@@ -420,6 +458,64 @@ def phase_kernel_a_case(torch, dev, mxu2d, gen, name, B, w, label, dims, edims, 
 
 def rel(a, b):
     return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def max_rel(a, b):
+    """max |a - b| / max |b|: the JAX package's factored-solve measure."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def factored_model(torch, dev, d, dtype=None):
+    """[full-batch-factored]'s model: [main]'s data on a 64^2 grid (SqExp,
+    ell 0.05), float32 unless ``dtype``; with its init state and spectrum."""
+    from hipgp_tpu_torch.experiments.run_synthetic import build_model, marginal_sig2
+
+    m = build_model("SqExp", FB_ACC_GRID, len(d["xobs"]), marginal_sig2(d["yobs"], d["sobs"]),
+                    0.05, 0.01, dtype=dtype or torch.float32, device=dev)
+    st = m.init_state()
+    return m, st, m.spectrum(st)
+
+
+def phase_kernels_factored(torch, dev, mxu2d, gen, d):
+    """Kernel A at the 'factored' g-stage's shape: the first FACTOR_CHUNK
+    rows of L_A^T, L_A the Cholesky factor (the solver's default jitter) of
+    [full-batch-factored]'s data Gram over all 20 000 rows, as (2048, 64, 64)
+    images through the (128, 128) embedding: the PCG self-dot apply at wK and
+    1/wK and the R^T at sqrt(wK), each against its plain version and float64
+    (limit 1e-5) and timed.  Returns the records of the kernels line."""
+    from hipgp_tpu_torch.infer.fit import prepare_batches
+    from hipgp_tpu_torch.models.hipgp import FACTOR_CHUNK, GRAM_ACC_DTYPE
+    from hipgp_tpu_torch.ops import bttb
+
+    m, st, spec = factored_model(torch, dev, d)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    xb, yb, sb, w = prepare_batches(as_t(d["xobs"]), as_t(d["yobs"]), as_t(d["sobs"]), -1)
+    flags = dict(integrated_obs=False, semi_integrated_estimator="analytic",
+                 semi_integrated_samps=10, generator=None)
+    A = m._gram_sweep(st, spec, (xb, yb, w, sb), flags, 0, kn=False)[1]
+    L, eps = m.factor_data_gram(A)
+    del A
+    check(L.dtype == GRAM_ACC_DTYPE, f"the factor is {L.dtype}")
+    B = min(FACTOR_CHUNK, m.M)
+    rows = L.T[:B].to(torch.float32).reshape((B,) + m.dims).contiguous()
+    del L
+    nz = (rows.abs() > 1e-6 * rows.abs().amax(dim=(1, 2), keepdim=True)).sum(dim=(1, 2))
+    log(f"[kernels] 'factored' g-stage input: rows of L_A^T, L_A the Cholesky factor of "
+        f"the {FB_ACC_GRID}^2 data Gram A (jitter {eps:.3e}); {B} rows of "
+        f"{m.M} points, entries above 1e-6 of the row's largest: median "
+        f"{int(nz.median())}, min {int(nz.min())}, max {int(nz.max())}")
+    wK = bttb._full_weights(spec.eigs, spec.edims[-1]).contiguous()
+    out = {}
+    for name, w, label in (
+            ("sandwich_apply_selfdot", wK, "factored g-stage PCG apply, w = wK"),
+            ("sandwich_apply_selfdot", (1.0 / wK).contiguous(),
+             "factored g-stage PCG apply, w = 1/wK"),
+            ("sandwich_apply", torch.sqrt(wK).contiguous(), "factored g-stage R^T")):
+        r = phase_kernel_a_case(torch, dev, mxu2d, gen, name, B, w, label,
+                                spec.dims, spec.edims, False, name == "sandwich_apply",
+                                timed=True, with_library="1/wK" not in label, x=rows)
+        out.setdefault(f"factored {name}", r)
+    return out
 
 
 def ptxas_resources(log, kernel):
@@ -970,12 +1066,13 @@ def fft_chain(torch, x, w, edims, dims_out):
     return y[(Ellipsis,) + tuple(slice(0, d) for d in dims_out)]
 
 
-def domain_setup(torch, dev, ell, dtype):
-    """The main-3d protocol's data, model, init state and spectrum at ``ell``
-    (sig2 by the empirical init, as run_domain does)."""
+def domain_setup(torch, dev, ell, dtype, problem=None):
+    """The main-3d protocol's data (or ``problem``'s: `domain_problem`'s
+    keywords), model, init state and spectrum at ``ell`` (sig2 by the
+    empirical init, as run_domain does)."""
     from hipgp_tpu_torch.experiments import run_domain
 
-    prob = run_domain.domain_problem(**DOMAIN)
+    prob = run_domain.domain_problem(**(problem or DOMAIN))
     sig2 = run_domain.empirical_sig2_init(prob["xobs"], prob["aobs"])
     model = run_domain.domain_model("SqExp", prob["grids"], len(prob["xobs"]), sig2,
                                     ell, dtype=dtype, device=dev)
@@ -1064,15 +1161,11 @@ def phase_kernels_3d(torch, dev):
         check(all(torch.equal(a, b) for a, b in pairs),
               f"{name} ({label}): a second identical call is not bit-equal")
 
-    # ---- B-5 at the PCG self-dot, R^T, prediction-chunk and pullback shapes --
-    sq = torch.sqrt(wK).contiguous()
-    cases = [(512, wK, "selfdot", "PCG self-dot apply, w = wK"),
-             (512, (1.0 / wK).contiguous(), "selfdot", "PCG self-dot apply, w = 1/wK"),
-             (512, sq, "out", "R^T, w = sqrt(wK)"),
-             (400, wK, "selfdot", "prediction-chunk self-dot apply"),
-             (400, sq, "out", "prediction-chunk R^T"),
-             (512, sq, "in", "R^T pullback (expanded in), w = sqrt(wK)")]
-    for B, w, crop, label in cases:
+    def b5_case(B, w, crop, label, inner, einner):
+        """B-5 at one shape: against its plain version in f32 and f64, a
+        second call bit-equal, timed beside the plain version, the torch.fft
+        chain and the bound.  Returns its record."""
+        W = w.shape[0]
         selfdot, in_exp, out_exp = crop == "selfdot", crop == "in", crop == "out"
         t32 = mxu2d._tables(inner, einner, in_exp, out_exp, torch.float32, dev)
         t64 = mxu2d._tables(inner, einner, in_exp, out_exp, torch.float64, dev)
@@ -1108,17 +1201,43 @@ def phase_kernels_3d(torch, dev):
                 f"{lib_ms:.4f} ms (rel err vs f64 {lib_err:.3e}, no self-dot); bound "
                 f"{bound[0]:.4f} ms ({bound[1]}; pruned FFT count), kernel at "
                 f"{100 * bound[0] / ms:.1f} % of it")
+        log(f"[kernels-3d] B-5 ({B}, {W}) + {t32[4]} -> {t32[5]} {label}: {msg}")
+        return route, dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+
+    # ---- B-5 at the PCG self-dot, R^T, prediction-chunk and pullback shapes --
+    sq = torch.sqrt(wK).contiguous()
+    cases = [(512, wK, "selfdot", "PCG self-dot apply, w = wK"),
+             (512, (1.0 / wK).contiguous(), "selfdot", "PCG self-dot apply, w = 1/wK"),
+             (512, sq, "out", "R^T, w = sqrt(wK)"),
+             (400, wK, "selfdot", "prediction-chunk self-dot apply"),
+             (400, sq, "out", "prediction-chunk R^T"),
+             (512, sq, "in", "R^T pullback (expanded in), w = sqrt(wK)")]
+    for B, w, crop, label in cases:
+        route, r = b5_case(B, w, crop, label, inner, einner)
         if label == "PCG self-dot apply, w = wK":
             check(route == "resident", f"B-5 self-dot route {route}")
-            results["B-5"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound[0], bound_by=bound[1],
-                                  library_ms=lib_ms)
+            results["B-5"] = r
         if crop == "in":   # the R^T's pullback: the launch of B-5's backward
-            results["B-5 backward"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                                           bound_ms=bound[0], bound_by=bound[1],
-                                           library_ms=lib_ms)
-        log(f"[kernels-3d] B-5 ({B}, {W}) + {t32[4]} -> {t32[5]} {label}: {msg}")
-        del x, got
+            results["B-5 backward"] = r
+
+    # ---- [accuracy-full-batch-3d]'s shapes: the 32 x 32 x 16 grid embeds at
+    # (64, 64, 30), which B-6's gate does not take, so its PCG applies go
+    # through the outer products and B-5 with 30 weight planes
+    _, _, _, spec_a = domain_setup(torch, dev, DOMAIN_ELL, torch.float32, FB3_ACC)
+    _, _, adims, aedims, wKa = solve._mxu3d_permuted(
+        spec_a, bttb._full_weights(spec_a.eigs, spec_a.edims[-1]))
+    on_b6 = mxu3d._wp3_ok(adims, aedims, torch.float32)
+    log(f"[kernels-3d] [accuracy-full-batch-3d]'s grid {spec_a.dims} -> {spec_a.edims}, "
+        f"kernel order {adims} -> {aedims}: B-6's gate {on_b6}")
+    check(not on_b6, f"B-6 takes {aedims}: [accuracy-full-batch-3d] expects the B-5 route")
+    for B, w, crop, label in ((512, wKa, "selfdot", "(30 planes) PCG self-dot apply, w = wK"),
+                              (512, (1.0 / wKa).contiguous(), "selfdot",
+                               "(30 planes) PCG self-dot apply, w = 1/wK"),
+                              (512, torch.sqrt(wKa).contiguous(), "out",
+                               "(30 planes) R^T, w = sqrt(wK)")):
+        b5_case(B, w, crop, label, adims[1:], aedims[1:])
+    del wKa, spec_a
 
     # ---- B-5's backward at the R^T's shapes ---------------------------------
     wp_backward_check(torch, dev, mxu2d, sq, inner, einner, gen)
@@ -1324,6 +1443,141 @@ def phase_accuracy_3d(torch, dev):
             check(err64 <= 5e-3, f"ell {ell} 3-D whiten rel err vs f64 plain {err64}")
         del out, k32
     log(f"[accuracy-3d] done; {time.perf_counter() - t0:.2f} s")
+
+
+def phase_full_batch_3d(torch):
+    """run_domain's paper-scale full-batch fit, 'matfree', at [main-3d]'s
+    settings (the 64 x 64 x 32 grid, ell 0.07, batch 512, maxiter_cg 20, the
+    cut of 10 240 observations and 1 000 test stars), the mean PCG at the
+    driver's defaults (200 iterations, tol 1e-8 relative); the counts zeroed
+    just before and read just after: the sweep's and the prediction's PCG
+    solves make 1 + 2k B-6 self-dot applies and one B-5 R^T each, the mean
+    PCG (float64, the einsum chain) launches nothing.  Peak memory under
+    FB3_PEAK_LIMIT.  Returns the launches."""
+    import tempfile
+
+    from hipgp_tpu_torch.experiments import run_domain
+    from hipgp_tpu_torch.infer import FitConfig
+    from hipgp_tpu_torch.ops import mxu2d, mxu3d, solve
+
+    t0 = time.perf_counter()
+    argv = ["--nx", str(DOMAIN["nx"]), "--nz", str(DOMAIN["nz"]), "--ell", str(DOMAIN_ELL),
+            "--nobs", str(DOMAIN["nobs"]), "--ntest", str(DOMAIN["ntest"]),
+            "--noise-std", str(DOMAIN["noise_std"]), "--batch-size", str(DOMAIN_BATCH),
+            "--maxiter-cg", "20", "--fit-method", "full-batch", "--mean-solver", "matfree",
+            "--mean-solver-maxiter", str(FB3_MEAN["mean_solver_maxiter"]),
+            "--mean-solver-tol", str(FB3_MEAN["mean_solver_tol"])]
+    log(f"[full-batch-3d] run_domain {' '.join(argv)} (cut from the section 14 "
+        f"protocol: --nobs 10240 from 100 000, --ntest 1000 from 2 000)")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        mxu2d.reset_launches()
+        mxu3d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        out = run_domain.main(argv + ["--output-dir", tmp])
+        torch.cuda.synchronize()
+        lc = {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}
+        st = dict(solve.PCG_STATS)
+        peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t0
+    its = out["mean_pcg_iterations"]
+    log(f"[full-batch-3d] matfree fit {out['fit_s']:.2f} s: sweep {out['fit_sweep_s']:.3f} "
+        f"s, mean stage {out['fit_mean_s']:.3f} s ({its} iterations, "
+        f"{out['fit_mean_s'] / max(its, 1):.4f} s an iteration, ||r||/||b_m|| "
+        f"{out['mean_pcg_relres']:.3e}, tol {FB3_MEAN['mean_solver_tol']:g}), ELBO stage "
+        f"{out['fit_elbo_s']:.3f} s; peak torch.cuda.max_memory_allocated over the fit "
+        f"{out['fit_peak_gb']:.3f} GB, over fit and predict {peak / 1e9:.3f} GB "
+        f"({base / 1e9:.3f} GB allocated before); ELBO {out['last_elbo']:.6f}; predict "
+        f"{out['predict_s']:.2f} s; e post-RMSE {out['e_post_rmse']:.5f} vs rms(e_test) "
+        f"{out['e_rms']:.5f}; latent RMSE {out['latent_rmse']:.5f}, slice corr "
+        f"{out['latent_corr']:.4f}")
+    check(math.isfinite(out["last_elbo"]), f"non-finite ELBO {out['last_elbo']}")
+    check(math.isfinite(out["e_post_rmse"]) and out["e_post_rmse"] < out["e_rms"],
+          f"e post-RMSE {out['e_post_rmse']} not below rms(e_test) {out['e_rms']}")
+    check(peak < FB3_PEAK_LIMIT, f"peak {peak / 1e9:.3f} GB")
+    check(0 < its <= FB3_MEAN["mean_solver_maxiter"], f"{its} mean iterations")
+    sweep = -(-DOMAIN["nobs"] // DOMAIN_BATCH)
+    chunks = -(-DOMAIN["ntest"] // DOMAIN_BATCH) + -(-400 // DOMAIN_BATCH)
+    check(st["solves"] == sweep + chunks,
+          f"{st['solves']} solves: expected {sweep} sweep batches and {chunks} "
+          f"prediction chunks")
+    # the sweep's solves stop by maxiter_cg 20, the prediction's by its 50
+    check(st["iterations"] <= 20 * sweep + FitConfig().predict_maxiter_cg * chunks,
+          f"{st['iterations']} iterations: a solve exceeded its maxiter")
+    applies = st["solves"] + 2 * st["iterations"]
+    use_wp3 = mxu3d.USE_WP3
+    want = {"sandwich_apply_wp_selfdot": 0 if use_wp3 else applies,
+            "sandwich_apply_wp3": applies if use_wp3 else 0,
+            "sandwich_apply_wp": st["solves"],
+            "sandwich_apply": 0, "sandwich_apply_selfdot": 0}
+    log(f"[full-batch-3d] {st['solves']} PCG solves, {st['iterations']} iterations -> "
+        f"expect {applies} self-dot applies through {'B-6' if use_wp3 else 'B-5'} and "
+        f"{st['solves']} R^T launches of B-5; counted {lc}; {wall:.2f} s")
+    check(lc == want, f"3-D full-batch launches {lc}, expected {want}")
+    return lc
+
+
+FB3_ACC_SOLVE = dict(batch_size=DOMAIN_BATCH, maxiter_cg=200, integrated_obs=True,
+                     mean_solver_maxiter=3000, mean_solver_tol=1e-10, compute_elbo=True)
+
+
+def phase_accuracy_full_batch_3d(torch, dev):
+    """'matfree' on the 32 x 32 x 16 grid (FB3_ACC), ell 0.07, 2 048 line
+    integrals, the whitening converged (maxiter_cg 200) and the mean PCGs
+    run out: float32 'matfree' on the kernel path against float32 'gram'
+    from the same state (theta2 <= 1e-6, the same sweep; theta1 <= 5e-3,
+    ELBO <= 1e-4 relative) and against float64 'matfree' on the plain path
+    (theta1 <= 5e-3, ELBO <= 1e-4)."""
+    from hipgp_tpu_torch.models.hipgp import MEAN_PCG_STATS
+    from hipgp_tpu_torch.ops import mxu2d, mxu3d, solve
+
+    t0 = time.perf_counter()
+    res = {}
+    for key, dt, solver in (("f32 matfree", torch.float32, "matfree"),
+                            ("f32 gram", torch.float32, "gram"),
+                            ("f64 matfree", torch.float64, "matfree")):
+        prob, model, state, _ = domain_setup(torch, dev, DOMAIN_ELL, dt, FB3_ACC)
+        mxu2d.reset_launches()
+        mxu3d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        new, elbo = model.batch_solve(state, prob["xobs"], prob["aobs"], prob["sobs"],
+                                      mean_solver=solver, timings=timings, **FB3_ACC_SOLVE)
+        torch.cuda.synchronize()
+        lc = {k: v for k, v in {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}.items() if v}
+        st, ms = dict(solve.PCG_STATS), dict(MEAN_PCG_STATS)
+        res[key] = (new, float(elbo))
+        log(f"[accuracy-full-batch-3d] {key}: grid {model.dims} -> {model.edims}, "
+            f"{len(prob['xobs'])} rows; {_stages(timings)}; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; ELBO {float(elbo):.8f}; "
+            f"launches {lc}")
+        _log_mean_pcg("accuracy-full-batch-3d", f"{key}", ms,
+                      FB3_ACC_SOLVE["mean_solver_maxiter"], FB3_ACC_SOLVE["mean_solver_tol"])
+        check(math.isfinite(float(elbo)), f"{key}: ELBO {float(elbo)}")
+        if dt == torch.float32:
+            applies = st["solves"] + 2 * st["iterations"]
+            want = {"sandwich_apply_wp_selfdot": applies, "sandwich_apply_wp": st["solves"]}
+            check(lc == want, f"{key}: launches {lc}, expected {want}")
+        else:
+            check(not lc, f"{key}: the float64 path launched {lc}")
+        del model, new
+    (m32, e32), (g32, eg), (m64, e64) = (res["f32 matfree"], res["f32 gram"],
+                                        res["f64 matfree"])
+    dev_g = [rel(m32.theta2, g32.theta2), rel(m32.theta1, g32.theta1), abs(e32 - eg) / abs(eg)]
+    dev_64 = [rel(m32.theta1, m64.theta1), abs(e32 - e64) / abs(e64),
+              rel(m32.theta2, m64.theta2)]
+    log(f"[accuracy-full-batch-3d] f32 matfree vs f32 gram: theta2 rel {dev_g[0]:.3e} "
+        f"(limit 1e-6), theta1 rel {dev_g[1]:.3e} (limit 5e-3), ELBO rel {dev_g[2]:.3e} "
+        f"(limit 1e-4); f32 matfree (kernel path) vs f64 matfree (plain path): theta1 rel "
+        f"{dev_64[0]:.3e} (limit 5e-3), ELBO rel {dev_64[1]:.3e} (limit 1e-4), theta2 rel "
+        f"{dev_64[2]:.3e}; {time.perf_counter() - t0:.2f} s")
+    check(dev_g[0] <= 1e-6, f"theta2 matfree vs gram {dev_g[0]}")
+    check(dev_g[1] <= 5e-3, f"theta1 matfree vs gram {dev_g[1]}")
+    check(dev_g[2] <= 1e-4, f"ELBO matfree vs gram {dev_g[2]}")
+    check(dev_64[0] <= 5e-3, f"theta1 f32 vs f64 {dev_64[0]}")
+    check(dev_64[1] <= 1e-4, f"ELBO f32 vs f64 {dev_64[1]}")
 
 
 HYPERS = ("log_sig2", "log_ell", "log_noise2")
@@ -1724,6 +1978,9 @@ FB_PEAK_LIMIT = 40e9      # bytes: 'dense' holds its 62 500^2 matrix and factor
 FB_ACC_GRID = 64          # [accuracy-full-batch]: inducing points per axis
 FB_ACC_MEAN_MAXITER = 6000   # the K + A PCG to convergence (tol 1e-10)
 FB_CONVERGED_MAXITER = 6000  # [full-batch]'s 'gram' once more, its mean PCG run out
+FB_FACTOR_JITTER = 1e-10    # [full-batch-factored]: the float64 default (A is factored in f64)
+FB3_PEAK_LIMIT = 16e9        # bytes: [full-batch-3d]; 'gram''s A alone would be 68 GB
+FB3_MEAN = dict(mean_solver_maxiter=200, mean_solver_tol=1e-8)   # run_domain's defaults
 
 
 def _fb_launch_check(tag, lc, st, solves):
@@ -1739,84 +1996,146 @@ def _fb_launch_check(tag, lc, st, solves):
     check(lc == want, f"{tag}: kernel A launches {lc}, expected {want}")
 
 
+def _stages(timings):
+    return ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+
+
+def _solve_counted(torch, counters, model, state, d, solver, **kw):
+    """One batch_solve on [main]'s data with the launch counters and the
+    stats zeroed just before and read just after, the warnings recorded.
+    Returns (state, elbo, timings, launches, PCG_STATS, MEAN_PCG_STATS,
+    FACTORED_STATS, peak bytes, warnings)."""
+    import warnings
+
+    from hipgp_tpu_torch.models.hipgp import FACTORED_STATS, MEAN_PCG_STATS
+    from hipgp_tpu_torch.ops import solve
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    for c in counters:
+        c.reset_launches()
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    MEAN_PCG_STATS.update(iterations=0, resnorm=math.nan, bnorm=math.nan)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        new, elbo = model.batch_solve(state, d["xobs"], d["yobs"], d["sobs"],
+                                      mean_solver=solver, timings=timings, **kw)
+    torch.cuda.synchronize()
+    lc = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    return (new, float(elbo), timings, lc, dict(solve.PCG_STATS), dict(MEAN_PCG_STATS),
+            dict(FACTORED_STATS), torch.cuda.max_memory_allocated(),
+            [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)])
+
+
+def _log_mean_pcg(tag, label, ms, maxiter, tol):
+    rule = "||r|| <= tol ||b_m||" if "matfree" in label else "||r|| <= tol"
+    log(f"[{tag}] {label}: mean-stage PCG on K + A (float64, stops on {rule}) "
+        f"{ms['iterations']} of {maxiter} iterations, final ||r|| {ms['resnorm']:.3e} "
+        f"(tol {tol:g}), ||b_m|| {ms['bnorm']:.3e}, relative "
+        f"{ms['resnorm'] / ms['bnorm']:.3e}")
+
+
 def phase_full_batch(torch, d, model, state0):
     """The closed-form full-batch fit at M = 125^2 on [main]'s data: one batch
-    of 20 000 rows, 'gram' then 'dense' (the JAX run_synthetic's settings), each
-    with the counters zeroed just before and read just after, then a
-    prediction of the test points from each state; then 'gram' once more with
-    its mean PCG run to FB_CONVERGED_MAXITER iterations (not counted).
-    Returns kernel A's launches of the first two solves."""
+    of 20 000 rows, 'gram', 'dense' (the JAX run_synthetic's settings),
+    'gram' once more with its mean PCG run to FB_CONVERGED_MAXITER
+    iterations (not counted), 'factored' (kappa > 1e3 at this data: it warns
+    and runs 'gram', which it must equal) and 'matfree' (theta2 as 'gram''s;
+    its iterations and residual), each with the counters zeroed just before
+    and read just after, then a prediction of the test points from each
+    state.  Returns kernel A's launches of the 'gram' and 'dense' solves."""
     import numpy as np
 
     from hipgp_tpu_torch.infer import batch_predict
-    from hipgp_tpu_torch.models.hipgp import MEAN_PCG_STATS
-    from hipgp_tpu_torch.ops import mxu2d, solve
+    from hipgp_tpu_torch.models.hipgp import FACTOR_CHUNK, FACTORED_F32_KAPPA_MAX
+    from hipgp_tpu_torch.ops import mxu2d
 
     t_all = time.perf_counter()
     fstd = float(np.std(d["ftest"]))
     out, total = {}, {}
     runs = (("gram", FB_SOLVE), ("dense", FB_SOLVE),
-            ("gram converged", {**FB_SOLVE, "mean_solver_maxiter": FB_CONVERGED_MAXITER}))
+            ("gram converged", {**FB_SOLVE, "mean_solver_maxiter": FB_CONVERGED_MAXITER}),
+            ("factored", FB_SOLVE), ("matfree", FB_SOLVE))
     for solver, kw in runs:
-        torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        timings = {}
-        mxu2d.reset_launches()
-        solve.PCG_STATS.update(solves=0, iterations=0)
-        MEAN_PCG_STATS.update(iterations=0, resnorm=math.nan, bnorm=math.nan)
-        new, elbo = model.batch_solve(state0, d["xobs"], d["yobs"], d["sobs"],
-                                      mean_solver=solver.split()[0], timings=timings, **kw)
-        torch.cuda.synchronize()
-        lc, st = dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS)
-        peak = torch.cuda.max_memory_allocated()
-        if solver != "gram converged":
+        new, elbo, timings, lc, st, ms, fs, peak, warned = _solve_counted(
+            torch, (mxu2d,), model, state0, d, solver.split()[0], **kw)
+        if solver in ("gram", "dense"):
             for k, v in lc.items():
                 total[k] = total.get(k, 0) + v
-        elbo = float(elbo)
         t1 = time.perf_counter()
         mu, sig = batch_predict(model, new, d["xtest"], batch_size=4096,
                                 maxiter_cg=50)
         mu, sig = mu.cpu().numpy(), sig.cpu().numpy()
         rmse = float(np.sqrt(np.mean((mu - d["ftest"]) ** 2)))
-        log(f"[full-batch] {solver}: sweep {timings['sweep']:.3f} s, mean stage "
-            f"{timings['mean']:.3f} s, ELBO {timings['elbo']:.3f} s; peak "
+        log(f"[full-batch] {solver}: {_stages(timings)}; peak "
             f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB ({base / 1e9:.3f} GB "
             f"allocated before); ELBO {elbo:.6f}; test RMSE {rmse:.5f} vs std(ftest) "
             f"{fstd:.5f} (predict {time.perf_counter() - t1:.2f} s)")
         if solver != "dense":
-            ms = MEAN_PCG_STATS
-            log(f"[full-batch] {solver}: mean-stage PCG on K + A (float64) "
-                f"{ms['iterations']} of {kw['mean_solver_maxiter']} iterations, final "
-                f"||r|| {ms['resnorm']:.3e} (tol {kw['mean_solver_tol']:g}), ||b_m|| "
-                f"{ms['bnorm']:.3e}, relative {ms['resnorm'] / ms['bnorm']:.3e}")
-        _fb_launch_check("full-batch", lc, st, 2 if solver == "dense" else 1)
+            _log_mean_pcg("full-batch", solver, ms, kw["mean_solver_maxiter"],
+                          kw["mean_solver_tol"])
+        solves = 2 if solver == "dense" else 1
+        if solver == "factored":
+            fell_back = fs["kappa"] > FACTORED_F32_KAPPA_MAX
+            log(f"[full-batch] factored: kappa of the spectrum {fs['kappa']:.4e} (trust "
+                f"region {FACTORED_F32_KAPPA_MAX:g}); RuntimeWarnings {warned}")
+            if fell_back:
+                check(any("exactness check" in w for w in warned),
+                      f"factored at kappa {fs['kappa']:.3e}: no fallback warning")
+                check(set(timings) == {"sweep", "mean", "elbo"},
+                      f"factored fell back at the pre-check, yet ran {sorted(timings)}")
+            else:
+                log("[full-batch] factored: kappa within the trust region here; held to "
+                    "[full-batch-factored]'s checks")
+                check(not warned, f"factored warned {warned}")
+                solves = -(-model.M // FACTOR_CHUNK)
+        _fb_launch_check("full-batch", lc, st, solves)
         check(math.isfinite(elbo), f"{solver}: non-finite ELBO {elbo}")
         check(bool(np.isfinite(mu).all() and np.isfinite(sig).all()),
               f"{solver}: non-finite prediction")
         check(rmse < fstd, f"{solver}: test RMSE {rmse} not below std(ftest) {fstd}")
         check(peak < FB_PEAK_LIMIT, f"{solver}: peak {peak / 1e9:.3f} GB")
-        out[solver] = new
+        out[solver] = (new, elbo)
         del new
-    t2 = rel(out["gram"].theta2, out["dense"].theta2)
-    t1_ = rel(out["gram"].theta1, out["dense"].theta1)
-    t1c = rel(out["gram converged"].theta1, out["dense"].theta1)
-    t1g = rel(out["gram"].theta1, out["gram converged"].theta1)
+    (g, eg), (dn, _), (gc, _) = out["gram"], out["dense"], out["gram converged"]
+    t2 = rel(g.theta2, dn.theta2)
+    t1_ = rel(g.theta1, dn.theta1)
+    t1c = rel(gc.theta1, dn.theta1)
+    t1g = rel(g.theta1, gc.theta1)
     log(f"[full-batch] gram vs dense: theta2 rel {t2:.3e} (limit 1e-4; both sum "
         f"Lambda from the same whitening of the same rows, so this holds the two "
         f"accumulations to each other, not kernel A, which [kernels] holds at "
         f"B = 20 000); theta1 rel {t1_:.3e}, converged 'gram' vs dense {t1c:.3e}, "
         f"'gram' at {FB_SOLVE['mean_solver_maxiter']} iterations vs converged "
-        f"{t1g:.3e} (not checked); {time.perf_counter() - t_all:.2f} s")
+        f"{t1g:.3e} (not checked)")
     check(t2 <= 1e-4, f"theta2 gram vs dense {t2}")
+    (f, ef), (mf, emf) = out["factored"], out["matfree"]
+    if fell_back:
+        dev_ = [rel(f.theta1, g.theta1), rel(f.theta2, g.theta2), abs(ef - eg) / abs(eg)]
+        log(f"[full-batch] factored (fallen back) vs gram: theta1 rel {dev_[0]:.3e}, "
+            f"theta2 rel {dev_[1]:.3e}, ELBO rel {dev_[2]:.3e} (limit 1e-6 each)")
+        check(max(dev_) <= 1e-6, f"the fallback is not 'gram': {dev_}")
+    mt2, mt1 = rel(mf.theta2, g.theta2), rel(mf.theta1, gc.theta1)
+    log(f"[full-batch] matfree vs gram: theta2 rel {mt2:.3e} (limit 1e-4; the same "
+        f"Lambda accumulation); theta1 vs 'gram converged' {mt1:.3e}, vs 'gram' "
+        f"{rel(mf.theta1, g.theta1):.3e}; ELBO {emf:.6f} vs 'gram' {eg:.6f} (not "
+        f"checked); {time.perf_counter() - t_all:.2f} s")
+    check(mt2 <= 1e-4, f"theta2 matfree vs gram {mt2}")
     return total
+
+
+FB_ACC_SOLVE = dict(batch_size=-1, maxiter_cg=200, mean_solver_maxiter=FB_ACC_MEAN_MAXITER,
+                    mean_solver_tol=1e-10, compute_elbo=True)
 
 
 def phase_accuracy_full_batch(torch, dev, d):
     """'gram' with ziggy whitening on a 64^2 grid, both converged (maxiter_cg
     200, mean_solver_tol 1e-10): the float32 kernel path against the float64
     plain path (theta1 <= 5e-3, ELBO <= 1e-4 relative); then one 'gram'
-    solve with cholesky whitening (finite ELBO, RMSE below std(ftest))."""
+    solve with cholesky whitening (finite ELBO, RMSE below std(ftest)).
+    Returns the float32 'gram' (state, ELBO)."""
     import numpy as np
 
     from hipgp_tpu_torch.experiments.harness import make_model
@@ -1826,9 +2145,7 @@ def phase_accuracy_full_batch(torch, dev, d):
 
     t0 = time.perf_counter()
     sig2 = marginal_sig2(d["yobs"], d["sobs"])
-    kw = dict(batch_size=-1, maxiter_cg=200, mean_solver="gram",
-              mean_solver_maxiter=FB_ACC_MEAN_MAXITER, mean_solver_tol=1e-10,
-              compute_elbo=True)
+    kw = dict(mean_solver="gram", **FB_ACC_SOLVE)
     res = {}
     for dt in (torch.float32, torch.float64):
         m = build_model("SqExp", FB_ACC_GRID, len(d["xobs"]), sig2, 0.05, 0.01,
@@ -1870,6 +2187,106 @@ def phase_accuracy_full_batch(torch, dev, d):
         f"{time.perf_counter() - t0:.2f} s")
     check(math.isfinite(float(elbo)), f"cholesky ELBO {float(elbo)}")
     check(rmse < fstd, f"cholesky test RMSE {rmse} not below std(ftest) {fstd}")
+    return res[torch.float32]
+
+
+def phase_full_batch_factored(torch, dev, d, gram_ref):
+    """'factored' on [main]'s data at M = 64^2 (SqExp, ell 0.05, float32),
+    inside the float32 trust region (kappa <= FACTORED_F32_KAPPA_MAX).
+    First at FB_SOLVE's settings and the solver's default jitter for a
+    float32 model (1e-4 mean(diag A), as JAX): logged, and where it falls
+    back, held to 'gram' on the same inputs.  Then at FB_SOLVE's settings
+    and FB_FACTOR_JITTER (1e-10, the float64 default: the port factors A in
+    float64): no fallback warning (both guards pass), a finite ELBO, test
+    RMSE below std(ftest), kernel-A launches exact against PCG_STATS (per
+    g-stage solve of FACTOR_CHUNK factor rows, and per prediction chunk,
+    1 + 2k self-dots and one R^T; the sweep whitens nothing).  Then at
+    [accuracy-full-batch]'s converged settings and FB_FACTOR_JITTER against
+    its float32 'gram' ``gram_ref``: theta2 max-relative and the ELBO within
+    1e-2.  Returns kernel A's launches of the counted fit."""
+    import numpy as np
+
+    from hipgp_tpu_torch.infer import batch_predict
+    from hipgp_tpu_torch.models.hipgp import FACTOR_CHUNK, FACTORED_F32_KAPPA_MAX
+    from hipgp_tpu_torch.ops import mxu2d, solve
+
+    t0 = time.perf_counter()
+    m, st0, spec = factored_model(torch, dev, d)
+    kappa = float(torch.max(spec.eigs) / torch.min(spec.eigs))
+    log(f"[full-batch-factored] grid {spec.dims} -> {spec.edims}: kappa of the spectrum "
+        f"{kappa:.4e} (trust region {FACTORED_F32_KAPPA_MAX:g})")
+    check(kappa <= FACTORED_F32_KAPPA_MAX, f"kappa {kappa:.3e} outside the trust region")
+
+    def checks_line(fs):
+        return (f"jitter {fs['jitter']:.3e}; trace guard tr(K^-1 A) {fs['trKinvA']:.6e} vs "
+                f"1.2 sum ivar Knn {1.2 * fs['sKnn']:.6e}; bracket {fs['bracket']:.6e} vs "
+                f"-1e-3 sum ivar Knn {-1e-3 * fs['sKnn']:.6e}")
+
+    # the default jitter (the float32 model's, 1e-4 mean(diag A)): its shift
+    # enters Lambda as eps diag(K^-1), which this spectrum's small
+    # eigenvalues make large
+    new, elbo, timings, _, _, _, fs, _, warned = _solve_counted(
+        torch, (mxu2d,), m, st0, d, "factored", **FB_SOLVE)
+    log(f"[full-batch-factored] factored at the default jitter: {_stages(timings)}; ELBO "
+        f"{elbo:.6f}; {checks_line(fs)}; RuntimeWarnings {warned}")
+    if warned:
+        check(all("exactness check" in w for w in warned), f"warnings {warned}")
+        g, eg, *_ = _solve_counted(torch, (mxu2d,), m, st0, d, "gram", **FB_SOLVE)
+        dev_ = [rel(new.theta1, g.theta1), rel(new.theta2, g.theta2), abs(elbo - eg) / abs(eg)]
+        log(f"[full-batch-factored] it fell back: against 'gram' theta1 rel {dev_[0]:.3e}, "
+            f"theta2 rel {dev_[1]:.3e}, ELBO rel {dev_[2]:.3e} (limit 1e-6 each)")
+        check(max(dev_) <= 1e-6, f"the fallback is not 'gram': {dev_}")
+        del g
+    kw = dict(FB_SOLVE, factor_jitter=FB_FACTOR_JITTER)
+    new, elbo, timings, lc, st, ms, fs, peak, warned = _solve_counted(
+        torch, (mxu2d,), m, st0, d, "factored", **kw)
+    solves = -(-m.M // FACTOR_CHUNK)
+    log(f"[full-batch-factored] factored at factor_jitter {FB_FACTOR_JITTER:g}: "
+        f"{_stages(timings)}; peak torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB; "
+        f"ELBO {elbo:.6f}; {checks_line(fs)}; RuntimeWarnings {warned}")
+    _log_mean_pcg("full-batch-factored", "factored", ms, FB_SOLVE["mean_solver_maxiter"],
+                  FB_SOLVE["mean_solver_tol"])
+    check(not warned, f"factored warned {warned}")
+    check(fs["trKinvA"] <= 1.2 * fs["sKnn"] + 1e-6 and fs["bracket"] >= -1e-3 * fs["sKnn"],
+          f"a guard's numbers fail: {fs}")
+    check(set(timings) == {"sweep", "factor", "g", "mean", "elbo"}, f"stages {timings}")
+    _fb_launch_check("full-batch-factored", lc, st, solves)
+    fit_launches = dict(lc)
+    mu, sig = batch_predict(m, new, d["xtest"], batch_size=4096, maxiter_cg=50)
+    torch.cuda.synchronize()
+    lc = dict(mxu2d.LAUNCHES)
+    st = dict(solve.PCG_STATS)
+    chunks = st["solves"] - solves
+    log(f"[full-batch-factored] fit + predict: {chunks} prediction chunks")
+    check(chunks >= 1, "the prediction made no solve")
+    _fb_launch_check("full-batch-factored", lc, st, solves + chunks)
+    mu, sig = mu.cpu().numpy(), sig.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mu - d["ftest"]) ** 2)))
+    fstd = float(np.std(d["ftest"]))
+    log(f"[full-batch-factored] test RMSE {rmse:.5f} vs std(ftest) {fstd:.5f}")
+    check(math.isfinite(elbo), f"factored ELBO {elbo}")
+    check(bool(np.isfinite(mu).all() and np.isfinite(sig).all()), "non-finite prediction")
+    check(rmse < fstd, f"factored test RMSE {rmse} not below std(ftest) {fstd}")
+    # against 'gram' with converged whitening and mean PCG: the two differ in
+    # where the whitening's truncation enters, so both run it out
+    new, elbo, timings, _, _, ms, fs, _, warned = _solve_counted(
+        torch, (mxu2d,), m, st0, d, "factored", **FB_ACC_SOLVE,
+        factor_jitter=FB_FACTOR_JITTER)
+    g, eg = gram_ref
+    t2, t1 = max_rel(new.theta2, g.theta2), rel(new.theta1, g.theta1)
+    de = abs(elbo - eg) / abs(eg)
+    _log_mean_pcg("full-batch-factored", "factored converged", ms,
+                  FB_ACC_SOLVE["mean_solver_maxiter"], FB_ACC_SOLVE["mean_solver_tol"])
+    log(f"[full-batch-factored] converged (maxiter_cg {FB_ACC_SOLVE['maxiter_cg']}, mean "
+        f"tol {FB_ACC_SOLVE['mean_solver_tol']:g}): {_stages(timings)}; factored vs "
+        f"[accuracy-full-batch]'s float32 'gram': theta2 max-relative {t2:.3e} (limit "
+        f"1e-2), theta1 rel {t1:.3e}, ELBO {elbo:.8f} vs {eg:.8f}, rel {de:.3e} (limit "
+        f"1e-2); {checks_line(fs)}; RuntimeWarnings {warned}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(not warned, f"converged factored warned {warned}")
+    check(t2 <= 1e-2, f"factored vs gram theta2 {t2}")
+    check(de <= 1e-2, f"factored vs gram ELBO {de}")
+    return fit_launches
 
 
 def main():
@@ -1958,6 +2375,7 @@ def main():
         phase_kernel_a_case(torch, dev, mxu2d, gen, name, 64, w512, label, s512.dims,
                             s512.edims, in_exp, False, timed=False)
     results["B-8"] = phase_kernels_b8(torch, dev, wK, edims, gen)
+    results.update(phase_kernels_factored(torch, dev, mxu2d, gen, d))
     log(f"[kernels] done; {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. the main path ----------------------------------------------------
@@ -2057,7 +2475,9 @@ def main():
 
     # ---- the closed-form full-batch fit ----------------------------------------
     fb_launches = phase_full_batch(torch, d, model, state0)
-    phase_accuracy_full_batch(torch, dev, d)
+    gram_64 = phase_accuracy_full_batch(torch, dev, d)
+    fbf_launches = phase_full_batch_factored(torch, dev, d, gram_64)
+    del gram_64
 
     # ---- 5.-7. the 1-D long-axis path ----------------------------------------
     radix_results = phase_kernels_1d(torch, dev)
@@ -2072,6 +2492,9 @@ def main():
     results_3d = phase_kernels_3d(torch, dev)
     launches_3d = phase_main_3d(torch)
     phase_accuracy_3d(torch, dev)
+    fb3_launches = phase_full_batch_3d(torch)
+    phase_accuracy_full_batch_3d(torch, dev)
+    torch.cuda.empty_cache()
     state_3d, train_3d_launches = phase_train_3d(torch, dev)
     phase_train_grad_3d(torch, dev, state_3d)
     del state_3d
@@ -2156,6 +2579,20 @@ def main():
     check(b8_launches > 0, "B-8 never launched on the training path")
     for name in ("sandwich_apply_selfdot", "sandwich_apply"):
         check(fb_launches[name] > 0, f"{name} never launched on the full-batch path")
+        # kernel A at the 'factored' g-stage's shape: its launches in
+        # [full-batch-factored]'s fit, which whitens nothing but the factor
+        r = results[f"factored {name}"]
+        kernels.append({
+            "name": f"mxu2d.{name}[factored g-stage]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "launches": fbf_launches[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+        check(fbf_launches[name] > 0, f"{name} never launched on the factored path")
+    for name in ("sandwich_apply_wp", "sandwich_apply_wp3" if mxu3d.USE_WP3
+                 else "sandwich_apply_wp_selfdot"):
+        check(fb3_launches[name] > 0, f"{name} never launched on the 3-D full-batch path")
     log(f"[done] total {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     try:

@@ -194,7 +194,8 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
     device).  ``fit_method`` 'natgrad' runs `svigp_fit` (with
     ``eval_epochs=k`` the full evaluation every k-th epoch into
     ``epoch_output/epoch_N/``), 'full-batch' the closed-form
-    ``model.batch_solve`` with ``mean_solver`` ('dense', 'cg' or 'gram');
+    ``model.batch_solve`` with ``mean_solver`` ('dense', 'cg', 'gram',
+    'factored' or 'matfree');
     ``max_steps`` (the port's) ends a natgrad fit after that many steps.
     Returns (model, state, report)."""
     if parallel not in (None, "dp", "mp"):

@@ -10,21 +10,29 @@ dust field (anisotropic Gaussian blobs, seed 0) is generated.
 sig2 comes from the distance-slope regression (`empirical_sig2_init`).  The
 fit is, as in JAX, by default the closed-form full batch
 (``--fit-method full-batch``: ``HIPGP.batch_solve`` over batches of
-``--batch-size`` rows with ``--mean-solver`` 'dense', 'cg' or 'gram'; the
-'matfree' and 'factored' solvers, which the paper-scale grid needs, are
-not ported yet: ROADMAP.md section A item 6), or the JAX experiment's
+``--batch-size`` rows with ``--mean-solver`` 'dense', 'cg', 'gram',
+'factored' or 'matfree'; the paper-scale 64 x 64 x 32 grid needs 'matfree',
+the only one that holds no M' x M' or M x M matrix), or the JAX experiment's
 natgrad protocol (``--fit-method natgrad``: the theta2 warm start, the step
 size clamped to half the estimated stability limit, then SVI).  Then e is
 predicted at the test stars (integrated) and the latent density on the
 central-z slice (point).  It prints and writes (with the ``csv`` module,
 into ``--output-dir``) the e post-RMSE, the latent RMSE and correlation on
-the slice, the ELBO trace, and for natgrad rho and the lr used.
+the slice, the ELBO trace, for natgrad rho and the lr used, and for the full
+batch the seconds of each stage of the solve, its mean PCG's iterations and
+relative residual and, on the card, the peak of allocated memory; the fitted
+state goes to ``state.npz`` there, in the JAX package's checkpoint layout.
+``--eval-only-state`` (the JAX flag) restores such a state, the JAX
+package's or the port's, and skips the fit.
 
 Usage: python -m hipgp_tpu_torch.experiments.run_domain --fit-method natgrad
            --nx 64 --nz 32 --ell 0.07
        (add --device cpu --nobs 300 --nx 8 --nz 4 --max-steps 3 for a small CPU
        run; without --fit-method natgrad, --device cpu --nobs 300 --nx 8 --nz 4
        runs the dense closed-form fit)
+       python -m hipgp_tpu_torch.experiments.run_domain --nobs 100000 --ntest 2000
+           --nx 64 --nz 32 --mean-solver matfree --eval-grid 30 --ell 0.2
+       (the paper-scale full-batch fit)
 """
 from __future__ import annotations
 
@@ -39,7 +47,8 @@ import torch
 from ..infer import FitConfig, batch_predict, svigp_fit
 from ..kernels import kernel_from_name
 from ..models import HIPGP
-from ..utils import metrics
+from ..models.hipgp import MEAN_PCG_STATS
+from ..utils import checkpoint, metrics
 from .harness import empirical_sig2_init
 from .synthetic_data import integrated_obs
 
@@ -178,21 +187,18 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--mean-solver", default="dense",
                    choices=["dense", "cg", "gram", "factored", "matfree"],
-                   help="full-batch mean solve ('factored' and 'matfree' are not "
-                        "ported yet)")
+                   help="full-batch mean solve (the 64 x 64 x 32 grid needs matfree)")
     p.add_argument("--mean-solver-maxiter", type=int, default=200)
     p.add_argument("--mean-solver-tol", type=float, default=1e-8)
     p.add_argument("--eval-grid", type=int, default=20,
                    help="xy evaluation grid size on the central-z slice")
     p.add_argument("--output-dir", default="./output-domain")
+    p.add_argument("--eval-only-state", default=None,
+                   help="restore this state.npz and skip the fit (re-evaluation)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--f64", action="store_true")
     args = p.parse_args(argv)
     full_batch = args.fit_method == "full-batch"
-    if full_batch and args.mean_solver in ("factored", "matfree"):
-        raise NotImplementedError(
-            f"--mean-solver {args.mean_solver} is not ported yet (ROADMAP.md section "
-            "A item 6); use dense, cg or gram, or --fit-method natgrad")
 
     t_all = time.perf_counter()
     prob = domain_problem(args.nobs, args.ntest, args.noise_std, args.nx, args.nz,
@@ -208,15 +214,25 @@ def main(argv=None):
     cfg = FitConfig(epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
                     maxiter_cg=args.maxiter_cg, integrated_obs=True,
                     semi_integrated_estimator="analytic" if analytic else "mc-biased")
+    on_card = torch.device(args.device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    MEAN_PCG_STATS.update(iterations=0, resnorm=float("nan"), bnorm=float("nan"))
     t0 = time.perf_counter()
-    if full_batch:
+    if args.eval_only_state:
+        state = checkpoint.load_pytree(args.eval_only_state, model.init_state())
+        full_batch = False
+        report = {"elbo_trace": [float("nan")], "steps": 0, "epoch_times": [],
+                  "warmstart_s": 0.0, "natgrad_rho": None, "lr_used": None}
+    elif full_batch:
         state, elbo = model.batch_solve(
             model.init_state(), xobs, aobs, sobs_tr, batch_size=args.batch_size,
             maxiter_cg=args.maxiter_cg, integrated_obs=True,
             semi_integrated_estimator=cfg.semi_integrated_estimator,
             semi_integrated_samps=cfg.num_semi_mc_samples, compute_elbo=True,
             mean_solver=args.mean_solver, mean_solver_maxiter=args.mean_solver_maxiter,
-            mean_solver_tol=args.mean_solver_tol)
+            mean_solver_tol=args.mean_solver_tol, timings=timings)
         report = {"elbo_trace": [float(elbo)], "steps": 0, "epoch_times": [],
                   "warmstart_s": 0.0, "natgrad_rho": None, "lr_used": None}
     else:
@@ -224,6 +240,7 @@ def main(argv=None):
                                   verbose=False, theta2_warmstart=True,
                                   natgrad_safe_lr="clamp", max_steps=args.max_steps)
     fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else None
 
     t0 = time.perf_counter()
     ekw = dict(integrated_obs=True,
@@ -239,7 +256,7 @@ def main(argv=None):
 
     trace = report["elbo_trace"]
     out = {
-        "fit_method": args.fit_method,
+        "fit_method": "eval-only" if args.eval_only_state else args.fit_method,
         "steps": report["steps"],
         "warmstart_s": report["warmstart_s"],
         "fit_s": fit_s,
@@ -254,20 +271,34 @@ def main(argv=None):
         "e_loglike": metrics.mean_loglike(etest, emu, esig),
         "sig2_init": sig2,
     }
+    if full_batch:
+        ms = MEAN_PCG_STATS
+        out.update({f"fit_{k}_s": v for k, v in timings.items()})
+        out["mean_pcg_iterations"] = ms["iterations"]
+        out["mean_pcg_relres"] = ms["resnorm"] / ms["bnorm"]
+        out["fit_peak_gb"] = None if peak is None else peak / 1e9
     if fgrid is not None:
         out["latent_rmse"] = metrics.rmse(fgrid, fmu)
         out["latent_corr"] = metrics.correlation(fgrid, fmu)
     out["wall_s"] = time.perf_counter() - t_all
 
     os.makedirs(args.output_dir, exist_ok=True)
+    if not args.eval_only_state:
+        checkpoint.save_pytree(os.path.join(args.output_dir, "state.npz"), state)
     _write_csv(os.path.join(args.output_dir, "metrics.csv"), ["metric", "value"],
                sorted(out.items()))
     _write_csv(os.path.join(args.output_dir, "elbo_trace.csv"), ["step", "elbo"],
                list(enumerate(trace)))
     lat = (f"; latent RMSE {out['latent_rmse']:.5f}, slice corr "
            f"{out['latent_corr']:.4f}" if fgrid is not None else "")
-    fit = (f"full batch ({args.mean_solver}) in {fit_s:.2f} s, ELBO "
-           f"{out['last_elbo']:.4f}" if full_batch else
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+    pcg = (f", mean PCG {out['mean_pcg_iterations']} iterations to ||r||/||b_m|| "
+           f"{out['mean_pcg_relres']:.3e}" if full_batch and out["mean_pcg_iterations"]
+           else "")
+    mem = f", peak {out['fit_peak_gb']:.3f} GB" if full_batch and on_card else ""
+    fit = (f"full batch ({args.mean_solver}) in {fit_s:.2f} s ({stages}{pcg}{mem}), "
+           f"ELBO {out['last_elbo']:.4f}" if full_batch else
+           f"the state of {args.eval_only_state}" if args.eval_only_state else
            f"rho {out['natgrad_rho']:.1f}, lr used {out['lr_used']:.3g}; "
            f"{out['steps']} steps at {out['step_ms']:.1f} ms (warm start "
            f"{out['warmstart_s']:.2f} s), ELBO {out['first_elbo']:.4f} -> "

@@ -5,7 +5,7 @@ model: the same defaults (N = 20 000 observations and 2 000 test points of
 the "medium" random sin/tanh surface, noise 0.01, M = 125^2 inducing points
 on [-1, 1]^2, SqExp with ell 0.05, batch 256, maxiter_cg 10, 10 epochs) and
 the same flags: ``--fit-method`` natgrad (SVI) or full-batch (the
-closed-form ``batch_solve`` with ``--mean-solver`` dense, cg or gram),
+closed-form ``batch_solve`` with ``--mean-solver`` dense, cg, gram or factored),
 ``--ell-sweep MIN MAX STEP`` (the lengthscale picked by the closed-form
 ELBO before the fit, written to ``ell_sweep.csv``), ``--integrated-obs``.
 Each model of ``--models`` (mean-field only) runs through the harness
@@ -85,7 +85,8 @@ def main(argv=None):
     p.add_argument("--ell-sweep", type=float, nargs=3, metavar=("MIN", "MAX", "STEP"),
                    default=None,
                    help="grid-search the lengthscale by batch-solve ELBO before fitting")
-    p.add_argument("--mean-solver", default="dense", choices=["dense", "cg", "gram"])
+    p.add_argument("--mean-solver", default="dense",
+                   choices=["dense", "cg", "gram", "factored"])
     p.add_argument("--output-dir", default="./output-synthetic")
     p.add_argument("--device", default="cuda")
     p.add_argument("--f64", action="store_true")

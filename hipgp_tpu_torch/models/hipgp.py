@@ -12,19 +12,23 @@ ELBO in the three log-hyperparameters, taken by autograd through the kernel,
 the spectrum and the whitening solve (`ops/solve.py`, implicit
 differentiation).  ``batch_solve`` is the closed-form full-batch optimum of
 the family, with the mean solved densely ('dense'), by CG over the stacked
-kn ('cg') or through the original-space data Gram ('gram').  Observations
-are points, or line integrals of the field (``integrated_obs``: the ray
-from the origin to each x, paper section 5.5) with the semi-integrated
-cross-covariances of `kernels/interdomain.py`.  The block and full-rank
-families and the standard parameterization (ROADMAP.md section A item 5)
-and the 'factored' and 'matfree' mean solvers (section A item 6) are not
-ported yet: they raise NotImplementedError.
+kn ('cg'), through the original-space data Gram ('gram'), with Lambda and
+the ELBO from that Gram's Cholesky factor as well ('factored', with its
+exactness guards and the warned fallback to 'gram') or by CG whose data-Gram
+matvec re-sweeps the data ('matfree': no M x M tensor, the solver of the
+paper-scale 3-D grids).  Observations are points, or line integrals of the
+field (``integrated_obs``: the ray from the origin to each x, paper section
+5.5) with the semi-integrated cross-covariances of `kernels/interdomain.py`.
+The block and full-rank families and the standard parameterization
+(ROADMAP.md section A item 5) are not ported yet: they raise
+NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -36,7 +40,8 @@ from ..ops import (make_spectrum, matmul_by_Cinv, matmul_by_K, matmul_by_RT,
 from ..ops.bttb import BTTBSpectrum, embedded_dims, fp32_matmul
 from ..utils import stats
 
-__all__ = ["HIPGP", "HIPGPState", "MEAN_PCG_STATS"]
+__all__ = ["HIPGP", "HIPGPState", "MEAN_PCG_STATS", "FACTORED_STATS",
+           "FactoredSolveInconsistency"]
 
 LN2PI = math.log(2.0 * math.pi)
 # dtype of the 'gram' solver's M-space accumulators and mean solve: the data
@@ -46,9 +51,24 @@ LN2PI = math.log(2.0 * math.pi)
 # float64 from the same float32 Knm it does not
 # (tests/test_torch_fullbatch.py::test_gram_accumulates_in_float64)
 GRAM_ACC_DTYPE = torch.float64
-# the last mean-stage PCG ('cg', and 'gram' under 'ziggy'): iterations run,
-# final ||r||_2 and ||b||_2 (mean_solver_tol is on ||r||_2)
+# the last mean-stage PCG ('cg', and 'gram', 'factored' and 'matfree' under
+# 'ziggy'): iterations run, final ||r||_2 and ||b||_2 ('matfree' stops on
+# ||r||_2 <= mean_solver_tol ||b||_2, the others on ||r||_2 <= mean_solver_tol)
 MEAN_PCG_STATS = {"iterations": 0, "resnorm": float("nan"), "bnorm": float("nan")}
+# f32 trust region of the 'factored' solver's pre-check on the spectrum's
+# dynamic range kappa = max(eigs) / min(eigs) (the JAX package's value);
+# module-level so that an accuracy study can probe past it
+FACTORED_F32_KAPPA_MAX = 1e3
+# the 'factored' solver's two exactness guards; off only for accuracy studies
+# that need the raw factored output past a firing guard
+FACTORED_GUARDS = True
+# the last 'factored' solve's checks: kappa (nan without a spectrum), the
+# absolute jitter of A's factor, tr(K^{-1} A), sum ivar Knn and the variance
+# bracket sum ivar Knn - tr(K^{-1} A) + sum(S * Lambda) (nan where not reached)
+FACTORED_STATS = dict.fromkeys(("kappa", "jitter", "trKinvA", "sKnn", "bracket"),
+                               float("nan"))
+# rows of the factor whitened per solve in the 'factored' g-stage (ziggy)
+FACTOR_CHUNK = 2048
 # floor of the latent predictive variance Knn - kn.kn (the JAX default)
 VAR_CLAMP = 1e-5
 
@@ -94,6 +114,24 @@ def _mean_pcg(matvec, b, precond, maxiter, tol):
     MEAN_PCG_STATS.update(iterations=res.iters, resnorm=float(res.resnorm[0]),
                           bnorm=float(b.norm()))
     return res.x[0]
+
+
+class FactoredSolveInconsistency(RuntimeError):
+    """The 'factored' batch solve failed an exactness check.
+
+    For any PSD kernel sum_n ivar_n kn_n.kn_n <= sum_n ivar_n Knn_n (the
+    Nystrom residual is a Schur complement of a PSD matrix).  The factored
+    solver computes the left side as tr(K^{-1} A) = ||W L_A||_F^2 through
+    truncated PCG solves on the localized columns of the data Gram's Cholesky
+    factor; on clamped spectra in float32 those solves can be far less
+    converged than the smooth kernel-row solves of the sweep-based paths.
+    `HIPGP.batch_solve` catches it, warns and falls back to 'gram'."""
+
+
+def _cast_spec(spec: BTTBSpectrum, dtype: torch.dtype) -> BTTBSpectrum:
+    cast = lambda t: None if t is None else t.to(dtype)
+    return dataclasses.replace(spec, column=cast(spec.column), eigs=cast(spec.eigs),
+                               ecolumn=cast(spec.ecolumn))
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -458,7 +496,8 @@ class HIPGP:
         lam_with_I = lam + 1.0
         return state.replace(theta1=mhat * lam_with_I, theta2=-0.5 * lam_with_I)
 
-    def _gram_sweep(self, state, spec, batches, flags, maxiter_cg):
+    def _gram_sweep(self, state, spec, batches, flags, maxiter_cg, kn=True, gram=True,
+                    draws=None):
         """The one data sweep of the 'gram' solver: per-point kn for Lambda
         (the reference's truncation semantics) and, beside it, the
         original-space data Gram A = sum ivar Knm Knm^T (M x M), b_m =
@@ -467,31 +506,41 @@ class HIPGP:
         A and b_m are accumulated in full FP32 (no TF32): the Woodbury mean
         and the ELBO's data quadratic are differences of large terms, so
         they and the four scalars are summed in GRAM_ACC_DTYPE (float64: on
-        the H100 a DGEMM runs on the FP64 tensor cores at the FP32 rate)."""
+        the H100 a DGEMM runs on the FP64 tensor cores at the FP32 rate).
+        Returns (lam, A, b_m, sum ivar y^2, sum ivar Knn, sum ivar kn.kn,
+        sum of the log terms).  Without ``kn`` no whitening runs and lam and
+        sum ivar kn.kn are None ('factored'); without ``gram`` A is None
+        ('matfree').  ``draws``, a list, receives the generator's state
+        before each batch, so that a later sweep can replay its draws."""
         xb, yb, w, nsp = batches
         acc, dev = GRAM_ACC_DTYPE, self.device
-        lam = torch.zeros((self.Mprime,), dtype=self.dtype, device=dev)
-        A = torch.zeros((self.M, self.M), dtype=acc, device=dev)
+        lam = torch.zeros((self.Mprime,), dtype=self.dtype, device=dev) if kn else None
+        A = torch.zeros((self.M, self.M), dtype=acc, device=dev) if gram else None
         bm = torch.zeros((self.M,), dtype=acc, device=dev)
         sy2, sKnn, sknkn, slog = (torch.zeros((), dtype=acc, device=dev) for _ in range(4))
         for i in range(xb.shape[0]):
+            if draws is not None:
+                draws.append(flags["generator"].get_state())
             Knm, Knn = self.make_grams(state, xb[i], **flags)
-            kn = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg, spec=spec)
             yv, wb, nsb = yb[i], w[i], nsp[i]
             ivar = wb / (nsb * nsb)
-            lam += self.get_lam(ivar, kn, bscale=1.0, add_identity=False)
-            with fp32_matmul():
-                knkn = torch.einsum("bi,bi->b", kn, kn)
-            del kn
+            if kn:
+                kn_i = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg, spec=spec)
+                lam += self.get_lam(ivar, kn_i, bscale=1.0, add_identity=False)
+                with fp32_matmul():
+                    knkn = torch.einsum("bi,bi->b", kn_i, kn_i)
+                del kn_i
             Knm, ivar, yv = Knm.to(acc), ivar.to(acc), yv.to(acc)
-            A.addmm_(Knm.T, Knm * ivar[:, None])
+            if gram:
+                A.addmm_(Knm.T, Knm * ivar[:, None])
             bm += Knm.T @ (ivar * yv)
             del Knm
-            sknkn += torch.sum(ivar * knkn)
+            if kn:
+                sknkn += torch.sum(ivar * knkn)
             sy2 += torch.sum(ivar * yv * yv)
             sKnn += torch.sum(ivar * Knn.reshape(-1))
             slog += torch.sum(wb.to(acc) * (-torch.log(nsb.to(acc)) - 0.5 * LN2PI))
-        return lam, A, bm, sy2, sKnn, sknkn, slog
+        return lam, A, bm, sy2, sKnn, sknkn if kn else None, slog
 
     def _gram_mean_stage(self, state, spec, A, bm, maxiter, tol):
         """(mhat, z) with z = (K + A)^{-1} b_m: under 'ziggy' by PCG on K + A
@@ -505,9 +554,7 @@ class HIPGP:
             Kmm = Kmm + self.jitter * torch.eye(self.M, dtype=acc, device=Kmm.device)
             z = spd_solve(Kmm + A, bm)
             return (self._kmm_chol(state).to(acc).T @ z).to(self.dtype), z
-        cast = lambda t: None if t is None else t.to(acc)
-        spec = dataclasses.replace(spec, column=cast(spec.column), eigs=cast(spec.eigs),
-                                   ecolumn=cast(spec.ecolumn))
+        spec = _cast_spec(spec, acc)
 
         def kpa_mv(v):
             with fp32_matmul():
@@ -516,14 +563,15 @@ class HIPGP:
         z = _mean_pcg(kpa_mv, bm, lambda v: matmul_by_Cinv(spec, v), maxiter, tol)
         return matmul_by_RT(spec, z[None, :])[0].to(self.dtype), z
 
-    def _gram_elbo_stage(self, z, A, bm, sy2, sKnn, sknkn, slog, lam, new_state, N):
+    def _gram_elbo_stage(self, z, zAz, bm, sy2, sKnn, sknkn, slog, lam, new_state, N):
         """The ELBO from the sweep's accumulators: kn.m = Knm (K+A)^{-1} b_m
-        exactly (R R^T = K), so the data quadratic collapses onto (A, b_m,
-        z); kn.kn and kn S kn come from the swept kn.  Summed in A's dtype,
-        returned in the model's."""
-        acc = A.dtype
+        exactly (R R^T = K), so the data quadratic collapses onto
+        (z^T A z, b_m, z); sum ivar kn.kn (or 'factored''s tr(K^{-1} A)) and
+        sum ivar kn S kn = sum(S * Lambda) come from the sweep.  Summed in
+        z's dtype, returned in the model's."""
+        acc = z.dtype
         qm, qS = self.standard_params(new_state)
-        quad = z @ (A @ z) - 2.0 * (z @ bm) + sy2
+        quad = zAz - 2.0 * (z @ bm) + sy2
         sSkn = torch.sum(qS.to(acc) * lam.to(acc))
         total_an = -0.5 * (quad + sKnn - sknkn + sSkn) + slog
         kl = self.kl_to_prior(qm.to(acc), qS.to(acc))
@@ -535,12 +583,9 @@ class HIPGP:
         """The one-sweep 'gram' solver: `_gram_sweep` (per-point kn for
         Lambda, and A, b_m and the ELBO scalars beside it), `_gram_mean_stage`
         (the Woodbury mean m = R (K + A)^{-1} b_m), `_gram_elbo_stage`; no
-        second sweep.  Without noise_std the rows' noise is
-        exp(log_noise2 / 2), the homoscedastic case of the same formulas."""
-        xb, yb, w, sb = batches
-        nsp = torch.exp(0.5 * state.log_noise2) * torch.ones_like(w) if sb is None else sb
+        second sweep."""
         lam, A, bm, sy2, sKnn, sknkn, slog = self._gram_sweep(
-            state, spec, (xb, yb, w, nsp), flags, maxiter_cg)
+            state, spec, batches, flags, maxiter_cg)
         clock.mark("sweep")
         mhat, z = self._gram_mean_stage(state, spec, A, bm, mean_solver_maxiter,
                                         mean_solver_tol)
@@ -548,7 +593,203 @@ class HIPGP:
         clock.mark("mean")
         if not compute_elbo:
             return new_state
-        elbo = self._gram_elbo_stage(z, A, bm, sy2, sKnn, sknkn, slog, lam, new_state, N)
+        elbo = self._gram_elbo_stage(z, z @ (A @ z), bm, sy2, sKnn, sknkn, slog, lam,
+                                     new_state, N)
+        clock.mark("elbo")
+        return new_state, elbo
+
+    def _lam_from_factor_rows(self, G: torch.Tensor) -> torch.Tensor:
+        """The mean-field Lambda sum_k g_k g_k^T (its diagonal; no prior
+        identity) from factor rows G, row k being (W l_k)^T with
+        A = sum_k l_k l_k^T."""
+        if self.family != "mean-field":
+            raise _not_ported(f"the {self.family} family", 5)
+        return torch.sum(G * G, dim=0)
+
+    def factor_data_gram(self, A: torch.Tensor, factor_jitter: Optional[float] = None):
+        """(L_A, eps): the Cholesky factor of A + eps I with the relative
+        jitter eps = factor_jitter * mean(diag A) (by default 1e-4 when the
+        model's dtype is float32, 1e-10 otherwise, the JAX defaults), raised
+        x100 up to 4 times while the factor fails, then FloatingPointError.
+        In A's dtype; only the shifted copy and its factor are allocated."""
+        if factor_jitter is None:
+            factor_jitter = 1e-4 if self.dtype == torch.float32 else 1e-10
+        eps = factor_jitter * torch.mean(torch.diagonal(A))
+
+        def chol_at(e):
+            shifted = A.clone()
+            shifted.diagonal().add_(e)
+            L, info = torch.linalg.cholesky_ex(shifted)
+            del shifted
+            return L if int(info) == 0 and bool(torch.isfinite(L).all()) else None
+
+        L_A, tries = chol_at(eps), 0
+        while L_A is None and tries < 4:
+            eps, tries = eps * 100.0, tries + 1
+            L_A = chol_at(eps)
+        if L_A is None:
+            raise FloatingPointError(
+                "factored mean solver: Cholesky of the accumulated data Gram stayed "
+                f"non-finite up to jitter {float(eps):.3e}; raise factor_jitter (A is "
+                "PSD only up to accumulation roundoff)")
+        return L_A, float(eps)
+
+    def _factored_g_stage(self, state, spec, L_A, maxiter_cg):
+        """(Lambda - I, tr(K^{-1} A)) from G = W L_A: the rows of L_A^T
+        whitened by `compute_kn` (under 'ziggy' in chunks of FACTOR_CHUNK
+        rows, the last padded with zero rows as JAX pads it; under
+        'cholesky' in one triangular solve), Lambda summed over the chunks
+        in the model's dtype and the trace in GRAM_ACC_DTYPE."""
+        Lt = L_A.T
+        ncols = Lt.shape[0]
+        cs = ncols if self.whitened_type == "cholesky" else min(ncols, FACTOR_CHUNK)
+        lam = torch.zeros((self.Mprime,), dtype=self.dtype, device=self.device)
+        tr = torch.zeros((), dtype=GRAM_ACC_DTYPE, device=self.device)
+        for c in range(0, ncols, cs):
+            rows = Lt[c:c + cs]
+            if rows.shape[0] < cs:
+                rows = torch.cat([rows, rows.new_zeros((cs - rows.shape[0], self.M))])
+            G = self.compute_kn(state, rows.contiguous(), maxiter_cg=maxiter_cg, spec=spec)
+            lam_c = self._lam_from_factor_rows(G)
+            del G
+            lam += lam_c
+            tr += torch.sum(lam_c.to(GRAM_ACC_DTYPE))
+        return lam, tr
+
+    def _batch_solve_factored(self, state, spec, batches, N, flags, clock, *,
+                              maxiter_cg, mean_solver_maxiter, mean_solver_tol,
+                              compute_elbo, factor_jitter):
+        """The closed form with M whitening solves instead of N: every
+        quantity of the optimum is a function of the data Gram A and b_m
+        (W = R^T K^{-1} with K = R R^T exactly for the clamped circulant):
+
+        * Lambda - I = W A W^T, the squared column sums of G = W L_A with
+          A = L_A L_A^T (`factor_data_gram`, `_factored_g_stage`);
+        * the mean m = R (K + A)^{-1} b_m (`_gram_mean_stage`);
+        * the ELBO as 'gram''s with sum ivar kn.kn = tr(K^{-1} A) = ||G||_F^2.
+
+        The data sweep runs no PCG (`_gram_sweep` without kn).  Checks, in
+        order: the pre-check (float32 under 'ziggy': kappa of the spectrum
+        at most FACTORED_F32_KAPPA_MAX, else the localized factor columns'
+        float32 solves cannot resolve the tail Lambda needs), the trace
+        guard tr(K^{-1} A) <= 1.2 sum ivar Knn + 1e-6, and with the ELBO the
+        bracket guard (the summed variance terms are not below -1e-3
+        sum ivar Knn); each raises FactoredSolveInconsistency (the guards
+        only while FACTORED_GUARDS), and FACTORED_STATS records them.  A is
+        summed and factored in GRAM_ACC_DTYPE, the factor whitened in the
+        model's dtype."""
+        stats = FACTORED_STATS
+        stats.update(dict.fromkeys(stats, float("nan")))
+        if spec is not None:
+            kappa = float(torch.max(spec.eigs) / torch.min(spec.eigs))
+            stats["kappa"] = kappa
+            if self.dtype == torch.float32 and kappa > FACTORED_F32_KAPPA_MAX:
+                raise FactoredSolveInconsistency(
+                    f"spectrum dynamic range {kappa:.2e} exceeds the measured f32 trust "
+                    f"region ({FACTORED_F32_KAPPA_MAX:g}): the f32 whitening solves of "
+                    "the LOCALIZED factor columns cannot resolve the spectral tail "
+                    "that Lambda needs (the bound is a property of the solves, not "
+                    "the factor)")
+        _, A, bm, sy2, sKnn, _, slog = self._gram_sweep(state, spec, batches, flags,
+                                                        maxiter_cg, kn=False)
+        clock.mark("sweep")
+        L_A, stats["jitter"] = self.factor_data_gram(A, factor_jitter)
+        clock.mark("factor")
+        lam, tr = self._factored_g_stage(state, spec, L_A.to(self.dtype), maxiter_cg)
+        del L_A
+        clock.mark("g")
+        tr_f, sk_f = float(tr), float(sKnn)
+        stats.update(trKinvA=tr_f, sKnn=sk_f)
+        if FACTORED_GUARDS and (not math.isfinite(tr_f) or tr_f > 1.2 * sk_f + 1e-6):
+            raise FactoredSolveInconsistency(
+                f"tr(K^-1 A) = {tr_f:.4e} exceeds sum ivar Knn = {sk_f:.4e}: the "
+                "factor-column PCG solves are inconsistent at this conditioning "
+                "(clamped spectrum / f32); use the 'gram' sweep solver or raise "
+                "maxiter_cg")
+        mhat, z = self._gram_mean_stage(state, spec, A, bm, mean_solver_maxiter,
+                                        mean_solver_tol)
+        new_state = self._state_from_lam_mhat(state, lam, mhat)
+        clock.mark("mean")
+        if not compute_elbo:
+            return new_state
+        qS = self.standard_params(new_state)[1]
+        bracket = sk_f - tr_f + float(torch.sum(qS.to(tr.dtype) * lam.to(tr.dtype)))
+        stats["bracket"] = bracket
+        if FACTORED_GUARDS and bracket < -1e-3 * sk_f:
+            raise FactoredSolveInconsistency(
+                f"aggregate variance bracket {bracket:.4e} is negative (sKnn "
+                f"{sk_f:.4e}, tr {tr_f:.4e}): the closed-form ELBO is invalid at "
+                "this conditioning")
+        elbo = self._gram_elbo_stage(z, z @ (A @ z), bm, sy2, sKnn, tr, slog, lam,
+                                     new_state, N)
+        clock.mark("elbo")
+        return new_state, elbo
+
+    def _batch_solve_matfree(self, state, spec, batches, N, flags, clock, *,
+                             maxiter_cg, mean_solver_maxiter, mean_solver_tol,
+                             compute_elbo):
+        """'gram' without the M x M data Gram: the sweep accumulates Lambda,
+        b_m and the ELBO scalars (`_gram_sweep` without A), and each
+        iteration of the host-driven PCG on (K + A) z = b_m applies A by
+        sweeping the data again, Knm rebuilt batch by batch (the draws of
+        the Monte-Carlo estimator replayed) and freed; it stops once
+        ||r||^2 <= mean_solver_tol^2 ||b_m||^2, checked on the host after
+        every update.  m = R^T z; the ELBO's z^T A z comes from one more
+        sweep.  Memory O(M + bsz M), the solver of the paper-scale 3-D
+        grids.  The A applies and the PCG run in GRAM_ACC_DTYPE."""
+        if self.whitened_type != "ziggy":
+            raise ValueError("mean_solver='matfree' requires ziggy whitening")
+        xb, _, w, nsp = batches
+        draws = [] if flags["generator"] is not None else None
+        lam, _, bm, sy2, sKnn, sknkn, slog = self._gram_sweep(
+            state, spec, batches, flags, maxiter_cg, gram=False, draws=draws)
+        clock.mark("sweep")
+        acc = GRAM_ACC_DTYPE
+        spec = _cast_spec(spec, acc)
+        ivars = [(w[i] / (nsp[i] * nsp[i])).to(acc) for i in range(xb.shape[0])]
+
+        def a_mv(v):
+            # sum_n ivar_n Knm_n (Knm_n . v), Knm rebuilt: no M x M tensor
+            out = torch.zeros_like(v)
+            for i in range(xb.shape[0]):
+                if draws is not None:
+                    flags["generator"].set_state(draws[i])
+                Knm = self.make_grams(state, xb[i], **flags)[0].to(acc)
+                with fp32_matmul():
+                    out += (ivars[i] * (Knm @ v)) @ Knm
+                del Knm
+            return out
+
+        def k_mv(v):
+            with fp32_matmul():
+                return matmul_by_K(spec, v[None, :])[0]
+
+        cinv = lambda v: matmul_by_Cinv(spec, v[None, :])[0]
+        z, r = torch.zeros_like(bm), bm
+        p = cinv(r)
+        rz, b2 = torch.dot(r, p), torch.dot(bm, bm)
+        rtol2 = mean_solver_tol ** 2 * b2
+        iters = 0
+        for _ in range(mean_solver_maxiter):
+            Ap = k_mv(p) + a_mv(p)
+            alpha = rz / torch.dot(p, Ap)
+            z = z + alpha * p
+            r = r - alpha * Ap
+            y = cinv(r)
+            rz_new = torch.dot(r, y)
+            p = y + (rz_new / rz) * p
+            rz, iters = rz_new, iters + 1
+            if bool(torch.dot(r, r) <= rtol2):
+                break
+        MEAN_PCG_STATS.update(iterations=iters, resnorm=float(r.norm()),
+                              bnorm=float(b2.sqrt()))
+        mhat = matmul_by_RT(spec, z[None, :])[0].to(self.dtype)
+        new_state = self._state_from_lam_mhat(state, lam, mhat)
+        clock.mark("mean")
+        if not compute_elbo:
+            return new_state
+        elbo = self._gram_elbo_stage(z, z @ a_mv(z), bm, sy2, sKnn, sknkn, slog, lam,
+                                     new_state, N)
         clock.mark("elbo")
         return new_state, elbo
 
@@ -561,6 +802,7 @@ class HIPGP:
                     generator: Optional[torch.Generator] = None,
                     compute_elbo: bool = False, mean_solver: str = "dense",
                     mean_solver_maxiter: int = 200, mean_solver_tol: float = 1e-8,
+                    factor_jitter: Optional[float] = None,
                     timings: Optional[dict] = None):
         """Closed-form optimal q: accumulate (Lambda, b) over batches of
         ``batch_size`` rows (-1: one batch), then S = Lambda^{-1}, m = S b.
@@ -580,15 +822,21 @@ class HIPGP:
         * 'gram' sweeps the data once, accumulating the original-space data
           Gram A = sum_n ivar_n Knm_n Knm_n^T (M x M) beside Lambda, and
           solves m = R (K + A)^{-1} b_m (the Woodbury collapse, exact;
-          `_gram_mean_stage`); the ELBO comes from the sweep's scalars.
+          `_gram_mean_stage`); the ELBO comes from the sweep's scalars;
+        * 'factored' takes Lambda and the ELBO from A as well, through the
+          Cholesky factor of A (``factor_jitter``: its relative jitter) and
+          M whitening solves instead of N (`_batch_solve_factored`); when an
+          exactness check fails it warns (RuntimeWarning) and runs 'gram';
+        * 'matfree' is 'gram' without A: every iteration of its mean PCG
+          applies A by sweeping the data again (`_batch_solve_matfree`;
+          'ziggy' only).
 
-        'factored' and 'matfree' are not ported (ROADMAP.md section A item
-        6).  ``timings``, a dict, receives the seconds of the sweep, the
-        mean stage and the ELBO ('sweep', 'mean', 'elbo'; the card
-        synchronised at each boundary)."""
-        if mean_solver in ("factored", "matfree"):
-            raise _not_ported(f"mean_solver={mean_solver!r}", 6)
-        if mean_solver not in ("dense", "cg", "gram"):
+        ``timings``, a dict, receives the seconds of each stage, the card
+        synchronised at each boundary: 'sweep', 'mean', 'elbo'; 'factored'
+        adds 'factor' (A's Cholesky) and 'g' (the factor's whitening) after
+        'sweep', and a fallback keeps the failed attempt's stages as
+        'factored_<stage>'."""
+        if mean_solver not in ("dense", "cg", "gram", "factored", "matfree"):
             raise ValueError(f"mean_solver={mean_solver!r}")
         as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=self.device)
         x = as_t(xobs)
@@ -601,12 +849,30 @@ class HIPGP:
                      semi_integrated_samps=semi_integrated_samps, generator=generator)
         clock = _StageClock(timings, self.device)
         spec = self.spectrum(state) if self.whitened_type == "ziggy" else None
-
+        # the sweep-based solvers' rows: without noise_std the noise is
+        # exp(log_noise2 / 2), the homoscedastic case of the same formulas
+        nsp = torch.exp(0.5 * state.log_noise2) * torch.ones_like(w) if sb is None else sb
+        kw = dict(maxiter_cg=maxiter_cg, mean_solver_maxiter=mean_solver_maxiter,
+                  mean_solver_tol=mean_solver_tol, compute_elbo=compute_elbo)
+        if mean_solver == "factored":
+            try:
+                return self._batch_solve_factored(state, spec, (xb, yb, w, nsp), N, flags,
+                                                  clock, factor_jitter=factor_jitter, **kw)
+            except FactoredSolveInconsistency as e:
+                warnings.warn(
+                    f"factored batch solve failed its exactness check ({e}); falling "
+                    "back to the sweep-based 'gram' solver", RuntimeWarning)
+                if timings is not None:
+                    for k in [k for k in timings if not k.startswith("factored_")]:
+                        timings["factored_" + k] = timings.pop(k)
+                clock = _StageClock(timings, self.device)
+                mean_solver = "gram"
+        if mean_solver == "matfree":
+            return self._batch_solve_matfree(state, spec, (xb, yb, w, nsp), N, flags,
+                                             clock, **kw)
         if mean_solver == "gram":
-            return self._batch_solve_gram(
-                state, spec, (xb, yb, w, sb), N, flags, clock, maxiter_cg=maxiter_cg,
-                mean_solver_maxiter=mean_solver_maxiter,
-                mean_solver_tol=mean_solver_tol, compute_elbo=compute_elbo)
+            return self._batch_solve_gram(state, spec, (xb, yb, w, nsp), N, flags, clock,
+                                          **kw)
 
         def ivar_of(i):
             if sb is not None:

@@ -952,6 +952,76 @@ def test_batch_solve_kernel_a_launches(dev, solver):
         "sandwich_apply_wp_selfdot": 0}
 
 
+def test_batch_solve_factored_on_the_card(dev):
+    # 'factored' on a 16^2 grid (kappa 48, inside the float32 trust region),
+    # 600 rows in 3 batches: the f32 kernel path against the f64 plain path on
+    # the card, both whitenings at maxiter_cg 100 and the mean converged; the
+    # factor's 256 rows are one g-stage solve through kernel A and the sweep
+    # whitens nothing; no fallback.  Limits: the f32 factored solve's own
+    # error, 4e-4 on the CPU at this grid (f32 jitter 1e-4 against 1e-10)
+    import warnings
+
+    from hipgp_tpu_torch.models.hipgp import FACTORED_STATS
+
+    kw = dict(batch_size=200, maxiter_cg=100, mean_solver="factored",
+              mean_solver_maxiter=3000, mean_solver_tol=1e-10, compute_elbo=True)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        m, d = _fb_model(dtype, dev, grid=16)
+        mxu2d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            st, elbo = m.batch_solve(m.init_state(), d["xobs"], d["yobs"], d["sobs"], **kw)
+        torch.cuda.synchronize()
+        out[dtype] = (st, float(elbo), dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS))
+    (s32, e32, lc, ps), (s64, e64, lc64, _) = out[torch.float32], out[torch.float64]
+    assert FACTORED_STATS["kappa"] < 1e3
+    assert ps["solves"] == 1
+    assert lc == {"sandwich_apply_selfdot": 1 + 2 * ps["iterations"], "sandwich_apply": 1,
+                  "sandwich_apply_wp": 0, "sandwich_apply_wp_selfdot": 0}
+    assert not any(lc64.values())
+    assert np.isfinite(e32)
+    assert _rel(s32.theta2, s64.theta2) <= 5e-3
+    assert _rel(s32.theta1, s64.theta1) <= 5e-3
+    assert abs(e32 - e64) <= 1e-2 * abs(e64)
+
+
+def test_batch_solve_matfree_3d_on_the_card(dev):
+    # 'matfree' on a 16 x 16 x 8 dust-map grid (embedded (30, 30, 15): the
+    # outer products and B-5), 384 line integrals in 3 batches, whitening at
+    # maxiter_cg 50, the mean PCG run out: the f32 kernel path against the
+    # f64 plain path on the card (theta1 <= 5e-3, ELBO <= 1e-4, as
+    # [accuracy-full-batch-3d]); per sweep batch 1 + 2k self-dot applies and
+    # one R^T of B-5, the mean PCG's re-sweeps launch nothing
+    from hipgp_tpu_torch.experiments import run_domain
+
+    prob = run_domain.domain_problem(384, 10, 0.1, 16, 8)
+    kw = dict(batch_size=128, maxiter_cg=50, integrated_obs=True, mean_solver="matfree",
+              mean_solver_maxiter=2000, mean_solver_tol=1e-10, compute_elbo=True)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        m = run_domain.domain_model("SqExp", prob["grids"], 384, 1.0, 0.2, dtype=dtype,
+                                    device=dev)
+        mxu2d.reset_launches()
+        mxu3d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        st, elbo = m.batch_solve(m.init_state(), prob["xobs"], prob["aobs"], prob["sobs"],
+                                 **kw)
+        torch.cuda.synchronize()
+        out[dtype] = (st, float(elbo), {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES},
+                      dict(solve.PCG_STATS))
+    (s32, e32, lc, ps), (s64, e64, lc64, _) = out[torch.float32], out[torch.float64]
+    assert ps["solves"] == 3
+    applies = ps["solves"] + 2 * ps["iterations"]
+    assert lc == {"sandwich_apply_wp_selfdot": applies, "sandwich_apply_wp": 3,
+                  "sandwich_apply_wp3": 0, "sandwich_apply": 0, "sandwich_apply_selfdot": 0}
+    assert not any(lc64.values())
+    assert np.isfinite(e32)
+    assert _rel(s32.theta1, s64.theta1) <= 5e-3
+    assert abs(e32 - e64) <= 1e-4 * abs(e64)
+
+
 # ---------------------------------------------------------------------------
 # the backwards of the 1-D and 3-D paths: the radix apply's (B-2, B-4 and
 # radix_middle_wgrad) and kernel B-5's

@@ -349,10 +349,8 @@ def test_unported_options_raise(pairs, data):
         HIPGP(tkernels.SqExp(), GRIDS, num_obs=N, whitened_type="dense", device="cpu")
     _, tm, _, ts = pairs["ziggy"]
     x, y, s = data[:3]
-    # never quietly the 'gram' solver: JAX falls back to it only on a failed check
-    for solver in ("factored", "matfree"):
-        with pytest.raises(NotImplementedError, match="section A item 6"):
-            tm.batch_solve(ts, x, y, s, mean_solver=solver)
+    with pytest.raises(ValueError, match="mean_solver='nope'"):
+        tm.batch_solve(ts, x, y, s, mean_solver="nope")
 
 
 def _preds(seed, integrated, valid=False):
@@ -518,14 +516,19 @@ def test_fit_predict_and_save_epoch_evaluations_match_jax(data, tmp_path, monkey
 
 
 def test_run_domain_full_batch_default_on_cpu(tmp_path):
-    # the JAX run_domain's defaults: --fit-method full-batch --mean-solver dense
+    # the JAX run_domain's defaults: --fit-method full-batch --mean-solver dense;
+    # then the paper-scale grid's solver, 'matfree', on the same small grid
     out = run_domain.main(["--device", "cpu", "--nobs", "300", "--ntest", "40",
                            "--nx", "6", "--nz", "4", "--output-dir", str(tmp_path)])
     assert out["fit_method"] == "full-batch" and out["steps"] == 0
     assert np.isfinite(out["last_elbo"]) and np.isfinite(out["e_post_rmse"])
     assert out["e_post_rmse"] < out["e_rms"]
-    with pytest.raises(NotImplementedError, match="section A item 6"):
-        run_domain.main(["--device", "cpu", "--mean-solver", "matfree"])
+    mf = run_domain.main(["--device", "cpu", "--nobs", "300", "--ntest", "40",
+                          "--nx", "6", "--nz", "4", "--mean-solver", "matfree",
+                          "--output-dir", str(tmp_path / "matfree")])
+    assert np.isfinite(mf["last_elbo"]) and mf["e_post_rmse"] < mf["e_rms"]
+    assert 0 < mf["mean_pcg_iterations"] <= 200
+    assert {"fit_sweep_s", "fit_mean_s", "fit_elbo_s"} <= set(mf)
 
 
 def test_run_synthetic_full_batch_gram_on_cpu(tmp_path, capsys):

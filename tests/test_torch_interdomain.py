@@ -374,6 +374,11 @@ def test_run_domain_main_runs_on_cpu(tmp_path, capsys):
     with open(tmp_path / "elbo_trace.csv") as f:
         assert len(list(csv.reader(f))) == 4
     assert "e post-RMSE" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_domain.main(["--fit-method", "full-batch", "--mean-solver", "factored",
-                         "--device", "cpu"])
+    # the closed form's 'factored' solver on the same grid (kappa 29 there:
+    # no fallback): its stages, and the state it writes
+    fb = run_domain.main(["--fit-method", "full-batch", "--mean-solver", "factored",
+                          "--device", "cpu", "--nobs", "300", "--nx", "8", "--nz", "4",
+                          "--output-dir", str(tmp_path / "fb")])
+    assert np.isfinite(fb["last_elbo"]) and fb["e_post_rmse"] < fb["e_rms"]
+    assert {"fit_sweep_s", "fit_factor_s", "fit_g_s", "fit_mean_s", "fit_elbo_s"} <= set(fb)
+    assert (tmp_path / "fb" / "state.npz").exists()
