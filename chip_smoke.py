@@ -64,14 +64,27 @@ Phases, each printing one line of progress with its seconds:
                relative), then one 'gram' solve with the cholesky whitening
                (finite ELBO, RMSE below std(ftest));
      full-batch-factored - 'factored' on the same data at 64^2 (kappa under
-               1e3): at the default float32 jitter (logged; where its bracket
-               guard fires, held to 'gram'), then at factor_jitter 1e-10 (the
-               float64 default; the port factors A in float64): no fallback,
-               both guards' numbers, stage seconds and peak, ELBO finite,
-               RMSE below std(ftest), kernel-A launches exact (two g-stage
-               solves of 2 048 factor rows, and the prediction's); then
-               converged against [accuracy-full-batch]'s float32 'gram':
-               theta2 max-relative and ELBO within 1e-2;
+               1e3): at an explicit factor_jitter 1e-4 (the JAX package's
+               float32 jitter; logged; where its bracket guard fires, held
+               to 'gram'), then at the default (keyed on the factor's dtype:
+               1e-10, the port factors A in float64): no fallback, both
+               guards' numbers, stage seconds and peak, ELBO finite, RMSE
+               below std(ftest), kernel-A launches exact (two g-stage solves
+               of 2 048 factor rows, and the prediction's); then converged
+               against [accuracy-full-batch]'s float32 'gram': theta2
+               max-relative and ELBO within 1e-2;
+     main-block - [main]'s protocol with the block family (2 500 blocks of
+               5 x 5 on the 250^2 embedding): the warm start, the clamped lr,
+               one epoch of 79 steps, prediction; ELBO rising, rho > 1, RMSE
+               below std(ftest), kernel-A launches exact; ms a step beside
+               [main]'s;
+     full-rank - the full-rank family (the harness's, 'standard') at 64^2
+               (M' = 16 384) on [main]'s 20 000 rows, fit by batch_solve
+               'dense', prediction and get_inducing_S (symmetric, positive
+               diagonal); kernel-A launches exact; then with the whitening
+               converged, against the same fit in float64 on the plain path
+               (theta1 <= 5e-3, ELBO <= 5e-4: float32 kn moves the full-rank
+               bound by 1.4e-4);
   5. kernels-1d - each radix kernel (B-2 stage1, B-3 stage1_inv_dot, B-4
                middle) against its plain version in float32 and in float64 at
                every plan, crop and diagonal the 1-D path gives it at the
@@ -167,6 +180,14 @@ Phases, each printing one line of progress with its seconds:
                against float32 'gram' (theta2 <= 1e-6, theta1 <= 5e-3, ELBO
                <= 1e-4) and against float64 on the plain path (theta1 <= 5e-3,
                ELBO <= 1e-4);
+     full-batch-3d-block - full-batch-3d with the block 2 x 2 x 2 family
+               (131 072 blocks of 8): stage seconds, the block Lambda's share
+               of the sweep, peak memory, B-6 and B-5 launches exact; its qm
+               within 1e-5 of full-batch-3d's mean-field qm and its ELBO not
+               below the mean-field one (Fischer's inequality);
+     accuracy-full-batch-3d-block - the block 2 x 2 x 2 'matfree' at 32 x 32
+               x 16, converged: float32 on the kernel path against float64 on
+               the plain path (theta2 <= 1e-4, theta1 <= 5e-3, ELBO <= 1e-4);
      train-3d - the dust map learning its hyperparameters: main-3d's model and
                data, the warm start, 10 svigp_fit steps at batch 512 and
                maxiter_cg 20 with learn_kernel and learn_noise; ms per step,
@@ -1453,8 +1474,11 @@ def phase_full_batch_3d(torch):
     just before and read just after: the sweep's and the prediction's PCG
     solves make 1 + 2k B-6 self-dot applies and one B-5 R^T each, the mean
     PCG (float64, the einsum chain) launches nothing.  Peak memory under
-    FB3_PEAK_LIMIT.  Returns the launches."""
+    FB3_PEAK_LIMIT.  Returns the launches and the fit's (qm, ELBO, sweep
+    seconds), which [full-batch-3d-block] holds the block family to."""
     import tempfile
+
+    import numpy as np
 
     from hipgp_tpu_torch.experiments import run_domain
     from hipgp_tpu_torch.infer import FitConfig
@@ -1480,6 +1504,8 @@ def phase_full_batch_3d(torch):
         lc = {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}
         st = dict(solve.PCG_STATS)
         peak = torch.cuda.max_memory_allocated()
+        saved = np.load(f"{tmp}/state.npz")   # theta1, theta2, ... in field order
+        qm = torch.as_tensor(-0.5 / saved["arr_1"] * saved["arr_0"])   # on the host
     wall = time.perf_counter() - t0
     its = out["mean_pcg_iterations"]
     log(f"[full-batch-3d] matfree fit {out['fit_s']:.2f} s: sweep {out['fit_sweep_s']:.3f} "
@@ -1515,7 +1541,7 @@ def phase_full_batch_3d(torch):
         f"expect {applies} self-dot applies through {'B-6' if use_wp3 else 'B-5'} and "
         f"{st['solves']} R^T launches of B-5; counted {lc}; {wall:.2f} s")
     check(lc == want, f"3-D full-batch launches {lc}, expected {want}")
-    return lc
+    return lc, dict(qm=qm, elbo=out["last_elbo"], sweep_s=out["fit_sweep_s"])
 
 
 FB3_ACC_SOLVE = dict(batch_size=DOMAIN_BATCH, maxiter_cg=200, integrated_obs=True,
@@ -1978,7 +2004,7 @@ FB_PEAK_LIMIT = 40e9      # bytes: 'dense' holds its 62 500^2 matrix and factor
 FB_ACC_GRID = 64          # [accuracy-full-batch]: inducing points per axis
 FB_ACC_MEAN_MAXITER = 6000   # the K + A PCG to convergence (tol 1e-10)
 FB_CONVERGED_MAXITER = 6000  # [full-batch]'s 'gram' once more, its mean PCG run out
-FB_FACTOR_JITTER = 1e-10    # [full-batch-factored]: the float64 default (A is factored in f64)
+FB_JAX_F32_JITTER = 1e-4   # [full-batch-factored]: the JAX package's float32 factor jitter
 FB3_PEAK_LIMIT = 16e9        # bytes: [full-batch-3d]; 'gram''s A alone would be 68 GB
 FB3_MEAN = dict(mean_solver_maxiter=200, mean_solver_tol=1e-8)   # run_domain's defaults
 
@@ -2193,17 +2219,18 @@ def phase_accuracy_full_batch(torch, dev, d):
 def phase_full_batch_factored(torch, dev, d, gram_ref):
     """'factored' on [main]'s data at M = 64^2 (SqExp, ell 0.05, float32),
     inside the float32 trust region (kappa <= FACTORED_F32_KAPPA_MAX).
-    First at FB_SOLVE's settings and the solver's default jitter for a
-    float32 model (1e-4 mean(diag A), as JAX): logged, and where it falls
-    back, held to 'gram' on the same inputs.  Then at FB_SOLVE's settings
-    and FB_FACTOR_JITTER (1e-10, the float64 default: the port factors A in
-    float64): no fallback warning (both guards pass), a finite ELBO, test
-    RMSE below std(ftest), kernel-A launches exact against PCG_STATS (per
-    g-stage solve of FACTOR_CHUNK factor rows, and per prediction chunk,
-    1 + 2k self-dots and one R^T; the sweep whitens nothing).  Then at
-    [accuracy-full-batch]'s converged settings and FB_FACTOR_JITTER against
-    its float32 'gram' ``gram_ref``: theta2 max-relative and the ELBO within
-    1e-2.  Returns kernel A's launches of the counted fit."""
+    First at FB_SOLVE's settings and an explicit factor_jitter of
+    FB_JAX_F32_JITTER (1e-4 mean(diag A), the JAX package's float32 default):
+    logged, and where it falls back, held to 'gram' on the same inputs.
+    Then at FB_SOLVE's settings and the default jitter (keyed on the
+    factor's dtype: 1e-10 for the float64 factor): no fallback warning (both
+    guards pass), a finite ELBO, test RMSE below std(ftest), kernel-A
+    launches exact against PCG_STATS (per g-stage solve of FACTOR_CHUNK
+    factor rows, and per prediction chunk, 1 + 2k self-dots and one R^T; the
+    sweep whitens nothing).  Then at [accuracy-full-batch]'s converged
+    settings and the default jitter against its float32 'gram' ``gram_ref``:
+    theta2 max-relative and the ELBO within 1e-2.  Returns kernel A's
+    launches of the counted fit."""
     import numpy as np
 
     from hipgp_tpu_torch.infer import batch_predict
@@ -2222,13 +2249,14 @@ def phase_full_batch_factored(torch, dev, d, gram_ref):
                 f"1.2 sum ivar Knn {1.2 * fs['sKnn']:.6e}; bracket {fs['bracket']:.6e} vs "
                 f"-1e-3 sum ivar Knn {-1e-3 * fs['sKnn']:.6e}")
 
-    # the default jitter (the float32 model's, 1e-4 mean(diag A)): its shift
-    # enters Lambda as eps diag(K^-1), which this spectrum's small
-    # eigenvalues make large
+    # the JAX package's float32 jitter, 1e-4 mean(diag A): its shift enters
+    # Lambda as eps diag(K^-1), which this spectrum's small eigenvalues make
+    # large
     new, elbo, timings, _, _, _, fs, _, warned = _solve_counted(
-        torch, (mxu2d,), m, st0, d, "factored", **FB_SOLVE)
-    log(f"[full-batch-factored] factored at the default jitter: {_stages(timings)}; ELBO "
-        f"{elbo:.6f}; {checks_line(fs)}; RuntimeWarnings {warned}")
+        torch, (mxu2d,), m, st0, d, "factored", **FB_SOLVE, factor_jitter=FB_JAX_F32_JITTER)
+    log(f"[full-batch-factored] factored at factor_jitter {FB_JAX_F32_JITTER:g} (JAX's "
+        f"float32 default): {_stages(timings)}; ELBO {elbo:.6f}; {checks_line(fs)}; "
+        f"RuntimeWarnings {warned}")
     if warned:
         check(all("exactness check" in w for w in warned), f"warnings {warned}")
         g, eg, *_ = _solve_counted(torch, (mxu2d,), m, st0, d, "gram", **FB_SOLVE)
@@ -2237,11 +2265,10 @@ def phase_full_batch_factored(torch, dev, d, gram_ref):
             f"theta2 rel {dev_[1]:.3e}, ELBO rel {dev_[2]:.3e} (limit 1e-6 each)")
         check(max(dev_) <= 1e-6, f"the fallback is not 'gram': {dev_}")
         del g
-    kw = dict(FB_SOLVE, factor_jitter=FB_FACTOR_JITTER)
     new, elbo, timings, lc, st, ms, fs, peak, warned = _solve_counted(
-        torch, (mxu2d,), m, st0, d, "factored", **kw)
+        torch, (mxu2d,), m, st0, d, "factored", **FB_SOLVE)
     solves = -(-m.M // FACTOR_CHUNK)
-    log(f"[full-batch-factored] factored at factor_jitter {FB_FACTOR_JITTER:g}: "
+    log(f"[full-batch-factored] factored at the default jitter (the float64 factor's): "
         f"{_stages(timings)}; peak torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB; "
         f"ELBO {elbo:.6f}; {checks_line(fs)}; RuntimeWarnings {warned}")
     _log_mean_pcg("full-batch-factored", "factored", ms, FB_SOLVE["mean_solver_maxiter"],
@@ -2270,8 +2297,7 @@ def phase_full_batch_factored(torch, dev, d, gram_ref):
     # against 'gram' with converged whitening and mean PCG: the two differ in
     # where the whitening's truncation enters, so both run it out
     new, elbo, timings, _, _, ms, fs, _, warned = _solve_counted(
-        torch, (mxu2d,), m, st0, d, "factored", **FB_ACC_SOLVE,
-        factor_jitter=FB_FACTOR_JITTER)
+        torch, (mxu2d,), m, st0, d, "factored", **FB_ACC_SOLVE)
     g, eg = gram_ref
     t2, t1 = max_rel(new.theta2, g.theta2), rel(new.theta1, g.theta1)
     de = abs(elbo - eg) / abs(eg)
@@ -2287,6 +2313,348 @@ def phase_full_batch_factored(torch, dev, d, gram_ref):
     check(t2 <= 1e-2, f"factored vs gram theta2 {t2}")
     check(de <= 1e-2, f"factored vs gram ELBO {de}")
     return fit_launches
+
+
+# ---- A5: the block-diagonal and full-rank families ----------------------------
+MAIN_BLOCK = (5, 5)        # [main-block]: 250^2 embedded -> 2 500 blocks of 25
+MAIN_GRID = 125            # inducing points per axis of the 2-D protocol
+FR_GRID = 64               # [full-rank]: 64^2, embedded 128^2: M' = 16 384
+FB3_BLOCK_PEAK_LIMIT = 24e9   # [full-batch-3d-block]: a (512, nb, 8, 8) product alone is 17 GB
+# [full-rank]: the float32 fit's ELBO against float64's.  The float32
+# whitened kn sets it: the full-rank bound holds log det(I + ivar kn kn^T)
+# at noise 0.01, so kn's float32 PCG floor (~1e-6) moves it by 1.4e-4 with
+# Lambda, S, the data term and the KL all evaluated in float64 (1.6e-4),
+# converged or not; the mean-field 'gram' bound moves by 4.7e-7
+FR_ELBO_LIMIT = 5e-4
+
+
+def phase_main_block(torch, dev, d, sig2, main_step_ms):
+    """[main]'s 2-D protocol with the block family: M = 125^2 (embedded
+    250^2) chunked into MAIN_BLOCK blocks (2 500 of 25; run_synthetic
+    --xblock-size 5), batch 256, maxiter_cg 10, the theta2 warm start, the
+    lr clamped to half the natgrad stability limit, one epoch of 79 steps,
+    then prediction of the 2 000 test points.  Checks: ELBO finite and
+    rising (mean of the last 10 steps above the first 10's), rho finite and
+    > 1, test RMSE below std(ftest), kernel A's launches exact against
+    PCG_STATS (per solve 1 + 2k self-dots and one R^T; a solve per warm-start
+    batch, one for rho, one per step, one per prediction chunk).  Returns
+    kernel A's launches of fit and prediction."""
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments.harness import make_model
+    from hipgp_tpu_torch.infer import FitConfig, batch_predict, svigp_fit
+    from hipgp_tpu_torch.ops import mxu2d, solve
+
+    t0 = time.perf_counter()
+    model = make_model("block-diagonal", "SqExp", [np.linspace(-1, 1, MAIN_GRID)] * 2,
+                       len(d["xobs"]), sig2, 0.05, noise2_init=0.01 ** 2,
+                       block_sizes=MAIN_BLOCK, dtype=torch.float32, device=dev)
+    check((model.num_blocks, model.block_size) == (2500, 25),
+          f"blocks {model.num_blocks} of {model.block_size}")
+    cfg = FitConfig(epochs=1, batch_size=256, lr=1e-2, maxiter_cg=10)
+    mxu2d.reset_launches()
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    state, report = svigp_fit(model, model.init_state(), d["xobs"], d["yobs"], d["sobs"],
+                              cfg, verbose=False, theta2_warmstart=True,
+                              natgrad_safe_lr="clamp")
+    torch.cuda.synchronize()
+    fit_lc, fit_st = dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS)
+    t1 = time.perf_counter()
+    mu, sig = batch_predict(model, state, d["xtest"], batch_size=4096,
+                            maxiter_cg=cfg.predict_maxiter_cg)
+    mu, sig = mu.cpu().numpy(), sig.cpu().numpy()
+    predict_s = time.perf_counter() - t1
+    lc, st = dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS)
+    trace = np.asarray(report["elbo_trace"])
+    steps, rho = report["steps"], report["natgrad_rho"]
+    step_ms = 1e3 * report["epoch_times"][0] / steps
+    log(f"[main-block] grid {model.dims} -> {model.edims}, blocks {model.block_sizes}: "
+        f"{model.num_blocks} of {model.block_size}; warm start {report['warmstart_s']:.2f} s, "
+        f"rho {rho:.2f}, lr used {report['lr_used']:.4g}; {steps} natgrad steps at "
+        f"{step_ms:.2f} ms/step against the mean-field step's {main_step_ms:.2f} ms ([main])")
+    log(f"[main-block] ELBO first {trace[0]:.4f}, last {trace[-1]:.4f}; mean of first 10 "
+        f"{trace[:10].mean():.4f}, of last 10 {trace[-10:].mean():.4f}")
+    check(steps == 79, f"{steps} steps, expected 79")
+    check(bool(np.isfinite(trace).all()), "non-finite block ELBO")
+    check(trace[-10:].mean() > trace[:10].mean(), "the block ELBO did not rise")
+    check(rho is not None and math.isfinite(rho) and rho > 1.0, f"rho {rho}")
+    nb = -(-len(d["xobs"]) // cfg.batch_size)
+    check(fit_st["solves"] == nb + 1 + steps,
+          f"{fit_st['solves']} solves: one per warm-start batch, one for rho, one a step")
+    for tag, lcx, stx in (("fit", fit_lc, fit_st), ("fit+predict", lc, st)):
+        want = {"sandwich_apply_selfdot": stx["solves"] + 2 * stx["iterations"],
+                "sandwich_apply": stx["solves"], "sandwich_apply_wp": 0,
+                "sandwich_apply_wp_selfdot": 0}
+        log(f"[main-block] {tag}: {stx['solves']} PCG solves, {stx['iterations']} "
+            f"iterations -> expect {want}; counted {lcx}")
+        check(lcx == want, f"[main-block] {tag} launches {lcx}, expected {want}")
+    rmse = float(np.sqrt(np.mean((mu - d["ftest"]) ** 2)))
+    fstd = float(np.std(d["ftest"]))
+    check(bool(np.isfinite(mu).all() and np.isfinite(sig).all()), "non-finite prediction")
+    check(rmse < fstd, f"block test RMSE {rmse} not below std(ftest) {fstd}")
+    log(f"[main-block] predict: 2000 points in {predict_s:.2f} s; test RMSE {rmse:.5f} vs "
+        f"std(ftest) {fstd:.5f}; {time.perf_counter() - t0:.2f} s")
+    return lc
+
+
+def phase_full_rank(torch, dev, d, sig2):
+    """The full-rank family on [main]'s data (20 000 rows) at M = FR_GRID^2,
+    embedded 128^2 (M' = 16 384: Lambda and S 1.07 GB each in float32),
+    built by the harness (`make_model('full-rank')`: the 'standard'
+    parameterization) and fit in closed form (`batch_solve('dense')`, one
+    batch, FB_SOLVE: maxiter_cg 10, with the ELBO), then the prediction of
+    the test points and get_inducing_S.  Checks: ELBO finite, RMSE below
+    std(ftest), kernel A's launches exact against PCG_STATS (two whitening
+    solves, the sweep and the ELBO's, then the prediction's), R S R^T
+    symmetric to 1e-4 (two passes of 16 384-term float32 sums apply R in
+    different orders to its rows and columns: 3.8e-5 on the card) with a
+    positive diagonal.  Then the same fit with the whitening converged
+    (FB_ACC_SOLVE: maxiter_cg 200) in float32 on the kernel path and in
+    float64 on the plain path: theta1 within 5e-3 and the ELBO within
+    FR_ELBO_LIMIT relative (S and R S R^T logged).  Returns kernel A's
+    launches of the counted fit and prediction."""
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments.harness import make_model
+    from hipgp_tpu_torch.infer import batch_predict
+    from hipgp_tpu_torch.ops import mxu2d, solve
+
+    t0 = time.perf_counter()
+    grids = [np.linspace(-1, 1, FR_GRID)] * 2
+
+    def build(dt):
+        m = make_model("full-rank", "SqExp", grids, len(d["xobs"]), sig2, 0.05,
+                       noise2_init=0.01 ** 2, dtype=dt, device=dev)
+        check(m.parameterization == "standard", "the harness's full-rank is 'standard'")
+        return m
+
+    model = build(torch.float32)
+    new, elbo, timings, lc, st, _, _, peak, _ = _solve_counted(
+        torch, (mxu2d,), model, model.init_state(), d, "dense", **FB_SOLVE)
+    t1 = time.perf_counter()
+    mu, sig = batch_predict(model, new, d["xtest"], batch_size=4096, maxiter_cg=50)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t1
+    all_lc, all_st = dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS)
+    mu, sig = mu.cpu().numpy(), sig.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mu - d["ftest"]) ** 2)))
+    fstd = float(np.std(d["ftest"]))
+    log(f"[full-rank] grid {model.dims} -> {model.edims}, M' = {model.Mprime}; dense fit "
+        f"{_stages(timings)}; peak torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB; "
+        f"ELBO {elbo:.8f}; predict {predict_s:.2f} s, test RMSE {rmse:.5f} vs std(ftest) "
+        f"{fstd:.5f}")
+    check(math.isfinite(elbo), f"full-rank ELBO {elbo}")
+    check(bool(np.isfinite(mu).all() and np.isfinite(sig).all()), "non-finite prediction")
+    check(rmse < fstd, f"full-rank test RMSE {rmse} not below std(ftest) {fstd}")
+    _fb_launch_check("full-rank", lc, st, 2)
+    chunks = all_st["solves"] - st["solves"]
+    check(chunks == 1, f"{chunks} prediction chunks")
+    _fb_launch_check("full-rank", all_lc, all_st, 2 + chunks)
+    t1 = time.perf_counter()
+    G = model.get_inducing_S(new)
+    torch.cuda.synchronize()
+    asym = float(torch.linalg.norm(G - G.T) / torch.linalg.norm(G))
+    dmin = float(torch.min(torch.diagonal(G)))
+    log(f"[full-rank] get_inducing_S {tuple(G.shape)} in {time.perf_counter() - t1:.2f} s: "
+        f"||G - G^T|| / ||G|| {asym:.3e} (limit 1e-4), min diag {dmin:.4e}")
+    check(G.shape == (model.M, model.M), f"R S R^T shape {tuple(G.shape)}")
+    check(asym <= 1e-4 and dmin > 0.0, f"R S R^T: asymmetry {asym}, min diag {dmin}")
+    del G, new
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        m = model if dt == torch.float32 else build(dt)
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        new, elbo = m.batch_solve(m.init_state(), d["xobs"], d["yobs"], d["sobs"],
+                                  mean_solver="dense", timings=timings, **FB_ACC_SOLVE)
+        G = m.get_inducing_S(new).cpu()
+        torch.cuda.synchronize()
+        log(f"[full-rank] converged (maxiter_cg {FB_ACC_SOLVE['maxiter_cg']}), {dt}: "
+            f"{_stages(timings)}; peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+            f"ELBO {float(elbo):.8f}")
+        res[dt] = (new, float(elbo), G)
+        del m, new
+        torch.cuda.empty_cache()
+    del model
+    (n32, e32, g32), (n64, e64, g64) = res[torch.float32], res[torch.float64]
+    t1, t2 = rel(n32.theta1, n64.theta1), rel(n32.theta2, n64.theta2)
+    de, dg = abs(e32 - e64) / abs(e64), rel(g32, g64)
+    log(f"[full-rank] converged, f32 kernel path vs f64 plain path: theta1 (m) rel "
+        f"{t1:.3e} (limit 5e-3), theta2 (S) rel {t2:.3e}, ELBO rel {de:.3e} (limit "
+        f"{FR_ELBO_LIMIT:g}), R S R^T rel {dg:.3e}; {time.perf_counter() - t0:.2f} s")
+    check(t1 <= 5e-3, f"full-rank theta1 f32 vs f64 {t1}")
+    check(de <= FR_ELBO_LIMIT, f"full-rank ELBO f32 vs f64 {de}")
+    return all_lc
+
+
+def _domain_block_model(torch, dev, prob, dtype):
+    """The dust map's block 2 x 2 x 2 model on ``prob``'s data and grids, as
+    run_domain --model-class block-diagonal builds it."""
+    from hipgp_tpu_torch.experiments import run_domain
+
+    sig2 = run_domain.empirical_sig2_init(prob["xobs"], prob["aobs"])
+    return run_domain.domain_model("SqExp", prob["grids"], len(prob["xobs"]), sig2,
+                                   DOMAIN_ELL, dtype=dtype, device=dev,
+                                   model_class="block-diagonal", block_sizes=(2, 2, 2))
+
+
+def phase_full_batch_3d_block(torch, dev, mf):
+    """[full-batch-3d] with the block 2 x 2 x 2 family (run_domain
+    --model-class block-diagonal): the 64 x 64 x 32 grid embedded
+    (128, 128, 64), 131 072 blocks of 8, the same cut, 'matfree' and mean
+    PCG.  Logs each stage's seconds and the block-Lambda accumulation's
+    share of the sweep (one batch's get_lam timed by CUDA events on a
+    (512, M') kn, times the batches) and the peak memory.  Checks: ELBO
+    finite, e post-RMSE below rms(e_test), peak under FB3_BLOCK_PEAK_LIMIT,
+    B-6 and B-5 launches exact against PCG_STATS; and against ``mf``, the
+    mean-field [full-batch-3d] (qm, ELBO) on the same data and hypers: qm
+    within 1e-5 relative (both run the same mean stage) and the block ELBO
+    at least the mean-field one less 1e-6 |ELBO| (Fischer's inequality: S_b
+    = blockinv(Lambda) with the same tr(Lambda S))."""
+    import tempfile
+
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments import run_domain
+    from hipgp_tpu_torch.infer import FitConfig
+    from hipgp_tpu_torch.infer.fit import PREDICT_CHUNK_BUDGET_BYTES
+    from hipgp_tpu_torch.ops import mxu2d, mxu3d, solve
+    from hipgp_tpu_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    argv = ["--nx", str(DOMAIN["nx"]), "--nz", str(DOMAIN["nz"]), "--ell", str(DOMAIN_ELL),
+            "--nobs", str(DOMAIN["nobs"]), "--ntest", str(DOMAIN["ntest"]),
+            "--noise-std", str(DOMAIN["noise_std"]), "--batch-size", str(DOMAIN_BATCH),
+            "--maxiter-cg", "20", "--fit-method", "full-batch", "--mean-solver", "matfree",
+            "--mean-solver-maxiter", str(FB3_MEAN["mean_solver_maxiter"]),
+            "--mean-solver-tol", str(FB3_MEAN["mean_solver_tol"]),
+            "--model-class", "block-diagonal", "--xblock-size", "2", "--zblock-size", "2"]
+    log(f"[full-batch-3d-block] run_domain {' '.join(argv)} (cut as [full-batch-3d])")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        mxu2d.reset_launches()
+        mxu3d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        out = run_domain.main(argv + ["--output-dir", tmp])
+        torch.cuda.synchronize()
+        lc = {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}
+        st = dict(solve.PCG_STATS)
+        peak = torch.cuda.max_memory_allocated()
+        prob = run_domain.domain_problem(**DOMAIN)
+        model = _domain_block_model(torch, dev, prob, torch.float32)
+        state = checkpoint.load_pytree(f"{tmp}/state.npz", model.init_state())
+    wall = time.perf_counter() - t0
+    check((model.num_blocks, model.block_size) == (131072, 8),
+          f"blocks {model.num_blocks} of {model.block_size}")
+    # the block Lambda of one sweep batch, timed alone: a (512, M') kn
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kn = torch.randn((DOMAIN_BATCH, model.Mprime), generator=gen, device=dev)
+    ivar = torch.rand((DOMAIN_BATCH,), generator=gen, device=dev) + 0.5
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lam_ms = cuda_ms(torch, lambda: model.get_lam(ivar, kn, add_identity=False),
+                     warmup=2, reps=10)
+    lam_peak = torch.cuda.max_memory_allocated() - held
+    del kn
+    sweep_batches = -(-DOMAIN["nobs"] // DOMAIN_BATCH)
+    share = sweep_batches * lam_ms / 1e3 / out["fit_sweep_s"]
+    its = out["mean_pcg_iterations"]
+    log(f"[full-batch-3d-block] matfree fit {out['fit_s']:.2f} s: sweep "
+        f"{out['fit_sweep_s']:.3f} s (mean-field {mf['sweep_s']:.3f} s), mean stage "
+        f"{out['fit_mean_s']:.3f} s ({its} iterations, ||r||/||b_m|| "
+        f"{out['mean_pcg_relres']:.3e}), ELBO stage {out['fit_elbo_s']:.3f} s; the block "
+        f"Lambda of one batch (get_lam on (512, {model.Mprime})) {lam_ms:.3f} ms, "
+        f"{lam_peak / 1e9:.3f} GB of temporaries, x {sweep_batches} batches = {share * 100:.1f} % "
+        f"of the sweep; peak torch.cuda.max_memory_allocated over the fit "
+        f"{out['fit_peak_gb']:.3f} GB, over fit and predict {peak / 1e9:.3f} GB "
+        f"({base / 1e9:.3f} GB allocated before); ELBO {out['last_elbo']:.6f}; predict "
+        f"{out['predict_s']:.2f} s; e post-RMSE {out['e_post_rmse']:.5f} vs rms(e_test) "
+        f"{out['e_rms']:.5f}; latent RMSE {out['latent_rmse']:.5f}, slice corr "
+        f"{out['latent_corr']:.4f}")
+    check(math.isfinite(out["last_elbo"]), f"non-finite block ELBO {out['last_elbo']}")
+    check(math.isfinite(out["e_post_rmse"]) and out["e_post_rmse"] < out["e_rms"],
+          f"e post-RMSE {out['e_post_rmse']} not below rms(e_test) {out['e_rms']}")
+    check(peak < FB3_BLOCK_PEAK_LIMIT, f"block peak {peak / 1e9:.3f} GB")
+    check(0 < its <= FB3_MEAN["mean_solver_maxiter"], f"{its} mean iterations")
+    # the block family's prediction chunk counts its block-ordered copy of kn
+    chunk = PREDICT_CHUNK_BUDGET_BYTES // (2 * 4 * model.Mprime)
+    chunks = -(-DOMAIN["ntest"] // chunk) + -(-400 // chunk)
+    check(st["solves"] == sweep_batches + chunks,
+          f"{st['solves']} solves: expected {sweep_batches} sweep batches and {chunks} "
+          f"prediction chunks of {chunk}")
+    check(st["iterations"] <= 20 * sweep_batches + FitConfig().predict_maxiter_cg * chunks,
+          f"{st['iterations']} iterations: a solve exceeded its maxiter")
+    applies = st["solves"] + 2 * st["iterations"]
+    use_wp3 = mxu3d.USE_WP3
+    want = {"sandwich_apply_wp_selfdot": 0 if use_wp3 else applies,
+            "sandwich_apply_wp3": applies if use_wp3 else 0,
+            "sandwich_apply_wp": st["solves"],
+            "sandwich_apply": 0, "sandwich_apply_selfdot": 0}
+    log(f"[full-batch-3d-block] {st['solves']} PCG solves, {st['iterations']} iterations "
+        f"-> expect {want}; counted {lc}")
+    check(lc == want, f"3-D block full-batch launches {lc}, expected {want}")
+    qm = model.standard_params(state)[0].cpu()
+    dqm = rel(qm, mf["qm"])
+    gap = out["last_elbo"] - mf["elbo"]
+    log(f"[full-batch-3d-block] against the mean-field [full-batch-3d] on the same data "
+        f"and hypers: qm rel {dqm:.3e} (limit 1e-5), ELBO {out['last_elbo']:.6f} vs "
+        f"{mf['elbo']:.6f} (block - mean-field {gap:.6f}, limit >= "
+        f"{-1e-6 * abs(mf['elbo']):.3e}); {wall:.2f} s")
+    check(dqm <= 1e-5, f"block qm vs mean-field qm {dqm}")
+    check(gap >= -1e-6 * abs(mf["elbo"]), f"block ELBO below mean-field by {-gap}")
+    return lc
+
+
+def phase_accuracy_full_batch_3d_block(torch, dev):
+    """[accuracy-full-batch-3d] with the block 2 x 2 x 2 family: 'matfree' at
+    32 x 32 x 16 (embedded (64, 64, 30): 15 360 blocks of 8), 2 048 line
+    integrals, ell 0.07, converged (FB3_ACC_SOLVE): float32 on the kernel
+    path (B-5's route; B-6's gate does not take the embedding, launches
+    exact) against float64 on the plain path: theta2 (the block Lambda)
+    <= 1e-4, theta1 <= 5e-3, ELBO <= 1e-4 relative; catches TF32 or float32
+    rounding in the block outer products."""
+    from hipgp_tpu_torch.experiments import run_domain
+    from hipgp_tpu_torch.ops import mxu2d, mxu3d, solve
+
+    t0 = time.perf_counter()
+    prob = run_domain.domain_problem(**FB3_ACC)
+    res = {}
+    for key, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        model = _domain_block_model(torch, dev, prob, dt)
+        mxu2d.reset_launches()
+        mxu3d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        new, elbo = model.batch_solve(model.init_state(), prob["xobs"], prob["aobs"],
+                                      prob["sobs"], mean_solver="matfree", timings=timings,
+                                      **FB3_ACC_SOLVE)
+        torch.cuda.synchronize()
+        lc = {k: v for k, v in {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}.items() if v}
+        st = dict(solve.PCG_STATS)
+        log(f"[accuracy-full-batch-3d-block] {key}: grid {model.dims} -> {model.edims}, "
+            f"{model.num_blocks} blocks of {model.block_size}, {len(prob['xobs'])} rows; "
+            f"{_stages(timings)}; peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+            f"ELBO {float(elbo):.8f}; launches {lc}")
+        check(math.isfinite(float(elbo)), f"{key}: ELBO {float(elbo)}")
+        if dt == torch.float32:
+            applies = st["solves"] + 2 * st["iterations"]
+            want = {"sandwich_apply_wp_selfdot": applies, "sandwich_apply_wp": st["solves"]}
+            check(lc == want, f"{key}: launches {lc}, expected {want}")
+        else:
+            check(not lc, f"{key}: the float64 path launched {lc}")
+        res[key] = (new, float(elbo))
+        del model
+    (b32, e32), (b64, e64) = res["f32"], res["f64"]
+    dev_ = [rel(b32.theta2, b64.theta2), rel(b32.theta1, b64.theta1), abs(e32 - e64) / abs(e64)]
+    log(f"[accuracy-full-batch-3d-block] f32 (kernel path) vs f64 (plain path): theta2 "
+        f"(the block Lambda) rel {dev_[0]:.3e} (limit 1e-4), theta1 rel {dev_[1]:.3e} "
+        f"(limit 5e-3), ELBO rel {dev_[2]:.3e} (limit 1e-4); {time.perf_counter() - t0:.2f} s")
+    check(dev_[0] <= 1e-4, f"block theta2 f32 vs f64 {dev_[0]}")
+    check(dev_[1] <= 5e-3, f"block theta1 f32 vs f64 {dev_[1]}")
+    check(dev_[2] <= 1e-4, f"block ELBO f32 vs f64 {dev_[2]}")
 
 
 def main():
@@ -2479,6 +2847,11 @@ def main():
     fbf_launches = phase_full_batch_factored(torch, dev, d, gram_64)
     del gram_64
 
+    # ---- the block-diagonal and full-rank families (2-D) -----------------------
+    block_launches = phase_main_block(torch, dev, d, sig2, step_s * 1e3)
+    fr_launches = phase_full_rank(torch, dev, d, sig2)
+    torch.cuda.empty_cache()
+
     # ---- 5.-7. the 1-D long-axis path ----------------------------------------
     radix_results = phase_kernels_1d(torch, dev)
     radix_launches = phase_main_1d(torch)
@@ -2492,8 +2865,12 @@ def main():
     results_3d = phase_kernels_3d(torch, dev)
     launches_3d = phase_main_3d(torch)
     phase_accuracy_3d(torch, dev)
-    fb3_launches = phase_full_batch_3d(torch)
+    fb3_launches, fb3_mf = phase_full_batch_3d(torch)
     phase_accuracy_full_batch_3d(torch, dev)
+    torch.cuda.empty_cache()
+    fb3_block_launches = phase_full_batch_3d_block(torch, dev, fb3_mf)
+    del fb3_mf
+    phase_accuracy_full_batch_3d_block(torch, dev)
     torch.cuda.empty_cache()
     state_3d, train_3d_launches = phase_train_3d(torch, dev)
     phase_train_grad_3d(torch, dev, state_3d)
@@ -2502,14 +2879,18 @@ def main():
     kernels = []
     for name in ("sandwich_apply_selfdot", "sandwich_apply"):
         r = results[name]
+        # the main path's launches: [main], [main-block] and [full-rank]
+        n = launches[name] + block_launches[name] + fr_launches[name]
         kernels.append({
             "name": f"mxu2d.{name}", "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": TPU_KERNEL, "launches": launches[name],
+            "replaces": TPU_KERNEL, "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
         check(launches[name] > 0, f"{name} never launched on the main path")
+        check(block_launches[name] > 0 and fr_launches[name] > 0,
+              f"{name} never launched on the block or full-rank path")
     for name in ("stage1", "stage1_inv_dot", "middle"):
         r = radix_results[name]
         kernels.append({
@@ -2537,7 +2918,8 @@ def main():
             ("B-6", "mxu3d.sandwich_apply_wp3", WP3_SOURCE, WP3_TPU_KERNEL,
              ("sandwich_apply_wp3",))):
         r = results_3d[key]
-        n = sum(launches_3d[c] for c in counts)
+        # the 3-D main path's launches: [main-3d] and [full-batch-3d-block]
+        n = sum(launches_3d[c] + fb3_block_launches[c] for c in counts)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": tpu,
             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2593,6 +2975,8 @@ def main():
     for name in ("sandwich_apply_wp", "sandwich_apply_wp3" if mxu3d.USE_WP3
                  else "sandwich_apply_wp_selfdot"):
         check(fb3_launches[name] > 0, f"{name} never launched on the 3-D full-batch path")
+        check(fb3_block_launches[name] > 0,
+              f"{name} never launched on the 3-D block full-batch path")
     log(f"[done] total {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     try:

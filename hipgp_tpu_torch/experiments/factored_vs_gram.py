@@ -14,7 +14,8 @@ any fallback warning, then theta2 max-relative, theta1 and the ELBO of
 Usage: python -m hipgp_tpu_torch.experiments.factored_vs_gram --device cpu
            --batch-size 2000 --maxiter-cg 10
        (--maxiter-cg 200 --mean-maxiter 6000 --mean-tol 1e-10 for the
-       converged comparison; --factor-jitter 1e-10 for the float64 default)
+       converged comparison; --factor-jitter 1e-4 for the JAX package's
+       float32 jitter, where the default is the float64 factor's 1e-10)
 """
 from __future__ import annotations
 

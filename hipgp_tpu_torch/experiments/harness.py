@@ -1,7 +1,9 @@
 """Experiment harness: fit, predict, evaluate and save one run.
 
 Counterpart of `hipgp_tpu/experiments/harness.py` on one device, without
-figures: `make_model` builds the mean-field HIP-GP (ziggy or cholesky
+figures: `make_model` builds the HIP-GP of a model class (mean-field,
+block-diagonal with ``block_sizes``, or full-rank with the 'standard'
+parameterization, as the JAX harness builds them; ziggy or cholesky
 whitening), `fit_predict_and_save` fits it by natural-gradient SVI or the
 closed-form ``batch_solve`` and `evaluate_and_save` predicts and writes the
 JAX harness's artifacts under ``output_dir/name`` in its layout:
@@ -12,9 +14,8 @@ hyperparameter traces, ``predictions.npz``, ``errordf-summary.csv``,
 for column as the JAX harness's pandas frames write them.
 
 Not ported: ``parallel`` ('dp', 'mp'; ROADMAP.md section A items 9 and 10)
-raises NotImplementedError, and so do the block, full-rank and SVGP model
-classes (section A items 5 and 7); ``block_sizes`` (item 5),
-``grid_shards`` (item 10), the parallel paths' ``predict_fn``, the
+raises NotImplementedError, and so does the SVGP model class (section A
+item 7); ``grid_shards`` (item 10), the parallel paths' ``predict_fn``, the
 figures (``make_plots``, ``grid_shape``, ``grid_extent``; `viz.py`, item 8)
 and ``eval_only_state`` (evaluate a saved state without a fit) are left
 out.
@@ -46,26 +47,33 @@ def make_model(model_class: str, kernel_name: str, xinduce_grids: Sequence,
                noise2_init: float = 1.0, init_Svar: float = 1.0,
                whitened_type: str = "ziggy", learn_kernel: bool = False,
                learn_noise: bool = False, jitter: float = 1e-3,
+               block_sizes: Optional[Sequence[int]] = None,
                support_integrated_obs: bool = False, dtype=torch.float32,
                device="cuda") -> HIPGP:
-    """The JAX harness's model factory for ``model_class='mean-field'``;
-    the other classes are not ported yet."""
-    if model_class.startswith("block-diagonal") or model_class in ("block", "full-rank"):
-        raise NotImplementedError(f"model_class={model_class!r} is not ported yet "
-                                  "(ROADMAP.md section A item 5)")
+    """The JAX harness's model factory: ``model_class`` 'mean-field',
+    'block-diagonal[-*]' or 'block' (chunked by ``block_sizes``) or
+    'full-rank' (under the 'standard' parameterization, as the reference
+    builds it: its natgrad fit raises ValueError, it fits by the closed
+    form); 'SVGP' is not ported yet."""
     if model_class == "SVGP":
         raise NotImplementedError("model_class='SVGP' is not ported yet "
                                   "(ROADMAP.md section A item 7)")
-    if model_class != "mean-field":
-        raise ValueError(f"model_class={model_class!r}; choose mean-field | "
-                         "block-diagonal | full-rank | SVGP")
-    return HIPGP(kernel_from_name(kernel_name), xinduce_grids, num_obs=num_obs,
-                 family="mean-field", whitened_type=whitened_type,
-                 sig2_init=sig2_init, ell_init=ell_init, noise2_init=noise2_init,
-                 init_Svar=init_Svar, learn_kernel=learn_kernel,
-                 learn_noise=learn_noise, jitter=jitter,
-                 support_integrated_obs=support_integrated_obs, dtype=dtype,
-                 device=device)
+    common = dict(num_obs=num_obs, whitened_type=whitened_type, sig2_init=sig2_init,
+                  ell_init=ell_init, noise2_init=noise2_init, init_Svar=init_Svar,
+                  learn_kernel=learn_kernel, learn_noise=learn_noise, jitter=jitter,
+                  support_integrated_obs=support_integrated_obs, dtype=dtype,
+                  device=device)
+    kern = kernel_from_name(kernel_name)
+    if model_class == "mean-field":
+        return HIPGP(kern, xinduce_grids, family="mean-field", **common)
+    if model_class.startswith("block-diagonal") or model_class == "block":
+        return HIPGP(kern, xinduce_grids, family="block", block_sizes=block_sizes,
+                     **common)
+    if model_class == "full-rank":
+        return HIPGP(kern, xinduce_grids, family="full-rank",
+                     parameterization="standard", **common)
+    raise ValueError(f"model_class={model_class!r}; choose mean-field | "
+                     "block-diagonal | full-rank | SVGP")
 
 
 def empirical_sig2_init(xobs: np.ndarray, yobs: np.ndarray) -> float:
@@ -176,6 +184,7 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
                          sig2_init="empirical", ell_init: float = 0.05,
                          noise2_init: float = 1.0, init_Svar: float = 1.0,
                          whitened_type: str = "ziggy",
+                         block_sizes: Optional[Sequence[int]] = None,
                          jitter: float = 1e-3, fit_method: str = "natgrad",
                          fit_config: Optional[FitConfig] = None,
                          batch_solve_bsz: int = -1, maxiter_cg: int = 10,
@@ -195,7 +204,8 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
     ``eval_epochs=k`` the full evaluation every k-th epoch into
     ``epoch_output/epoch_N/``), 'full-batch' the closed-form
     ``model.batch_solve`` with ``mean_solver`` ('dense', 'cg', 'gram',
-    'factored' or 'matfree');
+    'factored' or 'matfree'); ``block_sizes`` chunks the block family
+    (recorded in ``fit_params.json``);
     ``max_steps`` (the port's) ends a natgrad fit after that many steps.
     Returns (model, state, report)."""
     if parallel not in (None, "dp", "mp"):
@@ -226,7 +236,8 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
                        noise2_init=noise2_init, init_Svar=init_Svar,
                        whitened_type=whitened_type, learn_kernel=cfg.learn_kernel,
                        learn_noise=cfg.learn_noise, jitter=jitter,
-                       support_integrated_obs=integrated, dtype=dtype, device=device)
+                       block_sizes=block_sizes, support_integrated_obs=integrated,
+                       dtype=dtype, device=device)
     state = model.init_state()
 
     with open(os.path.join(odir, "fit_params.json"), "w") as f:
@@ -234,6 +245,7 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
                    "sig2_init": float(sig2_init), "ell_init": float(ell_init),
                    "whitened_type": whitened_type, "fit_method": fit_method,
                    "parallel": "none", "mesh_shape": None,
+                   "block_sizes": None if block_sizes is None else list(block_sizes),
                    **{k: v for k, v in dataclasses.asdict(cfg).items()
                       if isinstance(v, (int, float, str, bool))}}, f, indent=2)
 

@@ -88,7 +88,7 @@ def main(argv=None):
                                     None if args.learn else as_t(prob["sobs"]),
                                     cfg.batch_size)
     state = model.init_state()
-    opt = make_optimizer(cfg)
+    opt = make_optimizer(state, cfg)
     step = lambda: batch_step(model, cfg, opt, state, xb[0], yb[0],
                               None if sb is None else sb[0], w[0])
     knm = lambda: model.make_grams(state, xb[0], integrated_obs=True)

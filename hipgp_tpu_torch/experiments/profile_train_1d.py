@@ -89,7 +89,7 @@ def main(argv=None):
                          theta2_warmstart=True, natgrad_safe_lr="off")
     as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     xb, yb, _, w = prepare_batches(as_t(x), as_t(y).reshape(-1), None, args.batch_size)
-    opt = make_optimizer(cfg)
+    opt = make_optimizer(state, cfg)
     reps = min(args.reps, xb.shape[0])
     box = [state]
 

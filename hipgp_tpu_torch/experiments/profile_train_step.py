@@ -85,7 +85,7 @@ def main(argv=None):
     for name, learn in (("forward_only", False), ("train", True)):
         cfg = FitConfig(batch_size=args.batch_size, maxiter_cg=args.maxiter_cg,
                         learn_kernel=learn, learn_noise=learn)
-        opt = make_optimizer(cfg)
+        opt = make_optimizer(state, cfg)
         steps[name] = (lambda cfg=cfg, opt=opt:
                        batch_step(model, cfg, opt, state, xb[0], yb[0], None, w[0]))
     host_ms = {name: _sync_ms(fn, args.reps) for name, fn in steps.items()}
@@ -96,7 +96,7 @@ def main(argv=None):
                     learn_kernel=True, learn_noise=True)
     warm, _ = svigp_fit(model, state, d["xobs"], d["yobs"], None, cfg, verbose=False,
                         theta2_warmstart=True, natgrad_safe_lr="off")
-    opt = make_optimizer(cfg)
+    opt = make_optimizer(warm, cfg)
     chained, mem = [], []
     st = warm
     for b in range(min(args.chain, xb.shape[0])):

@@ -1,7 +1,10 @@
 """Paper section 5.5: an interstellar-dust map from line-of-sight integrals.
 
-Counterpart of `hipgp_tpu/experiments/run_domain.py` for the mean-field
-model.  The observations are integrated
+Counterpart of `hipgp_tpu/experiments/run_domain.py`: ``--model-class``
+mean-field (default), block-diagonal (blocks of ``--xblock-size`` along x
+and y and ``--zblock-size`` along z, on the embedded grid) or full-rank
+(the harness's, under the 'standard' parameterization: full batch only).
+The observations are integrated
 extinctions e(x) = ||x|| int_0^1 rho(a x) da along rays from the origin to
 each star, with heteroscedastic noise; the model fits the latent 3-D density
 rho on an nx x nx x nz inducing grid.  Without ``--data-path`` a synthetic
@@ -32,7 +35,8 @@ Usage: python -m hipgp_tpu_torch.experiments.run_domain --fit-method natgrad
        runs the dense closed-form fit)
        python -m hipgp_tpu_torch.experiments.run_domain --nobs 100000 --ntest 2000
            --nx 64 --nz 32 --mean-solver matfree --eval-grid 30 --ell 0.2
-       (the paper-scale full-batch fit)
+       (the paper-scale full-batch fit; add --model-class block-diagonal for
+       the 2 x 2 x 2 block family)
 """
 from __future__ import annotations
 
@@ -45,11 +49,10 @@ import numpy as np
 import torch
 
 from ..infer import FitConfig, batch_predict, svigp_fit
-from ..kernels import kernel_from_name
 from ..models import HIPGP
 from ..models.hipgp import MEAN_PCG_STATS
 from ..utils import checkpoint, metrics
-from .harness import empirical_sig2_init
+from .harness import empirical_sig2_init, make_model
 from .synthetic_data import integrated_obs
 
 __all__ = ["main", "synthetic_dust_field", "make_synthetic_domain_data",
@@ -151,13 +154,16 @@ def domain_problem(nobs: int, ntest: int, noise_std: float, nx: int, nz: int,
 
 
 def domain_model(kernel: str, grids, num_obs: int, sig2: float, ell: float,
-                 dtype=torch.float32, device="cuda") -> HIPGP:
-    """The mean-field model of the protocol, built as the JAX harness builds
-    it (noise2_init 1, init_Svar 1, jitter 1e-3), with the doubly-integrated
-    diagonal's table."""
-    return HIPGP(kernel_from_name(kernel), grids, num_obs=num_obs, sig2_init=sig2,
-                 ell_init=ell, noise2_init=1.0, init_Svar=1.0, jitter=1e-3,
-                 support_integrated_obs=True, dtype=dtype, device=device)
+                 dtype=torch.float32, device="cuda", model_class: str = "mean-field",
+                 block_sizes=None) -> HIPGP:
+    """The model of the protocol, built by the JAX harness's factory
+    (`harness.make_model`: noise2_init 1, init_Svar 1, jitter 1e-3), with
+    the doubly-integrated diagonal's table; ``block_sizes`` chunks the
+    block family."""
+    return make_model(model_class, kernel, grids, num_obs=num_obs, sig2_init=sig2,
+                      ell_init=ell, noise2_init=1.0, init_Svar=1.0, jitter=1e-3,
+                      block_sizes=block_sizes, support_integrated_obs=True,
+                      dtype=dtype, device=device)
 
 
 def main(argv=None):
@@ -176,6 +182,12 @@ def main(argv=None):
     p.add_argument("--blob-max", type=float, default=0.3)
     p.add_argument("--nx", type=int, default=16, help="inducing points per xy dim")
     p.add_argument("--nz", type=int, default=8, help="inducing points in z")
+    p.add_argument("--model-class", default="mean-field",
+                   help="mean-field | block-diagonal | full-rank")
+    p.add_argument("--xblock-size", type=int, default=2,
+                   help="block family: block edge along x and y")
+    p.add_argument("--zblock-size", type=int, default=2,
+                   help="block family: block edge along z")
     p.add_argument("--kernel", default="SqExp")
     p.add_argument("--ell", type=float, default=0.2)
     p.add_argument("--fit-method", default="full-batch", choices=["natgrad", "full-batch"])
@@ -208,9 +220,12 @@ def main(argv=None):
     xtest, etest, xgrid, fgrid = prob["xtest"], prob["etest"], prob["xgrid"], prob["fgrid"]
     analytic = args.kernel == "SqExp"
     sig2 = empirical_sig2_init(xobs, aobs)
+    blocks = ((args.xblock_size, args.xblock_size, args.zblock_size)
+              if args.model_class.startswith("block") else None)
     model = domain_model(args.kernel, prob["grids"], len(xobs), sig2, args.ell,
                          dtype=torch.float64 if args.f64 else torch.float32,
-                         device=args.device)
+                         device=args.device, model_class=args.model_class,
+                         block_sizes=blocks)
     cfg = FitConfig(epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
                     maxiter_cg=args.maxiter_cg, integrated_obs=True,
                     semi_integrated_estimator="analytic" if analytic else "mc-biased")
@@ -256,6 +271,7 @@ def main(argv=None):
 
     trace = report["elbo_trace"]
     out = {
+        "model_class": args.model_class,
         "fit_method": "eval-only" if args.eval_only_state else args.fit_method,
         "steps": report["steps"],
         "warmstart_s": report["warmstart_s"],
@@ -303,7 +319,9 @@ def main(argv=None):
            f"{out['steps']} steps at {out['step_ms']:.1f} ms (warm start "
            f"{out['warmstart_s']:.2f} s), ELBO {out['first_elbo']:.4f} -> "
            f"{out['last_elbo']:.4f}")
-    print(f"device {args.device}: grid {model.dims} -> embedded {model.edims}, {fit}; "
+    fam = (f"{args.model_class} (blocks {model.block_sizes}, {model.num_blocks} of "
+           f"{model.block_size})" if model.family == "block" else args.model_class)
+    print(f"device {args.device}: {fam}, grid {model.dims} -> embedded {model.edims}, {fit}; "
           f"e post-RMSE {out['e_post_rmse']:.5f} (rms(e_test) {out['e_rms']:.5f}){lat}; "
           f"predict {predict_s:.2f} s", flush=True)
     return out

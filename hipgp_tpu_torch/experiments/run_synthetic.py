@@ -1,14 +1,16 @@
 """The paper's synthetic 2-D regression protocol on the PyTorch port.
 
-Counterpart of `hipgp_tpu/experiments/run_synthetic.py` for the mean-field
-model: the same defaults (N = 20 000 observations and 2 000 test points of
+Counterpart of `hipgp_tpu/experiments/run_synthetic.py`: the same defaults (N = 20 000 observations and 2 000 test points of
 the "medium" random sin/tanh surface, noise 0.01, M = 125^2 inducing points
 on [-1, 1]^2, SqExp with ell 0.05, batch 256, maxiter_cg 10, 10 epochs) and
 the same flags: ``--fit-method`` natgrad (SVI) or full-batch (the
 closed-form ``batch_solve`` with ``--mean-solver`` dense, cg, gram or factored),
 ``--ell-sweep MIN MAX STEP`` (the lengthscale picked by the closed-form
 ELBO before the fit, written to ``ell_sweep.csv``), ``--integrated-obs``.
-Each model of ``--models`` (mean-field only) runs through the harness
+Each model of ``--models`` (mean-field, block-diagonal with blocks of
+``--xblock-size`` points along each axis of the embedded grid, full-rank
+under the 'standard' parameterization, full batch only) runs through the
+harness
 (`harness.fit_predict_and_save`: sig2 from the marginal variance of y,
 init_Svar 1, jitter 1e-3), which writes its artifacts under
 ``--output-dir``; the summary of every model goes to
@@ -67,7 +69,8 @@ def main(argv=None):
                    help="inducing grid points per dimension")
     p.add_argument("--gridnum", type=int, default=64,
                    help="evaluation grid points per dimension")
-    p.add_argument("--models", nargs="+", default=["mean-field"], choices=["mean-field"])
+    p.add_argument("--models", nargs="+", default=["mean-field"],
+                   choices=["mean-field", "block-diagonal", "full-rank"])
     p.add_argument("--kernel", default="SqExp")
     p.add_argument("--ell", type=float, default=0.05)
     p.add_argument("--fit-method", default="natgrad", choices=["natgrad", "full-batch"])
@@ -81,6 +84,7 @@ def main(argv=None):
     p.add_argument("--no-schedule-lr", action="store_true",
                    help="constant natgrad lr")
     p.add_argument("--maxiter-cg", type=int, default=10)
+    p.add_argument("--xblock-size", type=int, default=5)
     p.add_argument("--integrated-obs", action="store_true")
     p.add_argument("--ell-sweep", type=float, nargs=3, metavar=("MIN", "MAX", "STEP"),
                    default=None,
@@ -127,7 +131,8 @@ def main(argv=None):
         model, state, report = fit_predict_and_save(
             name=name, xobs=d["xobs"], yobs=yobs, sobs=d["sobs"], xinduce_grids=grids,
             model_class=model_class, kernel=args.kernel, sig2_init="marginal",
-            ell_init=ell, noise2_init=args.noise_std ** 2, fit_method=args.fit_method,
+            ell_init=ell, noise2_init=args.noise_std ** 2,
+            block_sizes=(args.xblock_size, args.xblock_size), fit_method=args.fit_method,
             fit_config=cfg, maxiter_cg=args.maxiter_cg, mean_solver=args.mean_solver,
             theta2_warmstart=args.theta2_warmstart, xtest=d["xtest"],
             ftest=d["ftest"], etest=d["etest"], xgrid=d["xgrid"], fgrid=d["fgrid"],

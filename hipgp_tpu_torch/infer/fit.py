@@ -142,7 +142,9 @@ class FitOptimizer:
         return state if self.hyper is None else self.hyper.step(state, grads)
 
 
-def make_optimizer(config: FitConfig) -> FitOptimizer:
+def make_optimizer(state, config: FitConfig) -> FitOptimizer:
+    """The fit's optimizer for ``state`` (the JAX package's signature; the
+    optimizer keeps its own moments, so the state only fixes the order)."""
     return FitOptimizer(config)
 
 
@@ -187,19 +189,25 @@ def _batch_kn_ivar(model, state, xl, sl, wl, config: FitConfig, spec=None,
 
 
 def _theta2_warmstart(model, state, xb, sb, w, config: FitConfig, generator=None):
-    """theta2 <- -(Lambda + I)/2 from one Lambda-only pass over the data."""
+    """theta2 <- -(Lambda + I)/2 from one Lambda-only pass over the data,
+    Lambda family-shaped (`model.get_lam`, its prior identity too)."""
     spec = model.spectrum(state)
-    lam = torch.zeros((model.Mprime,), dtype=model.dtype, device=model.device)
+    dt, dev = model.dtype, model.device
+    zero_kn = torch.zeros((1, model.Mprime), dtype=dt, device=dev)
+    lam = torch.zeros_like(model.get_lam(torch.ones((1,), dtype=dt, device=dev), zero_kn))
     for b in range(xb.shape[0]):
         kn, ivar = _batch_kn_ivar(model, state, xb[b], None if sb is None else sb[b],
                                   w[b], config, spec=spec, generator=generator)
         lam = lam + model.get_lam(ivar, kn, add_identity=False)
-    return state.replace(theta2=-0.5 * (lam + 1.0))
+    lam = lam + model.get_lam(torch.zeros((1,), dtype=dt, device=dev), zero_kn,
+                              add_identity=True)
+    return state.replace(theta2=-0.5 * lam)
 
 
 def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30) -> float:
     """Top eigenvalue rho of the warm-metric-preconditioned batch precision
-    of the natural-gradient iteration, by power iteration (mean-field family).
+    of the natural-gradient iteration, by power iteration (any family: S
+    applied as S * v, by blocks, or S @ v).
 
     The linearized theta1 recursion is eta1 <- (I - lr B S) eta1 + const with
     B = bscale kn^T diag(ivar) kn + I (one batch's implied precision) and S
@@ -208,9 +216,15 @@ def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30) -> fl
     plain power iteration with a norm-ratio estimate converges to it.  Cost:
     2 * iters (bsz, M') products."""
     _, S = model.standard_params(state)
+    if model.family == "mean-field":
+        apply_S = lambda v: S * v
+    elif model.family == "block":
+        apply_S = lambda v: model.block_diag_multiply(S, v[None, :])[0]
+    else:
+        apply_S = lambda v: S @ v
 
     def mv(v):
-        u = S * v
+        u = apply_S(v)
         return bscale * (kn.T @ (ivar * (kn @ u))) + u
 
     z = torch.sin(torch.arange(kn.shape[-1], dtype=kn.dtype, device=kn.device) * 0.73) + 0.1
@@ -224,9 +238,9 @@ def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30) -> fl
 
 
 def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
-              verbose: bool = True, theta2_warmstart: bool = False,
-              max_steps: Optional[int] = None, natgrad_safe_lr: str = "warn",
-              epoch_callback: Optional[Callable] = None):
+              epoch_callback: Optional[Callable] = None, verbose: bool = True, *,
+              theta2_warmstart: bool = False, natgrad_safe_lr: str = "warn",
+              max_steps: Optional[int] = None):
     """Fit the variational parameters by natural-gradient SVI.
 
     ``theta2_warmstart``: one Lambda-only pass over the data sets theta2 to
@@ -290,7 +304,7 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
             else:
                 warnings.warn(msg + "; pass natgrad_safe_lr='clamp' to lower it, "
                               "or reduce config.lr", UserWarning, stacklevel=2)
-    opt = make_optimizer(config)
+    opt = make_optimizer(state, config)
     nb = xb.shape[0]
     if config.shuffle:
         shuffle_rng = np.random.default_rng(config.seed)
@@ -367,11 +381,13 @@ def batch_predict(model, state, x, batch_size: int = 100, **predict_kwargs):
     """Chunked prediction: pad to a batch multiple and predict chunk by
     chunk (``predict_kwargs`` go to ``model.predict``: maxiter_cg and the
     observation flags).  The chunk is clamped so its (bsz, M') buffer fits
-    the budget, counted with the model dtype's item size."""
+    the budget, counted with the model dtype's item size, and twice for the
+    block family (its block-ordered copy of kn, as the JAX package counts
+    it)."""
     x = torch.as_tensor(x).to(dtype=model.dtype, device=model.device)
     N = x.shape[0]
     itemsize = torch.empty((), dtype=model.dtype).element_size()
-    per_row = itemsize * model.Mprime
+    per_row = itemsize * model.Mprime * (2 if model.family == "block" else 1)
     batch_size = max(1, min(batch_size, PREDICT_CHUNK_BUDGET_BYTES // per_row))
     bsz = min(batch_size, N)
     nb = -(-N // bsz)

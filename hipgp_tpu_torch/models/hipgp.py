@@ -1,9 +1,14 @@
 """HIP-GP: hierarchical inducing-point GP with a BTTB-structured prior.
 
-Counterpart of `hipgp_tpu/models/hipgp.py`, for the mean-field family with
-the expectation-family parameters, and both whitened spaces: 'ziggy' (the
-expanded circulant basis, M' = prod(2 m_d - 2), kn = R^T K^{-1} Kmn by PCG)
-and 'cholesky' (the dense L^{-1} basis, M' = M).  The model object is a
+Counterpart of `hipgp_tpu/models/hipgp.py`: the mean-field, block-diagonal
+and full-rank variational families, with the expectation-family or the
+standard parameterization, in both whitened spaces: 'ziggy' (the expanded
+circulant basis, M' = prod(2 m_d - 2), kn = R^T K^{-1} Kmn by PCG) and
+'cholesky' (the dense L^{-1} basis, M' = M).  The block family chunks the
+whitened grid into blocks (`utils/blocks.py`), each with a dense covariance;
+its per-block outer products, batched SPD inverses and the full-rank
+family's dense Lambda and S are PyTorch matrix products in full FP32 (no
+kernel of the JAX package's covers them).  The model object is a
 plain container (kernel, grids, sizes, dtype, device); all learnable state
 lives in the :class:`HIPGPState` dataclass, and every method is a function
 of (state, data).  ``elbo_and_grads`` returns the natural gradient as a
@@ -19,9 +24,6 @@ matvec re-sweeps the data ('matfree': no M x M tensor, the solver of the
 paper-scale 3-D grids).  Observations are points, or line integrals of the
 field (``integrated_obs``: the ray from the origin to each x, paper section
 5.5) with the semi-integrated cross-covariances of `kernels/interdomain.py`.
-The block and full-rank families and the standard parameterization
-(ROADMAP.md section A item 5) are not ported yet: they raise
-NotImplementedError.
 """
 from __future__ import annotations
 
@@ -35,9 +37,10 @@ import torch
 
 from ..infer.fit import prepare_batches
 from ..kernels.interdomain import DoublyDiagInterpolator, k_semi_mc, k_semi_sqexp
-from ..ops import (make_spectrum, matmul_by_Cinv, matmul_by_K, matmul_by_RT,
-                   pcg_result, spd_solve, whiten)
+from ..ops import (inv_matmul, make_spectrum, matmul_by_Cinv, matmul_by_K, matmul_by_R,
+                   matmul_by_RT, pcg_result, spd_inverse, spd_solve, whiten)
 from ..ops.bttb import BTTBSpectrum, embedded_dims, fp32_matmul
+from ..utils import blocks as blk
 from ..utils import stats
 
 __all__ = ["HIPGP", "HIPGPState", "MEAN_PCG_STATS", "FACTORED_STATS",
@@ -71,12 +74,18 @@ FACTORED_STATS = dict.fromkeys(("kappa", "jitter", "trKinvA", "sKnn", "bracket")
 FACTOR_CHUNK = 2048
 # floor of the latent predictive variance Knn - kn.kn (the JAX default)
 VAR_CLAMP = 1e-5
+# device-memory cap of one block-ordered copy of kn, (rows, nb, bs), in the
+# block family's Lambda: the rows are gathered this many bytes at a time
+# (one copy at the dust map's batch of 512 rows, M' = 2^20, float32)
+BLOCK_GATHER_BYTES = 2 << 30
 
 
 @dataclasses.dataclass(frozen=True)
 class HIPGPState:
-    """Learnable state.  ``theta1``/``theta2`` (M',) are the natural
-    (expectation-family) parameters of q in the whitened space; the three
+    """Learnable state.  ``theta1``/``theta2`` are the natural
+    (expectation-family) parameters of q in the whitened space, or (m, S)
+    under the 'standard' parameterization: theta1 (M',); theta2 (M',)
+    mean-field, (num_blocks, bs, bs) block, (M', M') full-rank.  The three
     log-hyperparameters are 0-dim tensors."""
 
     theta1: torch.Tensor
@@ -134,24 +143,21 @@ def _cast_spec(spec: BTTBSpectrum, dtype: torch.dtype) -> BTTBSpectrum:
                                ecolumn=cast(spec.ecolumn))
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md section A item {item})")
-
-
 class HIPGP:
-    """Mean-field HIP-GP with expectation-family natural parameters (the
-    JAX package's defaults) over the inducing grid ``xgrids`` (1-D tensors
-    or arrays), whitened by the circulant basis (``whitened_type='ziggy'``)
-    or the dense Cholesky factor of Kmm (``'cholesky'``: M' = M, no
-    spectrum).  The other arguments are the JAX constructor's;
-    ``support_integrated_obs`` builds the doubly-integrated diagonal's
-    table, which line-integral observations need, and
-    ``learn_kernel``/``learn_noise`` are stored as the JAX model stores them
-    (the fit's `FitConfig` decides what is learned).  ``family`` and
-    ``parameterization`` take only 'mean-field' and 'expectation-family'.
-    Runs on ``device`` (CUDA unless the caller asks for the CPU) in
-    ``dtype``."""
+    """HIP-GP over the inducing grid ``xgrids`` (1-D tensors or arrays),
+    whitened by the circulant basis (``whitened_type='ziggy'``) or the dense
+    Cholesky factor of Kmm (``'cholesky'``: M' = M, no spectrum).
+    ``family`` is 'mean-field', 'block' or 'full-rank', ``parameterization``
+    'expectation-family' (natural parameters; the natgrad step needs it) or
+    'standard' ((m, S) stored).  The block family chunks the whitened grid
+    (``edims``) into blocks of ``block_sizes`` (one edge per dimension, each
+    dividing its dimension; default ``xblock_size`` along every one).  The
+    other arguments are the JAX constructor's; ``support_integrated_obs``
+    builds the doubly-integrated diagonal's table, which line-integral
+    observations need, and ``learn_kernel``/``learn_noise`` are stored as
+    the JAX model stores them (the fit's `FitConfig` decides what is
+    learned).  Runs on ``device`` (CUDA unless the caller asks for the CPU)
+    in ``dtype``."""
 
     def __init__(
         self,
@@ -161,6 +167,8 @@ class HIPGP:
         family: str = "mean-field",
         whitened_type: str = "ziggy",
         parameterization: str = "expectation-family",
+        xblock_size: int = 10,
+        block_sizes: Optional[Sequence[int]] = None,
         jitter: float = 1e-3,
         sig2_init: float = 1.0,
         ell_init: float = 0.05,
@@ -178,10 +186,6 @@ class HIPGP:
             raise ValueError(f"unknown whitened_type {whitened_type!r}")
         if parameterization not in ("expectation-family", "standard"):
             raise ValueError(f"unknown parameterization {parameterization!r}")
-        if family != "mean-field":
-            raise _not_ported(f"the {family} family", 5)
-        if parameterization != "expectation-family":
-            raise _not_ported("the standard parameterization", 5)
         self.kernel = kernel
         self.family = family
         self.whitened_type = whitened_type
@@ -207,6 +211,17 @@ class HIPGP:
         self.edims = (embedded_dims(self.dims) if whitened_type == "ziggy"
                       else self.dims)
         self.Mprime = math.prod(self.edims)
+        # the block family chunks the whitened grid (the expanded one under
+        # 'ziggy'); the tables move to the device once
+        self.blk_idx = self.blk_inv = None
+        if family == "block":
+            if block_sizes is None:
+                block_sizes = [xblock_size] * self.ndim
+            self.block_sizes = tuple(int(c) for c in block_sizes)
+            bidx, binv = blk.block_indices(self.edims, self.block_sizes)
+            self.blk_idx = torch.as_tensor(bidx, device=self.device)
+            self.blk_inv = torch.as_tensor(binv, device=self.device)
+            self.num_blocks, self.block_size = bidx.shape
         self.diag_interp = (DoublyDiagInterpolator(kernel)
                             if support_integrated_obs else None)
 
@@ -219,16 +234,28 @@ class HIPGP:
 
     def init_state(self, generator: Optional[torch.Generator] = None) -> HIPGPState:
         """Glorot-style theta1 drawn from ``generator`` (a CPU generator;
-        seed 0 when None), theta2 = -1/(2 init_Svar)."""
+        seed 0 when None; zeros for the full-rank family), theta2 = -I/(2
+        init_Svar), or init_Svar I under 'standard', family-shaped."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        Mp = self.Mprime
-        std = math.sqrt(2.0 / (Mp + 1))
-        theta1 = std * torch.randn(Mp, generator=generator, dtype=self.dtype)
-        theta2 = torch.full((Mp,), -0.5 / self.init_Svar, dtype=self.dtype)
+        Mp, dt, dev = self.Mprime, self.dtype, self.device
+        if self.family == "full-rank":
+            theta1 = torch.zeros(Mp, dtype=dt)
+        else:
+            theta1 = math.sqrt(2.0 / (Mp + 1)) * torch.randn(Mp, generator=generator,
+                                                             dtype=dt)
+        val = (self.init_Svar if self.parameterization == "standard"
+               else -0.5 / self.init_Svar)
+        if self.family == "mean-field":
+            theta2 = torch.full((Mp,), val, dtype=dt, device=dev)
+        elif self.family == "block":
+            eye = val * torch.eye(self.block_size, dtype=dt, device=dev)
+            theta2 = eye.expand(self.num_blocks, -1, -1).clone()
+        else:
+            theta2 = val * torch.eye(Mp, dtype=dt, device=dev)
         return HIPGPState(
-            theta1=theta1.to(self.device),
-            theta2=theta2.to(self.device),
+            theta1=theta1.to(dev),
+            theta2=theta2,
             log_sig2=self._scalar(math.log(self.sig2_init)),
             log_ell=torch.log(self._scalar(self.ell_init)),
             log_noise2=self._scalar(math.log(self.noise2_init)),
@@ -303,22 +330,104 @@ class HIPGP:
     # ------------------------------------------------------------------
 
     def standard_params(self, state: HIPGPState):
-        """(qm (M',), qS (M',)) from the natural parameters."""
-        S = -0.5 / state.theta2
-        return S * state.theta1, S
+        """(qm (M',), qS family-shaped) from the stored parameterization; the
+        block and full-rank S = (-2 theta2)^{-1} by Cholesky, NaN where
+        -2 theta2 is not positive definite (as XLA's)."""
+        t1, t2 = state.theta1, state.theta2
+        if self.parameterization == "standard":
+            return t1, t2
+        if self.family == "mean-field":
+            S = -0.5 / t2
+            return S * t1, S
+        S = spd_inverse(-2.0 * t2)
+        if self.family == "block":
+            return self.block_diag_multiply(S, t1[None, :])[0], S
+        with fp32_matmul():
+            return S @ t1, S
+
+    def block_diag_multiply(self, S_block: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """The (nb, bs, bs) block-diagonal matrix applied to (bsz, M') rows."""
+        vb = blk.to_blocks(v, self.blk_idx)                      # (bsz, nb, bs)
+        with fp32_matmul():
+            Sv = S_block @ vb.permute(1, 2, 0)                   # (nb, bs, bsz)
+        return blk.from_blocks(Sv.permute(2, 0, 1), self.blk_inv)
+
+    def _block_gram(self, kn: torch.Tensor, ivar: Optional[torch.Tensor] = None):
+        """sum_n ivar_n knb_n knb_n^T per block, (nb, bs, bs), with knb_n
+        row n of kn in block order (ivar None: weights 1): one batched
+        product over the block-ordered copy of the rows, gathered at most
+        BLOCK_GATHER_BYTES at a time; no (rows, nb, bs, bs) intermediate.
+        Full FP32."""
+        rows = max(1, BLOCK_GATHER_BYTES // (self.Mprime * kn.element_size()))
+        out = None
+        with fp32_matmul():
+            for r in range(0, kn.shape[0], rows):
+                knb = blk.to_blocks(kn[r:r + rows], self.blk_idx)   # (rows, nb, bs)
+                lhs = knb if ivar is None else knb * ivar[r:r + rows, None, None]
+                part = lhs.permute(1, 2, 0) @ knb.permute(1, 0, 2)
+                del knb, lhs
+                out = part if out is None else out + part
+        return out
 
     def compute_knSkn(self, kn: torch.Tensor, qS: torch.Tensor) -> torch.Tensor:
-        """diag(kn S kn^T) per batch row."""
-        return torch.sum(kn * qS[None, :] * kn, dim=-1)
+        """diag(kn S kn^T) per batch row, S family-shaped."""
+        if self.family == "mean-field":
+            return torch.sum(kn * qS[None, :] * kn, dim=-1)
+        if self.family == "block":
+            knb = blk.to_blocks(kn, self.blk_idx).permute(1, 2, 0)   # (nb, bs, bsz)
+            with fp32_matmul():
+                Skb = qS @ knb
+            return torch.sum(knb * Skb, dim=(0, 1))
+        with fp32_matmul():
+            return torch.sum((kn @ qS) * kn, dim=-1)
 
     def kl_to_prior(self, qm: torch.Tensor, qS: torch.Tensor) -> torch.Tensor:
-        return stats.diag_kl_to_standard(qm, qS)
+        if self.family == "mean-field":
+            return stats.diag_kl_to_standard(qm, qS)
+        if self.family == "block":
+            return stats.block_kl_to_standard(qm, qS)
+        return stats.kl_to_standard(qm, qS)
 
     def get_lam(self, ivar: torch.Tensor, kn: torch.Tensor, bscale=1.0,
                 add_identity: bool = True) -> torch.Tensor:
-        """Lambda = bscale * sum_n kn_n^2 / sigma_n^2 (+ 1), diagonal."""
-        lam = bscale * torch.sum(ivar[:, None] * kn * kn, dim=0)
-        return lam + 1.0 if add_identity else lam
+        """The family-shaped Lambda = bscale * sum_n kn_n kn_n^T / sigma_n^2
+        (+ I): its diagonal (M',), its diagonal blocks (nb, bs, bs) or the
+        whole (M', M').  ``ivar`` (bsz,): the inverse noise variances, zero
+        on masked rows."""
+        if self.family == "mean-field":
+            lam = bscale * torch.sum(ivar[:, None] * kn * kn, dim=0)
+            return lam + 1.0 if add_identity else lam
+        if self.family == "block":
+            lam = bscale * self._block_gram(kn, ivar)
+        else:
+            with fp32_matmul():
+                lam = bscale * ((kn * ivar[:, None]).T @ kn)
+        return self._with_identity(lam) if add_identity else lam
+
+    def _lam_zeros(self) -> torch.Tensor:
+        """A family-shaped Lambda of zeros."""
+        if self.family == "mean-field":
+            shape = (self.Mprime,)
+        elif self.family == "block":
+            shape = (self.num_blocks, self.block_size, self.block_size)
+        else:
+            shape = (self.Mprime, self.Mprime)
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def _with_identity(self, lam: torch.Tensor) -> torch.Tensor:
+        """lam + I (the prior's precision), family-shaped, a new tensor."""
+        if self.family == "mean-field":
+            return lam + 1.0
+        if self.family == "block":
+            return lam + torch.eye(self.block_size, dtype=lam.dtype, device=lam.device)
+        out = lam.clone()
+        out.diagonal().add_(1.0)
+        return out
+
+    def _S_from_lam(self, lam: torch.Tensor) -> torch.Tensor:
+        if self.family == "mean-field":
+            return 1.0 / lam
+        return spd_inverse(lam)
 
     # ------------------------------------------------------------------
     # ELBO pieces
@@ -373,16 +482,23 @@ class HIPGP:
     # ------------------------------------------------------------------
 
     def _natgrad(self, state, kn, y, ivar, qm, bscale):
-        """(deta1, deta2): natural-gradient ascent directions."""
+        """(deta1, deta2): natural-gradient ascent directions, family-shaped
+        (full-rank: deta1 = b - theta1 with b = kn^T (ivar y), unscaled, as
+        in the JAX package)."""
         y = y.reshape(-1)
+        if self.family == "full-rank":
+            lam = self.get_lam(ivar, kn, bscale=bscale, add_identity=True)
+            return kn.T @ (ivar * y) - state.theta1, -0.5 * lam - state.theta2
         knt_m = kn @ qm
         bdiff = ivar * (knt_m - y)              # (bsz,)
         data_dm = -(kn.T @ bdiff)               # (M',)
         dm = bscale * data_dm - qm
-        lam_diag = bscale * torch.sum(ivar[:, None] * kn * kn, dim=0) + 1.0
-        dS = -0.5 * lam_diag - state.theta2
-        deta1 = dm + dS * (-2.0 * qm)
-        return deta1, dS
+        if self.family == "mean-field":
+            lam_diag = bscale * torch.sum(ivar[:, None] * kn * kn, dim=0) + 1.0
+            dS = -0.5 * lam_diag - state.theta2
+            return dm + dS * (-2.0 * qm), dS
+        dS = -0.5 * self.get_lam(ivar, kn, bscale=bscale, add_identity=True) - state.theta2
+        return dm + self.block_diag_multiply(dS, (-2.0 * qm)[None, :])[0], dS
 
     def elbo_and_grads(self, state: HIPGPState, x: torch.Tensor,
                        y: torch.Tensor, noise_std: Optional[torch.Tensor] = None,
@@ -399,7 +515,10 @@ class HIPGP:
         ``theta - lr * grad = theta + lr * deta``; with
         ``compute_hyper_grads`` the hyperparameter entries hold
         -d elbo / d log_sig2, log_ell, log_noise2 (theta1 and theta2 held
-        constant), else zeros."""
+        constant), else zeros.  Needs the expectation-family
+        parameterization (ValueError otherwise)."""
+        if self.parameterization != "expectation-family":
+            raise ValueError("natural-gradient step needs expectation-family")
         y = y.reshape(-1)
         hypers = (state.log_sig2, state.log_ell, state.log_noise2)
         with torch.set_grad_enabled(compute_hyper_grads):
@@ -453,18 +572,21 @@ class HIPGP:
                          spec: Optional[BTTBSpectrum] = None,
                          big: Optional[torch.Tensor] = None):
         """One batch's additive contributions to the information-form solve:
-        (lam, b, big) WITHOUT prior identities, with lam = sum ivar kn^2,
-        b = kn^T (ivar y) and big = sum ivar kn kn^T (M' x M').  ``ivar`` is
-        the per-row inverse noise variance with any padding mask folded in.
-        With ``big`` given, the batch's Gram is added to it in place (the
-        dense solve's one accumulator) and it is returned; kn is freed on
-        return either way.  No graph is recorded."""
+        (lam, b, big) WITHOUT prior identities, with lam the family-shaped
+        sum ivar kn kn^T (`get_lam`), b = kn^T (ivar y) and big = sum ivar
+        kn kn^T (M' x M'; None for the full-rank family, whose lam is that
+        matrix).  ``ivar`` is the per-row inverse noise variance with any
+        padding mask folded in.  With ``big`` given, the batch's Gram is
+        added to it in place (the dense solve's one accumulator) and it is
+        returned; kn is freed on return either way.  No graph is recorded."""
         Knm, _ = self.make_grams(state, x, integrated_obs, semi_integrated_estimator,
                                  semi_integrated_samps, generator)
         kn = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg, spec=spec)
         del Knm
         lam = self.get_lam(ivar, kn, bscale=1.0, add_identity=False)
         b = kn.T @ (ivar * y.reshape(-1))
+        if self.family == "full-rank":
+            return lam, b, None
         # sum ivar kn kn^T as (s kn)^T (s kn), s = sqrt(ivar), with kn scaled
         # in place: no second (bsz, M') buffer beside the M' x M' accumulator
         kn.mul_(torch.sqrt(ivar)[:, None])
@@ -477,24 +599,48 @@ class HIPGP:
 
     @torch.no_grad()
     def finalize_from_lam_b(self, state: HIPGPState, lam: torch.Tensor,
-                            b: torch.Tensor, big: torch.Tensor) -> HIPGPState:
+                            b: torch.Tensor, big: Optional[torch.Tensor]) -> HIPGPState:
         """Turn accumulated (lam, b, big), prior identities NOT included,
-        into the optimal variational state: theta2 = -(lam + 1)/2 and
-        theta1 = mhat * (lam + 1) with (big + I) mhat = b.  The identity is
-        added to ``big`` in place, and only its Cholesky factor is allocated
-        beside it."""
-        lam = lam + 1.0
-        big.diagonal().add_(1.0)
-        mhat = spd_solve(big, b)
-        return state.replace(theta1=mhat * lam, theta2=-0.5 * lam)
+        into the optimal variational state: Lambda = lam + I (family-shaped)
+        and the mean mhat from (big + I) mhat = b, stored as theta2 =
+        -Lambda/2 and theta1 = Lambda mhat, or under 'standard' as
+        (mhat, Lambda^{-1}).  The full-rank family needs no ``big`` (None):
+        theta1 = b, or mhat = Lambda^{-1} b.  The identity is added to
+        ``big`` in place, and only its Cholesky factor is allocated beside
+        it."""
+        lam = self._with_identity(lam)
+        if big is not None:
+            big.diagonal().add_(1.0)
+        if self.parameterization == "standard":
+            S = self._S_from_lam(lam)
+            if self.family == "full-rank":
+                with fp32_matmul():
+                    m = S @ b
+            else:
+                m = spd_solve(big, b)
+            return state.replace(theta1=m, theta2=S)
+        if self.family == "full-rank":
+            return state.replace(theta1=b, theta2=-0.5 * lam)
+        return self._natural_state(state, lam, spd_solve(big, b))
+
+    def _natural_state(self, state, lam_with_I, mhat):
+        """theta2 = -Lambda/2, theta1 = Lambda mhat (mean-field, block)."""
+        if self.family == "mean-field":
+            theta1 = mhat * lam_with_I
+        else:
+            theta1 = self.block_diag_multiply(lam_with_I, mhat[None, :])[0]
+        return state.replace(theta1=theta1, theta2=-0.5 * lam_with_I)
 
     def _state_from_lam_mhat(self, state: HIPGPState, lam: torch.Tensor,
                              mhat: torch.Tensor) -> HIPGPState:
-        """The optimal state from the accumulated Lambda (WITHOUT the prior
-        identity) and the already-solved optimal mean mhat: the shared tail
-        of the 'cg' and 'gram' mean solvers."""
-        lam_with_I = lam + 1.0
-        return state.replace(theta1=mhat * lam_with_I, theta2=-0.5 * lam_with_I)
+        """The optimal state from the accumulated family-shaped Lambda
+        (WITHOUT the prior identity) and the already-solved optimal mean
+        mhat: the shared tail of the 'cg', 'gram', 'factored' and 'matfree'
+        mean solvers."""
+        lam_with_I = self._with_identity(lam)
+        if self.parameterization == "standard":
+            return state.replace(theta1=mhat, theta2=self._S_from_lam(lam_with_I))
+        return self._natural_state(state, lam_with_I, mhat)
 
     def _gram_sweep(self, state, spec, batches, flags, maxiter_cg, kn=True, gram=True,
                     draws=None):
@@ -514,7 +660,7 @@ class HIPGP:
         before each batch, so that a later sweep can replay its draws."""
         xb, yb, w, nsp = batches
         acc, dev = GRAM_ACC_DTYPE, self.device
-        lam = torch.zeros((self.Mprime,), dtype=self.dtype, device=dev) if kn else None
+        lam = self._lam_zeros() if kn else None
         A = torch.zeros((self.M, self.M), dtype=acc, device=dev) if gram else None
         bm = torch.zeros((self.M,), dtype=acc, device=dev)
         sy2, sKnn, sknkn, slog = (torch.zeros((), dtype=acc, device=dev) for _ in range(4))
@@ -599,21 +745,27 @@ class HIPGP:
         return new_state, elbo
 
     def _lam_from_factor_rows(self, G: torch.Tensor) -> torch.Tensor:
-        """The mean-field Lambda sum_k g_k g_k^T (its diagonal; no prior
-        identity) from factor rows G, row k being (W l_k)^T with
-        A = sum_k l_k l_k^T."""
-        if self.family != "mean-field":
-            raise _not_ported(f"the {self.family} family", 5)
-        return torch.sum(G * G, dim=0)
+        """The family-shaped sum_k g_k g_k^T (no prior identity) from factor
+        rows G, row k being (W l_k)^T with A = sum_k l_k l_k^T."""
+        if self.family == "mean-field":
+            return torch.sum(G * G, dim=0)
+        if self.family == "block":
+            return self._block_gram(G)
+        with fp32_matmul():
+            return G.T @ G
 
     def factor_data_gram(self, A: torch.Tensor, factor_jitter: Optional[float] = None):
         """(L_A, eps): the Cholesky factor of A + eps I with the relative
-        jitter eps = factor_jitter * mean(diag A) (by default 1e-4 when the
-        model's dtype is float32, 1e-10 otherwise, the JAX defaults), raised
-        x100 up to 4 times while the factor fails, then FloatingPointError.
-        In A's dtype; only the shifted copy and its factor are allocated."""
+        jitter eps = factor_jitter * mean(diag A), raised x100 up to 4 times
+        while the factor fails, then FloatingPointError.  By default
+        factor_jitter is keyed on the dtype of the factor, A's: 1e-4 for
+        float32, 1e-10 otherwise.  The JAX package keys it on the model's
+        dtype, but the port factors A in GRAM_ACC_DTYPE (float64), where
+        1e-4 would only bias Lambda by eps diag(K^{-1}); pass
+        ``factor_jitter=1e-4`` for the JAX package's float32 shift.  In A's
+        dtype; only the shifted copy and its factor are allocated."""
         if factor_jitter is None:
-            factor_jitter = 1e-4 if self.dtype == torch.float32 else 1e-10
+            factor_jitter = 1e-4 if A.dtype == torch.float32 else 1e-10
         eps = factor_jitter * torch.mean(torch.diagonal(A))
 
         def chol_at(e):
@@ -638,22 +790,23 @@ class HIPGP:
         """(Lambda - I, tr(K^{-1} A)) from G = W L_A: the rows of L_A^T
         whitened by `compute_kn` (under 'ziggy' in chunks of FACTOR_CHUNK
         rows, the last padded with zero rows as JAX pads it; under
-        'cholesky' in one triangular solve), Lambda summed over the chunks
-        in the model's dtype and the trace in GRAM_ACC_DTYPE."""
+        'cholesky' in one triangular solve), the family-shaped Lambda summed
+        over the chunks in the model's dtype and the trace ||G||_F^2 in
+        GRAM_ACC_DTYPE."""
         Lt = L_A.T
         ncols = Lt.shape[0]
         cs = ncols if self.whitened_type == "cholesky" else min(ncols, FACTOR_CHUNK)
-        lam = torch.zeros((self.Mprime,), dtype=self.dtype, device=self.device)
+        lam = self._lam_zeros()
         tr = torch.zeros((), dtype=GRAM_ACC_DTYPE, device=self.device)
         for c in range(0, ncols, cs):
             rows = Lt[c:c + cs]
             if rows.shape[0] < cs:
                 rows = torch.cat([rows, rows.new_zeros((cs - rows.shape[0], self.M))])
             G = self.compute_kn(state, rows.contiguous(), maxiter_cg=maxiter_cg, spec=spec)
-            lam_c = self._lam_from_factor_rows(G)
+            sq = torch.sum(G * G, dim=0)
+            lam += sq if self.family == "mean-field" else self._lam_from_factor_rows(G)
             del G
-            lam += lam_c
-            tr += torch.sum(lam_c.to(GRAM_ACC_DTYPE))
+            tr += torch.sum(sq.to(GRAM_ACC_DTYPE))
         return lam, tr
 
     def _batch_solve_factored(self, state, spec, batches, N, flags, clock, *,
@@ -665,8 +818,10 @@ class HIPGP:
 
         * Lambda - I = W A W^T, the squared column sums of G = W L_A with
           A = L_A L_A^T (`factor_data_gram`, `_factored_g_stage`);
-        * the mean m = R (K + A)^{-1} b_m (`_gram_mean_stage`);
-        * the ELBO as 'gram''s with sum ivar kn.kn = tr(K^{-1} A) = ||G||_F^2.
+        * the mean m = R (K + A)^{-1} b_m (`_gram_mean_stage`; the full-rank
+          family solves no mean: theta1 = W b_m, `finalize_from_lam_b`);
+        * the ELBO as 'gram''s with sum ivar kn.kn = tr(K^{-1} A) = ||G||_F^2
+          (full-rank: with v = K^{-1} R qm in place of z).
 
         The data sweep runs no PCG (`_gram_sweep` without kn).  Checks, in
         order: the pre-check (float32 under 'ziggy': kappa of the spectrum
@@ -706,13 +861,28 @@ class HIPGP:
                 "factor-column PCG solves are inconsistent at this conditioning "
                 "(clamped spectrum / f32); use the 'gram' sweep solver or raise "
                 "maxiter_cg")
-        mhat, z = self._gram_mean_stage(state, spec, A, bm, mean_solver_maxiter,
-                                        mean_solver_tol)
-        new_state = self._state_from_lam_mhat(state, lam, mhat)
+        if self.family == "full-rank":
+            # no mean solve: b_m whitened, then finalize_from_lam_b
+            bw = self.compute_kn(state, bm.to(self.dtype)[None, :],
+                                 maxiter_cg=mean_solver_maxiter, spec=spec)[0]
+            new_state, z = self.finalize_from_lam_b(state, lam, bw, None), None
+        else:
+            mhat, z = self._gram_mean_stage(state, spec, A, bm, mean_solver_maxiter,
+                                            mean_solver_tol)
+            new_state = self._state_from_lam_mhat(state, lam, mhat)
         clock.mark("mean")
         if not compute_elbo:
             return new_state
-        qS = self.standard_params(new_state)[1]
+        qm, qS = self.standard_params(new_state)
+        if z is None:
+            # kn.m = Knm v with v = K^{-1} R qm (ziggy), L^{-T} qm (cholesky)
+            if self.whitened_type == "cholesky":
+                v = torch.linalg.solve_triangular(self._kmm_chol(state).T, qm[:, None],
+                                                  upper=True)[:, 0]
+            else:
+                v = inv_matmul(spec, matmul_by_R(spec, qm[None, :]),
+                               maxiter=mean_solver_maxiter, tol=mean_solver_tol)[0]
+            z = v.to(A.dtype)
         bracket = sk_f - tr_f + float(torch.sum(qS.to(tr.dtype) * lam.to(tr.dtype)))
         stats["bracket"] = bracket
         if FACTORED_GUARDS and bracket < -1e-3 * sk_f:
@@ -811,8 +981,11 @@ class HIPGP:
         The data are padded to a batch multiple and masked (zero weights,
         noise padded with 1); without ``noise_std`` the rows' inverse noise
         variance is w exp(-log_noise2).  ``generator`` draws the Monte-Carlo
-        estimator's points.  ``mean_solver`` decides how the mean-field
-        optimal mean solves (I + sum_n ivar_n kn_n kn_n^T) m = b:
+        estimator's points.  ``mean_solver`` decides how the mean-field and
+        block families' optimal mean solves (I + sum_n ivar_n kn_n kn_n^T)
+        m = b (the full-rank family's Lambda is that matrix: every solver but
+        'factored' accumulates it and b in one sweep, with a second sweep for
+        the ELBO; `finalize_from_lam_b`):
 
         * 'dense' holds that M' x M' matrix (accumulated, and the identity
           added, in place; factored by Cholesky with only its factor beside
@@ -867,10 +1040,12 @@ class HIPGP:
                         timings["factored_" + k] = timings.pop(k)
                 clock = _StageClock(timings, self.device)
                 mean_solver = "gram"
-        if mean_solver == "matfree":
+        # 'gram' and 'matfree' solve the mean-field and block families' mean;
+        # the full-rank family takes the generic accumulation below
+        if mean_solver == "matfree" and self.family != "full-rank":
             return self._batch_solve_matfree(state, spec, (xb, yb, w, nsp), N, flags,
                                              clock, **kw)
-        if mean_solver == "gram":
+        if mean_solver == "gram" and self.family != "full-rank":
             return self._batch_solve_gram(state, spec, (xb, yb, w, nsp), N, flags, clock,
                                           **kw)
 
@@ -879,16 +1054,20 @@ class HIPGP:
                 return w[i] / (sb[i] * sb[i])
             return w[i] * torch.exp(-state.log_noise2)
 
-        lam = torch.zeros((self.Mprime,), dtype=self.dtype, device=self.device)
-        b = torch.zeros_like(lam)
-        if mean_solver == "dense":
-            big = torch.zeros((self.Mprime, self.Mprime), dtype=self.dtype,
-                              device=self.device)
+        need_big = self.family != "full-rank" and mean_solver == "dense"
+        collect_kn = self.family != "full-rank" and mean_solver == "cg"
+        lam = self._lam_zeros()
+        b = torch.zeros((self.Mprime,), dtype=self.dtype, device=self.device)
+        if not collect_kn:
+            big = (torch.zeros((self.Mprime, self.Mprime), dtype=self.dtype,
+                               device=self.device) if need_big else None)
             for i in range(xb.shape[0]):
                 lam_i, b_i, big = self.accumulate_lam_b(
                     state, xb[i], yb[i], ivar_of(i), maxiter_cg=maxiter_cg,
                     spec=spec, big=big, **flags)
-                lam, b = lam + lam_i, b + b_i
+                lam += lam_i
+                b += b_i
+                del lam_i
             clock.mark("sweep")
             new_state = self.finalize_from_lam_b(state, lam, b, big)
             del big
@@ -899,8 +1078,8 @@ class HIPGP:
                 Knm, _ = self.make_grams(state, xb[i], **flags)
                 kn = self.compute_kn(state, Knm, maxiter_cg=maxiter_cg, spec=spec)
                 ivar = ivar_of(i)
-                lam = lam + self.get_lam(ivar, kn, bscale=1.0, add_identity=False)
-                b = b + kn.T @ (ivar * yb[i])
+                lam += self.get_lam(ivar, kn, bscale=1.0, add_identity=False)
+                b += kn.T @ (ivar * yb[i])
                 kns.append(kn)
                 ivars.append(ivar)
             kn_all, ivar_all = torch.cat(kns), torch.cat(ivars)
@@ -922,7 +1101,7 @@ class HIPGP:
         total_an = torch.zeros((), dtype=self.dtype, device=self.device)
         bsz = xb.shape[1]
         for i in range(xb.shape[0]):
-            if mean_solver == "cg":
+            if collect_kn:
                 # the stacked kn of the solve: only the prior diagonal is new
                 kn = kn_all[i * bsz:(i + 1) * bsz]
                 Knn = (self.diag_interp(xb[i], params) if integrated_obs
@@ -960,3 +1139,14 @@ class HIPGP:
                              min=var_clamp)
         sig = torch.sqrt(ktilde + self.compute_knSkn(kn, qS))
         return mu, sig
+
+    def get_inducing_S(self, state: HIPGPState) -> torch.Tensor:
+        """R S R^T (M, M): the variational covariance mapped back to the
+        original inducing space (full-rank family only; ValueError
+        otherwise)."""
+        if self.family != "full-rank":
+            raise ValueError("get_inducing_S is defined for the full-rank family")
+        _, S = self.standard_params(state)
+        spec = self.spectrum(state)
+        v = matmul_by_R(spec, S)            # rows: (M', M') -> (M', M)
+        return matmul_by_R(spec, v.T)       # (M, M)

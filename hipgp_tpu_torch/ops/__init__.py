@@ -12,6 +12,7 @@ from .bttb import (
     make_spectrum,
     matmul_by_Cinv,
     matmul_by_K,
+    matmul_by_R,
     matmul_by_RT,
     next_fast_len,
     toeplitz_column,
@@ -23,8 +24,8 @@ from .pallas_transform import circulant_apply_2d
 from .radix_fft import (fused_circulant_apply, fused_circulant_apply_cropped,
                         fused_circulant_apply_cropped_dual,
                         fused_circulant_apply_cropped_selfdot)
-from .solve import (cholesky_whiten, gram_solve, inv_matmul, spd_inverse, spd_solve,
-                    whiten)
+from .solve import (cholesky_or_nan, cholesky_whiten, gram_solve, inv_matmul,
+                    spd_inverse, spd_solve, whiten)
 
 __all__ = [
     "BTTBSpectrum",
@@ -35,6 +36,7 @@ __all__ = [
     "make_spectrum",
     "matmul_by_Cinv",
     "matmul_by_K",
+    "matmul_by_R",
     "matmul_by_RT",
     "next_fast_len",
     "toeplitz_column",
@@ -57,5 +59,6 @@ __all__ = [
     "inv_matmul",
     "spd_inverse",
     "spd_solve",
+    "cholesky_or_nan",
     "whiten",
 ]

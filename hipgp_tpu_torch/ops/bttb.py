@@ -484,6 +484,11 @@ def matmul_by_RT(spec: BTTBSpectrum, v: torch.Tensor) -> torch.Tensor:
     return _apply_spectrum(spec, v, torch.sqrt(spec.eigs), False, True)
 
 
+def matmul_by_R(spec: BTTBSpectrum, v: torch.Tensor) -> torch.Tensor:
+    """R @ v: whitened space (..., M') -> original space (..., M)."""
+    return _apply_spectrum(spec, v, torch.sqrt(spec.eigs), True, False)
+
+
 def matmul_by_Cinv(spec: BTTBSpectrum, v: torch.Tensor) -> torch.Tensor:
     """Circulant-inverse preconditioner: top-left block of C^{-1} applied to v."""
     return _apply_spectrum(spec, v, 1.0 / spec.eigs, False, False)

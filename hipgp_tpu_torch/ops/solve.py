@@ -63,7 +63,7 @@ from .radix_fft import (fused_circulant_apply_cropped,
                         row_multiple, stage_order_weights, unpack_rows)
 
 __all__ = ["inv_matmul", "whiten", "gram_solve", "cholesky_whiten", "spd_solve",
-           "spd_inverse", "PCG_STATS"]
+           "spd_inverse", "cholesky_or_nan", "PCG_STATS"]
 
 # solves and iterations run by the fused kernel-path PCG (the self-dot
 # applies per solve are 1 + 2 * iterations)
@@ -400,20 +400,33 @@ def cholesky_whiten(Kmm: torch.Tensor, Knm: torch.Tensor,
     return sol.transpose(-1, -2)
 
 
+def cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
+    """The lower Cholesky factor of A (leading batch dims allowed), NaN in
+    every matrix of the batch whose factorisation fails, as XLA's Cholesky
+    returns it (torch.linalg.cholesky raises instead); no host sync."""
+    L, info = torch.linalg.cholesky_ex(A)
+    failed = (info != 0)[..., None, None]
+    if L.requires_grad:
+        return L.masked_fill(failed, float("nan"))
+    return L.masked_fill_(failed, float("nan"))
+
+
 def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b for symmetric positive-definite A by Cholesky and two
     triangular solves; leading batch dims on A and b, and b one dim short of
-    A for a single right-hand side.  Only the factor is allocated beside A
+    A for a single right-hand side.  A matrix that is not positive definite
+    gives NaN (`cholesky_or_nan`).  Only the factor is allocated beside A
     (the dense full-batch solve keeps its M' x M' matrix and factor alive
     together, nothing more)."""
-    L = torch.linalg.cholesky(A)
     squeeze = b.ndim == A.ndim - 1
     if squeeze:
         b = b[..., None]
-    # two triangular solves on L itself (torch.cholesky_solve works on a
-    # column-major copy of the factor: a third M' x M' buffer on the card)
-    y = torch.linalg.solve_triangular(L, b, upper=False)
-    x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+    with bttb.fp32_matmul():
+        L = cholesky_or_nan(A)
+        # two triangular solves on L itself (torch.cholesky_solve works on a
+        # column-major copy of the factor: a third M' x M' buffer on the card)
+        y = torch.linalg.solve_triangular(L, b, upper=False)
+        x = torch.linalg.solve_triangular(L.mT, y, upper=True)
     return x[..., 0] if squeeze else x
 
 

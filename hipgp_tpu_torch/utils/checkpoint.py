@@ -61,9 +61,15 @@ def load_pytree(path: str, like: Any) -> Any:
         for name, a, lk in zip(fields, arrays, like_leaves)})
 
 
-def save_checkpoint(odir: str, state: Any, step: int = 0,
+def save_checkpoint(odir: str, state: Any, opt_state: Any = None, step: int = 0,
                     extra: Optional[Dict] = None) -> None:
-    """``odir/state.npz`` (with its sidecar) and ``odir/meta.json``."""
+    """``odir/state.npz`` (with its sidecar) and ``odir/meta.json``, in the
+    JAX package's signature; an ``opt_state`` (the optimizer's saved form)
+    is not ported yet (ROADMAP.md section A item 1) and raises
+    NotImplementedError."""
+    if opt_state is not None:
+        raise NotImplementedError("saving the optimizer state is not ported yet "
+                                  "(ROADMAP.md section A item 1)")
     os.makedirs(odir, exist_ok=True)
     save_pytree(os.path.join(odir, "state.npz"), state)
     with open(os.path.join(odir, "meta.json"), "w") as f:

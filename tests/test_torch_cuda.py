@@ -958,7 +958,8 @@ def test_batch_solve_factored_on_the_card(dev):
     # the card, both whitenings at maxiter_cg 100 and the mean converged; the
     # factor's 256 rows are one g-stage solve through kernel A and the sweep
     # whitens nothing; no fallback.  Limits: the f32 factored solve's own
-    # error, 4e-4 on the CPU at this grid (f32 jitter 1e-4 against 1e-10)
+    # error, 4e-4 on the CPU at this grid with factor_jitter 1e-4 (the JAX
+    # package's float32 jitter) against 1e-10
     import warnings
 
     from hipgp_tpu_torch.models.hipgp import FACTORED_STATS

@@ -340,13 +340,19 @@ def test_spd_solve_and_inverse_match_jax():
 
 
 def test_unported_options_raise(pairs, data):
-    with pytest.raises(NotImplementedError, match="section A item 5"):
-        HIPGP(tkernels.SqExp(), GRIDS, num_obs=N, family="block", device="cpu")
-    with pytest.raises(NotImplementedError, match="section A item 5"):
-        HIPGP(tkernels.SqExp(), GRIDS, num_obs=N, parameterization="standard",
-              device="cpu")
-    with pytest.raises(ValueError):
-        HIPGP(tkernels.SqExp(), GRIDS, num_obs=N, whitened_type="dense", device="cpu")
+    # the block and full-rank families and the standard parameterization
+    # build (section A item 5 is ported); an unknown family,
+    # parameterization or whitening raises ValueError, as in JAX
+    blk = HIPGP(tkernels.SqExp(), GRIDS, num_obs=N, family="block", block_sizes=(4, 4),
+                device="cpu")
+    assert (blk.num_blocks, blk.block_size) == (36, 16)
+    std = HIPGP(tkernels.SqExp(), GRIDS, num_obs=N, family="full-rank",
+                parameterization="standard", device="cpu")
+    assert std.init_state().theta2.shape == (std.Mprime, std.Mprime)
+    for bad in (dict(family="diagonal"), dict(parameterization="natural"),
+                dict(whitened_type="dense")):
+        with pytest.raises(ValueError):
+            HIPGP(tkernels.SqExp(), GRIDS, num_obs=N, device="cpu", **bad)
     _, tm, _, ts = pairs["ziggy"]
     x, y, s = data[:3]
     with pytest.raises(ValueError, match="mean_solver='nope'"):

@@ -132,7 +132,7 @@ def test_lr_schedule_matches_optax():
     cfg = FitConfig(lr=1e-2, step_decay=0.99)
     sched = optax.exponential_decay(init_value=1e-2, transition_steps=1,
                                     decay_rate=0.99)
-    opt = make_optimizer(cfg)
+    opt = make_optimizer(None, cfg)
     for k in range(0, 80, 7):
         np.testing.assert_allclose(opt.lr * opt.decay ** k,
                                    float(sched(jnp.asarray(k, jnp.int32))),

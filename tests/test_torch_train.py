@@ -471,8 +471,8 @@ def test_fit_optimizer_and_zero_frozen():
     st = HIPGPState(theta1=torch.zeros(2), theta2=-torch.ones(2),
                     log_sig2=torch.tensor(0.0), log_ell=torch.tensor(0.0),
                     log_noise2=torch.tensor(0.0))
-    assert make_optimizer(FitConfig()).hyper is None
-    fixed = make_optimizer(FitConfig(lr=0.5)).step(st, g)
+    assert make_optimizer(st, FitConfig()).hyper is None
+    fixed = make_optimizer(st, FitConfig(lr=0.5)).step(st, g)
     assert torch.equal(fixed.theta1, -0.5 * torch.ones(2))
     assert float(fixed.log_sig2) == float(fixed.log_ell) == float(fixed.log_noise2) == 0.0
     cfg = FitConfig(learn_kernel=True)
@@ -480,7 +480,7 @@ def test_fit_optimizer_and_zero_frozen():
     assert (float(z.log_sig2), float(z.log_ell), float(z.log_noise2)) == (1.0, 2.0, 0.0)
     z = zero_frozen(FitConfig(learn_noise=True), g)
     assert (float(z.log_sig2), float(z.log_ell), float(z.log_noise2)) == (0.0, 0.0, 3.0)
-    moved = make_optimizer(cfg).step(st, zero_frozen(cfg, g))
+    moved = make_optimizer(st, cfg).step(st, zero_frozen(cfg, g))
     # Adam's first step moves a learned entry by kernel_lr * sign(g)
     assert abs(float(moved.log_ell) + 1e-3) <= 1e-9 and float(moved.log_noise2) == 0.0
     # FitConfig's new fields are the JAX package's, with its defaults
