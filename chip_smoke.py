@@ -43,6 +43,15 @@ Phases, each printing one line of progress with its seconds:
                hyper-gradients against the float64 plain path (limit 1e-2
                relative each), and with USE_PALLAS_TRANSFORM on (one B-8
                launch, the dK term; within 1e-4 of the flag-off run);
+     resume  - fit resume on [train]'s protocol (schedule_lr, the warm
+               start, natgrad_safe_lr 'warn'): two epochs without a break,
+               then one epoch with a checkpoint every epoch resumed for the
+               second; the resumed state, hypers and ELBO trace within 1e-5
+               of the uninterrupted second epoch, the optimizer at the
+               resume (Adam's moments and count, the schedule's count and
+               lr) as the uninterrupted run's after its first epoch, kernel
+               A's launches in the resumed epoch exact (no warm start, no
+               rho); the seconds to save and restore, the checkpoint's bytes;
      full-batch - the closed-form fit (HIPGP.batch_solve) on [main]'s data
                and model: one batch of 20 000 rows, maxiter_cg 10, the mean
                solve at 200 iterations and tol 1e-8, with the ELBO; 'gram'
@@ -135,6 +144,16 @@ Phases, each printing one line of progress with its seconds:
                kernel-path hyper-gradients against the f64 plain path (limit
                1e-2 relative each), the f32 plain path (USE_RADIX_FFT off)
                logged;
+     solve-kn - the paper's section 5.1 study (run_solve_kn.main at its
+               defaults: 2-D grids 25, 50, 100, Mat52 at ell 0.05, 2 000
+               iterations, batch 16, float32, --no-plots), one grid a call:
+               traces finite, PCG at the script's tolerance (10 x the least
+               CG RMSE) in no more iterations than CG; the iterations, the
+               seconds and the matvec route of each grid;
+     precond - the appendix C.1 study (preconditioner_analysis.main at its
+               defaults, float32 and --f64): the whole r_pcg table logged as
+               found, each row's matvec route; r_pcg <= 1 in the JAX test's
+               case (Mat52, ell 0.05, sizes 16 and 64, f64, tol 1e-5);
   8. kernels-3d - the weight-plane kernel B-5 against its plain version in
                float32 and float64 at every shape the 3-D path gives it (the
                PCG self-dot applies (512, 64, 64, 64) with wK and 1/wK, R^T out
@@ -195,7 +214,16 @@ Phases, each printing one line of progress with its seconds:
                and pullback launches checked exactly;
      train-grad-3d - 64 integrated rows from that state: the f32 kernel-path
                hyper-gradients against the f64 plain path (limit 1e-2), the
-               f32 plain path (USE_MXU3D_PCG off) logged.
+               f32 plain path (USE_MXU3D_PCG off) logged;
+     deposit - the dust-density deposition on the card: sph_deposit and
+               cic_deposit of 4 194 304 synthetic particles (log-normal
+               smoothing lengths of 0.3-3 cells) onto 128 x 128 x 64 cells,
+               seconds, particles a second and peak memory; the first
+               262 144 against the same function in float64 on the CPU (max
+               cell and sum within 1e-4), CIC mass at the full count within
+               1e-5 of sum(q) / cell volume; run_domain --snapshot
+               --deposit-method sph and cic end to end at [main-3d]'s cut on
+               a written observation table and snapshot.
 Any failed check raises, so the script exits non-zero.  The line before the
 last is the card's name and power limit from nvidia-smi, the one before it a
 JSON object with one entry per kernel (the radix kernels' entries add the
@@ -2657,6 +2685,329 @@ def phase_accuracy_full_batch_3d_block(torch, dev):
     check(dev_[2] <= 1e-4, f"block ELBO f32 vs f64 {dev_[2]}")
 
 
+# ---------------------------------------------------------------------------
+# fit resume, the section 5.1 and appendix C.1 solver studies, the deposition
+# ---------------------------------------------------------------------------
+
+RESUME_TOL = 1e-5            # resumed state, hypers and ELBO trace, relative
+SOLVE_KN_GRIDS = (25, 50, 100)
+DEPOSIT_N = 4_194_304        # particles of the synthetic snapshot
+DEPOSIT_CHECK_N = 262_144    # of them held to float64 on the CPU
+DEPOSIT_DIMS = (128, 128, 64)
+DEPOSIT_TOL = 1e-4           # card float32 against CPU float64: max cell and sum
+DEPOSIT_MASS_TOL = 1e-5      # CIC mass against sum(q) / cell volume
+
+
+def _dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def phase_resume(torch, d, model, state0):
+    """Fit resume on the 2-D protocol at full width: two epochs of the
+    learn-kernel, learn-noise training (schedule_lr, the theta2 warm start,
+    natgrad_safe_lr 'warn') without a break; one epoch with a checkpoint
+    every epoch, resumed for the second.  The resumed state, hypers and ELBO
+    trace against the uninterrupted run's second epoch (RESUME_TOL), the
+    optimizer at the resume (Adam's moments and count, the schedule's count
+    and lr) against the uninterrupted run's after its first epoch, and
+    kernel A's launches in the resumed epoch exact (no warm start, no rho: per
+    step 2 (1 + 2k) self-dots, one R^T and one pullback).  Returns the
+    launches of the resumed epoch."""
+    import dataclasses
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    from hipgp_tpu_torch.infer import FitConfig, svigp_fit
+    from hipgp_tpu_torch.infer.fit import make_optimizer
+    from hipgp_tpu_torch.ops import mxu2d, solve
+    from hipgp_tpu_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    cfg2 = FitConfig(epochs=2, batch_size=256, lr=1e-2, maxiter_cg=TRAIN_K,
+                     learn_kernel=True, learn_noise=True)
+    cfg1 = dataclasses.replace(cfg2, epochs=1)
+    data = (d["xobs"], d["yobs"], d["sobs"])
+    nb = -(-len(d["xobs"]) // cfg2.batch_size)
+    with tempfile.TemporaryDirectory() as tmp:
+        full_dir, cdir, sdir = (f"{tmp}/{n}" for n in ("full", "part", "save"))
+        seen = {}
+
+        def after_first_epoch(epoch, *rest):
+            # the uninterrupted run's epoch-0 checkpoint, read before epoch 1's
+            if epoch == 1:
+                opt = make_optimizer(state0, cfg2)
+                seen["state"], _, seen["step"] = checkpoint.restore_checkpoint(
+                    full_dir, state0, opt)
+                seen["opt"] = opt
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            full, frep = svigp_fit(model, state0, *data, cfg2, after_first_epoch, False,
+                                   checkpoint_dir=full_dir, checkpoint_every=1,
+                                   theta2_warmstart=True)
+            part, prep = svigp_fit(model, state0, *data, cfg1, verbose=False,
+                                   checkpoint_dir=cdir, checkpoint_every=1,
+                                   theta2_warmstart=True)
+        torch.cuda.synchronize()
+        log(f"[resume] uninterrupted: 2 epochs of {frep['steps'] // 2} steps in "
+            f"{frep['epoch_times'][0]:.2f} + {frep['epoch_times'][1]:.2f} s (warm start "
+            f"{frep['warmstart_s']:.2f} s, lr {frep['lr_used']:g}); interrupted: 1 epoch in "
+            f"{prep['epoch_times'][0]:.2f} s; natgrad_safe_lr 'warn' warnings: "
+            f"{len(caught)}")
+        check(frep["steps"] == 2 * nb and prep["steps"] == nb, "steps of the two legs")
+        # the save and the restore, timed on their own (the fit's own save is
+        # the same call)
+        t1 = time.perf_counter()
+        checkpoint.save_checkpoint(sdir, part, seen["opt"], step=1)
+        save_s = time.perf_counter() - t1
+        opt = make_optimizer(state0, cfg2)
+        t1 = time.perf_counter()
+        st_r, opt_r, step = checkpoint.restore_checkpoint(cdir, state0, opt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        nbytes = _dir_bytes(cdir)
+        check(step == 1 and opt_r is opt, f"restored step {step}")
+        check(seen["step"] == 1, "the uninterrupted run's first checkpoint")
+        # the optimizer at the resume against the uninterrupted run's
+        ref = seen["opt"]
+        got_l, ref_l = opt.leaves(st_r), ref.leaves(seen["state"])
+        check(len(got_l) == len(ref_l) == 8, f"{len(got_l)} optimizer leaves")
+        check(int(got_l[0]) == int(ref_l[0]) == nb and int(got_l[-1]) == int(ref_l[-1]) == nb,
+              f"counts {int(got_l[0])}, {int(got_l[-1])}: expected {nb}")
+        mom = max(rel(a, b) for a, b in zip(got_l[1:7], ref_l[1:7]))
+        lr_at = opt.current_lr()
+        check(abs(lr_at - ref.current_lr()) <= 1e-15 * lr_at
+              and abs(lr_at - cfg2.lr * cfg2.step_decay ** nb) <= 1e-12 * lr_at,
+              f"schedule lr at the resume {lr_at}")
+        check(mom <= RESUME_TOL, f"Adam moments at the resume: rel err {mom}")
+        # the resumed epoch, counters zeroed just before and read just after
+        mxu2d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        res, rrep = svigp_fit(model, state0, *data, cfg2, verbose=False,
+                              checkpoint_dir=cdir, resume=True, theta2_warmstart=True)
+        torch.cuda.synchronize()
+        lc, st = dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS)
+    steps = rrep["steps"]
+    errs = {f: rel(getattr(res, f), getattr(full, f)) for f in ("theta1", "theta2") + HYPERS}
+    trace, want = np.asarray(rrep["elbo_trace"]), np.asarray(frep["elbo_trace"][nb:])
+    elbo_err = float(np.max(np.abs(trace - want) / np.abs(want)))
+    log(f"[resume] resumed epoch: {steps} steps in {rrep['epoch_times'][0]:.2f} s "
+        f"({1e3 * rrep['epoch_times'][0] / steps:.2f} ms/step), lr {rrep['lr_used']:g}, "
+        f"rho {rrep['natgrad_rho']}; against the uninterrupted second epoch: rel err "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}, ELBO trace max "
+        f"rel err {elbo_err:.3e}; optimizer at the resume: counts {nb}, lr {lr_at:.6g}, "
+        f"Adam moments max rel err {mom:.3e}")
+    log(f"[resume] checkpoint {nbytes} bytes; save {1e3 * save_s:.2f} ms, restore "
+        f"{1e3 * restore_s:.2f} ms")
+    check(steps == nb, f"{steps} resumed steps, expected {nb}")
+    check(rrep["natgrad_rho"] is None and rrep["lr_used"] == cfg2.lr,
+          "the resumed fit ran a warm start or a rho estimate")
+    check(max(errs.values()) <= RESUME_TOL, f"resumed state rel err {errs}")
+    check(elbo_err <= RESUME_TOL, f"resumed ELBO trace rel err {elbo_err}")
+    want_lc = {"sandwich_apply_selfdot": 2 * steps * (1 + 2 * TRAIN_K),
+               "sandwich_apply": 2 * steps, "sandwich_apply_wp": 0,
+               "sandwich_apply_wp_selfdot": 0}
+    log(f"[resume] {st['solves']} PCG solves, {st['iterations']} iterations; expect "
+        f"{want_lc}, counted {lc}; {time.perf_counter() - t0:.2f} s")
+    check(st["solves"] == 2 * steps and st["iterations"] == TRAIN_K * st["solves"],
+          f"resumed epoch PCG stats {st}")
+    check(lc == want_lc, f"resumed epoch launches {lc}, expected {want_lc}")
+    return lc
+
+
+def phase_solve_kn(torch):
+    """Paper section 5.1 (run_solve_kn.main at its defaults: grids 25, 50,
+    100; 2 000 iterations; batch 16; float32; --no-plots), one grid a call:
+    the traces finite, PCG at the script's tolerance (10 x the least CG
+    RMSE) in no more iterations than CG; the iterations, seconds and matvec
+    route of each grid logged.  Returns the radix launches (none: the 2-D
+    matvecs are the einsum chain or B-8)."""
+    import tempfile
+
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments import run_solve_kn
+    from hipgp_tpu_torch.ops import radix_fft
+
+    t0 = time.perf_counter()
+    before = dict(radix_fft.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        for g in SOLVE_KN_GRIDS:
+            t1 = time.perf_counter()
+            res = run_solve_kn.main(["--gridsizes", str(g), "--no-plots",
+                                     "--output-dir", tmp])[g]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            n = len(res["cg"]["rmse"])
+            tol = max(res["cg"]["rmse"].min(), 1e-12) * 10
+            it = {k: run_solve_kn.iters_to(res[k]["rmse"], tol, n) for k in ("cg", "pcg")}
+            finite = all(np.isfinite(res[k][c]).all() for k in res for c in res[k])
+            log(f"[solve-kn] grid {g}x{g} (its embedding and matvec route above): "
+                f"{secs:.2f} s; iterations to RMSE < {tol:.3e}: CG {it['cg']}, PCG "
+                f"{it['pcg']}; least RMSE CG {res['cg']['rmse'].min():.3e}, PCG "
+                f"{res['pcg']['rmse'].min():.3e}")
+            check(n == 2000, f"{n} iterations")
+            check(finite, f"non-finite traces at grid {g}")
+            check(it["pcg"] < n and it["pcg"] <= it["cg"],
+                  f"grid {g}: PCG {it['pcg']} iterations, CG {it['cg']}")
+    moved = {k: v - before[k] for k, v in radix_fft.LAUNCHES.items()}
+    log(f"[solve-kn] radix launches {moved}; {time.perf_counter() - t0:.2f} s")
+    return moved
+
+
+def phase_precond(torch):
+    """Paper appendix C.1 (preconditioner_analysis.main at its defaults, in
+    float32 and with --f64): the whole table logged as found, each row's
+    matvec route; r_pcg <= 1 in the JAX test's case (Mat52, ell 0.05, sizes
+    16 and 64, f64, tol 1e-5, maxiter 500).  Returns the radix launches."""
+    import tempfile
+
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments import preconditioner_analysis
+    from hipgp_tpu_torch.ops import radix_fft
+
+    t0 = time.perf_counter()
+    before = dict(radix_fft.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra in (("float32", []), ("float64", ["--f64"])):
+            t1 = time.perf_counter()
+            tab = preconditioner_analysis.main(["--output-dir", tmp] + extra)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            worse = int(np.sum(tab["pcg_iters"] > tab["cg_iters"]))
+            capped = int(np.sum(np.maximum(tab["cg_iters"], tab["pcg_iters"]) >= 2000))
+            log(f"[precond] {label}: {len(tab['M'])} rows in {secs:.2f} s; rows where PCG "
+                f"takes more iterations than CG: {worse}; rows at maxiter 2000: {capped}")
+            for i in range(len(tab["M"])):
+                log(f"[precond] {label} " + " ".join(f"{c}={tab[c][i]}" for c in tab))
+            check(np.isfinite(tab["r_pcg"]).all(), f"{label}: non-finite r_pcg")
+        tab = preconditioner_analysis.main(
+            ["--sizes", "16", "64", "--kernels", "Mat52", "--ells", "0.05", "--tol", "1e-5",
+             "--maxiter", "500", "--f64", "--output-dir", tmp])
+    log(f"[precond] the JAX test's case: r_pcg {tab['r_pcg'].tolist()} (CG "
+        f"{tab['cg_iters'].tolist()}, PCG {tab['pcg_iters'].tolist()})")
+    check(bool((tab["r_pcg"] <= 1.0).all()), f"r_pcg {tab['r_pcg']} in the JAX test's case")
+    moved = {k: v - before[k] for k, v in radix_fft.LAUNCHES.items()}
+    log(f"[precond] radix launches {moved}; {time.perf_counter() - t0:.2f} s")
+    return moved
+
+
+def deposit_snapshot(n, dims, seed=0):
+    """A synthetic SPH snapshot on the box [-1, 1]^2 x [-0.5, 0.5] cut into
+    ``dims`` cubic cells: positions uniform at least one cell inside it,
+    log-normal smoothing lengths of 0.3-3 cells, the latte npz fields."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    left, right = np.array([-1.0, -1.0, -0.5]), np.array([1.0, 1.0, 0.5])
+    cell = (right - left) / np.array(dims)
+    snap = dict(x=rng.uniform(left[0] + cell[0], right[0] - cell[0], n),
+                y=rng.uniform(left[1] + cell[1], right[1] - cell[1], n),
+                z=rng.uniform(left[2] + cell[2], right[2] - cell[2], n),
+                density=rng.uniform(0.5, 1.5, n), mass=rng.uniform(0.5, 1.5, n),
+                hydrogenneutralfraction=rng.uniform(0, 1, n),
+                massfraction=rng.uniform(0.05, 0.3, (n, 2)),
+                metallicitytotal=rng.uniform(-1, 0.5, n),
+                smoothlength=np.clip(np.exp(rng.normal(0.0, 0.6, n)), 0.3, 3.0) * cell.min())
+    return snap, left, right, cell
+
+
+def phase_deposit(torch):
+    """The dust-density deposition on the card: sph_deposit and cic_deposit
+    of DEPOSIT_N particles onto DEPOSIT_DIMS cells (seconds, particles a
+    second, peak memory); the first DEPOSIT_CHECK_N particles against the
+    same function in float64 on the CPU (max cell and sum, DEPOSIT_TOL); CIC
+    mass conservation at the full count (DEPOSIT_MASS_TOL); then run_domain
+    --snapshot end to end at [main-3d]'s cut on a written observation table
+    and snapshot, by sph and cic."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments import dust_density as dd
+    from hipgp_tpu_torch.experiments import run_domain
+
+    t0 = time.perf_counter()
+    snap, left, right, cell = deposit_snapshot(DEPOSIT_N, DEPOSIT_DIMS)
+    pos = np.column_stack([snap["x"], snap["y"], snap["z"]])
+    dust = dd.metal_weighted_dust_density(snap)
+    q = snap["mass"] / snap["density"] * dust
+    args = {"sph": lambda n, **kw: dd.sph_deposit(pos[:n], dust[:n], snap["mass"][:n],
+                                                   snap["density"][:n],
+                                                   snap["smoothlength"][:n], left, right,
+                                                   DEPOSIT_DIMS, **kw),
+            "cic": lambda n, **kw: dd.cic_deposit(pos[:n], q[:n], left, right, DEPOSIT_DIMS,
+                                                   **kw)}
+    log(f"[deposit] {DEPOSIT_N} particles (h 0.3-3 cells, log-normal) onto "
+        f"{DEPOSIT_DIMS} cells; setup {time.perf_counter() - t0:.2f} s")
+    for method, fn in args.items():
+        fn(DEPOSIT_CHECK_N)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        grid = fn(DEPOSIT_N)
+        secs = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        sub = fn(DEPOSIT_CHECK_N)
+        t1 = time.perf_counter()
+        ref = fn(DEPOSIT_CHECK_N, device="cpu", dtype=torch.float64)
+        cpu_s = time.perf_counter() - t1
+        max_err = abs(float(sub.max()) / float(ref.max()) - 1)
+        sum_err = abs(float(sub.sum(dtype=np.float64)) / float(ref.sum()) - 1)
+        cell_err = float(np.max(np.abs(sub - ref))) / float(ref.max())
+        log(f"[deposit] {method}: {secs:.3f} s on the card ({DEPOSIT_N / secs:.4g} "
+            f"particles/s), peak {peak / 1e9:.3f} GB; first {DEPOSIT_CHECK_N} against "
+            f"float64 on the CPU ({cpu_s:.2f} s): max cell rel err {max_err:.3e}, sum "
+            f"{sum_err:.3e}, largest cell difference / max {cell_err:.3e}")
+        check(grid.shape == DEPOSIT_DIMS and np.isfinite(grid).all() and grid.max() > 0,
+              f"{method} grid")
+        check(max_err <= DEPOSIT_TOL and sum_err <= DEPOSIT_TOL,
+              f"{method} against float64: max {max_err}, sum {sum_err}")
+        if method == "cic":
+            mass = float(grid.sum(dtype=np.float64)) * float(np.prod(cell))
+            mass_err = abs(mass / float(q.sum()) - 1)
+            log(f"[deposit] cic mass {mass:.9g} against sum(q) {float(q.sum()):.9g}: rel "
+                f"err {mass_err:.3e}")
+            check(mass_err <= DEPOSIT_MASS_TOL, f"cic mass rel err {mass_err}")
+    # run_domain --snapshot at [main-3d]'s cut: a reference-format table of
+    # the synthetic stars (no density column) and a snapshot of
+    # DEPOSIT_CHECK_N particles
+    x, a, e, sobs, _ = run_domain.make_synthetic_domain_data(
+        DOMAIN["nobs"] + DOMAIN["ntest"], DOMAIN["noise_std"])
+    small = {k: v[:DEPOSIT_CHECK_N] for k, v in snap.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        table, npz = os.path.join(tmp, "obs.dat"), os.path.join(tmp, "latte.npz")
+        np.savetxt(table, np.column_stack([x, e, sobs]), header="x y z e e_err",
+                   comments="")
+        np.savez(npz, **small)
+        for method in ("sph", "cic"):
+            argv = ["--data-path", table, "--snapshot", npz, "--deposit-method", method,
+                    "--nx", str(DOMAIN["nx"]), "--nz", str(DOMAIN["nz"]),
+                    "--ell", str(DOMAIN_ELL), "--ntest", str(DOMAIN["ntest"]),
+                    "--batch-size", str(DOMAIN_BATCH), "--maxiter-cg", "20", "--lr", "1e-2",
+                    "--epochs", "1", "--fit-method", "natgrad",
+                    "--output-dir", os.path.join(tmp, method)]
+            t1 = time.perf_counter()
+            out = run_domain.main(argv)
+            torch.cuda.synchronize()
+            log(f"[deposit] run_domain --snapshot --deposit-method {method}: deposition "
+                f"{out['deposit_s']:.3f} s, {out['steps']} natgrad steps, ELBO "
+                f"{out['last_elbo']:.4f}, e post-RMSE {out['e_post_rmse']:.5f} vs rms(e_test) "
+                f"{out['e_rms']:.5f}, latent corr against the deposited truth "
+                f"{out['latent_corr']:.4f}; {time.perf_counter() - t1:.2f} s")
+            check(out["steps"] == DOMAIN["nobs"] // DOMAIN_BATCH, f"{out['steps']} steps")
+            check(math.isfinite(out["last_elbo"]) and math.isfinite(out["latent_rmse"]),
+                  f"run_domain --snapshot ({method}) non-finite")
+            check(out["e_post_rmse"] < out["e_rms"], f"e post-RMSE {out['e_post_rmse']}")
+    log(f"[deposit] {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -2840,6 +3191,7 @@ def main():
     # ---- the training step -------------------------------------------------------
     state_tr, train_launches = phase_train(torch, d, model, state0, step_s * 1e3)
     b8_launches = phase_train_grad(torch, dev, d, model, m64, state_tr)
+    resume_launches = phase_resume(torch, d, model, state0)
 
     # ---- the closed-form full-batch fit ----------------------------------------
     fb_launches = phase_full_batch(torch, d, model, state0)
@@ -2861,6 +3213,11 @@ def main():
     del state_1d
     torch.cuda.empty_cache()
 
+    # ---- the section 5.1 and appendix C.1 solver studies ----------------------
+    study_radix = phase_solve_kn(torch)
+    for k, v in phase_precond(torch).items():
+        study_radix[k] += v
+
     # ---- 8.-10. the 3-D dust map ----------------------------------------------
     results_3d = phase_kernels_3d(torch, dev)
     launches_3d = phase_main_3d(torch)
@@ -2875,12 +3232,16 @@ def main():
     state_3d, train_3d_launches = phase_train_3d(torch, dev)
     phase_train_grad_3d(torch, dev, state_3d)
     del state_3d
+    torch.cuda.empty_cache()
+    phase_deposit(torch)
 
     kernels = []
     for name in ("sandwich_apply_selfdot", "sandwich_apply"):
         r = results[name]
-        # the main path's launches: [main], [main-block] and [full-rank]
-        n = launches[name] + block_launches[name] + fr_launches[name]
+        # the main path's launches: [main], [main-block], [full-rank] and
+        # [resume]'s resumed epoch
+        n = (launches[name] + block_launches[name] + fr_launches[name]
+             + resume_launches[name])
         kernels.append({
             "name": f"mxu2d.{name}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": n,
@@ -2893,9 +3254,11 @@ def main():
               f"{name} never launched on the block or full-rank path")
     for name in ("stage1", "stage1_inv_dot", "middle"):
         r = radix_results[name]
+        # the 1-D main path's launches: [main-1d] and the solver studies
         kernels.append({
             "name": f"radix_fft.{name}", "route": "cuda", "source": RADIX_SOURCE,
-            "replaces": RADIX_TPU_KERNELS[name], "launches": radix_launches[name],
+            "replaces": RADIX_TPU_KERNELS[name],
+            "launches": radix_launches[name] + study_radix[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], **{k: r[k] for k in GRAPH_KEYS},

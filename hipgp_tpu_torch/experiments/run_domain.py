@@ -26,7 +26,12 @@ batch the seconds of each stage of the solve, its mean PCG's iterations and
 relative residual and, on the card, the peak of allocated memory; the fitted
 state goes to ``state.npz`` there, in the JAX package's checkpoint layout.
 ``--eval-only-state`` (the JAX flag) restores such a state, the JAX
-package's or the port's, and skips the fit.
+package's or the port's, and skips the fit.  With a ``--data-path`` table
+(which gives no true density on the slice) ``--snapshot`` names a
+latte-format SPH snapshot: its dust density, deposited on the device by
+``--deposit-method`` sph or cic (`dust_density.gen_dust_density`) onto
+eval_grid x eval_grid x max(nz, 2) cells over the stars' box, sampled at the
+slice's cells, is the slice's truth, as in the JAX package.
 
 Usage: python -m hipgp_tpu_torch.experiments.run_domain --fit-method natgrad
            --nx 64 --nz 32 --ell 0.07
@@ -52,12 +57,13 @@ from ..infer import FitConfig, batch_predict, svigp_fit
 from ..models import HIPGP
 from ..models.hipgp import MEAN_PCG_STATS
 from ..utils import checkpoint, metrics
+from .dust_density import gen_dust_density
 from .harness import empirical_sig2_init, make_model
 from .synthetic_data import integrated_obs
 
 __all__ = ["main", "synthetic_dust_field", "make_synthetic_domain_data",
            "load_domain_data", "empirical_sig2_init", "domain_problem",
-           "domain_model"]
+           "domain_model", "snapshot_truth"]
 
 # rows per prediction chunk (the JAX harness's predict_batch_size; clamped
 # by batch_predict's memory budget)
@@ -149,8 +155,27 @@ def domain_problem(nobs: int, ntest: int, noise_std: float, nx: int, nz: int,
     zmid = float((lo[2] + hi[2]) / 2)
     xgrid = np.column_stack([gx.ravel(), gy.ravel(), np.full(gx.size, zmid)])
     return dict(xobs=x[:ntr], aobs=a[:ntr], sobs=sobs[:ntr], xtest=x[ntr:],
-                etest=e_true[ntr:], grids=grids, xgrid=xgrid,
+                etest=e_true[ntr:], grids=grids, xgrid=xgrid, zmid=zmid,
                 fgrid=rho(xgrid) if rho is not None else None)
+
+
+def snapshot_truth(x, xgrid, zmid: float, eval_grid: int, nz: int, snapshot: str,
+                   method: str = "sph", device="cuda") -> np.ndarray:
+    """The slice's true density from an SPH snapshot (the JAX run_domain's
+    ground truth): the snapshot deposited onto eval_grid x eval_grid x
+    max(nz, 2) cells over [-max|x|, max|x|]^3, read at the cells holding the
+    slice's points and z = zmid."""
+    nz_slab = max(nz, 2)
+    cube = gen_dust_density(x, eval_grid, eval_grid, nz_slab, snapshot_path=snapshot,
+                            method=method, device=device)
+    scales = np.max(np.abs(x), axis=0)
+
+    def cell(coords, scale, n):
+        return np.clip(((coords + scale) / (2 * scale) * n).astype(int), 0, n - 1)
+
+    iz = cell(np.array([zmid]), scales[2], nz_slab)[0]
+    return cube[cell(xgrid[:, 0], scales[0], eval_grid),
+                cell(xgrid[:, 1], scales[1], eval_grid), iz]
 
 
 def domain_model(kernel: str, grids, num_obs: int, sig2: float, ell: float,
@@ -204,6 +229,10 @@ def main(argv=None):
     p.add_argument("--mean-solver-tol", type=float, default=1e-8)
     p.add_argument("--eval-grid", type=int, default=20,
                    help="xy evaluation grid size on the central-z slice")
+    p.add_argument("--snapshot", default=None,
+                   help="latte-format npz SPH snapshot: with --data-path, the slice's "
+                        "true density by deposition on the device")
+    p.add_argument("--deposit-method", default="sph", choices=["sph", "cic"])
     p.add_argument("--output-dir", default="./output-domain")
     p.add_argument("--eval-only-state", default=None,
                    help="restore this state.npz and skip the fit (re-evaluation)")
@@ -218,6 +247,15 @@ def main(argv=None):
                           args.data_path, args.dataset)
     xobs, aobs, sobs_tr = prob["xobs"], prob["aobs"], prob["sobs"]
     xtest, etest, xgrid, fgrid = prob["xtest"], prob["etest"], prob["xgrid"], prob["fgrid"]
+    deposit_s = None
+    if fgrid is None and args.snapshot:
+        if not os.path.exists(args.snapshot):
+            raise FileNotFoundError(f"--snapshot {args.snapshot} does not exist")
+        t0 = time.perf_counter()
+        fgrid = snapshot_truth(np.concatenate([xobs, xtest]), xgrid, prob["zmid"],
+                               args.eval_grid, args.nz, args.snapshot,
+                               args.deposit_method, args.device)
+        deposit_s = time.perf_counter() - t0
     analytic = args.kernel == "SqExp"
     sig2 = empirical_sig2_init(xobs, aobs)
     blocks = ((args.xblock_size, args.xblock_size, args.zblock_size)
@@ -293,6 +331,8 @@ def main(argv=None):
         out["mean_pcg_iterations"] = ms["iterations"]
         out["mean_pcg_relres"] = ms["resnorm"] / ms["bnorm"]
         out["fit_peak_gb"] = None if peak is None else peak / 1e9
+    if deposit_s is not None:
+        out["deposit_s"] = deposit_s
     if fgrid is not None:
         out["latent_rmse"] = metrics.rmse(fgrid, fmu)
         out["latent_corr"] = metrics.correlation(fgrid, fmu)
@@ -307,6 +347,8 @@ def main(argv=None):
                list(enumerate(trace)))
     lat = (f"; latent RMSE {out['latent_rmse']:.5f}, slice corr "
            f"{out['latent_corr']:.4f}" if fgrid is not None else "")
+    if deposit_s is not None:
+        lat += f" (truth: {args.deposit_method} deposition, {deposit_s:.2f} s)"
     stages = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
     pcg = (f", mean PCG {out['mean_pcg_iterations']} iterations to ||r||/||b_m|| "
            f"{out['mean_pcg_relres']:.3e}" if full_batch and out["mean_pcg_iterations"]

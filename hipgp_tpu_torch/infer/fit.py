@@ -12,9 +12,11 @@ is not learned are zeroed.  After the theta2 warm start a power iteration
 estimates the natural-gradient stability limit (``natgrad_safe_lr``).
 With ``shuffle`` every epoch draws one permutation of the rows from
 ``np.random.default_rng(seed)``, as the JAX package does.  A non-finite
-epoch raises unless ``error_on_nonfinite`` is off.  Checkpoints during the
-fit and resume with optimizer state are not ported yet (ROADMAP.md section
-A item 1).  ``ell_fit`` grid-searches the lengthscale by the closed-form
+epoch raises unless ``error_on_nonfinite`` is off.  With ``checkpoint_dir``
+the fit saves the state, the optimizer (in the JAX package's saved form:
+the leaves of its optax state) and the epoch every ``checkpoint_every``
+epochs, and ``resume`` continues from such a checkpoint, the JAX package's
+or this one's.  ``ell_fit`` grid-searches the lengthscale by the closed-form
 ``batch_solve`` ELBO.
 
 Data is padded to a whole number of batches and masked, as in the JAX
@@ -23,12 +25,15 @@ package, so every batch has the same shape.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import warnings
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 
 __all__ = ["FitConfig", "svigp_fit", "ell_fit", "batch_predict",
            "predictive_variance_correction", "make_optimizer",
@@ -96,6 +101,10 @@ def prepare_batches(x: torch.Tensor, y: torch.Tensor,
 HYPERS = ("log_sig2", "log_ell", "log_noise2")
 
 
+def _int32(n: int) -> torch.Tensor:
+    return torch.tensor(n, dtype=torch.int32)
+
+
 class HyperAdam:
     """Adam on the three log-hyperparameters, the update of ``optax.adam``
     (bias-corrected moments, eps outside the square root, no eps_root)."""
@@ -119,6 +128,23 @@ class HyperAdam:
                for k, m, n in zip(HYPERS, self.mu, self.nu)}
         return state.replace(**new)
 
+    def leaves(self, state):
+        """The leaves of ``optax.adam``'s state in the JAX flatten order:
+        count (int32), then mu and nu of the three log-hyperparameters (the
+        theta entries are masked and have none); zero moments before the
+        first step, shaped like ``state``'s hypers."""
+        zeros = [torch.zeros_like(getattr(state, k)).detach() for k in HYPERS]
+        return [_int32(self.count)] + (self.mu or zeros) + (self.nu or zeros)
+
+    def load_leaves(self, leaves, state) -> None:
+        """Set count and moments from :meth:`leaves`-ordered arrays, in the
+        dtypes and on the devices of ``state``'s hypers."""
+        like = [getattr(state, k) for k in HYPERS] * 2
+        moments = [torch.as_tensor(a).to(dtype=t.dtype, device=t.device)
+                   for a, t in zip(leaves[1:], like)]
+        self.count = int(leaves[0])
+        self.mu, self.nu = moments[:3], moments[3:]
+
 
 class FitOptimizer:
     """The JAX package's ``optax.multi_transform``: SGD on the natural
@@ -129,17 +155,60 @@ class FitOptimizer:
 
     def __init__(self, config: FitConfig):
         self.lr = config.lr
+        self.schedule = config.schedule_lr
         self.decay = config.step_decay if config.schedule_lr else 1.0
         self.count = 0
         learn = config.learn_kernel or config.learn_noise
         self.hyper = HyperAdam(config.kernel_lr) if learn else None
 
     def step(self, state, grads):
-        lr = self.lr * self.decay ** self.count
+        lr = self.current_lr()
         self.count += 1
         state = state.replace(theta1=state.theta1 - lr * grads.theta1,
                               theta2=state.theta2 - lr * grads.theta2)
         return state if self.hyper is None else self.hyper.step(state, grads)
+
+    def current_lr(self) -> float:
+        """The natural-parameter lr of the next step."""
+        return self.lr * self.decay ** self.count
+
+    def leaves(self, state):
+        """The optimizer's saved form: the leaves of the JAX package's
+        ``make_optimizer(state, config).init(state)`` as ``jax.tree.flatten``
+        orders them (its partition's 'hyper' before 'theta'): Adam's count,
+        mu and nu when a hyper is learned (:meth:`HyperAdam.leaves`), then
+        the schedule's step count (int32) with ``schedule_lr``.  A constant
+        lr and no learned hyper has no leaves."""
+        out = [] if self.hyper is None else self.hyper.leaves(state)
+        return out + ([_int32(self.count)] if self.schedule else [])
+
+    def load_leaves(self, leaves, state) -> None:
+        """Load :meth:`leaves`-ordered arrays (from either package's
+        ``opt_state.npz``) into this optimizer."""
+        want = len(self.leaves(state))
+        if len(leaves) != want:
+            raise ValueError(f"optimizer state has {len(leaves)} leaves, this "
+                             f"configuration's has {want}")
+        if self.hyper is not None:
+            self.hyper.load_leaves(leaves[:7], state)
+        if self.schedule:
+            self.count = int(leaves[-1])
+
+    def treedef(self, state) -> str:
+        """``str`` of the JAX treedef of the optimizer state that
+        :meth:`leaves` flattens, for the checkpoint's sidecar."""
+        empty = "CustomNode(namedtuple[EmptyState], [])"
+        masked = "CustomNode(namedtuple[MaskedNode], [])"
+        moments = (f"CustomNode({type(state).__name__}[()], ["
+                   + ", ".join(masked if f.name.startswith("theta") else "*"
+                               for f in dataclasses.fields(state)) + "])")
+        hyper = (f"[(CustomNode(namedtuple[ScaleByAdamState], [*, {moments}, {moments}]), "
+                 f"{empty})]" if self.hyper is not None else f"[{empty}]")
+        sched = ("CustomNode(namedtuple[ScaleByScheduleState], [*])" if self.schedule
+                 else empty)
+        return ("PyTreeDef(CustomNode(namedtuple[PartitionState], [{'hyper': "
+                f"CustomNode(namedtuple[MaskedState], {hyper}), 'theta': "
+                f"CustomNode(namedtuple[MaskedState], [({empty}, {sched})])}}]))")
 
 
 def make_optimizer(state, config: FitConfig) -> FitOptimizer:
@@ -239,8 +308,9 @@ def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30) -> fl
 
 def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
               epoch_callback: Optional[Callable] = None, verbose: bool = True, *,
-              theta2_warmstart: bool = False, natgrad_safe_lr: str = "warn",
-              max_steps: Optional[int] = None):
+              checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+              resume: bool = False, theta2_warmstart: bool = False,
+              natgrad_safe_lr: str = "warn", max_steps: Optional[int] = None):
     """Fit the variational parameters by natural-gradient SVI.
 
     ``theta2_warmstart``: one Lambda-only pass over the data sets theta2 to
@@ -256,10 +326,20 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
     limit lr_crit = 2/rho; 'warn' warns when ``config.lr`` exceeds 0.5
     lr_crit, 'clamp' lowers the lr to 0.5 lr_crit instead.
 
-    ``max_steps`` ends the fit after that many batch steps in all (None:
-    run every epoch to its end).  With ``config.learn_noise`` the per-point
-    noise is dropped and the model's noise is learned, as in the JAX
-    package.  ``config.shuffle`` permutes the rows once per epoch with
+    ``checkpoint_dir`` with ``checkpoint_every`` = k saves the state, the
+    optimizer and the epoch count there after every k-th epoch that ran to
+    its end (`utils.checkpoint.save_checkpoint`); ``resume`` restores them
+    from ``checkpoint_dir`` when it holds a ``state.npz`` and runs the
+    epochs after the saved one.  As in the JAX package, a restored fit skips
+    the theta2 warm start and with it the rho estimate and the 'clamp' of
+    ``natgrad_safe_lr`` (its later epochs run at ``config.lr``), and with
+    ``shuffle`` it starts a fresh ``np.random.default_rng(config.seed)``,
+    so the first resumed epoch draws epoch 0's permutation.
+
+    ``max_steps`` ends the fit after that many batch steps of this call
+    (None: run every epoch to its end).  With ``config.learn_noise`` the
+    per-point noise is dropped and the model's noise is learned, as in the
+    JAX package.  ``config.shuffle`` permutes the rows once per epoch with
     ``np.random.default_rng(config.seed)``.  ``epoch_callback(epoch, model,
     state, trace)`` runs after every epoch (only the last with
     ``config.only_eval_last_epoch``).  Returns (state, report); the report
@@ -275,12 +355,21 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
     xb, yb, sb, w = prepare_batches(x_raw, y_raw, s_raw, config.batch_size)
     # the Monte-Carlo estimator's draws (one generator for the whole fit)
     gen = torch.Generator().manual_seed(0)
+    opt = make_optimizer(state, config)
+    start_epoch = 0
+    restored = (resume and checkpoint_dir is not None
+                and os.path.exists(os.path.join(checkpoint_dir, "state.npz")))
+    if restored:
+        state, _, start_epoch = restore_checkpoint(checkpoint_dir, state, opt)
+        if verbose:
+            print(f"resumed from {checkpoint_dir} at epoch {start_epoch}", flush=True)
+    warmstart = theta2_warmstart and not restored
     t0 = time.perf_counter()
-    if theta2_warmstart:
+    if warmstart:
         state = _theta2_warmstart(model, state, xb, sb, w, config, generator=gen)
     warmstart_s = time.perf_counter() - t0
     rho = lr_crit = None
-    if (natgrad_safe_lr != "off" and theta2_warmstart
+    if (natgrad_safe_lr != "off" and warmstart
             and config.fit_method == "natgrad"):
         if natgrad_safe_lr not in ("warn", "clamp"):
             raise ValueError(f"natgrad_safe_lr={natgrad_safe_lr!r}: expected "
@@ -298,20 +387,20 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
                    "diverges geometrically above lr_crit")
             if natgrad_safe_lr == "clamp":
                 config = dataclasses.replace(config, lr=0.5 * lr_crit)
+                opt = make_optimizer(state, config)
                 if verbose:
                     print(f"natgrad_safe_lr: clamping lr to {config.lr:.3g}; {msg}",
                           flush=True)
             else:
                 warnings.warn(msg + "; pass natgrad_safe_lr='clamp' to lower it, "
                               "or reduce config.lr", UserWarning, stacklevel=2)
-    opt = make_optimizer(state, config)
     nb = xb.shape[0]
     if config.shuffle:
         shuffle_rng = np.random.default_rng(config.seed)
     trace, epoch_elbos, epoch_times = [], [], []
     sig2_trace, ell_trace, noise2_trace = [], [], []
     steps = 0
-    for epoch in range(config.epochs):
+    for epoch in range(start_epoch, config.epochs):
         if max_steps is not None and steps >= max_steps:
             break
         if config.shuffle:
@@ -357,6 +446,9 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
         if epoch_callback is not None and (
                 not config.only_eval_last_epoch or epoch == config.epochs - 1):
             epoch_callback(epoch, model, state, trace)
+        if (checkpoint_dir is not None and checkpoint_every and len(elbos) == nb
+                and (epoch + 1) % checkpoint_every == 0):
+            save_checkpoint(checkpoint_dir, state, opt, step=epoch + 1)
     report = {
         "elbo_trace": trace,
         "epoch_elbos": epoch_elbos,

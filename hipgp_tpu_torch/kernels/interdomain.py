@@ -25,6 +25,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..utils.stats import normal_cdf
+
 __all__ = [
     "k_semi_sqexp",
     "k_semi_mc",
@@ -35,10 +37,6 @@ __all__ = [
 ]
 
 SQRT2PI = math.sqrt(2.0 * math.pi)
-
-
-def normal_cdf(x, loc, scale):
-    return 0.5 * (1.0 + torch.erf((x - loc) / (scale * math.sqrt(2.0))))
 
 
 def k_semi_sqexp(xpoint: torch.Tensor, xintegrated: torch.Tensor,

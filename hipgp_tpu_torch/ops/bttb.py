@@ -36,9 +36,12 @@ __all__ = [
     "toeplitz_column",
     "circulant_embed",
     "make_spectrum",
+    "spectrum_from_column",
+    "apply_route",
     "matmul_by_K",
     "matmul_by_RT",
     "matmul_by_Cinv",
+    "bttb_matvec",
     "expanded_dims",
     "embedded_dims",
     "next_fast_len",
@@ -255,20 +258,37 @@ def _real_even_half_spectrum(emb: torch.Tensor) -> torch.Tensor:
     return full[..., : L // 2 + 1].contiguous()
 
 
+def spectrum_from_column(col: torch.Tensor,
+                         eig_floor: float = DEFAULT_EIG_FLOOR) -> BTTBSpectrum:
+    """The clamped circulant half-spectrum of a Toeplitz column (*dims), on
+    the minimal 2m - 2 embedding (`circulant_embed`)."""
+    emb = circulant_embed(col)
+    eigs = torch.clamp(_real_even_half_spectrum(emb), min=eig_floor)
+    return BTTBSpectrum(column=col, eigs=eigs, dims=tuple(col.shape),
+                        edims=tuple(emb.shape), ecolumn=emb)
+
+
 def make_spectrum(
     xgrids: Sequence[torch.Tensor],
     kernel_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     jitter: float = 1e-3,
+    eig_floor: float = DEFAULT_EIG_FLOOR,
+    pad_to_fast: bool = True,
 ) -> BTTBSpectrum:
-    """Column, circulant embedding and clamped spectrum in one call (the JAX
-    package's default ``transform='fft'``, padded to fast lengths).
+    """Column, circulant embedding and spectrum clamped to ``eig_floor`` in
+    one call (the JAX package's default ``transform='fft'``).
 
-    Each embedded axis is padded from 2m-2 to `embedded_dims` by evaluating
-    the kernel at wrapped lags tau_j = min(j, L - j) * h: for any
-    L >= 2m - 2 that circulant has the exact BTTB Gram as its top-left
-    M x M block, so the padding changes the whitened basis, never K.
-    Requires uniformly spaced grids.
+    With ``pad_to_fast`` each embedded axis is padded from 2m-2 to
+    `embedded_dims` by evaluating the kernel at wrapped lags
+    tau_j = min(j, L - j) * h: for any L >= 2m - 2 that circulant has the
+    exact BTTB Gram as its top-left M x M block, so the padding changes the
+    whitened basis, never K.  Requires uniformly spaced grids.  Without it,
+    the minimal 2m - 2 embedding of the Toeplitz column
+    (`spectrum_from_column`); the kernel paths refuse its lengths where
+    they have no plan for them, and the generic path takes them.
     """
+    if not pad_to_fast:
+        return spectrum_from_column(toeplitz_column(xgrids, kernel_fn, jitter), eig_floor)
     dims = tuple(len(g) for g in xgrids)
     edims = embedded_dims(dims)
     coords = []
@@ -283,7 +303,7 @@ def make_spectrum(
     c = kernel_fn(pts[:1], pts)[0].clone()
     c[0] += jitter
     emb = c.reshape(edims)
-    eigs = torch.clamp(_real_even_half_spectrum(emb), min=DEFAULT_EIG_FLOOR)
+    eigs = torch.clamp(_real_even_half_spectrum(emb), min=eig_floor)
     col_idx = tuple(slice(0, d) for d in dims)
     return BTTBSpectrum(column=emb[col_idx], eigs=eigs, dims=dims,
                         edims=edims, ecolumn=emb)
@@ -365,14 +385,15 @@ def _pallas_transform_ok(spec: BTTBSpectrum, v: torch.Tensor) -> bool:
     """The gate of kernel B-8 (the JAX package's `_apply_spectrum_matmul`
     gate, its backend test replaced by a device test): USE_PALLAS_TRANSFORM,
     a 2-D grid, a float32 tensor on a CUDA device, and every embedded axis
-    <= PALLAS_MAX_LEN."""
+    <= PALLAS_MAX_LEN with a kernel-A plan (B-8 is kernel A's launch)."""
     if not USE_PALLAS_TRANSFORM or len(spec.dims) != 2:
         return False
     if v.device.type != "cuda" or v.dtype != torch.float32:
         return False
+    from .mxu2d import plans_ok
     from .pallas_transform import PALLAS_MAX_LEN
 
-    return max(spec.edims) <= PALLAS_MAX_LEN
+    return max(spec.edims) <= PALLAS_MAX_LEN and plans_ok(spec.edims)
 
 
 def _apply_spectrum_matmul(spec: BTTBSpectrum, v: torch.Tensor,
@@ -474,6 +495,16 @@ def _apply_spectrum(spec: BTTBSpectrum, v: torch.Tensor, weights: torch.Tensor,
     return _apply_spectrum_fft(spec, v, weights, in_expanded, out_expanded)
 
 
+def apply_route(spec: BTTBSpectrum, dtype: torch.dtype, device) -> str:
+    """The branch `matmul_by_K` and its kin take for ``dtype`` tensors on
+    ``device``: 'B-8' (kernel B-8), 'einsum' (the real-basis matmul chain),
+    'radix' (kernels B-2 to B-4) or 'torch.fft'."""
+    if max(spec.edims) <= MATMUL_DFT_MAX_LEN:
+        v = torch.empty(0, dtype=dtype, device=device)
+        return "B-8" if _pallas_transform_ok(spec, v) else "einsum"
+    return "radix" if _radix_apply_ok(spec, dtype, device) else "torch.fft"
+
+
 def matmul_by_K(spec: BTTBSpectrum, v: torch.Tensor) -> torch.Tensor:
     """K @ v for (..., M) vectors."""
     return _apply_spectrum(spec, v, spec.eigs, False, False)
@@ -492,6 +523,16 @@ def matmul_by_R(spec: BTTBSpectrum, v: torch.Tensor) -> torch.Tensor:
 def matmul_by_Cinv(spec: BTTBSpectrum, v: torch.Tensor) -> torch.Tensor:
     """Circulant-inverse preconditioner: top-left block of C^{-1} applied to v."""
     return _apply_spectrum(spec, v, 1.0 / spec.eigs, False, False)
+
+
+def bttb_matvec(spec: BTTBSpectrum, v: torch.Tensor, mode: str) -> torch.Tensor:
+    """The four structured matvecs by name: 'gram' (K v), 'rtv' (R^T v),
+    'rv' (R v), 'cinv' (C^{-1} v)."""
+    ops = {"gram": matmul_by_K, "rtv": matmul_by_RT, "rv": matmul_by_R,
+           "cinv": matmul_by_Cinv}
+    if mode not in ops:
+        raise ValueError(f"unknown mode {mode!r}")
+    return ops[mode](spec, v)
 
 
 def dense_gram(

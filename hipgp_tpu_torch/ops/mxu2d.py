@@ -156,6 +156,20 @@ def fft_plan(L: int) -> Tuple[int, int]:
                      f"{_FFT_MAX_FACTOR}; kernel A does not take it")
 
 
+def plans_ok(edims, wp: bool = False) -> bool:
+    """True when kernel A (and, with ``wp``, kernel B-5) has a plan for every
+    embedded axis: every {2,3,5}-smooth length <= 512 has one, a minimal
+    2m - 2 embedding (``make_spectrum(pad_to_fast=False)``) may not."""
+    try:
+        for L in edims:
+            fft_plan(L)
+            if wp:
+                wp_fft_plan(L)
+    except ValueError:
+        return False
+    return True
+
+
 def _pad8(n: int) -> int:
     return (n + 7) // 8 * 8
 

@@ -55,7 +55,7 @@ from . import bttb
 from .bttb import (BTTBSpectrum, _full_weights, fp32_matmul, matmul_by_Cinv,
                    matmul_by_K, matmul_by_RT)
 from .cg import _beta, _guarded_steps, pcg, pcg_scan
-from .mxu2d import MXU2D_MAX_LEN, sandwich_apply, sandwich_apply_selfdot
+from .mxu2d import MXU2D_MAX_LEN, plans_ok, sandwich_apply, sandwich_apply_selfdot
 from .mxu3d import best_perm, sandwich_apply_3d, sandwich_apply_3d_selfdot
 from .radix_fft import (fused_circulant_apply_cropped,
                         fused_circulant_apply_cropped_selfdot, make_plan,
@@ -101,29 +101,29 @@ def _planes_weights(spec: BTTBSpectrum, plan) -> torch.Tensor:
 def _mxu2d_solver_ok(spec: BTTBSpectrum, dtype: torch.dtype,
                      device: torch.device) -> bool:
     """True when the fused 2-D sandwich PCG path applies: USE_MXU2D_PCG, a
-    2-D grid whose embedded axes are all <= MXU2D_MAX_LEN, float32, on a
-    CUDA device."""
+    2-D grid whose embedded axes are all <= MXU2D_MAX_LEN and have a kernel-A
+    plan, float32, on a CUDA device."""
     if len(spec.dims) != 2 or dtype != torch.float32 or not bttb.USE_MXU2D_PCG:
         return False
     if torch.device(device).type != "cuda":
         return False
     if min(spec.edims) <= 1:
         return False
-    return max(spec.edims) <= MXU2D_MAX_LEN
+    return max(spec.edims) <= MXU2D_MAX_LEN and plans_ok(spec.edims)
 
 
 def _mxu3d_solver_ok(spec: BTTBSpectrum, dtype: torch.dtype,
                      device: torch.device) -> bool:
     """True when the fused 3-D sandwich PCG path applies: USE_MXU3D_PCG, a
-    3-D grid whose embedded axes are all > 1 and <= MXU2D_MAX_LEN, float32,
-    on a CUDA device."""
+    3-D grid whose embedded axes are all > 1, <= MXU2D_MAX_LEN and have
+    kernel A's and B-5's plans, float32, on a CUDA device."""
     if len(spec.dims) != 3 or dtype != torch.float32 or not bttb.USE_MXU3D_PCG:
         return False
     if torch.device(device).type != "cuda":
         return False
     if min(spec.edims) <= 1:
         return False
-    return max(spec.edims) <= MXU2D_MAX_LEN
+    return max(spec.edims) <= MXU2D_MAX_LEN and plans_ok(spec.edims, wp=True)
 
 
 def _inv_perm(perm):

@@ -1,13 +1,20 @@
-"""Gaussian KL divergences to the whitened prior N(0, I) (counterpart of
-`hipgp_tpu/utils/stats.py`, the part the three variational families need:
-diagonal, block-diagonal and dense covariances)."""
+"""Gaussian KL divergences and density helpers (counterpart of
+`hipgp_tpu/utils/stats.py`): the KL to the whitened prior N(0, I) that the
+three variational families need (diagonal, block-diagonal and dense
+covariances), the KL between two Gaussians given Cholesky factors, and the
+normal log-density and CDF."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..ops.solve import cholesky_or_nan
 
-__all__ = ["diag_kl_to_standard", "kl_to_standard", "block_kl_to_standard"]
+__all__ = ["diag_kl_to_standard", "kl_to_standard", "block_kl_to_standard",
+           "kl_mvn_chol", "normal_logpdf", "normal_cdf"]
+
+LN2PI = math.log(2.0 * math.pi)
 
 
 def diag_kl_to_standard(m: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
@@ -40,3 +47,25 @@ def block_kl_to_standard(m: torch.Tensor, blk_S: torch.Tensor,
     trace = torch.sum(torch.diagonal(blk_S, dim1=-2, dim2=-1))
     m = m.reshape(-1)
     return 0.5 * (trace + torch.sum(m * m) - lndet - nb * bs)
+
+
+def kl_mvn_chol(m0: torch.Tensor, cS0: torch.Tensor, m1: torch.Tensor,
+                cS1: torch.Tensor) -> torch.Tensor:
+    """KL( N(m0, S0) || N(m1, S1) ) given lower-triangular Cholesky factors
+    cS0, cS1 of the covariances."""
+    k = cS0.shape[-1]
+    lndet0 = 2.0 * torch.sum(torch.log(torch.diagonal(cS0)))
+    lndet1 = 2.0 * torch.sum(torch.log(torch.diagonal(cS1)))
+    diff = (m1 - m0).reshape(-1, 1)
+    quad = torch.sum(torch.linalg.solve_triangular(cS1, diff, upper=False) ** 2)
+    tr = torch.linalg.solve_triangular(cS1, cS0, upper=False)
+    return 0.5 * (lndet1 - lndet0 + quad + torch.sum(tr * tr) - k)
+
+
+def normal_logpdf(y, loc, scale):
+    log_scale = torch.log(scale) if isinstance(scale, torch.Tensor) else math.log(scale)
+    return -0.5 * LN2PI - log_scale - 0.5 * ((y - loc) / scale) ** 2
+
+
+def normal_cdf(x, loc, scale):
+    return 0.5 * (1.0 + torch.erf((x - loc) / (scale * math.sqrt(2.0))))

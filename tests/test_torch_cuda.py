@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one intra-op thread a process: the xdist workers share the cores
 
 from hipgp_tpu_torch.kernels import Matern
 from hipgp_tpu_torch.ops import bttb, mxu2d, mxu3d, radix_fft, solve
@@ -1219,3 +1220,65 @@ def test_learn_kernel_step_matches_the_plain_path(dev, monkeypatch, case, switch
     assert np.isfinite(e1) and abs(e1 - e0) <= 1e-3 * abs(e0)
     for a, b in zip(g1, g0):
         assert np.isfinite(a) and abs(a - b) <= 1e-3 * abs(b), (g1, g0)
+
+
+def test_resume_round_trip_on_the_card(dev, tmp_path):
+    # fit resume through the kernel path: a 2-D learn-kernel, learn-noise
+    # fit (M = 32^2, 1 024 rows, batch 128, the warm start, schedule_lr)
+    # of two epochs without a break, against one epoch with a checkpoint
+    # and a resume for the second: state, hypers and the second epoch's
+    # ELBO trace within 1e-5 relative; the resumed epoch launches kernel A
+    # (2 (1 + 2k) self-dots, one R^T and one pullback a step)
+    from hipgp_tpu_torch.experiments.run_synthetic import build_model, marginal_sig2
+    from hipgp_tpu_torch.experiments.synthetic_data import make_two_dim_data
+    from hipgp_tpu_torch.infer import FitConfig, svigp_fit
+
+    d = make_two_dim_data(Nobs=1024, Ntest=10, noise_std=0.01, gridnum=32, seed=42)
+    sig2 = marginal_sig2(d["yobs"], d["sobs"])
+    model = build_model("SqExp", 32, 1024, sig2, 0.05, 0.01, dtype=torch.float32, device=dev)
+    st0 = model.init_state()
+    cfg = FitConfig(epochs=2, batch_size=128, lr=1e-2, maxiter_cg=5, learn_kernel=True,
+                    learn_noise=True)
+    data = (d["xobs"], d["yobs"], d["sobs"])
+    full, frep = svigp_fit(model, st0, *data, cfg, verbose=False, theta2_warmstart=True)
+    cdir = str(tmp_path / "ckpt")
+    svigp_fit(model, st0, *data, dataclasses.replace(cfg, epochs=1), verbose=False,
+              checkpoint_dir=cdir, checkpoint_every=1, theta2_warmstart=True)
+    before = dict(mxu2d.LAUNCHES)
+    res, rrep = svigp_fit(model, st0, *data, cfg, verbose=False, checkpoint_dir=cdir,
+                          resume=True, theta2_warmstart=True)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in mxu2d.LAUNCHES.items()}
+    assert rrep["steps"] == 8 and rrep["natgrad_rho"] is None
+    for f in ("theta1", "theta2", "log_sig2", "log_ell", "log_noise2"):
+        assert _rel(getattr(res, f), getattr(full, f)) <= 1e-5, f
+    want = np.asarray(frep["elbo_trace"][8:])
+    assert np.max(np.abs(np.asarray(rrep["elbo_trace"]) - want) / np.abs(want)) <= 1e-5
+    assert moved["sandwich_apply_selfdot"] == 8 * 2 * (1 + 2 * 5)
+    assert moved["sandwich_apply"] == 8 * 2
+
+
+@pytest.mark.parametrize("method", ["sph", "cic"])
+def test_deposit_on_the_card_matches_the_cpu_path(dev, method):
+    # 50 000 particles (h 0.3-3 cells, log-normal) onto 32 x 32 x 16 cells:
+    # the card's float32 deposition against the same function in float64 on
+    # the CPU, every cell within 1e-4 of the largest, the sums within 1e-5
+    from hipgp_tpu_torch.experiments import dust_density as dd
+
+    rng = np.random.default_rng(3)
+    n, dims = 50_000, (32, 32, 16)
+    left, right = np.array([-1.0, -1.0, -0.5]), np.array([1.0, 1.0, 0.5])
+    cell = (right - left) / np.array(dims)
+    pos = rng.uniform(left + cell, right - cell, (n, 3))
+    vals, m, rho = rng.uniform(0.5, 2, n), rng.uniform(0.5, 1.5, n), rng.uniform(0.5, 1.5, n)
+    hs = np.clip(np.exp(rng.normal(0.0, 0.6, n)), 0.3, 3.0) * cell.min()
+    if method == "sph":
+        run = lambda **kw: dd.sph_deposit(pos, vals, m, rho, hs, left, right, dims,
+                                          chunk=8192, **kw)
+    else:
+        run = lambda **kw: dd.cic_deposit(pos, m, left, right, dims, chunk=8192, **kw)
+    got = run(device=dev)
+    want = run(device="cpu", dtype=torch.float64)
+    assert got.dtype == np.float32 and got.shape == dims
+    assert float(np.max(np.abs(got - want))) <= 1e-4 * float(want.max())
+    assert abs(float(got.sum(dtype=np.float64)) / float(want.sum()) - 1) <= 1e-5

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one intra-op thread a process: the xdist workers share the cores
 
 from hipgp_tpu import kernels as jkernels
 from hipgp_tpu.infer import FitConfig as JFitConfig
@@ -323,6 +324,15 @@ def test_positional_parameters_match_jax(name, pairs, data, tmp_path):
                   lambda epoch, *rest: seen.append(epoch), False)
         assert seen == [0, 1]
     if name == "save_checkpoint":
+        # the third positional parameter is the optimizer state: the fit's
+        # optimizer, saved in the JAX package's form (its one leaf here, the
+        # schedule's count) and restored by restore_checkpoint
         _, _, _, ts = pairs("block")
-        with pytest.raises(NotImplementedError, match="section A item 1"):
-            checkpoint.save_checkpoint(str(tmp_path), ts, {"count": 0})
+        opt = tfit.make_optimizer(ts, FitConfig())
+        opt.count = 5
+        checkpoint.save_checkpoint(str(tmp_path), ts, opt, 3)
+        assert (tmp_path / "opt_state.npz").exists()
+        fresh = tfit.make_optimizer(ts, FitConfig())
+        st, got, step = checkpoint.restore_checkpoint(str(tmp_path), ts, fresh)
+        assert step == 3 and got is fresh and fresh.count == 5
+        assert torch.equal(st.theta2, ts.theta2)

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one intra-op thread a process: the xdist workers share the cores
 
 from hipgp_tpu import kernels as jkernels
 from hipgp_tpu.models import HIPGP as JHIPGP

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one intra-op thread a process: the xdist workers share the cores
 
 from hipgp_tpu.ops import bttb as jbttb
 from hipgp_tpu.ops import mxu2d as jmxu2d

@@ -27,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one intra-op thread a process: the xdist workers share the cores
 
 from hipgp_tpu_torch.experiments.run_pcg_vs_cholesky import (protocol_problem,
                                                              protocol_spectrum)

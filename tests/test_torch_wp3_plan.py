@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one intra-op thread a process: the xdist workers share the cores
 
 from hipgp_tpu_torch.ops import bttb, mxu3d, solve
 

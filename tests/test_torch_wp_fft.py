@@ -13,6 +13,7 @@ planes to kernel A's three passes.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one intra-op thread a process: the xdist workers share the cores
 
 from hipgp_tpu_torch.ops import bttb, mxu2d
 
