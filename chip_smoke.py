@@ -223,7 +223,41 @@ Phases, each printing one line of progress with its seconds:
                cell and sum within 1e-4), CIC mass at the full count within
                1e-5 of sum(q) / cell volume; run_domain --snapshot
                --deposit-method sph and cic end to end at [main-3d]'s cut on
-               a written observation table and snapshot.
+               a written observation table and snapshot;
+ 11. svgp    - the dense SVGP at the 2-D protocol's M = 125^2 (15 625
+               inducing points, unwhitened, jitter 1e-3, [main]'s data):
+               run_synthetic --models SVGP --fit-method full-batch in float64
+               and in float32 (seconds, peak memory < 60 GB, float64 test RMSE
+               below std(ftest), ELBO finite; the float64 predictive mean
+               and std against a plain float64 closed form of the same
+               posterior, SVGP_PLAIN_TOL; the float32 theta1 and
+               predictions against float64 logged), then 10 natgrad steps
+               through svigp_fit in float64 at batch 256 and lr 1e-2 x 1000/N
+               (ELBO finite at every step, theta moved, ||theta1 - theta1*||
+               against the closed form logged after each step);
+     derivative - run_derivative_1d at its defaults with --f64, then
+               --compare: the latent RMSE finite and at most 1.25 x the exact
+               joint GP's, the tables logged beside RESULTS section 6's;
+     trajectory - natgrad_trajectory at the reduced scale (legs torch, chol,
+               solve, torch-svgp; float64) and at --paper --warmstart
+               --safe-lr clamp --ell 0.2 --epochs 3 (the torch leg in float32
+               on kernel A, its launches exact against PCG_STATS; the solve
+               leg): rows finite, the solve RMSE below std(ftest), RMSE and
+               ELBO per epoch beside the TPU's recorded ones;
+     precision - precision_study at its defaults (2-D batch 256 at 125^2:
+               kernel A, the einsum chain in FP32, TF32 and bf16, torch.fft,
+               B-8; 1-D batch 8 at L = 2^21: the radix kernels, torch.fft):
+               every FP32 policy's apply within 1e-5 of the float64 oracle,
+               TF32 and bf16 logged, each kernel policy's launches moved,
+               every switch restored;
+     uci     - run_3droad and run_ukhousing on their synthetic data at their
+               defaults (20 000 rows, the 'dense' closed form): predictions
+               finite, test RMSE below the targets' std, kernel A's launches
+               exact where the embedding has a kernel-A plan;
+     demo-1d - demo_1d's fit (dense SVGP and 1-D HIP-GP): RMSEs below 0.1;
+     trace   - utils.profiling's PhaseTimer and trace around 5 natgrad steps
+               of [main]'s model: the Chrome trace names kernel A's CUDA
+               kernels, the timer counts 5 calls; ms a step beside [main]'s.
 Any failed check raises, so the script exits non-zero.  The line before the
 last is the card's name and power limit from nvidia-smi, the one before it a
 JSON object with one entry per kernel (the radix kernels' entries add the
@@ -234,6 +268,7 @@ beside the script, it exits non-zero and prints no result.
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -3008,6 +3043,426 @@ def phase_deposit(torch):
     log(f"[deposit] {time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# the dense SVGP, the derivative GP, the studies and the support modules
+# ---------------------------------------------------------------------------
+
+SVGP_PEAK_LIMIT = 60e9     # bytes: [svgp]'s float64 M = 125^2 fits
+SVGP_STEPS = 10            # [svgp]'s natgrad steps
+# [svgp]: float64 predictions against svgp_plain_predict, relative; an H100
+# reads 1.2e-10 (mean) and 3.0e-12 (std), the float32 fit 1.6e-5
+SVGP_PLAIN_TOL = 1e-8
+# RESULTS section 6 (JAX, float64, CPU): rough quality targets only
+DERIV_RESULTS = {"latent_rmse": 0.046, "exact_gp_rmse": 0.041}
+DERIV_COMPARE_RESULTS = ("ziggy yes 0.0219 / 0.535, ziggy no 0.0263 / 0.660, cholesky yes "
+                         "0.0218 / 0.535, cholesky no 0.0264 / 0.663, exact yes 0.0216, "
+                         "exact no 0.0265 (nlatent 100, nprime 20, derivative noise 0.2)")
+# the TPU's results/natgrad-trajectory-paper/warm-ell0.2-clamped/jax.csv,
+# epochs 0-2 (ELBO, test RMSE): quality targets only
+TRAJ_TPU_ROWS = ((-2.316750, 0.239069), (-2.115184, 0.238619), (-2.023990, 0.239322))
+PRECISION_FP32 = ("kernel-A", "einsum-fp32", "torch.fft", "B-8")   # 2-D rows held to 1e-5
+PRECISION_TOL = 1e-5
+TRACE_STEPS = 5
+
+
+def _kernel_a_exact(tag, lc, st):
+    """Kernel A's launches against PCG_STATS: 1 + 2k self-dots and one R^T
+    per whitening solve, nothing else of mxu2d."""
+    want = {"sandwich_apply_selfdot": st["solves"] + 2 * st["iterations"],
+            "sandwich_apply": st["solves"], "sandwich_apply_wp": 0,
+            "sandwich_apply_wp_selfdot": 0}
+    log(f"[{tag}] {st['solves']} whitening solves, {st['iterations']} iterations -> "
+        f"expect {want}; counted {lc}")
+    check(lc == want, f"{tag}: kernel A launches {lc}, expected {want}")
+
+
+def _npz(path):
+    import numpy as np
+
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def svgp_plain_predict(torch, xobs, yobs, sobs, xind, xtest, sig2, ell, jitter, dev):
+    """The dense SVGP's optimal predictions by the textbook closed form, in
+    float64 and independent of `models/svgp.py`: with P = Kmm + jitter I and
+    B = P + Kmn diag(1/s^2) Knm, mean = K*m B^-1 Kmn (y / s^2) and variance
+    = k** - |L_P^-1 Km*|^2 + |L_B^-1 Km*|^2 (SqExp written out here)."""
+    f64 = dict(dtype=torch.float64, device=dev)
+
+    def sqexp(a, b):
+        a, b = torch.as_tensor(a, **f64), torch.as_tensor(b, **f64)
+        d2 = sum((a[:, None, k] - b[None, :, k]) ** 2 for k in range(a.shape[1]))
+        return sig2 * torch.exp(-0.5 * d2 / ell ** 2)
+
+    ivar = 1.0 / torch.as_tensor(sobs, **f64).reshape(-1) ** 2
+    y = torch.as_tensor(yobs, **f64).reshape(-1)
+    Kmn = sqexp(xind, xobs)
+    L_P = torch.linalg.cholesky(sqexp(xind, xind)
+                                + jitter * torch.eye(len(xind), **f64))
+    L_B = torch.linalg.cholesky(L_P @ L_P.T + (Kmn * ivar) @ Kmn.T)
+    c = Kmn @ (ivar * y)
+    del Kmn
+    Kms = sqexp(xind, xtest)
+    mean = Kms.T @ torch.cholesky_solve(c[:, None], L_B)[:, 0]
+    var = (sig2 - torch.sum(torch.linalg.solve_triangular(L_P, Kms, upper=False) ** 2, 0)
+           + torch.sum(torch.linalg.solve_triangular(L_B, Kms, upper=False) ** 2, 0))
+    return mean.cpu().numpy(), torch.sqrt(var).cpu().numpy()
+
+
+def phase_svgp(torch, d):
+    """The dense SVGP at the 2-D protocol's M = 125^2 (15 625 inducing
+    points, unwhitened, jitter 1e-3; run_synthetic's data): the closed form
+    through run_synthetic --models SVGP --fit-method full-batch in float64
+    and float32, then 10 natgrad steps through svigp_fit in float64 at batch
+    256 and lr 1e-2 x 1000/N.  Seconds and peak memory of each; float64 test
+    RMSE < std(ftest), finite ELBOs, theta moved, the float64 predictions
+    within SVGP_PLAIN_TOL of `svgp_plain_predict`; the float32 gap logged."""
+    import tempfile
+
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments import harness, run_synthetic
+    from hipgp_tpu_torch.infer import FitConfig, svigp_fit
+
+    t0 = time.perf_counter()
+    fstd = float(np.std(d["ftest"]))
+    fits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra in (("float64", ["--f64"]), ("float32", [])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            odir = f"{tmp}/{label}"
+            out = run_synthetic.main(["--models", "SVGP", "--fit-method", "full-batch",
+                                      "--output-dir", odir] + extra)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            fits[label] = dict(out=out, peak=peak,
+                               state=_npz(f"{odir}/SVGP-SqExp/state.npz"),
+                               pred=_npz(f"{odir}/SVGP-SqExp/predictions.npz"))
+            log(f"[svgp] closed form, {label}, M = 125^2 unwhitened, 20 000 rows: fit "
+                f"{out['fit_s']:.2f} s, predict 2 000 points {out['predict_s']:.2f} s, "
+                f"run {out['wall_s']:.2f} s; ELBO {out['last_elbo']:.6f}; test RMSE "
+                f"{out['test_rmse']:.5f} (std(ftest) {fstd:.5f}); peak "
+                f"{peak / 1e9:.2f} GB")
+            check(peak < SVGP_PEAK_LIMIT, f"[svgp] {label} peak {peak / 1e9:.2f} GB")
+        f64, f32 = fits["float64"], fits["float32"]
+        check(math.isfinite(f64["out"]["last_elbo"]), "[svgp] float64 ELBO not finite")
+        check(f64["out"]["test_rmse"] < fstd,
+              f"[svgp] float64 test RMSE {f64['out']['test_rmse']} not below {fstd}")
+        theta1 = f64["state"]["arr_0"]
+        gap = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        # the same posterior by the textbook closed form (the state's hypers)
+        grid = np.linspace(-1, 1, 125)
+        xind = np.stack([a.reshape(-1) for a in np.meshgrid(grid, grid, indexing="ij")], -1)
+        t1 = time.perf_counter()
+        mu, sd = svgp_plain_predict(
+            torch, d["xobs"], d["yobs"], d["sobs"], xind, d["xtest"],
+            float(np.exp(f64["state"]["arr_2"])), float(np.exp(f64["state"]["arr_3"])),
+            1e-3, torch.device("cuda"))
+        torch.cuda.synchronize()
+        gm, gs = gap(f64["pred"]["fmu_test"], mu), gap(f64["pred"]["fsig_test"], sd)
+        log(f"[svgp] float64 predictions against the plain float64 closed form "
+            f"({time.perf_counter() - t1:.2f} s): mean {gm:.3e}, std {gs:.3e} (limit "
+            f"{SVGP_PLAIN_TOL:g}); its RMSE "
+            f"{float(np.sqrt(np.mean((mu - d['ftest']) ** 2))):.5f}")
+        check(gm <= SVGP_PLAIN_TOL and gs <= SVGP_PLAIN_TOL,
+              f"[svgp] float64 predictions against the plain closed form: mean {gm}, "
+              f"std {gs}")
+        log(f"[svgp] float32 against float64 (logged as found; the reference asserts "
+            f"float64): theta1 {gap(f32['state']['arr_0'], theta1):.3e}, test mean "
+            f"{gap(f32['pred']['fmu_test'], f64['pred']['fmu_test']):.3e}, test std "
+            f"{gap(f32['pred']['fsig_test'], f64['pred']['fsig_test']):.3e}; ELBO "
+            f"{f32['out']['last_elbo']:.6f}, RMSE {f32['out']['test_rmse']:.5f}")
+
+        # natgrad: the reference's effective rate (natgrad_trajectory's SVGP leg)
+        dev = torch.device("cuda")
+        sig2 = run_synthetic.marginal_sig2(d["yobs"], d["sobs"])
+        grids = [np.linspace(-1, 1, 125)] * 2
+        model = harness.make_model("SVGP", "SqExp", grids, num_obs=len(d["xobs"]),
+                                   sig2_init=sig2, ell_init=0.05, dtype=torch.float64,
+                                   device=dev)
+        state0 = model.init_state()
+        dists = []
+        orig = model.elbo_and_grads
+
+        def recorded(st, *a, **k):   # theta1 before each step
+            dists.append(float(torch.linalg.norm(st.theta1.cpu() - torch.as_tensor(theta1))))
+            return orig(st, *a, **k)
+
+        model.elbo_and_grads = recorded
+        cfg = FitConfig(epochs=1, batch_size=256, lr=1e-2 * 1000.0 / len(d["xobs"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        state, rep = svigp_fit(model, state0, d["xobs"], d["yobs"], d["sobs"], cfg,
+                               verbose=False, max_steps=SVGP_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        dists.append(float(torch.linalg.norm(state.theta1.cpu() - torch.as_tensor(theta1))))
+        trace = np.asarray(rep["elbo_trace"])
+        log(f"[svgp] natgrad, float64, batch 256, lr {cfg.lr:.3g}: {rep['steps']} steps "
+            f"in {secs:.2f} s ({secs / max(rep['steps'], 1):.3f} s/step); peak "
+            f"{peak / 1e9:.2f} GB; ELBO {trace.tolist()}")
+        log(f"[svgp] ||theta1 - theta1*|| (theta1* the float64 closed form) before step 1 "
+            f"and after each: {[f'{v:.4e}' for v in dists]} (||theta1*|| "
+            f"{float(np.linalg.norm(theta1)):.4e})")
+        check(rep["steps"] == SVGP_STEPS, f"[svgp] {rep['steps']} natgrad steps")
+        check(bool(np.isfinite(trace).all()), "[svgp] non-finite natgrad ELBO")
+        check(float(torch.linalg.norm(state.theta1 - state0.theta1)) > 0
+              and float(torch.linalg.norm(state.theta2 - state0.theta2)) > 0,
+              "[svgp] theta did not move")
+        check(peak < SVGP_PEAK_LIMIT, f"[svgp] natgrad peak {peak / 1e9:.2f} GB")
+    log(f"[svgp] {time.perf_counter() - t0:.2f} s")
+
+
+def phase_derivative(torch):
+    """Paper section 5.3: run_derivative_1d at its defaults with --f64, then
+    --compare, on the card.  The latent RMSE finite and at most 1.25 x the
+    exact joint GP's; the tables logged beside RESULTS section 6's."""
+    import tempfile
+
+    from hipgp_tpu_torch.experiments import run_derivative_1d
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        row = run_derivative_1d.main(["--f64", "--output-dir", tmp])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        log(f"[derivative] defaults (nlatent 1000, nprime 10, M = 128, 50 Adam steps, "
+            f"maxiter_cg 50), float64: {t1 - t0:.2f} s; {row}")
+        log(f"[derivative] latent RMSE {row['latent_rmse']:.4f} vs the exact joint GP's "
+            f"{row['vs_exact_gp_rmse']:.4f} (RESULTS section 6, JAX float64 on the CPU: "
+            f"{DERIV_RESULTS['latent_rmse']} vs {DERIV_RESULTS['exact_gp_rmse']})")
+        check(math.isfinite(row["latent_rmse"]), "[derivative] non-finite latent RMSE")
+        check(row["latent_rmse"] <= 1.25 * row["vs_exact_gp_rmse"],
+              f"[derivative] latent RMSE {row['latent_rmse']} above 1.25 x the exact GP's "
+              f"{row['vs_exact_gp_rmse']}")
+        rows = run_derivative_1d.main(["--f64", "--compare", "--output-dir", tmp])
+        torch.cuda.synchronize()
+    for r in rows:
+        log(f"[derivative] compare: {r}")
+        check(math.isfinite(r["latent_rmse"]), f"[derivative] non-finite row {r}")
+    log(f"[derivative] RESULTS section 6's table: {DERIV_COMPARE_RESULTS}")
+    log(f"[derivative] --compare {time.perf_counter() - t1:.2f} s; "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def phase_trajectory(torch):
+    """natgrad_trajectory twice: (a) the reduced scale (N = 2 000, M = 16^2,
+    10 epochs) with the legs torch, chol, solve and torch-svgp in float64;
+    (b) --paper --warmstart --safe-lr clamp --ell 0.2 --epochs 3, legs torch
+    (kernel A, float32; its launches exact against PCG_STATS, counted just
+    around the leg) and solve.  Every row finite; the solve RMSE below
+    std(ftest).  Returns kernel A's launches of (b)'s torch leg."""
+    import tempfile
+
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments import natgrad_trajectory as nt
+    from hipgp_tpu_torch.experiments.synthetic_data import make_two_dim_data
+    from hipgp_tpu_torch.ops import mxu2d, solve
+
+    t0 = time.perf_counter()
+
+    def finite(rows, tag):
+        for r in rows:
+            check(all(math.isfinite(r[k]) for k in ("rmse", "secs")) and
+                  (r["epoch"] < 0 or math.isfinite(r["elbo"])), f"[trajectory] {tag}: {r}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = nt.main(["--modes", "torch", "chol", "solve", "torch-svgp", "--output-dir", tmp])
+        torch.cuda.synchronize()
+        for leg, rows in out.items():
+            finite(rows, f"(a) {leg}")
+            log(f"[trajectory] (a) {leg}: " + "; ".join(
+                f"epoch {r['epoch']} ELBO {r['elbo']:.5f} RMSE {r['rmse']:.5f}" for r in rows))
+        t1 = time.perf_counter()
+        log(f"[trajectory] (a) reduced scale, float64: {t1 - t0:.2f} s")
+
+        args = nt.parse_args(["--paper", "--warmstart", "--safe-lr", "clamp", "--ell", "0.2",
+                              "--epochs", "3", "--modes", "torch", "solve",
+                              "--output-dir", tmp])
+        data = make_two_dim_data(Nobs=args.nobs, Ntest=args.ntest, noise_std=args.noise,
+                                 gridnum=args.gridnum, seed=args.seed)
+        args.sig2 = float(np.var(data["yobs"]) - args.noise ** 2)
+        mxu2d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        rows = nt.run_torch(data, args, "ziggy", "torch")
+        torch.cuda.synchronize()
+        lc, st = dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS)
+        t2 = time.perf_counter()
+        _kernel_a_exact("trajectory", lc, st)
+        finite(rows, "(b) torch")
+        for r, (te, tr) in zip(rows, TRAJ_TPU_ROWS):
+            log(f"[trajectory] (b) epoch {r['epoch']}: ELBO {r['elbo']:.5f} RMSE "
+                f"{r['rmse']:.5f} (the TPU's warm-ell0.2-clamped jax.csv: ELBO {te:.5f} "
+                f"RMSE {tr:.5f})")
+        srow = nt.run_solve(data, args)[0]
+        torch.cuda.synchronize()
+        fstd = float(np.std(data["ftest"]))
+        log(f"[trajectory] (b) paper scale, float32: torch leg {t2 - t1:.2f} s, solve "
+            f"('gram') {time.perf_counter() - t2:.2f} s: RMSE {srow['rmse']:.5f} vs "
+            f"std(ftest) {fstd:.5f}")
+        finite([srow], "(b) solve")
+        check(srow["rmse"] < fstd, f"[trajectory] solve RMSE {srow['rmse']} >= {fstd}")
+    log(f"[trajectory] {time.perf_counter() - t0:.2f} s")
+    return lc
+
+
+def phase_precision(torch):
+    """precision_study at its defaults (2-D batch 256 at 125^2; 1-D batch 8
+    at L = 2^21; 5 reps): every float32 policy's apply within 1e-5 of the
+    float64 oracle, TF32 and bfloat16 logged, each kernel policy's launches
+    moved, every switch restored.  Returns the kernel launches by wrapper."""
+    import tempfile
+
+    from hipgp_tpu_torch.experiments import precision_study
+
+    t0 = time.perf_counter()
+    before = precision_study.switch_values()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = precision_study.main(["--output-dir", tmp])
+        torch.cuda.synchronize()
+        for regime in ("2d", "1d"):
+            check(os.path.exists(f"{tmp}/summary_{regime}.json"),
+                  f"[precision] summary_{regime}.json not written")
+    after = precision_study.switch_values()
+    check(after == before, f"[precision] switches {after}, were {before}")
+    launches = {}
+    for r in out["2d"] + out["1d"]:
+        log(f"[precision] {r['regime']} {r['policy']}: rel err vs f64 "
+            f"{r['rel_err_vs_f64']:.3e}, apply {r['apply_ms']:.4f} ms, 20-iteration "
+            f"whitening {r['whiten20_ms']:.3f} ms, generic route {r['generic_route']}, "
+            f"launches {r['launches']}")
+        fp32 = (r["regime"] == "1d" or r["policy"] in PRECISION_FP32)
+        if fp32:
+            check(r["rel_err_vs_f64"] <= PRECISION_TOL,
+                  f"[precision] {r['regime']} {r['policy']} rel err {r['rel_err_vs_f64']}")
+        kernel = {"kernel-A": "mxu2d.", "B-8": "pallas_transform.",
+                  "radix": "radix_fft."}.get(r["policy"])
+        if kernel:
+            moved = {k: v for k, v in r["launches"].items() if k.startswith(kernel)}
+            check(sum(moved.values()) > 0, f"[precision] {r['policy']} launched no kernel")
+            for k, v in moved.items():
+                launches[k.split(".", 1)[1]] = launches.get(k.split(".", 1)[1], 0) + v
+    log(f"[precision] switches restored {after}; {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def phase_uci(torch):
+    """run_3droad and run_ukhousing on their synthetic data at their defaults
+    (20 000 rows; 64^2 and 64 x 48 grids, Mat52; the 'dense' closed form);
+    predictions finite, test RMSE below std(test targets); kernel A's
+    launches exact against PCG_STATS where the embedding has a kernel-A plan
+    (`solve._mxu2d_solver_ok`), zero where it has not.  Returns kernel A's
+    launches."""
+    import tempfile
+
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments import run_3droad, run_ukhousing
+    from hipgp_tpu_torch.ops import bttb, mxu2d, solve
+
+    t0 = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, mod in (("3droad", run_3droad), ("ukhousing", run_ukhousing)):
+            t1 = time.perf_counter()
+            mxu2d.reset_launches()
+            solve.PCG_STATS.update(solves=0, iterations=0)
+            model, state, rep = mod.main(["--output-dir", tmp])
+            torch.cuda.synchronize()
+            lc, st = dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS)
+            secs = time.perf_counter() - t1
+            spec = model.spectrum(state)
+            kernel = solve._mxu2d_solver_ok(spec, torch.float32, torch.device("cuda"))
+            pd = rep["pdict"]
+            mu, f = pd["fmu_test"], pd["ftest"]
+            rmse, fstd = float(np.sqrt(np.mean((mu - f) ** 2))), float(np.std(f))
+            route = "kernel A" if kernel else bttb.apply_route(spec, torch.float32, "cuda")
+            log(f"[uci] {name}: grid {spec.dims} embedded {spec.edims}, plans_ok "
+                f"{mxu2d.plans_ok(spec.edims)}, path {route}; {secs:.2f} s (fit "
+                f"{rep['time_report']['fitting']:.2f} s); test RMSE {rmse:.5f} vs std "
+                f"{fstd:.5f}")
+            check(bool(np.isfinite(mu).all() and np.isfinite(pd["fsig_test"]).all()),
+                  f"[uci] {name}: non-finite predictions")
+            check(rmse < fstd, f"[uci] {name}: test RMSE {rmse} not below {fstd}")
+            if kernel:
+                _kernel_a_exact(f"uci {name}", lc, st)
+            else:
+                check(not any(lc.values()), f"[uci] {name}: kernel A launched {lc}")
+            for k, v in lc.items():
+                total[k] = total.get(k, 0) + v
+    log(f"[uci] {time.perf_counter() - t0:.2f} s")
+    return total
+
+
+def phase_demo_1d(torch):
+    """demo_1d's fit at its defaults on the card (float32, no plot): both
+    RMSEs below 0.1."""
+    from hipgp_tpu_torch.experiments import demo_1d
+
+    t0 = time.perf_counter()
+    results, _ = demo_1d.fit()
+    torch.cuda.synchronize()
+    for name, (_, _, rmse) in results.items():
+        check(math.isfinite(rmse) and rmse < 0.1, f"[demo-1d] {name} RMSE {rmse}")
+    log(f"[demo-1d] " + ", ".join(f"{k}: test RMSE {v[2]:.4f}" for k, v in results.items())
+        + f"; {time.perf_counter() - t0:.2f} s")
+
+
+def phase_trace(torch, d, model, state0, main_step_ms):
+    """PhaseTimer and trace around 5 natgrad steps of [main]'s model (the fit
+    loop's batch_step, after the warm start): the Chrome trace names kernel
+    A's CUDA kernels, the timer counts 5 calls; its seconds a step beside
+    [main]'s."""
+    import json as _json
+    import tempfile
+
+    from hipgp_tpu_torch.infer import FitConfig
+    from hipgp_tpu_torch.infer.fit import (_theta2_warmstart, batch_step, make_optimizer,
+                                           prepare_batches)
+    from hipgp_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    cfg = FitConfig(epochs=1, batch_size=256, lr=1e-2, maxiter_cg=10)
+    as_t = lambda a: torch.as_tensor(a).to(dtype=model.dtype, device=model.device)
+    xb, yb, sb, w = prepare_batches(as_t(d["xobs"]), as_t(d["yobs"]), as_t(d["sobs"]),
+                                    cfg.batch_size)
+    state = _theta2_warmstart(model, state0, xb, sb, w, cfg)
+    opt = make_optimizer(state, cfg)
+    timer = profiling.PhaseTimer()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            for b in range(TRACE_STEPS):
+                with timer("natgrad step"):
+                    state, elbo = batch_step(model, cfg, opt, state, xb[b], yb[b], sb[b],
+                                             w[b])
+        path = f"{tmp}/trace.json"
+        check(os.path.exists(path) and os.path.getsize(path) > 0, "[trace] no trace file")
+        with open(path) as f:
+            events = _json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    names = {str(e.get("name", "")) for e in events if e.get("cat") == "kernel"}
+    ka = sorted(n for n in names if any(k in n for k in TRACE_KERNEL_A))
+    rows = timer.report()
+    log(f"[trace] {len(events)} events ({size} bytes); CUDA kernels {len(names)}, kernel "
+        f"A's: {ka}; PhaseTimer {rows}")
+    check(bool(ka), f"[trace] kernel A's kernels not in the trace ({sorted(names)[:20]})")
+    check(len(rows) == 1 and rows[0]["calls"] == TRACE_STEPS,
+          f"[trace] PhaseTimer rows {rows}")
+    check(math.isfinite(float(elbo)), "[trace] non-finite ELBO")
+    log(f"[trace] {rows[0]['mean_s'] * 1e3:.2f} ms a step under the profiler and the "
+        f"timer's synchronisations, against [main]'s {main_step_ms:.2f} ms; "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+# kernel A's CUDA kernels in csrc/sandwich_fft.cu, as a trace names them
+TRACE_KERNEL_A = ("rows_forward_kernel", "columns_kernel", "rows_inverse_kernel")
+
+
 def main():
     import torch
 
@@ -3235,13 +3690,26 @@ def main():
     torch.cuda.empty_cache()
     phase_deposit(torch)
 
+    # ---- the dense SVGP, the derivative GP, the studies, the support modules --
+    torch.cuda.empty_cache()
+    phase_svgp(torch, d)
+    torch.cuda.empty_cache()
+    phase_derivative(torch)
+    traj_launches = phase_trajectory(torch)
+    precision_launches = phase_precision(torch)
+    uci_launches = phase_uci(torch)
+    phase_demo_1d(torch)
+    phase_trace(torch, d, model, state0, step_s * 1e3)
+
     kernels = []
     for name in ("sandwich_apply_selfdot", "sandwich_apply"):
         r = results[name]
-        # the main path's launches: [main], [main-block], [full-rank] and
-        # [resume]'s resumed epoch
+        # the main path's launches: [main], [main-block], [full-rank],
+        # [resume]'s resumed epoch, [trajectory]'s paper-scale torch leg,
+        # [uci] and [precision]'s kernel-A policy
         n = (launches[name] + block_launches[name] + fr_launches[name]
-             + resume_launches[name])
+             + resume_launches[name] + traj_launches[name] + uci_launches[name]
+             + precision_launches.get(name, 0))
         kernels.append({
             "name": f"mxu2d.{name}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": n,
@@ -3254,11 +3722,13 @@ def main():
               f"{name} never launched on the block or full-rank path")
     for name in ("stage1", "stage1_inv_dot", "middle"):
         r = radix_results[name]
-        # the 1-D main path's launches: [main-1d] and the solver studies
+        # the 1-D main path's launches: [main-1d], the solver studies and
+        # [precision]'s radix policy
         kernels.append({
             "name": f"radix_fft.{name}", "route": "cuda", "source": RADIX_SOURCE,
             "replaces": RADIX_TPU_KERNELS[name],
-            "launches": radix_launches[name] + study_radix[name],
+            "launches": radix_launches[name] + study_radix[name]
+            + precision_launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], **{k: r[k] for k in GRAPH_KEYS},
@@ -3316,12 +3786,18 @@ def main():
     r = results["B-8"]
     kernels.append({
         "name": "pallas_transform.circulant_apply_2d", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": B8_TPU_KERNEL, "launches": b8_launches,
+        "source": KERNEL_SOURCE, "replaces": B8_TPU_KERNEL,
+        "launches": b8_launches + precision_launches.get("circulant_apply_2d", 0),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     })
-    # B-8's launches: the training step of [train-grad] with USE_PALLAS_TRANSFORM on
+    # B-8's launches: the training step of [train-grad] with USE_PALLAS_TRANSFORM
+    # on, and [precision]'s B-8 policy
     check(b8_launches > 0, "B-8 never launched on the training path")
+    check(precision_launches.get("circulant_apply_2d", 0) > 0,
+          "B-8 never launched in the precision study")
+    for name in ("sandwich_apply_selfdot", "sandwich_apply"):
+        check(traj_launches[name] > 0, f"{name} never launched in [trajectory]")
     for name in ("sandwich_apply_selfdot", "sandwich_apply"):
         check(fb_launches[name] > 0, f"{name} never launched on the full-batch path")
         # kernel A at the 'factored' g-stage's shape: its launches in

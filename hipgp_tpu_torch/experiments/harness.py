@@ -1,24 +1,30 @@
 """Experiment harness: fit, predict, evaluate and save one run.
 
-Counterpart of `hipgp_tpu/experiments/harness.py` on one device, without
-figures: `make_model` builds the HIP-GP of a model class (mean-field,
+Counterpart of `hipgp_tpu/experiments/harness.py` on one device:
+`make_model` builds the model of a model class (the HIP-GP mean-field,
 block-diagonal with ``block_sizes``, or full-rank with the 'standard'
-parameterization, as the JAX harness builds them; ziggy or cholesky
-whitening), `fit_predict_and_save` fits it by natural-gradient SVI or the
-closed-form ``batch_solve`` and `evaluate_and_save` predicts and writes the
-JAX harness's artifacts under ``output_dir/name`` in its layout:
-``state.npz`` (+ sidecar) and ``meta.json``, ``elbo_trace.npy`` and the
-hyperparameter traces, ``predictions.npz``, ``errordf-summary.csv``,
-``noise_reduction.csv``, ``coverage_table.csv``, ``fit_params.json`` and
-``time_report.csv``.  The CSVs are written with the ``csv`` module, column
-for column as the JAX harness's pandas frames write them.
+parameterization, ziggy or cholesky whitening; or the dense unwhitened
+SVGP over the mesh of the grids, as the JAX harness builds them),
+`fit_predict_and_save` fits it by natural-gradient SVI or the closed-form
+``batch_solve`` and `evaluate_and_save` predicts and writes the JAX
+harness's artifacts under ``output_dir/name`` in its layout: ``state.npz``
+(+ sidecar) and ``meta.json``, ``elbo_trace.npy`` and the hyperparameter
+traces, ``predictions.npz``, ``errordf-summary.csv``,
+``noise_reduction.csv``, ``coverage_table.csv``, ``fit_params.json``,
+``time_report.csv`` and the figures of `viz.py` (``elbo.jpg``,
+``f-zscore-histogram.pdf``, ``qq.pdf``, ``posterior-grid.jpg`` and
+``comparison-grid.jpg`` with ``grid_shape``, the dust map's scatters).  The
+CSVs are written with the ``csv`` module, column for column as the JAX
+harness's pandas frames write them.  ``make_plots=None`` (the default)
+draws the figures where matplotlib imports and otherwise prints
+"figures skipped: matplotlib is not installed" and carries on (the card's
+machine has no matplotlib); ``make_plots=True`` without it raises
+ImportError.
 
 Not ported: ``parallel`` ('dp', 'mp'; ROADMAP.md section A items 9 and 10)
-raises NotImplementedError, and so does the SVGP model class (section A
-item 7); ``grid_shards`` (item 10), the parallel paths' ``predict_fn``, the
-figures (``make_plots``, ``grid_shape``, ``grid_extent``; `viz.py`, item 8)
-and ``eval_only_state`` (evaluate a saved state without a fit) are left
-out.
+raises NotImplementedError; ``grid_shards`` (item 10), the parallel paths'
+``predict_fn`` and ``eval_only_state`` (evaluate a saved state without a
+fit) are left out.
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ import torch
 
 from ..infer import FitConfig, batch_predict, svigp_fit
 from ..kernels import kernel_from_name
-from ..models import HIPGP
+from .. import viz
+from ..models import HIPGP, SVGP
 from ..utils import checkpoint as ckpt
 from ..utils import metrics
 
@@ -49,15 +56,22 @@ def make_model(model_class: str, kernel_name: str, xinduce_grids: Sequence,
                learn_noise: bool = False, jitter: float = 1e-3,
                block_sizes: Optional[Sequence[int]] = None,
                support_integrated_obs: bool = False, dtype=torch.float32,
-               device="cuda") -> HIPGP:
+               device="cuda"):
     """The JAX harness's model factory: ``model_class`` 'mean-field',
-    'block-diagonal[-*]' or 'block' (chunked by ``block_sizes``) or
+    'block-diagonal[-*]' or 'block' (chunked by ``block_sizes``),
     'full-rank' (under the 'standard' parameterization, as the reference
     builds it: its natgrad fit raises ValueError, it fits by the closed
-    form); 'SVGP' is not ported yet."""
+    form) or 'SVGP' (the dense unwhitened SVGP with the mesh of the grids as
+    its inducing points)."""
     if model_class == "SVGP":
-        raise NotImplementedError("model_class='SVGP' is not ported yet "
-                                  "(ROADMAP.md section A item 7)")
+        grids = [torch.as_tensor(np.asarray(g)).to(dtype) for g in xinduce_grids]
+        mesh = torch.meshgrid(*grids, indexing="ij")
+        xinduce = torch.stack([m.reshape(-1) for m in mesh], dim=-1)
+        return SVGP(kernel_from_name(kernel_name), xinduce, num_obs=num_obs,
+                    whitened=False, sig2_init=sig2_init, ell_init=ell_init,
+                    init_Svar=init_Svar, jitter=jitter,
+                    support_integrated_obs=support_integrated_obs, dtype=dtype,
+                    device=device)
     common = dict(num_obs=num_obs, whitened_type=whitened_type, sig2_init=sig2_init,
                   ell_init=ell_init, noise2_init=noise2_init, init_Svar=init_Svar,
                   learn_kernel=learn_kernel, learn_noise=learn_noise, jitter=jitter,
@@ -104,14 +118,23 @@ def evaluate_and_save(odir: str, model, state, *, xtest=None, ftest=None, etest=
                       hyper_traces: Optional[Dict] = None,
                       data_noise_std: Optional[float] = None,
                       train_elbo: Optional[float] = None,
-                      predict_batch_size: int = 4096):
+                      predict_batch_size: int = 4096,
+                      make_plots: Optional[bool] = None, grid_shape=None,
+                      grid_extent=None):
     """Checkpoint, predict on valid/test/grid (latent and, with
-    ``do_integrated_predictions``, integrated) and write the metric CSVs.
-    Returns (pdict, eval_times)."""
+    ``do_integrated_predictions``, integrated), write the metric CSVs and,
+    with ``make_plots`` (None: where matplotlib imports), the JAX harness's
+    figures.  Returns (pdict, eval_times)."""
     os.makedirs(odir, exist_ok=True)
+    if make_plots is None:
+        make_plots = viz.matplotlib_available()
+        if not make_plots:
+            print("figures skipped: matplotlib is not installed", flush=True)
     ckpt.save_checkpoint(odir, state)
     if elbo_trace is not None:
         np.save(os.path.join(odir, "elbo_trace.npy"), np.asarray(elbo_trace))
+        if make_plots:
+            viz.plot_elbo_trace(elbo_trace, os.path.join(odir, "elbo.jpg"))
     for nm, tr in (hyper_traces or {}).items():
         if tr:
             np.save(os.path.join(odir, f"{nm}_trace.npy"), np.asarray(tr))
@@ -167,6 +190,27 @@ def evaluate_and_save(odir: str, model, state, *, xtest=None, ftest=None, etest=
             z["model e"] = df["e zscore"]
         metrics.write_csv(os.path.join(odir, "coverage_table.csv"),
                           metrics.coverage_table(z))
+        if make_plots:
+            viz.plot_zscore_histogram(z["model"],
+                                      path=os.path.join(odir, "f-zscore-histogram.pdf"))
+            viz.plot_qq(z, path=os.path.join(odir, "qq.pdf"))
+    if (make_plots and do_integrated_predictions and xtest is not None
+            and np.ndim(xtest) == 2 and np.shape(xtest)[1] == 3 and "etest" in pdict):
+        # the dust map's 3-D and 2-D posterior scatters
+        xt = np.asarray(xtest)
+        viz.plot_domain_result(
+            odir, {"xtest": xt, "etest": pdict["etest"], "emu_test": pdict["emu_test"],
+                   "esig_test": pdict["esig_test"]},
+            slice_center=float(np.median(xt[:, 2])),
+            slice_halfwidth=0.05 * (np.ptp(xt[:, 2]) + 1e-12))
+    if make_plots and "fmu_grid" in pdict and grid_shape is not None:
+        extent = grid_extent or (0, 1, 0, 1)
+        viz.plot_posterior_grid(pdict["fmu_grid"], pdict["fsig_grid"], grid_shape, extent,
+                                path=os.path.join(odir, "posterior-grid.jpg"))
+        if fgrid is not None:
+            viz.plot_comparison(np.asarray(fgrid).reshape(grid_shape),
+                                pdict["fmu_grid"].reshape(grid_shape), extent,
+                                path=os.path.join(odir, "comparison-grid.jpg"))
     return pdict, times
 
 
@@ -194,7 +238,9 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
                          xtest=None, etest=None, ftest=None,
                          xvalid=None, evalid=None, fvalid=None,
                          xgrid=None, egrid=None, fgrid=None,
+                         grid_shape=None, grid_extent=None,
                          output_dir: str = "./model-output/", eval_epochs: int = 0,
+                         eval_epoch_plots: bool = False,
                          parallel: Optional[str] = None,
                          dtype=torch.float32, device="cuda",
                          max_steps: Optional[int] = None):
@@ -204,8 +250,11 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
     ``eval_epochs=k`` the full evaluation every k-th epoch into
     ``epoch_output/epoch_N/``), 'full-batch' the closed-form
     ``model.batch_solve`` with ``mean_solver`` ('dense', 'cg', 'gram',
-    'factored' or 'matfree'); ``block_sizes`` chunks the block family
-    (recorded in ``fit_params.json``);
+    'factored' or 'matfree'; an SVGP takes its dense closed form);
+    ``block_sizes`` chunks the block family (recorded in
+    ``fit_params.json``); ``grid_shape`` and ``grid_extent`` lay out the
+    grid predictions' figures, drawn as `evaluate_and_save` decides
+    (``eval_epoch_plots`` for the per-epoch evaluations);
     ``max_steps`` (the port's) ends a natgrad fit after that many steps.
     Returns (model, state, report)."""
     if parallel not in (None, "dp", "mp"):
@@ -255,7 +304,8 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
                    predict_maxiter_cg=cfg.predict_maxiter_cg,
                    predict_ksemi_method=cfg.predict_ksemi_method,
                    predict_ksemi_samps=cfg.predict_ksemi_samps,
-                   data_noise_std=None if sobs is None else float(np.mean(sobs)))
+                   data_noise_std=None if sobs is None else float(np.mean(sobs)),
+                   grid_shape=grid_shape, grid_extent=grid_extent)
     epoch_eval_rows = []
     epoch_callback = None
     if eval_epochs and fit_method == "natgrad":
@@ -267,7 +317,7 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
             t0 = time.time()
             _, etimes = evaluate_and_save(
                 os.path.join(odir, "epoch_output", f"epoch_{epoch}"), model_, state_,
-                elbo_trace=trace, **eval_kw)
+                elbo_trace=trace, make_plots=eval_epoch_plots, **eval_kw)
             epoch_eval_rows.append({"epoch": epoch, "eval_total": time.time() - t0,
                                     **etimes})
 

@@ -9,11 +9,11 @@ closed-form ``batch_solve`` with ``--mean-solver`` dense, cg, gram or factored),
 ELBO before the fit, written to ``ell_sweep.csv``), ``--integrated-obs``.
 Each model of ``--models`` (mean-field, block-diagonal with blocks of
 ``--xblock-size`` points along each axis of the embedded grid, full-rank
-under the 'standard' parameterization, full batch only) runs through the
-harness
+under the 'standard' parameterization, full batch only, or the dense
+unwhitened SVGP over the same grid's M points) runs through the harness
 (`harness.fit_predict_and_save`: sig2 from the marginal variance of y,
-init_Svar 1, jitter 1e-3), which writes its artifacts under
-``--output-dir``; the summary of every model goes to
+init_Svar 1, jitter 1e-3), which writes its artifacts and figures (the
+evaluation grid's among them) under ``--output-dir``; the summary of every model goes to
 ``errordf-summary.csv`` there.  It prints the test RMSE and mean
 log-likelihood.  ``--device``, ``--steps`` and ``--f64`` are the port's.
 
@@ -70,7 +70,7 @@ def main(argv=None):
     p.add_argument("--gridnum", type=int, default=64,
                    help="evaluation grid points per dimension")
     p.add_argument("--models", nargs="+", default=["mean-field"],
-                   choices=["mean-field", "block-diagonal", "full-rank"])
+                   choices=["mean-field", "block-diagonal", "full-rank", "SVGP"])
     p.add_argument("--kernel", default="SqExp")
     p.add_argument("--ell", type=float, default=0.05)
     p.add_argument("--fit-method", default="natgrad", choices=["natgrad", "full-batch"])
@@ -136,6 +136,7 @@ def main(argv=None):
             fit_config=cfg, maxiter_cg=args.maxiter_cg, mean_solver=args.mean_solver,
             theta2_warmstart=args.theta2_warmstart, xtest=d["xtest"],
             ftest=d["ftest"], etest=d["etest"], xgrid=d["xgrid"], fgrid=d["fgrid"],
+            grid_shape=d["grid_shape"], grid_extent=d["grid_extent"],
             output_dir=args.output_dir, dtype=dtype, device=args.device,
             max_steps=args.steps)
         wall_s = time.perf_counter() - t0

@@ -98,7 +98,10 @@ def prepare_batches(x: torch.Tensor, y: torch.Tensor,
     return xb, yb, sb, w
 
 
-HYPERS = ("log_sig2", "log_ell", "log_noise2")
+def _hyper_names(state):
+    """The state's log-hyperparameter fields in field order (a HIP-GP's
+    three, an SVGP's two: it has no noise leaf)."""
+    return [f.name for f in dataclasses.fields(state) if not f.name.startswith("theta")]
 
 
 def _int32(n: int) -> torch.Tensor:
@@ -106,7 +109,7 @@ def _int32(n: int) -> torch.Tensor:
 
 
 class HyperAdam:
-    """Adam on the three log-hyperparameters, the update of ``optax.adam``
+    """Adam on the state's log-hyperparameters, the update of ``optax.adam``
     (bias-corrected moments, eps outside the square root, no eps_root)."""
 
     def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
@@ -116,7 +119,8 @@ class HyperAdam:
         self.mu = self.nu = None
 
     def step(self, state, grads):
-        g = [getattr(grads, k) for k in HYPERS]
+        names = _hyper_names(state)
+        g = [getattr(grads, k) for k in names]
         if self.mu is None:
             self.mu = [torch.zeros_like(a) for a in g]
             self.nu = [torch.zeros_like(a) for a in g]
@@ -125,25 +129,26 @@ class HyperAdam:
         self.nu = [(1 - self.b2) * a * a + self.b2 * n for a, n in zip(g, self.nu)]
         c1, c2 = 1 - self.b1 ** self.count, 1 - self.b2 ** self.count
         new = {k: getattr(state, k) - self.lr * ((m / c1) / (torch.sqrt(n / c2) + self.eps))
-               for k, m, n in zip(HYPERS, self.mu, self.nu)}
+               for k, m, n in zip(names, self.mu, self.nu)}
         return state.replace(**new)
 
     def leaves(self, state):
         """The leaves of ``optax.adam``'s state in the JAX flatten order:
-        count (int32), then mu and nu of the three log-hyperparameters (the
-        theta entries are masked and have none); zero moments before the
-        first step, shaped like ``state``'s hypers."""
-        zeros = [torch.zeros_like(getattr(state, k)).detach() for k in HYPERS]
+        count (int32), then mu and nu of the log-hyperparameters (the theta
+        entries are masked and have none); zero moments before the first
+        step, shaped like ``state``'s hypers."""
+        zeros = [torch.zeros_like(getattr(state, k)).detach() for k in _hyper_names(state)]
         return [_int32(self.count)] + (self.mu or zeros) + (self.nu or zeros)
 
     def load_leaves(self, leaves, state) -> None:
         """Set count and moments from :meth:`leaves`-ordered arrays, in the
         dtypes and on the devices of ``state``'s hypers."""
-        like = [getattr(state, k) for k in HYPERS] * 2
+        names = _hyper_names(state)
+        like = [getattr(state, k) for k in names] * 2
         moments = [torch.as_tensor(a).to(dtype=t.dtype, device=t.device)
                    for a, t in zip(leaves[1:], like)]
         self.count = int(leaves[0])
-        self.mu, self.nu = moments[:3], moments[3:]
+        self.mu, self.nu = moments[:len(names)], moments[len(names):]
 
 
 class FitOptimizer:
@@ -190,7 +195,7 @@ class FitOptimizer:
             raise ValueError(f"optimizer state has {len(leaves)} leaves, this "
                              f"configuration's has {want}")
         if self.hyper is not None:
-            self.hyper.load_leaves(leaves[:7], state)
+            self.hyper.load_leaves(leaves[:1 + 2 * len(_hyper_names(state))], state)
         if self.schedule:
             self.count = int(leaves[-1])
 
@@ -218,11 +223,12 @@ def make_optimizer(state, config: FitConfig) -> FitOptimizer:
 
 
 def zero_frozen(config: FitConfig, grads):
-    """The hyperparameter gradients of what ``config`` does not learn, zeroed."""
+    """The hyperparameter gradients of what ``config`` does not learn, zeroed
+    (an SVGP's state has no noise leaf)."""
     z = torch.zeros_like
     if not config.learn_kernel:
         grads = grads.replace(log_sig2=z(grads.log_sig2), log_ell=z(grads.log_ell))
-    if not config.learn_noise:
+    if not config.learn_noise and hasattr(grads, "log_noise2"):
         grads = grads.replace(log_noise2=z(grads.log_noise2))
     return grads
 
@@ -363,14 +369,17 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
         state, _, start_epoch = restore_checkpoint(checkpoint_dir, state, opt)
         if verbose:
             print(f"resumed from {checkpoint_dir} at epoch {start_epoch}", flush=True)
-    warmstart = theta2_warmstart and not restored
+    # the warm start and the rho estimate are HIP-GP's (an SVGP has no
+    # family-shaped Lambda), as in the JAX package
+    warmstart = theta2_warmstart and not restored and hasattr(model, "get_lam")
     t0 = time.perf_counter()
     if warmstart:
         state = _theta2_warmstart(model, state, xb, sb, w, config, generator=gen)
     warmstart_s = time.perf_counter() - t0
     rho = lr_crit = None
     if (natgrad_safe_lr != "off" and warmstart
-            and config.fit_method == "natgrad"):
+            and config.fit_method == "natgrad"
+            and getattr(model, "family", None) in ("mean-field", "block", "full-rank")):
         if natgrad_safe_lr not in ("warn", "clamp"):
             raise ValueError(f"natgrad_safe_lr={natgrad_safe_lr!r}: expected "
                              "'warn', 'clamp', or 'off'")
@@ -478,9 +487,11 @@ def batch_predict(model, state, x, batch_size: int = 100, **predict_kwargs):
     it)."""
     x = torch.as_tensor(x).to(dtype=model.dtype, device=model.device)
     N = x.shape[0]
-    itemsize = torch.empty((), dtype=model.dtype).element_size()
-    per_row = itemsize * model.Mprime * (2 if model.family == "block" else 1)
-    batch_size = max(1, min(batch_size, PREDICT_CHUNK_BUDGET_BYTES // per_row))
+    Mp = int(getattr(model, "Mprime", 0) or 0)
+    if Mp:   # an SVGP's chunk is not clamped, as in the JAX package
+        itemsize = torch.empty((), dtype=model.dtype).element_size()
+        per_row = itemsize * Mp * (2 if getattr(model, "family", "") == "block" else 1)
+        batch_size = max(1, min(batch_size, PREDICT_CHUNK_BUDGET_BYTES // per_row))
     bsz = min(batch_size, N)
     nb = -(-N // bsz)
     pad = nb * bsz - N

@@ -75,6 +75,12 @@ USE_MXU3D_PCG = True
 # solve is the generic, differentiable `pcg` over the torch.fft apply.  On,
 # as in the JAX package.
 USE_RADIX_FFT = True
+# Arithmetic of the einsum chain's products (the JAX package's
+# MATMUL_DFT_PRECISION and MATMUL_DFT_DTYPE): 'fp32' (TF32 off, the port's
+# policy), 'tf32' (TF32 on) or 'bf16' (operands stored in bfloat16, the
+# products accumulated in float32 by the matmul, the result cast back).
+# Swept by experiments/precision_study.py; not meant to change otherwise.
+MATMUL_DFT_POLICY = "fp32"
 
 
 def expanded_dims(dims: Sequence[int]) -> Tuple[int, ...]:
@@ -190,11 +196,12 @@ class BTTBSpectrum:
 
 
 @contextlib.contextmanager
-def fp32_matmul():
+def fp32_matmul(tf32: bool = False):
     """Full-FP32 matrix products for the duration (TF32 off): TF32 keeps
-    about three decimal digits, which these DFT-like sums cannot spare."""
+    about three decimal digits, which these DFT-like sums cannot spare.
+    ``tf32=True`` turns TF32 on instead (the precision study's policy)."""
     saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         yield
     finally:
@@ -354,12 +361,16 @@ _LETTERS = "abcdefghijklmnopqrstuvwxyz"
 
 
 def _axis_contract(x: torch.Tensor, Q: torch.Tensor, axis: int) -> torch.Tensor:
-    """Contract ``axis`` of x with Q[in, out], keeping the axis in place."""
+    """Contract ``axis`` of x with Q[in, out], keeping the axis in place
+    (bfloat16 operands under MATMUL_DFT_POLICY 'bf16')."""
     nd = x.ndim
     axis = axis % nd
     subs = _LETTERS[:nd]
     out = subs[:axis] + "Z" + subs[axis + 1:]
-    return torch.einsum(f"{subs},{subs[axis]}Z->{out}", x, Q)
+    eq = f"{subs},{subs[axis]}Z->{out}"
+    if MATMUL_DFT_POLICY == "bf16":
+        return torch.einsum(eq, x.to(torch.bfloat16), Q.to(torch.bfloat16)).to(x.dtype)
+    return torch.einsum(eq, x, Q)
 
 
 def _full_weights(half: torch.Tensor, L: int) -> torch.Tensor:
@@ -401,7 +412,8 @@ def _apply_spectrum_matmul(spec: BTTBSpectrum, v: torch.Tensor,
                            out_expanded: bool) -> torch.Tensor:
     """The einsum chain: analysis per axis (minor axis first), scale by the
     full spectrum, synthesis per axis; through kernel B-8 where
-    `_pallas_transform_ok` says so.  Full FP32 (TF32 off)."""
+    `_pallas_transform_ok` says so.  Full FP32 (TF32 off) unless
+    MATMUL_DFT_POLICY says otherwise."""
     dims, edims = spec.dims, spec.edims
     nd = len(dims)
     batch = v.shape[:-1]
@@ -417,7 +429,7 @@ def _apply_spectrum_matmul(spec: BTTBSpectrum, v: torch.Tensor,
         x = circulant_apply_2d(x.reshape((-1,) + edims).contiguous(), Q0, Q1,
                                weights_full.contiguous()).reshape(batch + edims)
     else:
-        with fp32_matmul():
+        with fp32_matmul(tf32=MATMUL_DFT_POLICY == "tf32"):
             for a in range(-1, -nd - 1, -1):
                 x = _axis_contract(x, _real_fourier_basis(edims[a], v.dtype, v.device), a)
             x = x * weights_full

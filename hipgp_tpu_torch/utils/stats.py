@@ -2,17 +2,21 @@
 `hipgp_tpu/utils/stats.py`): the KL to the whitened prior N(0, I) that the
 three variational families need (diagonal, block-diagonal and dense
 covariances), the KL between two Gaussians given Cholesky factors, and the
-normal log-density and CDF."""
+normal log-density and CDF, the dense KL between two Gaussians that the
+unwhitened SVGP needs, and the gamma log-density helpers of its lengthscale
+prior."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from ..ops.solve import cholesky_or_nan
+from ..ops.bttb import fp32_matmul
+from ..ops.solve import cholesky_or_nan, spd_solve
 
 __all__ = ["diag_kl_to_standard", "kl_to_standard", "block_kl_to_standard",
-           "kl_mvn_chol", "normal_logpdf", "normal_cdf"]
+           "kl_mvn", "kl_mvn_chol", "normal_logpdf", "normal_cdf", "gamma_lnpdf",
+           "gamma_lnpdf_lnx", "gamma_moments", "gamma_params"]
 
 LN2PI = math.log(2.0 * math.pi)
 
@@ -49,6 +53,19 @@ def block_kl_to_standard(m: torch.Tensor, blk_S: torch.Tensor,
     return 0.5 * (trace + torch.sum(m * m) - lndet - nb * bs)
 
 
+def kl_mvn(m0: torch.Tensor, S0: torch.Tensor, m1: torch.Tensor,
+           S1: torch.Tensor) -> torch.Tensor:
+    """KL( N(m0, S0) || N(m1, S1) ) for dense SPD covariances, by Cholesky
+    solves with S1 (full FP32 products)."""
+    k = S0.shape[-1]
+    with fp32_matmul():
+        S1_inv_S0 = spd_solve(S1, S0)
+        diff = (m1 - m0).reshape(-1, 1)
+        quad = torch.sum(diff * spd_solve(S1, diff))
+    return 0.5 * (torch.trace(S1_inv_S0) + quad - k + _spd_logdet(S1)
+                  - _spd_logdet(S0))
+
+
 def kl_mvn_chol(m0: torch.Tensor, cS0: torch.Tensor, m1: torch.Tensor,
                 cS1: torch.Tensor) -> torch.Tensor:
     """KL( N(m0, S0) || N(m1, S1) ) given lower-triangular Cholesky factors
@@ -69,3 +86,25 @@ def normal_logpdf(y, loc, scale):
 
 def normal_cdf(x, loc, scale):
     return 0.5 * (1.0 + torch.erf((x - loc) / (scale * math.sqrt(2.0))))
+
+
+def gamma_lnpdf(x, alpha, beta):
+    """Unnormalized log Gamma(alpha, beta) density (shape, inverse scale)."""
+    return (alpha + 1.0) * torch.log(x) - beta * x
+
+
+def gamma_lnpdf_lnx(lnx, alpha, beta):
+    """Unnormalized log Gamma density of exp(lnx) (log-space argument)."""
+    return (alpha + 1.0) * lnx - beta * torch.exp(lnx)
+
+
+def gamma_moments(alpha, beta):
+    """(mean, variance) of Gamma(alpha, beta)."""
+    return alpha / beta, alpha / beta ** 2
+
+
+def gamma_params(mean, var):
+    """(alpha, beta) of the Gamma with this mean and variance."""
+    beta = mean / var
+    alpha = mean * beta
+    return alpha, beta

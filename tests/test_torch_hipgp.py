@@ -113,6 +113,9 @@ def test_convert_roundtrip():
         np.testing.assert_array_equal(back[k], d[k])
     with pytest.raises(KeyError):
         convert.state_from_numpy({"theta1": d["theta1"]}, device="cpu")
+    with pytest.raises(KeyError):   # lacking only log_noise2
+        convert.state_from_numpy({k: v for k, v in d.items() if k != "log_noise2"},
+                                 device="cpu")
 
 
 def test_prepare_batches_matches_jax(data):

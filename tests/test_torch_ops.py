@@ -273,7 +273,17 @@ def test_port_imports_no_jax():
             " 'hipgp_tpu_torch.ops.toeplitz_dense',"
             " 'hipgp_tpu_torch.experiments.run_solve_kn',"
             " 'hipgp_tpu_torch.experiments.preconditioner_analysis',"
-            " 'hipgp_tpu_torch.experiments.dust_density'};"
+            " 'hipgp_tpu_torch.experiments.dust_density',"
+            " 'hipgp_tpu_torch.models.svgp', 'hipgp_tpu_torch.models.derivative_gp',"
+            " 'hipgp_tpu_torch.kernels.derivatives', 'hipgp_tpu_torch.viz',"
+            " 'hipgp_tpu_torch.utils.profiling', 'hipgp_tpu_torch.utils.naming',"
+            " 'hipgp_tpu_torch.experiments.run_derivative_1d',"
+            " 'hipgp_tpu_torch.experiments.natgrad_trajectory',"
+            " 'hipgp_tpu_torch.experiments.precision_study',"
+            " 'hipgp_tpu_torch.experiments.demo_1d',"
+            " 'hipgp_tpu_torch.experiments.run_3droad',"
+            " 'hipgp_tpu_torch.experiments.run_ukhousing',"
+            " 'hipgp_tpu_torch.experiments.ref_compat'};"
             "assert new <= set(mods), sorted(new - set(mods));"
             "bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'hipgp_tpu', 'pandas', 'matplotlib')];"
