@@ -257,7 +257,33 @@ Phases, each printing one line of progress with its seconds:
      demo-1d - demo_1d's fit (dense SVGP and 1-D HIP-GP): RMSEs below 0.1;
      trace   - utils.profiling's PhaseTimer and trace around 5 natgrad steps
                of [main]'s model: the Chrome trace names kernel A's CUDA
-               kernels, the timer counts 5 calls; ms a step beside [main]'s.
+               kernels, the timer counts 5 calls; ms a step beside [main]'s;
+     dp      - (after [accuracy]) two ranks over gloo on the one card
+               (parallel.launch; gloo for several ranks on one GPU, NCCL
+               cannot): [main]'s epoch through svigp_fit(data_shard_fn=
+               make_dp_data_shard_fn(mesh)), 128 rows a rank a step; theta1,
+               theta2, the ELBO trace, rho and the lr used within 1e-4 of
+               [main]'s; each rank's kernel-A launches exact against its own
+               PCG_STATS; ms a step beside [main]'s, the bytes all-reduced a
+               step, each rank's peak; no rank runs nvcc;
+     dp-solve - the same ranks: dp_batch_solve with the ELBO at 64^2
+               (M' = 16 384) on [main]'s data cut to 19 999 rows, laid out by
+               process_slice / global_batch / global_row_weights (one pad
+               row), micro-batch 2 000, maxiter_cg 10; in float32 theta2
+               within 1e-4, theta1 within 1.5e-3 and the ELBO within 1e-5
+               of the single-process dense batch_solve; in float64 theta and
+               the ELBO within 1e-8 of the single-process float64 solve at
+               the ranks' micro-batch of 1 000; the sweep's, all-reduce's
+               and finalize's seconds, the peaks;
+     grid-fft - the same ranks: sharded_gram_solve at M = 125^2 (the spectrum
+               at multiple_of = shard_multiples(dims, 2), 256 rows, 10
+               iterations) and on the section 5.2 operator at M = 2^20 by
+               the four-step FFT (batch 8, 20 iterations), each within 5e-3
+               of the float64 single-device plain gram_solve, beside the
+               float32 kernel path (kernel A; the radix kernels): the gap,
+               ms a solve for both, the bytes through all_to_all a solve;
+     dp-nccl - a world of one rank over NCCL: [main]'s epoch (within 1e-6 of
+               [main]'s; the gap reported) and the 2-D [grid-fft] case;
 Any failed check raises, so the script exits non-zero.  The line before the
 last is the card's name and power limit from nvidia-smi, the one before it a
 JSON object with one entry per kernel (the radix kernels' entries add the
@@ -3462,6 +3488,439 @@ def phase_trace(torch, d, model, state0, main_step_ms):
 # kernel A's CUDA kernels in csrc/sandwich_fft.cu, as a trace names them
 TRACE_KERNEL_A = ("rows_forward_kernel", "columns_kernel", "rows_inverse_kernel")
 
+# the parallel phases: ranks on the one card (gloo; NCCL cannot put two ranks
+# on one GPU) and a world of one over NCCL
+PAR_RANKS = 2
+PAR_TIMEOUT_S = 480
+DP_TOL = 1e-4              # [dp]: theta, the ELBO trace, rho, lr against [main]
+DP_NCCL_TOL = 1e-6         # [dp-nccl]: the world of one against [main]
+DP_SOLVE = dict(grid=64, rows=19_999, batch_size=2000, maxiter_cg=10)
+DP_SOLVE_ELBO_TOL = 1e-5   # [dp-solve]: the ELBO against the single-process solve
+# [dp-solve]'s float32 theta1 against the single-process float32 solve: theta1
+# = Lambda mhat with mhat from the float32 Cholesky of I + sum ivar kn kn^T,
+# whose error is set by that matrix's conditioning, so two float32 solves
+# summed in different orders differ far more than theta2 or the ELBO; about
+# twice the 7.273e-4 read on an H100 80GB HBM3 at 700 W
+DP_SOLVE_F32_THETA1_TOL = 1.5e-3
+# [dp-solve] in float64: state and ELBO against the single-process float64
+# solve at the ranks' micro-batch, which shows the data-parallel sums exact
+DP_SOLVE_F64_TOL = 1e-8
+GRID_FFT = {"2d": dict(rows=256, iters=10), "1d": dict(M=HEADLINE_M, rows=8, iters=PCG_ITERS)}
+GRID_FFT_TOL = 5e-3        # [accuracy]'s limit against float64
+
+
+def _rank_prelude(torch):
+    """What chip_smoke.main sets for the parent, set in a rank."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _rank_epoch(torch, d, sig2, mesh):
+    """[main]'s epoch on this rank's columns of every batch: the state, the
+    trace, rho, the counts, the bytes all-reduced in one more step, the
+    peak."""
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments.run_synthetic import build_model
+    from hipgp_tpu_torch.infer import FitConfig, svigp_fit
+    from hipgp_tpu_torch.ops import mxu2d, solve
+    from hipgp_tpu_torch.parallel import make_dp_data_shard_fn, round_batch_to_mesh
+    from hipgp_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device("cuda")
+    model = build_model("SqExp", MAIN_GRID, len(d["xobs"]), sig2, 0.05, 0.01,
+                        dtype=torch.float32, device=dev)
+    cfg = round_batch_to_mesh(FitConfig(epochs=1, batch_size=256, lr=1e-2, maxiter_cg=10),
+                              mesh, len(d["xobs"]))
+    shard = make_dp_data_shard_fn(mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mxu2d.reset_launches()
+    solve.PCG_STATS.update(solves=0, iterations=0)
+    pmesh.reset_comm()
+    t0 = time.perf_counter()
+    state, rep = svigp_fit(model, model.init_state(), d["xobs"], d["yobs"], d["sobs"], cfg,
+                           verbose=False, theta2_warmstart=True, data_shard_fn=shard)
+    torch.cuda.synchronize()
+    out = dict(fit_s=time.perf_counter() - t0, launches=dict(mxu2d.LAUNCHES),
+               stats=dict(solve.PCG_STATS), comm_fit=dict(pmesh.COMM),
+               peak=torch.cuda.max_memory_allocated(), steps=rep["steps"],
+               step_ms=1e3 * rep["epoch_times"][0] / rep["steps"],
+               theta1=state.theta1.cpu().numpy(), theta2=state.theta2.cpu().numpy(),
+               trace=np.asarray(rep["elbo_trace"]), rho=rep["natgrad_rho"],
+               lr_used=rep["lr_used"])
+    # one more step's collectives, counted alone
+    as_t = lambda a: torch.as_tensor(a[:cfg.batch_size]).to(dtype=model.dtype, device=dev)
+    xb, yb, sb, w = shard(*(as_t(a)[None] for a in (d["xobs"], d["yobs"], d["sobs"])),
+                          torch.ones((1, cfg.batch_size), dtype=model.dtype, device=dev))
+    pmesh.reset_comm()
+    model.elbo_and_grads(state, xb[0], yb[0], sb[0], maxiter_cg=10, weights=w[0],
+                         group=shard.group)
+    out["comm_step"] = dict(pmesh.COMM)
+    return out
+
+
+def _rank_dp_solve(torch, d, sig2, mesh):
+    """[dp-solve] on this rank: its block of the 19 999 rows, solved in
+    float32 and again in float64."""
+    from hipgp_tpu_torch.experiments.run_synthetic import build_model
+    from hipgp_tpu_torch.parallel import dp_batch_solve, multihost
+
+    n = DP_SOLVE["rows"]
+    sl = multihost.process_slice(n)
+    wg = multihost.global_row_weights(mesh, n)
+    out = dict(rows=(sl.start, sl.stop), pad_rows=int((wg.local == 0).sum()))
+    for dt in (torch.float32, torch.float64):
+        model = build_model("SqExp", DP_SOLVE["grid"], n, sig2, 0.05, 0.01, dtype=dt,
+                            device=torch.device("cuda"))
+        xg, yg = (multihost.global_batch(mesh, d[k][:n][sl], n_global=n)
+                  for k in ("xobs", "yobs"))
+        sg = multihost.global_batch(mesh, d["sobs"][:n][sl], n_global=n, fill=1.0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        new, elbo = dp_batch_solve(model, model.init_state(), xg, yg, sg, mesh,
+                                   batch_size=DP_SOLVE["batch_size"],
+                                   maxiter_cg=DP_SOLVE["maxiter_cg"], row_weights=wg,
+                                   compute_elbo=True, timings=timings)
+        out[str(dt).split(".")[-1]] = dict(
+            theta1=new.theta1.cpu().numpy(), theta2=new.theta2.cpu().numpy(),
+            elbo=float(elbo), timings=timings, peak=torch.cuda.max_memory_allocated())
+        del model, new
+    return out
+
+
+def grid_fft_problem(torch, case, dtype, d=None, sig2=None):
+    """[grid-fft]'s (spectrum, right-hand side): '2d', [main]'s kernel on the
+    125^2 grid with the embedding padded for two shards, Knm of [main]'s
+    first 256 rows; '1d', the section 5.2 operator at M = 2^20 (its 2^21
+    embedding splits for two shards as it is) and 8 rows from seed 0."""
+    import numpy as np
+
+    from hipgp_tpu_torch.kernels import kernel_from_name
+    from hipgp_tpu_torch.models import HIPGP
+    from hipgp_tpu_torch.parallel import shard_multiples
+
+    dev = torch.device("cuda")
+    if case == "2d":
+        grids = [np.linspace(-1, 1, MAIN_GRID)] * 2
+        model = HIPGP(kernel_from_name("SqExp"), grids, num_obs=len(d["xobs"]),
+                      sig2_init=sig2, ell_init=0.05, noise2_init=1e-4, init_Svar=1.0,
+                      jitter=1e-3, grid_shards=PAR_RANKS, dtype=dtype, device=dev)
+        st = model.init_state()
+        check(model._spec_multiple == shard_multiples(model.dims, PAR_RANKS),
+              "the 2-D spectrum is not padded for the shards")
+        x = torch.as_tensor(d["xobs"][:GRID_FFT["2d"]["rows"]]).to(dtype=dtype, device=dev)
+        return model.spectrum(st), model.make_grams(st, x)[0]
+    c = GRID_FFT["1d"]
+    spec = protocol_spectrum_1d(c["M"], dtype, dev)
+    check(spec.edims[0] % shard_multiples((c["M"],), PAR_RANKS)[0] == 0,
+          f"the 1-D embedding {spec.edims} does not split for {PAR_RANKS} shards")
+    b = np.random.default_rng(0).standard_normal((c["rows"], c["M"]))
+    return spec, torch.as_tensor(b, dtype=dtype, device=dev)
+
+
+def _rank_grid_fft(torch, d, sig2, cases):
+    """[grid-fft] on this rank: each case's sharded_gram_solve, timed
+    (one solve before the timed one for the 2-D case; the 1-D one once),
+    with its all_to_all bytes; the result from rank 0 only."""
+    import torch.distributed as dist
+
+    from hipgp_tpu_torch.parallel import make_mesh, sharded_gram_solve
+    from hipgp_tpu_torch.parallel import mesh as pmesh
+
+    mesh = make_mesh(axis_names=("grid",))
+    out = {}
+    for case in cases:
+        spec, b = grid_fft_problem(torch, case, torch.float32, d, sig2)
+        iters = GRID_FFT[case]["iters"]
+        run = lambda: sharded_gram_solve(spec, b, mesh, maxiter=iters, tol=0.0)
+        if case == "2d":
+            run()
+        torch.cuda.synchronize()
+        pmesh.reset_comm()
+        t0 = time.perf_counter()
+        kn = run()
+        torch.cuda.synchronize()
+        out[case] = dict(ms=1e3 * (time.perf_counter() - t0), comm=dict(pmesh.COMM),
+                         kn=kn.cpu().numpy() if dist.get_rank() == 0 else None,
+                         shape=tuple(kn.shape))
+        del kn
+    return out
+
+
+def _rank_collectives(torch):
+    """The collectives the port calls (all_reduce, all_to_all_single,
+    all_gather), each on CUDA tensors of float32, float64 and complex64,
+    checked against the sums and pieces they must give; and the ms of an
+    all_reduce of 0.5 MB and 32 MB and of an all_to_all of 32 MB (mean of 5
+    after one)."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    took = []
+    for dt in (torch.float32, torch.float64, torch.complex64):
+        ramp = lambda r: (torch.arange(4 * n, device=dev) + 100 * r).to(dt)
+        y = ramp(rank).clone()
+        dist.all_reduce(y)
+        check(torch.equal(y, sum(ramp(r) for r in range(n))), f"all_reduce {dt}")
+        x = ramp(rank)
+        send = torch.view_as_real(x) if x.is_complex() else x
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send.contiguous())
+        recv = torch.view_as_complex(recv) if x.is_complex() else recv
+        want = torch.cat([ramp(r).chunk(n)[rank] for r in range(n)])
+        check(torch.equal(recv, want), f"all_to_all_single {dt}")
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x)
+        check(all(torch.equal(p, ramp(r)) for r, p in enumerate(parts)), f"all_gather {dt}")
+        took.append(str(dt).replace("torch.", ""))
+    ms = {}
+    for name, nbytes in (("all_reduce", 1 << 19), ("all_reduce", 1 << 25),
+                         ("all_to_all", 1 << 25)):
+        a = torch.ones(nbytes // 4, device=dev)
+        b = torch.empty_like(a)
+        op = ((lambda: dist.all_reduce(a)) if name == "all_reduce"
+              else (lambda: dist.all_to_all_single(b, a)))
+        op()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            op()
+        torch.cuda.synchronize()
+        ms[f"{name} {nbytes} B"] = 1e3 * (time.perf_counter() - t0) / 5
+    return {"took": took, "ms": ms}
+
+
+def parallel_ranks(d, sig2):
+    """The gloo world's phases, in one rank: the collectives, [dp],
+    [dp-solve], [grid-fft]."""
+    import torch
+
+    from hipgp_tpu_torch import _build
+    from hipgp_tpu_torch.parallel import make_mesh
+
+    _rank_prelude(torch)
+    mesh = make_mesh()
+    out = {"collectives": _rank_collectives(torch),
+           "dp": _rank_epoch(torch, d, sig2, mesh)}
+    torch.cuda.empty_cache()
+    out["dp-solve"] = _rank_dp_solve(torch, d, sig2, mesh)
+    torch.cuda.empty_cache()
+    out["grid-fft"] = _rank_grid_fft(torch, d, sig2, ("2d", "1d"))
+    out["nvcc"] = sorted(_build.LOGS)
+    out["backend"] = torch.distributed.get_backend()
+    return out
+
+
+def nccl_rank(d, sig2):
+    """The NCCL world of one: [main]'s epoch and the 2-D [grid-fft] case."""
+    import torch
+
+    from hipgp_tpu_torch import _build
+    from hipgp_tpu_torch.parallel import make_mesh
+
+    _rank_prelude(torch)
+    out = {"collectives": _rank_collectives(torch),
+           "dp": _rank_epoch(torch, d, sig2, make_mesh()),
+           "grid-fft": _rank_grid_fft(torch, d, sig2, ("2d",))}
+    out["nvcc"] = sorted(_build.LOGS)
+    out["backend"] = torch.distributed.get_backend()
+    return out
+
+
+def _launches_exact(tag, rank, r):
+    st, lc = r["stats"], r["launches"]
+    want_sd = st["solves"] + 2 * st["iterations"]
+    log(f"[{tag}] rank {rank}: {st['solves']} PCG solves, {st['iterations']} iterations -> "
+        f"expect {want_sd} self-dot and {st['solves']} R^T launches; counted "
+        f"{lc['sandwich_apply_selfdot']} / {lc['sandwich_apply']}")
+    check(lc["sandwich_apply_selfdot"] == want_sd, f"[{tag}] rank {rank} self-dot launches")
+    check(lc["sandwich_apply"] == st["solves"], f"[{tag}] rank {rank} R^T launches")
+    check(st["solves"] == 2 * r["steps"] + 1,
+          f"[{tag}] rank {rank}: one solve per warm-start batch and step, one for rho")
+
+
+def _check_epoch(tag, r, main, tol):
+    """One rank's epoch against [main]'s: (theta gap, trace gap, rho gap, lr gap)."""
+    import numpy as np
+    import torch
+
+    on = lambda a: torch.as_tensor(a, device=main["theta1"].device)
+    gaps = (rel(on(r["theta1"]), main["theta1"]), rel(on(r["theta2"]), main["theta2"]),
+            float(np.max(np.abs(r["trace"] - main["trace"]) / np.abs(main["trace"]))),
+            abs(r["rho"] - main["rho"]) / abs(main["rho"]),
+            abs(r["lr_used"] - main["lr_used"]) / abs(main["lr_used"]))
+    names = ("theta1", "theta2", "ELBO trace", "rho", "lr used")
+    for name, g in zip(names, gaps):
+        check(g <= tol, f"[{tag}] {name} {g:.3e} from [main]'s (limit {tol:g})")
+    return dict(zip(names, gaps))
+
+
+def phase_parallel(torch, dev, d, sig2, main, main_step_ms):
+    """[dp], [dp-solve], [grid-fft] (two gloo ranks on the card) and
+    [dp-nccl] (a world of one over NCCL); returns the kernel-A launches of
+    the three epochs, summed."""
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments.run_synthetic import build_model
+    from hipgp_tpu_torch.ops import mxu2d, radix_fft, solve
+    from hipgp_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    data = {k: d[k] for k in ("xobs", "yobs", "sobs")}
+    gloo = launch.run(parallel_ranks, PAR_RANKS, backend="gloo", device="cuda",
+                      args=(data, sig2), timeout_s=PAR_TIMEOUT_S)
+    t_gloo = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    (nccl,) = launch.run(nccl_rank, 1, backend="nccl", device="cuda", args=(data, sig2),
+                         timeout_s=PAR_TIMEOUT_S)
+    t_nccl = time.perf_counter() - t1
+    for r in gloo + [nccl]:
+        check(not r["nvcc"], f"a rank ran nvcc for {r['nvcc']}")
+    check([r["backend"] for r in gloo] == ["gloo"] * PAR_RANKS and nccl["backend"] == "nccl",
+          "the worlds' backends")
+    log(f"[dp] {PAR_RANKS} gloo ranks on one card in {t_gloo:.2f} s, the NCCL world of "
+        f"one in {t_nccl:.2f} s (each start included); no rank ran nvcc")
+    for tag, r in (("gloo rank 0", gloo[0]), ("nccl", nccl)):
+        c = r["collectives"]
+        log(f"[dp] {tag}: all_reduce, all_to_all_single and all_gather took CUDA tensors "
+            f"of {', '.join(c['took'])} and gave the right sums and pieces; "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in c["ms"].items()))
+
+    # [dp]: [main]'s epoch, 128 rows a rank a step
+    total = dict.fromkeys(("sandwich_apply_selfdot", "sandwich_apply"), 0)
+    for rank, r in enumerate(gloo):
+        rd = r["dp"]
+        _launches_exact("dp", rank, rd)
+        gaps = _check_epoch("dp", rd, main, DP_TOL)
+        for k in total:
+            total[k] += rd["launches"][k]
+        log(f"[dp] rank {rank}: {rd['steps']} steps at {rd['step_ms']:.2f} ms a step "
+            f"(against [main]'s {main_step_ms:.2f} ms in one process; two processes "
+            f"time-share the card and gloo reduces through host memory: no speed-up is "
+            f"claimed); all-reduced {rd['comm_step']['all_reduce']} bytes a step, "
+            f"{rd['comm_fit']['all_reduce']} in the fit (warm start and rho included); "
+            f"peak {rd['peak'] / 1e9:.3f} GB; rel gaps to [main] "
+            + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    check(gloo[0]["dp"]["trace"].tolist() == gloo[1]["dp"]["trace"].tolist(),
+          "[dp] the ranks' ELBO traces differ")
+
+    # [dp-nccl]: a world of one over NCCL, expected bit-equal to [main]
+    rn = nccl["dp"]
+    _launches_exact("dp-nccl", 0, rn)
+    gaps = _check_epoch("dp-nccl", rn, main, DP_NCCL_TOL)
+    bit = (np.array_equal(rn["theta1"], main["theta1"].cpu().numpy())
+           and np.array_equal(rn["theta2"], main["theta2"].cpu().numpy()))
+    for k in total:
+        total[k] += rn["launches"][k]
+    log(f"[dp-nccl] world of one over NCCL: {rn['steps']} steps at {rn['step_ms']:.2f} ms "
+        f"a step; theta bit-equal to [main]'s: {bit}; rel gaps "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f"; peak {rn['peak'] / 1e9:.3f} GB")
+
+    # [dp-solve]: in float32 against the single-process dense solve on the
+    # same rows; in float64 against the single-process float64 solve at the
+    # ranks' micro-batch (each rank sweeps its own block of rows 1 000 at a
+    # time: the same groups of rows as that solve)
+    n = DP_SOLVE["rows"]
+    refs = {}
+    for dt, bsz in ((torch.float32, DP_SOLVE["batch_size"]),
+                    (torch.float64, DP_SOLVE["batch_size"] // PAR_RANKS)):
+        model = build_model("SqExp", DP_SOLVE["grid"], n, sig2, 0.05, 0.01, dtype=dt,
+                            device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        t2 = time.perf_counter()
+        ref, ref_elbo = model.batch_solve(
+            model.init_state(), d["xobs"][:n], d["yobs"][:n], d["sobs"][:n],
+            batch_size=bsz, maxiter_cg=DP_SOLVE["maxiter_cg"],
+            compute_elbo=True, mean_solver="dense")
+        torch.cuda.synchronize()
+        refs[dt] = (ref, float(ref_elbo), time.perf_counter() - t2,
+                    torch.cuda.max_memory_allocated())
+        del model
+        torch.cuda.empty_cache()
+    (ref, ref_elbo, ref_s, ref_peak) = refs[torch.float32]
+    (ref64, ref64_elbo, ref64_s, _) = refs[torch.float64]
+    single64 = rel(ref.theta1, ref64.theta1)
+    for rank, r in enumerate(gloo):
+        rs, r64 = r["dp-solve"]["float32"], r["dp-solve"]["float64"]
+        t1 = torch.as_tensor(rs["theta1"], device=dev)
+        e1 = rel(t1, ref.theta1)
+        e2 = rel(torch.as_tensor(rs["theta2"], device=dev), ref.theta2)
+        e64 = rel(t1, ref64.theta1)
+        ee = abs(rs["elbo"] - ref_elbo) / abs(ref_elbo)
+        f64 = {"theta1": rel(torch.as_tensor(r64["theta1"], device=dev), ref64.theta1),
+               "theta2": rel(torch.as_tensor(r64["theta2"], device=dev), ref64.theta2),
+               "ELBO": abs(r64["elbo"] - ref64_elbo) / abs(ref64_elbo)}
+        log(f"[dp-solve] rank {rank} rows {r['dp-solve']['rows']} (pad rows "
+            f"{r['dp-solve']['pad_rows']}): M' = {DP_SOLVE['grid'] * 2}^2, micro-batch "
+            f"{DP_SOLVE['batch_size']}; float32 "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in rs["timings"].items())
+            + f"; peak {rs['peak'] / 1e9:.3f} GB; against the single-process dense solve "
+            f"({ref_s:.2f} s, peak {ref_peak / 1e9:.3f} GB): theta2 {e2:.3e}, ELBO "
+            f"{ee:.3e} ({rs['elbo']:.6f} vs {ref_elbo:.6f}), theta1 {e1:.3e} (limit "
+            f"{DP_SOLVE_F32_THETA1_TOL:g}); theta1 against float64 {e64:.3e}, the "
+            f"single-process float32 solve's {single64:.3e}")
+        log(f"[dp-solve] rank {rank} float64: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in r64["timings"].items())
+            + f"; peak {r64['peak'] / 1e9:.3f} GB; against the single-process float64 "
+            f"dense solve at micro-batch {DP_SOLVE['batch_size'] // PAR_RANKS} "
+            f"({ref64_s:.2f} s): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in f64.items())
+            + f" (limit {DP_SOLVE_F64_TOL:g})")
+        check(e2 <= DP_TOL, f"[dp-solve] rank {rank} theta2 gap {e2}")
+        check(ee <= DP_SOLVE_ELBO_TOL, f"[dp-solve] rank {rank} ELBO gap {ee}")
+        check(e1 <= DP_SOLVE_F32_THETA1_TOL, f"[dp-solve] rank {rank} float32 theta1 gap {e1}")
+        for k, v in f64.items():
+            check(v <= DP_SOLVE_F64_TOL, f"[dp-solve] rank {rank} float64 {k} gap {v}")
+    check(gloo[-1]["dp-solve"]["pad_rows"] == 1, "[dp-solve] the pad row was not exercised")
+
+    # [grid-fft]: against float64 and the single-device float32 kernel path
+    for case in ("2d", "1d"):
+        c = GRID_FFT[case]
+        spec64, b64 = grid_fft_problem(torch, case, torch.float64, d, sig2)
+        want = solve.gram_solve(spec64, b64, maxiter=c["iters"], tol=0.0, fixed_iters=True)
+        del spec64, b64
+        spec32, b32 = grid_fft_problem(torch, case, torch.float32, d, sig2)
+        lc = dict(mxu2d.LAUNCHES) if case == "2d" else dict(radix_fft.LAUNCHES)
+        run = lambda: solve.gram_solve(spec32, b32, maxiter=c["iters"], tol=0.0,
+                                       fixed_iters=True)
+        kern = run()
+        moved = ({k: v - lc[k] for k, v in mxu2d.LAUNCHES.items()} if case == "2d"
+                 else {k: v - lc[k] for k, v in radix_fft.LAUNCHES.items()})
+        check(moved["sandwich_apply"] == 1 if case == "2d" else moved["middle"] > 0,
+              f"[grid-fft] {case}: the float32 single-device solve took no kernel path")
+        kern_ms = cuda_ms(torch, run, warmup=1, reps=3)
+        worlds = [("gloo", g) for g in gloo] + ([("nccl", nccl)] if case == "2d" else [])
+        got = torch.as_tensor(gloo[0]["grid-fft"][case]["kn"], device=dev)
+        check(tuple(got.shape) == tuple(want.shape), f"[grid-fft] {case} shape {got.shape}")
+        check(bool(torch.isfinite(got).all()), f"[grid-fft] {case} non-finite")
+        e64, ek = rel(got, want), rel(got, kern)
+        ek64 = rel(kern, want)
+        check(e64 <= GRID_FFT_TOL, f"[grid-fft] {case} rel err vs float64 {e64}")
+        log(f"[grid-fft] {case} ({tuple(spec32.dims)} -> {tuple(spec32.edims)}, "
+            f"{c['rows']} rows, {c['iters']} iterations): sharded over {PAR_RANKS} gloo "
+            f"ranks vs float64 plain {e64:.3e} (limit {GRID_FFT_TOL:g}), vs the float32 "
+            f"kernel path {ek:.3e} (kernel path vs float64 {ek64:.3e}); "
+            + "; ".join(f"{w} rank {i if w == 'gloo' else 0}: {r['grid-fft'][case]['ms']:.1f} "
+                        f"ms a solve, {r['grid-fft'][case]['comm']['all_to_all']} bytes "
+                        f"through all_to_all"
+                        for i, (w, r) in enumerate(worlds))
+            + f"; the single-device float32 kernel path {kern_ms:.3f} ms a solve")
+        if case == "2d":
+            gn = torch.as_tensor(nccl["grid-fft"]["2d"]["kn"], device=dev)
+            en = rel(gn, want)
+            check(en <= GRID_FFT_TOL, f"[grid-fft] 2d NCCL world of one vs float64 {en}")
+            log(f"[grid-fft] 2d NCCL world of one vs float64 plain {en:.3e}, vs the gloo "
+                f"ranks {rel(gn, got):.3e}")
+        del got, want, kern, spec32, b32
+        torch.cuda.empty_cache()
+    log(f"[dp] kernel-A launches of the three epochs {total}; {time.perf_counter() - t0:.2f} s")
+    return total
+
 
 def main():
     import torch
@@ -3643,6 +4102,12 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     check(err_b8 <= 5e-3, f"B-8 whiten rel err {err_b8}")
 
+    # ---- the parallel phases: ranks on the one card ------------------------------
+    dp_launches = phase_parallel(
+        torch, dev, d, sig2, {"theta1": state.theta1, "theta2": state.theta2,
+                              "trace": trace, "rho": report["natgrad_rho"],
+                              "lr_used": report["lr_used"]}, step_s * 1e3)
+
     # ---- the training step -------------------------------------------------------
     state_tr, train_launches = phase_train(torch, d, model, state0, step_s * 1e3)
     b8_launches = phase_train_grad(torch, dev, d, model, m64, state_tr)
@@ -3706,10 +4171,11 @@ def main():
         r = results[name]
         # the main path's launches: [main], [main-block], [full-rank],
         # [resume]'s resumed epoch, [trajectory]'s paper-scale torch leg,
-        # [uci] and [precision]'s kernel-A policy
+        # [uci], [precision]'s kernel-A policy and the ranks' epochs of [dp]
+        # and [dp-nccl]
         n = (launches[name] + block_launches[name] + fr_launches[name]
              + resume_launches[name] + traj_launches[name] + uci_launches[name]
-             + precision_launches.get(name, 0))
+             + precision_launches.get(name, 0) + dp_launches[name])
         kernels.append({
             "name": f"mxu2d.{name}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": n,
@@ -3720,6 +4186,7 @@ def main():
         check(launches[name] > 0, f"{name} never launched on the main path")
         check(block_launches[name] > 0 and fr_launches[name] > 0,
               f"{name} never launched on the block or full-rank path")
+        check(dp_launches[name] > 0, f"{name} never launched on the data-parallel path")
     for name in ("stage1", "stage1_inv_dot", "middle"):
         r = radix_results[name]
         # the 1-D main path's launches: [main-1d], the solver studies and

@@ -21,10 +21,16 @@ draws the figures where matplotlib imports and otherwise prints
 machine has no matplotlib); ``make_plots=True`` without it raises
 ImportError.
 
-Not ported: ``parallel`` ('dp', 'mp'; ROADMAP.md section A items 9 and 10)
-raises NotImplementedError; ``grid_shards`` (item 10), the parallel paths'
-``predict_fn`` and ``eval_only_state`` (evaluate a saved state without a
-fit) are left out.
+``parallel='dp'`` fits data-parallel over ``mesh`` (default: every rank of
+the world on 'dp'; a world of one process when none was started): natgrad
+through `svigp_fit` with `parallel.round_batch_to_mesh` and
+`parallel.make_dp_data_shard_fn`, full batch through
+`parallel.dp_batch_solve`.  Every rank returns the same state and report;
+only the coordinator (`multihost.on_coordinator`) writes the artifacts.
+``grid_shards`` pads the model's circulant embedding as the JAX harness
+does.  Not ported: ``parallel='mp'`` (ROADMAP.md section A item 10) raises
+NotImplementedError; its ``predict_fn`` and ``eval_only_state`` (evaluate a
+saved state without a fit) are left out.
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ from ..utils import checkpoint as ckpt
 from ..utils import metrics
 
 __all__ = ["fit_predict_and_save", "make_model", "evaluate_and_save",
-           "empirical_sig2_init"]
+           "empirical_sig2_init", "init_parallel"]
 
 
 def make_model(model_class: str, kernel_name: str, xinduce_grids: Sequence,
@@ -55,14 +61,16 @@ def make_model(model_class: str, kernel_name: str, xinduce_grids: Sequence,
                whitened_type: str = "ziggy", learn_kernel: bool = False,
                learn_noise: bool = False, jitter: float = 1e-3,
                block_sizes: Optional[Sequence[int]] = None,
-               support_integrated_obs: bool = False, dtype=torch.float32,
+               support_integrated_obs: bool = False,
+               grid_shards: Optional[int] = None, dtype=torch.float32,
                device="cuda"):
     """The JAX harness's model factory: ``model_class`` 'mean-field',
     'block-diagonal[-*]' or 'block' (chunked by ``block_sizes``),
     'full-rank' (under the 'standard' parameterization, as the reference
     builds it: its natgrad fit raises ValueError, it fits by the closed
     form) or 'SVGP' (the dense unwhitened SVGP with the mesh of the grids as
-    its inducing points)."""
+    its inducing points).  ``grid_shards`` pads a HIP-GP's embedding
+    (`HIPGP`)."""
     if model_class == "SVGP":
         grids = [torch.as_tensor(np.asarray(g)).to(dtype) for g in xinduce_grids]
         mesh = torch.meshgrid(*grids, indexing="ij")
@@ -75,8 +83,8 @@ def make_model(model_class: str, kernel_name: str, xinduce_grids: Sequence,
     common = dict(num_obs=num_obs, whitened_type=whitened_type, sig2_init=sig2_init,
                   ell_init=ell_init, noise2_init=noise2_init, init_Svar=init_Svar,
                   learn_kernel=learn_kernel, learn_noise=learn_noise, jitter=jitter,
-                  support_integrated_obs=support_integrated_obs, dtype=dtype,
-                  device=device)
+                  support_integrated_obs=support_integrated_obs,
+                  grid_shards=grid_shards, dtype=dtype, device=device)
     kern = kernel_from_name(kernel_name)
     if model_class == "mean-field":
         return HIPGP(kern, xinduce_grids, family="mean-field", **common)
@@ -88,6 +96,25 @@ def make_model(model_class: str, kernel_name: str, xinduce_grids: Sequence,
                      parameterization="standard", **common)
     raise ValueError(f"model_class={model_class!r}; choose mean-field | "
                      "block-diagonal | full-rank | SVGP")
+
+
+def init_parallel(parallel: Optional[str], device="cuda"):
+    """The world of a ``parallel`` run: (mesh, writer).  'dp' joins torchrun's
+    world (`multihost.initialize`; a world of one process, said so, without
+    torchrun's environment) and returns the mesh of every rank on 'dp' and
+    whether this rank is the coordinator, the one that writes; None returns
+    (None, True); 'mp' is not ported (ROADMAP.md section A item 10)."""
+    if parallel not in (None, "dp", "mp"):
+        raise ValueError(f"parallel={parallel!r}; choose None | 'dp' | 'mp'")
+    if parallel == "mp":
+        raise NotImplementedError(
+            "parallel='mp' is not ported yet (ROADMAP.md section A item 10)")
+    if parallel is None:
+        return None, True
+    from ..parallel import make_mesh, multihost
+
+    multihost.initialize(device=device)
+    return make_mesh(), multihost.on_coordinator()
 
 
 def empirical_sig2_init(xobs: np.ndarray, yobs: np.ndarray) -> float:
@@ -108,6 +135,46 @@ def empirical_sig2_init(xobs: np.ndarray, yobs: np.ndarray) -> float:
     return sig2
 
 
+def _predict_all(model, state, xtest, ftest, etest, xvalid, fvalid, evalid, xgrid, fgrid,
+                 egrid, integrated, maxiter_cg, ksemi_method, ksemi_samps, batch_size):
+    """The predictions on valid/test/grid (latent and, with ``integrated``,
+    integrated) and their seconds: (pdict, eval_times)."""
+    pdict: Dict[str, np.ndarray] = {}
+    times: Dict[str, float] = {}
+
+    def _predict(x, integrated_obs=False):
+        kw = {}
+        if integrated_obs:
+            kw = dict(integrated_obs=True, semi_integrated_estimator=ksemi_method,
+                      semi_integrated_samps=ksemi_samps)
+        return batch_predict(model, state, x, batch_size=batch_size,
+                             maxiter_cg=maxiter_cg, **kw)
+
+    def run_predictions(tag, x, f_true, e_true):
+        if x is None:
+            return
+        t0 = time.time()
+        fmu, fsig = _predict(x)
+        times[f"f{tag}_eval"] = time.time() - t0
+        pdict[f"fmu_{tag}"] = fmu.cpu().numpy()
+        pdict[f"fsig_{tag}"] = fsig.cpu().numpy()
+        if f_true is not None:
+            pdict[f"f{tag}"] = np.asarray(f_true).reshape(-1)
+        if integrated:
+            t0 = time.time()
+            emu, esig = _predict(x, integrated_obs=True)
+            times[f"e{tag}_eval"] = time.time() - t0
+            pdict[f"emu_{tag}"] = emu.cpu().numpy()
+            pdict[f"esig_{tag}"] = esig.cpu().numpy()
+            if e_true is not None:
+                pdict[f"e{tag}"] = np.asarray(e_true).reshape(-1)
+
+    run_predictions("valid", xvalid, fvalid, evalid)
+    run_predictions("test", xtest, ftest, etest)
+    run_predictions("grid", xgrid, fgrid, egrid)
+    return pdict, times
+
+
 def evaluate_and_save(odir: str, model, state, *, xtest=None, ftest=None, etest=None,
                       xvalid=None, fvalid=None, evalid=None,
                       xgrid=None, fgrid=None, egrid=None,
@@ -120,11 +187,17 @@ def evaluate_and_save(odir: str, model, state, *, xtest=None, ftest=None, etest=
                       train_elbo: Optional[float] = None,
                       predict_batch_size: int = 4096,
                       make_plots: Optional[bool] = None, grid_shape=None,
-                      grid_extent=None):
+                      grid_extent=None, write: bool = True):
     """Checkpoint, predict on valid/test/grid (latent and, with
     ``do_integrated_predictions``, integrated), write the metric CSVs and,
     with ``make_plots`` (None: where matplotlib imports), the JAX harness's
-    figures.  Returns (pdict, eval_times)."""
+    figures.  ``write=False`` predicts and writes nothing (the ranks of a
+    data-parallel run but its coordinator).  Returns (pdict, eval_times)."""
+    if not write:
+        return _predict_all(model, state, xtest, ftest, etest, xvalid, fvalid, evalid,
+                            xgrid, fgrid, egrid, do_integrated_predictions,
+                            predict_maxiter_cg, predict_ksemi_method, predict_ksemi_samps,
+                            predict_batch_size)
     os.makedirs(odir, exist_ok=True)
     if make_plots is None:
         make_plots = viz.matplotlib_available()
@@ -139,39 +212,10 @@ def evaluate_and_save(odir: str, model, state, *, xtest=None, ftest=None, etest=
         if tr:
             np.save(os.path.join(odir, f"{nm}_trace.npy"), np.asarray(tr))
 
-    pdict: Dict[str, np.ndarray] = {}
-    times: Dict[str, float] = {}
-
-    def _predict(x, integrated_obs=False):
-        kw = {}
-        if integrated_obs:
-            kw = dict(integrated_obs=True, semi_integrated_estimator=predict_ksemi_method,
-                      semi_integrated_samps=predict_ksemi_samps)
-        return batch_predict(model, state, x, batch_size=predict_batch_size,
-                             maxiter_cg=predict_maxiter_cg, **kw)
-
-    def run_predictions(tag, x, f_true, e_true):
-        if x is None:
-            return
-        t0 = time.time()
-        fmu, fsig = _predict(x)
-        times[f"f{tag}_eval"] = time.time() - t0
-        pdict[f"fmu_{tag}"] = fmu.cpu().numpy()
-        pdict[f"fsig_{tag}"] = fsig.cpu().numpy()
-        if f_true is not None:
-            pdict[f"f{tag}"] = np.asarray(f_true).reshape(-1)
-        if do_integrated_predictions:
-            t0 = time.time()
-            emu, esig = _predict(x, integrated_obs=True)
-            times[f"e{tag}_eval"] = time.time() - t0
-            pdict[f"emu_{tag}"] = emu.cpu().numpy()
-            pdict[f"esig_{tag}"] = esig.cpu().numpy()
-            if e_true is not None:
-                pdict[f"e{tag}"] = np.asarray(e_true).reshape(-1)
-
-    run_predictions("valid", xvalid, fvalid, evalid)
-    run_predictions("test", xtest, ftest, etest)
-    run_predictions("grid", xgrid, fgrid, egrid)
+    pdict, times = _predict_all(model, state, xtest, ftest, etest, xvalid, fvalid, evalid,
+                                xgrid, fgrid, egrid, do_integrated_predictions,
+                                predict_maxiter_cg, predict_ksemi_method,
+                                predict_ksemi_samps, predict_batch_size)
     ckpt.save_predictions(os.path.join(odir, "predictions.npz"), pdict)
 
     if "ftest" in pdict:
@@ -241,7 +285,8 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
                          grid_shape=None, grid_extent=None,
                          output_dir: str = "./model-output/", eval_epochs: int = 0,
                          eval_epoch_plots: bool = False,
-                         parallel: Optional[str] = None,
+                         parallel: Optional[str] = None, mesh=None,
+                         grid_shards: Optional[int] = None,
                          dtype=torch.float32, device="cuda",
                          max_steps: Optional[int] = None):
     """Fit and evaluate one model, saving every artifact under
@@ -256,15 +301,15 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
     grid predictions' figures, drawn as `evaluate_and_save` decides
     (``eval_epoch_plots`` for the per-epoch evaluations);
     ``max_steps`` (the port's) ends a natgrad fit after that many steps.
-    Returns (model, state, report)."""
-    if parallel not in (None, "dp", "mp"):
-        raise ValueError(f"parallel={parallel!r}; choose None | 'dp' | 'mp'")
-    if parallel is not None:
-        raise NotImplementedError(
-            f"parallel={parallel!r} is not ported yet (ROADMAP.md section A item "
-            f"{9 if parallel == 'dp' else 10})")
+    ``parallel='dp'`` fits data-parallel over ``mesh`` (the module
+    docstring); ``grid_shards`` pads the HIP-GP's embedding.  Returns
+    (model, state, report), the same on every rank."""
+    default_mesh, writer = init_parallel(parallel, device)
+    if mesh is None:
+        mesh = default_mesh
     odir = os.path.join(output_dir, name)
-    os.makedirs(odir, exist_ok=True)
+    if writer:
+        os.makedirs(odir, exist_ok=True)
     xobs = np.asarray(xobs)
     yobs = np.asarray(yobs).reshape(-1)
     sobs = None if sobs is None else np.asarray(sobs).reshape(-1)
@@ -286,17 +331,20 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
                        whitened_type=whitened_type, learn_kernel=cfg.learn_kernel,
                        learn_noise=cfg.learn_noise, jitter=jitter,
                        block_sizes=block_sizes, support_integrated_obs=integrated,
-                       dtype=dtype, device=device)
+                       grid_shards=grid_shards, dtype=dtype, device=device)
     state = model.init_state()
 
-    with open(os.path.join(odir, "fit_params.json"), "w") as f:
-        json.dump({"model_class": model_class, "kernel": kernel,
-                   "sig2_init": float(sig2_init), "ell_init": float(ell_init),
-                   "whitened_type": whitened_type, "fit_method": fit_method,
-                   "parallel": "none", "mesh_shape": None,
-                   "block_sizes": None if block_sizes is None else list(block_sizes),
-                   **{k: v for k, v in dataclasses.asdict(cfg).items()
-                      if isinstance(v, (int, float, str, bool))}}, f, indent=2)
+    if writer:
+        mesh_shape = (None if mesh is None
+                      else dict(zip(mesh.mesh_dim_names, map(int, mesh.shape))))
+        with open(os.path.join(odir, "fit_params.json"), "w") as f:
+            json.dump({"model_class": model_class, "kernel": kernel,
+                       "sig2_init": float(sig2_init), "ell_init": float(ell_init),
+                       "whitened_type": whitened_type, "fit_method": fit_method,
+                       "parallel": parallel or "none", "mesh_shape": mesh_shape,
+                       "block_sizes": None if block_sizes is None else list(block_sizes),
+                       **{k: v for k, v in dataclasses.asdict(cfg).items()
+                          if isinstance(v, (int, float, str, bool))}}, f, indent=2)
 
     eval_kw = dict(xtest=xtest, ftest=ftest, etest=etest, xvalid=xvalid,
                    fvalid=fvalid, evalid=evalid, xgrid=xgrid, fgrid=fgrid, egrid=egrid,
@@ -317,28 +365,42 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
             t0 = time.time()
             _, etimes = evaluate_and_save(
                 os.path.join(odir, "epoch_output", f"epoch_{epoch}"), model_, state_,
-                elbo_trace=trace, make_plots=eval_epoch_plots, **eval_kw)
+                elbo_trace=trace, make_plots=eval_epoch_plots, write=writer, **eval_kw)
             epoch_eval_rows.append({"epoch": epoch, "eval_total": time.time() - t0,
                                     **etimes})
 
     t_start = time.time()
     if fit_method == "natgrad":
-        state, report = svigp_fit(model, state, xobs, yobs, sobs, cfg, verbose=True,
+        shard_kw = {}
+        if parallel == "dp":
+            from ..parallel import make_dp_data_shard_fn, round_batch_to_mesh
+
+            cfg = round_batch_to_mesh(cfg, mesh, len(xobs))
+            shard_kw = {"data_shard_fn": make_dp_data_shard_fn(mesh)}
+        state, report = svigp_fit(model, state, xobs, yobs, sobs, cfg, verbose=writer,
                                   theta2_warmstart=theta2_warmstart,
                                   natgrad_safe_lr=natgrad_safe_lr,
-                                  max_steps=max_steps, epoch_callback=epoch_callback)
+                                  max_steps=max_steps, epoch_callback=epoch_callback,
+                                  **shard_kw)
         train_elbo = report["epoch_elbos"][-1] if report["epoch_elbos"] else None
     elif fit_method == "full-batch":
-        state, elbo = model.batch_solve(
-            state, xobs, yobs, sobs, batch_size=batch_solve_bsz, maxiter_cg=maxiter_cg,
-            integrated_obs=integrated,
-            semi_integrated_estimator=cfg.semi_integrated_estimator,
-            semi_integrated_samps=cfg.num_semi_mc_samples, compute_elbo=True,
-            mean_solver=mean_solver, mean_solver_maxiter=mean_solver_maxiter,
-            mean_solver_tol=mean_solver_tol)
+        flags = dict(batch_size=batch_solve_bsz, maxiter_cg=maxiter_cg,
+                     integrated_obs=integrated,
+                     semi_integrated_estimator=cfg.semi_integrated_estimator,
+                     semi_integrated_samps=cfg.num_semi_mc_samples, compute_elbo=True)
+        if parallel == "dp":
+            from ..parallel import dp_batch_solve
+
+            state, elbo = dp_batch_solve(model, state, xobs, yobs, sobs, mesh, **flags)
+        else:
+            state, elbo = model.batch_solve(
+                state, xobs, yobs, sobs, mean_solver=mean_solver,
+                mean_solver_maxiter=mean_solver_maxiter, mean_solver_tol=mean_solver_tol,
+                **flags)
         train_elbo = float(elbo)
         report = {"elbo_trace": [train_elbo], "epoch_elbos": [train_elbo]}
-        print(f"batch solve elbo = {train_elbo:.5f}", flush=True)
+        if writer:
+            print(f"batch solve elbo = {train_elbo:.5f}", flush=True)
     else:
         raise ValueError(f"fit_method={fit_method!r}")
     fitting_time = time.time() - t_start
@@ -347,7 +409,7 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
         odir, model, state, elbo_trace=report.get("elbo_trace"),
         hyper_traces={"sig2": report.get("sig2_trace"), "ell": report.get("ell_trace"),
                       "noisesq": report.get("noise2_trace")},
-        train_elbo=train_elbo, **eval_kw)
+        train_elbo=train_elbo, write=writer, **eval_kw)
 
     trow = {"fitting": fitting_time, **eval_times}
     eval_by_epoch = {r["epoch"]: r for r in epoch_eval_rows}
@@ -357,7 +419,8 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
         row.update({k: v for k, v in eval_by_epoch.get(i, {}).items() if k != "epoch"})
         rows.append(row)
     rows.append({"epoch": "total", **trow})
-    metrics.write_csv(os.path.join(odir, "time_report.csv"), _time_rows(rows))
+    if writer:
+        metrics.write_csv(os.path.join(odir, "time_report.csv"), _time_rows(rows))
     report["time_report"] = trow
     report["epoch_eval_rows"] = epoch_eval_rows
     report["pdict"] = pdict

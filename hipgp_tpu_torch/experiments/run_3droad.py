@@ -6,8 +6,11 @@ train, valid and test, fit through the harness (`harness.fit_predict_and_save`,
 the 'dense' closed form by default).  ``--data-path`` points to the UCI
 ``3D_spatial_network.txt`` (id, lat, lon, altitude); without it a synthetic
 road-altitude surface of ``--nobs`` rows stands in.  ``--device`` (default
-cuda) and ``--f64`` are the port's; ``--parallel`` is not ported (ROADMAP.md
-section A items 9 and 10).
+cuda) and ``--f64`` are the port's.  ``--parallel dp`` fits data-parallel,
+one process per device: ``torchrun --nproc-per-node N -m
+hipgp_tpu_torch.experiments.run_3droad --parallel dp`` (without torchrun, a
+world of one process); ``--parallel mp`` is not ported (ROADMAP.md section A
+item 10).
 
 Usage: python -m hipgp_tpu_torch.experiments.run_3droad
        (add --device cpu --nobs 400 --num-inducing 8 for a small CPU run)
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from ..infer import FitConfig
-from .harness import fit_predict_and_save
+from .harness import fit_predict_and_save, init_parallel
 
 __all__ = ["main", "load_uci_3droad", "synthetic_road_data", "split_64_16_20"]
 
@@ -74,7 +77,8 @@ def main(argv=None):
     p.add_argument("--mean-solver", default="dense",
                    choices=["dense", "cg", "gram", "factored", "matfree"])
     p.add_argument("--parallel", default=None, choices=["dp", "mp"],
-                   help="not ported (raises)")
+                   help="dp: data-parallel over the ranks of torchrun's world "
+                        "(mp: not ported, raises)")
     p.add_argument("--learn-kernel", action="store_true",
                    help="learn hyperparameters (cholesky whitening under 'auto')")
     p.add_argument("--whitening", default="auto", choices=["auto", "ziggy", "cholesky"],
@@ -87,6 +91,7 @@ def main(argv=None):
     p.add_argument("--f64", action="store_true")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    mesh, _ = init_parallel(args.parallel, args.device)
 
     ftrue = None
     if args.data_path and os.path.exists(args.data_path):
@@ -112,7 +117,7 @@ def main(argv=None):
                        if args.whitening == "auto" else args.whitening),
         theta2_warmstart=args.theta2_warmstart, fit_method=args.fit_method,
         fit_config=cfg, maxiter_cg=args.maxiter_cg, mean_solver=args.mean_solver,
-        parallel=args.parallel, batch_solve_bsz=args.batch_size,
+        parallel=args.parallel, mesh=mesh, batch_solve_bsz=args.batch_size,
         xvalid=x[va], fvalid=(ftrue[va] if ftrue is not None else y[va]),
         xtest=x[te], ftest=(ftrue[te] if ftrue is not None else y[te]),
         output_dir=args.output_dir,

@@ -32,6 +32,12 @@ latte-format SPH snapshot: its dust density, deposited on the device by
 ``--deposit-method`` sph or cic (`dust_density.gen_dust_density`) onto
 eval_grid x eval_grid x max(nz, 2) cells over the stars' box, sampled at the
 slice's cells, is the slice's truth, as in the JAX package.
+``--parallel dp`` fits data-parallel, one process per device (the full
+batch by `parallel.dp_batch_solve`, whose mean is the dense solve whatever
+``--mean-solver`` says, as in the JAX package; natgrad through `svigp_fit`
+with `parallel.make_dp_data_shard_fn`); every rank generates the same data
+and only rank 0 writes.  ``--parallel mp`` is not ported (ROADMAP.md section
+A item 10).
 
 Usage: python -m hipgp_tpu_torch.experiments.run_domain --fit-method natgrad
            --nx 64 --nz 32 --ell 0.07
@@ -42,6 +48,8 @@ Usage: python -m hipgp_tpu_torch.experiments.run_domain --fit-method natgrad
            --nx 64 --nz 32 --mean-solver matfree --eval-grid 30 --ell 0.2
        (the paper-scale full-batch fit; add --model-class block-diagonal for
        the 2 x 2 x 2 block family)
+       torchrun --nproc-per-node N -m hipgp_tpu_torch.experiments.run_domain
+           --parallel dp ...
 """
 from __future__ import annotations
 
@@ -56,9 +64,10 @@ import torch
 from ..infer import FitConfig, batch_predict, svigp_fit
 from ..models import HIPGP
 from ..models.hipgp import MEAN_PCG_STATS
+from ..parallel import dp_batch_solve, make_dp_data_shard_fn, round_batch_to_mesh
 from ..utils import checkpoint, metrics
 from .dust_density import gen_dust_density
-from .harness import empirical_sig2_init, make_model
+from .harness import empirical_sig2_init, init_parallel, make_model
 from .synthetic_data import integrated_obs
 
 __all__ = ["main", "synthetic_dust_field", "make_synthetic_domain_data",
@@ -236,9 +245,13 @@ def main(argv=None):
     p.add_argument("--output-dir", default="./output-domain")
     p.add_argument("--eval-only-state", default=None,
                    help="restore this state.npz and skip the fit (re-evaluation)")
+    p.add_argument("--parallel", default=None, choices=["dp", "mp"],
+                   help="dp: data-parallel over the ranks of torchrun's world "
+                        "(mp: not ported, raises)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--f64", action="store_true")
     args = p.parse_args(argv)
+    mesh, writer = init_parallel(args.parallel, args.device)
     full_batch = args.fit_method == "full-batch"
 
     t_all = time.perf_counter()
@@ -278,6 +291,15 @@ def main(argv=None):
         full_batch = False
         report = {"elbo_trace": [float("nan")], "steps": 0, "epoch_times": [],
                   "warmstart_s": 0.0, "natgrad_rho": None, "lr_used": None}
+    elif full_batch and mesh is not None:
+        state, elbo = dp_batch_solve(
+            model, model.init_state(), xobs, aobs, sobs_tr, mesh,
+            batch_size=args.batch_size, maxiter_cg=args.maxiter_cg, integrated_obs=True,
+            semi_integrated_estimator=cfg.semi_integrated_estimator,
+            semi_integrated_samps=cfg.num_semi_mc_samples, compute_elbo=True,
+            timings=timings)
+        report = {"elbo_trace": [float(elbo)], "steps": 0, "epoch_times": [],
+                  "warmstart_s": 0.0, "natgrad_rho": None, "lr_used": None}
     elif full_batch:
         state, elbo = model.batch_solve(
             model.init_state(), xobs, aobs, sobs_tr, batch_size=args.batch_size,
@@ -289,9 +311,14 @@ def main(argv=None):
         report = {"elbo_trace": [float(elbo)], "steps": 0, "epoch_times": [],
                   "warmstart_s": 0.0, "natgrad_rho": None, "lr_used": None}
     else:
+        shard_kw = {}
+        if mesh is not None:
+            cfg = round_batch_to_mesh(cfg, mesh, len(xobs))
+            shard_kw = {"data_shard_fn": make_dp_data_shard_fn(mesh)}
         state, report = svigp_fit(model, model.init_state(), xobs, aobs, sobs_tr, cfg,
                                   verbose=False, theta2_warmstart=True,
-                                  natgrad_safe_lr="clamp", max_steps=args.max_steps)
+                                  natgrad_safe_lr="clamp", max_steps=args.max_steps,
+                                  **shard_kw)
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() if on_card else None
 
@@ -337,6 +364,8 @@ def main(argv=None):
         out["latent_rmse"] = metrics.rmse(fgrid, fmu)
         out["latent_corr"] = metrics.correlation(fgrid, fmu)
     out["wall_s"] = time.perf_counter() - t_all
+    if not writer:
+        return out
 
     os.makedirs(args.output_dir, exist_ok=True)
     if not args.eval_only_state:

@@ -16,10 +16,16 @@ init_Svar 1, jitter 1e-3), which writes its artifacts and figures (the
 evaluation grid's among them) under ``--output-dir``; the summary of every model goes to
 ``errordf-summary.csv`` there.  It prints the test RMSE and mean
 log-likelihood.  ``--device``, ``--steps`` and ``--f64`` are the port's.
+``--parallel dp`` fits (and sweeps the lengthscale) data-parallel, one
+process per device, every rank generating the same data and only rank 0
+writing; ``--parallel mp`` is not ported (ROADMAP.md section A item 10).
 
 Usage: python -m hipgp_tpu_torch.experiments.run_synthetic --epochs 1
        (add --device cpu --nobs 2000 --num-inducing 32 for a small CPU run;
        --fit-method full-batch --mean-solver gram for the closed form)
+       torchrun --nproc-per-node N -m hipgp_tpu_torch.experiments.run_synthetic
+           --parallel dp
+       (without torchrun, --parallel dp runs as a world of one process)
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from ..infer import FitConfig, ell_fit
 from ..kernels import kernel_from_name
 from ..models import HIPGP
 from ..utils import metrics
-from .harness import fit_predict_and_save, make_model
+from .harness import fit_predict_and_save, init_parallel, make_model
 from .synthetic_data import make_two_dim_data
 
 __all__ = ["main", "build_model", "marginal_sig2"]
@@ -92,11 +98,16 @@ def main(argv=None):
     p.add_argument("--mean-solver", default="dense",
                    choices=["dense", "cg", "gram", "factored"])
     p.add_argument("--output-dir", default="./output-synthetic")
+    p.add_argument("--parallel", default=None, choices=["dp", "mp"],
+                   help="dp: data-parallel over the ranks of torchrun's world "
+                        "(mp: not ported, raises)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--f64", action="store_true")
     args = p.parse_args(argv)
+    mesh, writer = init_parallel(args.parallel, args.device)
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if writer:
+        os.makedirs(args.output_dir, exist_ok=True)
     d = make_two_dim_data(Nobs=args.nobs, Ntest=args.ntest, noise_std=args.noise_std,
                           function_complexity=args.function_complexity,
                           do_integrated=args.integrated_obs, gridnum=args.gridnum)
@@ -118,15 +129,18 @@ def main(argv=None):
             probe, probe.init_state(), d["xobs"], yobs, d["sobs"],
             ell_min=args.ell_sweep[0], ell_max=args.ell_sweep[1],
             ell_step_size=args.ell_sweep[2], batch_solve_bsz=args.batch_size,
-            maxiter_cg=args.maxiter_cg, integrated_obs=args.integrated_obs)
-        metrics.write_csv(os.path.join(args.output_dir, "ell_sweep.csv"),
-                          {"ell": ells, "elbo": elbos})
-        print(f"ell sweep selected ell = {ell}", flush=True)
+            maxiter_cg=args.maxiter_cg, integrated_obs=args.integrated_obs,
+            verbose=writer, parallel=args.parallel, mesh=mesh)
+        if writer:
+            metrics.write_csv(os.path.join(args.output_dir, "ell_sweep.csv"),
+                              {"ell": ells, "elbo": elbos})
+            print(f"ell sweep selected ell = {ell}", flush=True)
 
     summaries, outs = [], []
     for model_class in args.models:
         name = f"{model_class}-{args.kernel}"
-        print(f"=== {name} ===", flush=True)
+        if writer:
+            print(f"=== {name} ===", flush=True)
         t0 = time.perf_counter()
         model, state, report = fit_predict_and_save(
             name=name, xobs=d["xobs"], yobs=yobs, sobs=d["sobs"], xinduce_grids=grids,
@@ -138,11 +152,12 @@ def main(argv=None):
             ftest=d["ftest"], etest=d["etest"], xgrid=d["xgrid"], fgrid=d["fgrid"],
             grid_shape=d["grid_shape"], grid_extent=d["grid_extent"],
             output_dir=args.output_dir, dtype=dtype, device=args.device,
-            max_steps=args.steps)
+            max_steps=args.steps, parallel=args.parallel, mesh=mesh)
         wall_s = time.perf_counter() - t0
-        with open(os.path.join(args.output_dir, name, "noise_reduction.csv")) as f:
-            rows = list(csv.reader(f))[1:]
-        summaries.append({"model": name, **{r[0]: float(r[1]) for r in rows}})
+        if writer:
+            with open(os.path.join(args.output_dir, name, "noise_reduction.csv")) as f:
+                rows = list(csv.reader(f))[1:]
+            summaries.append({"model": name, **{r[0]: float(r[1]) for r in rows}})
         pd_ = report["pdict"]
         summary = metrics.error_summary(pd_["ftest"], pd_["fmu_test"], pd_["fsig_test"])
         trace = report["elbo_trace"]
@@ -160,6 +175,8 @@ def main(argv=None):
             "ftest_std": float(np.std(d["ftest"])),
         }
         outs.append(out)
+        if not writer:
+            continue
         print(f"device {args.device}: {name} {args.fit_method}"
               + (f" ({args.mean_solver})" if args.fit_method == "full-batch"
                  else f", {out['steps']} steps")
@@ -170,8 +187,9 @@ def main(argv=None):
     cols = []
     for r in summaries:
         cols += [k for k in r if k not in cols]
-    metrics.write_csv(os.path.join(args.output_dir, "errordf-summary.csv"),
-                      {c: [r.get(c, np.nan) for r in summaries] for c in cols})
+    if writer:
+        metrics.write_csv(os.path.join(args.output_dir, "errordf-summary.csv"),
+                          {c: [r.get(c, np.nan) for r in summaries] for c in cols})
     return outs[0] if len(outs) == 1 else outs
 
 

@@ -9,8 +9,11 @@ longitude, latitude, log_price (`prepare_uk_housing_csv` builds it from the
 raw land-registry prices and a postcode table); without it a synthetic price
 surface over the same region stands in.  The CSVs are read and written with
 the ``csv`` module (no pandas).  ``--device`` (default cuda) and ``--f64``
-are the port's; ``--parallel`` is not ported (ROADMAP.md section A items 9
-and 10).
+are the port's.  ``--parallel dp`` fits data-parallel, one process per
+device: ``torchrun --nproc-per-node N -m
+hipgp_tpu_torch.experiments.run_ukhousing --parallel dp`` (without torchrun,
+a world of one process); ``--parallel mp`` is not ported (ROADMAP.md section
+A item 10).
 
 Usage: python -m hipgp_tpu_torch.experiments.run_ukhousing
        (add --device cpu --nobs 400 --ntest 80 --num-inducing-x 10
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from ..infer import FitConfig
-from .harness import fit_predict_and_save
+from .harness import fit_predict_and_save, init_parallel
 
 __all__ = ["main", "ROI", "prepare_uk_housing_csv", "load_prepared_csv",
            "local_noise_estimate", "synthetic_housing_data"]
@@ -143,12 +146,14 @@ def main(argv=None):
     p.add_argument("--mean-solver", default="dense",
                    choices=["dense", "cg", "gram", "factored", "matfree"])
     p.add_argument("--parallel", default=None, choices=["dp", "mp"],
-                   help="not ported (raises)")
+                   help="dp: data-parallel over the ranks of torchrun's world "
+                        "(mp: not ported, raises)")
     p.add_argument("--output-dir", default="./output-ukhousing")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--f64", action="store_true")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    mesh, _ = init_parallel(args.parallel, args.device)
 
     if args.data_path and os.path.exists(args.data_path):
         x, y = load_prepared_csv(args.data_path)
@@ -177,7 +182,7 @@ def main(argv=None):
         sig2_init=(args.sig2_init if args.sig2_init > 0 else "empirical"),
         ell_init=args.ell, fit_method=args.fit_method, fit_config=cfg,
         maxiter_cg=args.maxiter_cg, mean_solver=args.mean_solver,
-        parallel=args.parallel, batch_solve_bsz=args.batch_size,
+        parallel=args.parallel, mesh=mesh, batch_solve_bsz=args.batch_size,
         xtest=xtest, ftest=fte[ntr:] if fte is not None else ytest,
         output_dir=args.output_dir,
         dtype=torch.float64 if args.f64 else torch.float32, device=args.device)

@@ -32,6 +32,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 
@@ -242,13 +243,15 @@ def _gram_flags(config: FitConfig, generator=None) -> dict:
 
 
 def batch_step(model, config: FitConfig, opt: FitOptimizer, state, xb, yb, sb, wb,
-               generator=None):
+               generator=None, group=None):
     """One natural-gradient step (and Adam step on the learned
-    hyperparameters) on one prepared batch: (state, elbo)."""
+    hyperparameters) on one prepared batch: (state, elbo).  ``group``: the
+    process group over which the batch's rows are split (data parallelism;
+    `model.elbo_and_grads` sums over it)."""
     elbo, grads = model.elbo_and_grads(
         state, xb, yb, sb, maxiter_cg=config.maxiter_cg, weights=wb,
         compute_hyper_grads=config.learn_kernel or config.learn_noise,
-        **_gram_flags(config, generator))
+        **_gram_flags(config, generator), group=group)
     return opt.step(state, zero_frozen(config, grads)), elbo
 
 
@@ -263,9 +266,12 @@ def _batch_kn_ivar(model, state, xl, sl, wl, config: FitConfig, spec=None,
     return kn, ivar
 
 
-def _theta2_warmstart(model, state, xb, sb, w, config: FitConfig, generator=None):
+def _theta2_warmstart(model, state, xb, sb, w, config: FitConfig, generator=None,
+                      group=None):
     """theta2 <- -(Lambda + I)/2 from one Lambda-only pass over the data,
-    Lambda family-shaped (`model.get_lam`, its prior identity too)."""
+    Lambda family-shaped (`model.get_lam`, its prior identity too).  With
+    ``group`` the rows are split over its ranks: the data's Lambda is summed
+    over them in one all-reduce before the identity is added."""
     spec = model.spectrum(state)
     dt, dev = model.dtype, model.device
     zero_kn = torch.zeros((1, model.Mprime), dtype=dt, device=dev)
@@ -274,12 +280,17 @@ def _theta2_warmstart(model, state, xb, sb, w, config: FitConfig, generator=None
         kn, ivar = _batch_kn_ivar(model, state, xb[b], None if sb is None else sb[b],
                                   w[b], config, spec=spec, generator=generator)
         lam = lam + model.get_lam(ivar, kn, add_identity=False)
+    if group is not None:
+        from ..parallel.mesh import all_reduce
+
+        (lam,) = all_reduce([lam], group)
     lam = lam + model.get_lam(torch.zeros((1,), dtype=dt, device=dev), zero_kn,
                               add_identity=True)
     return state.replace(theta2=-0.5 * lam)
 
 
-def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30) -> float:
+def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30,
+                          group=None) -> float:
     """Top eigenvalue rho of the warm-metric-preconditioned batch precision
     of the natural-gradient iteration, by power iteration (any family: S
     applied as S * v, by blocks, or S @ v).
@@ -289,7 +300,10 @@ def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30) -> fl
     the current variational covariance; it is stable for lr < 2 / rho with
     rho = lambda_max(B S).  B S is similar to the SPD S^{1/2} B S^{1/2}, so
     plain power iteration with a norm-ratio estimate converges to it.  Cost:
-    2 * iters (bsz, M') products."""
+    2 * iters (bsz, M') products.  With ``group`` the batch's rows are split
+    over its ranks: kn^T (ivar * (kn u)) is summed over them in every
+    iteration (one all-reduce of M' values), so rho is the whole batch's on
+    every rank."""
     _, S = model.standard_params(state)
     if model.family == "mean-field":
         apply_S = lambda v: S * v
@@ -298,9 +312,16 @@ def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30) -> fl
     else:
         apply_S = lambda v: S @ v
 
+    if group is None:
+        data_sum = lambda u: kn.T @ (ivar * (kn @ u))
+    else:
+        from ..parallel.mesh import all_reduce
+
+        data_sum = lambda u: all_reduce([kn.T @ (ivar * (kn @ u))], group)[0]
+
     def mv(v):
         u = apply_S(v)
-        return bscale * (kn.T @ (ivar * (kn @ u))) + u
+        return bscale * data_sum(u) + u
 
     z = torch.sin(torch.arange(kn.shape[-1], dtype=kn.dtype, device=kn.device) * 0.73) + 0.1
     z = z / torch.linalg.norm(z)
@@ -316,8 +337,16 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
               epoch_callback: Optional[Callable] = None, verbose: bool = True, *,
               checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
               resume: bool = False, theta2_warmstart: bool = False,
-              natgrad_safe_lr: str = "warn", max_steps: Optional[int] = None):
+              natgrad_safe_lr: str = "warn", max_steps: Optional[int] = None,
+              data_shard_fn: Optional[Callable] = None):
     """Fit the variational parameters by natural-gradient SVI.
+
+    ``data_shard_fn(xb, yb, sb, w)``: applied to the prepared (nb, bsz, ...)
+    batches (and to every epoch's shuffled ones); data parallelism passes
+    `parallel.make_dp_data_shard_fn(mesh)`, which keeps this rank's columns of
+    every batch and carries the process group over which the batches' sums
+    run (``data_shard_fn.group``): the steps, the warm start and rho then sum
+    over it, and only its rank 0 writes checkpoints.
 
     ``theta2_warmstart``: one Lambda-only pass over the data sets theta2 to
     -(Lambda + I)/2 before SVI.  From the cold init the raw natural-gradient
@@ -359,6 +388,12 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
     x_raw, y_raw = as_t(xtrain), as_t(ytrain).reshape(-1)
     s_raw = None if noise is None else as_t(noise).reshape(-1)
     xb, yb, sb, w = prepare_batches(x_raw, y_raw, s_raw, config.batch_size)
+    group = getattr(data_shard_fn, "group", None)
+    # the global batch size (rho's batch scale) before a shard function
+    # keeps this rank's columns
+    bsz = xb.shape[1]
+    if data_shard_fn is not None:
+        xb, yb, sb, w = data_shard_fn(xb, yb, sb, w)
     # the Monte-Carlo estimator's draws (one generator for the whole fit)
     gen = torch.Generator().manual_seed(0)
     opt = make_optimizer(state, config)
@@ -374,7 +409,8 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
     warmstart = theta2_warmstart and not restored and hasattr(model, "get_lam")
     t0 = time.perf_counter()
     if warmstart:
-        state = _theta2_warmstart(model, state, xb, sb, w, config, generator=gen)
+        state = _theta2_warmstart(model, state, xb, sb, w, config, generator=gen,
+                                  group=group)
     warmstart_s = time.perf_counter() - t0
     rho = lr_crit = None
     if (natgrad_safe_lr != "off" and warmstart
@@ -386,7 +422,8 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
         kn0, ivar0 = _batch_kn_ivar(model, state, xb[0],
                                     None if sb is None else sb[0], w[0], config,
                                     generator=gen)
-        rho = natgrad_stability_rho(kn0, ivar0, state, model, model.N / xb.shape[1])
+        rho = natgrad_stability_rho(kn0, ivar0, state, model, model.N / bsz,
+                                    group=group)
         lr_crit = 2.0 / rho
         if config.lr > 0.5 * lr_crit:
             msg = (f"natgrad lr={config.lr:g} exceeds half the estimated natgrad "
@@ -417,6 +454,8 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
             xb, yb, sb, w = prepare_batches(x_raw[perm], y_raw[perm],
                                             None if s_raw is None else s_raw[perm],
                                             config.batch_size)
+            if data_shard_fn is not None:
+                xb, yb, sb, w = data_shard_fn(xb, yb, sb, w)
         t0 = time.perf_counter()
         elbos = []
         for b in range(nb):
@@ -424,7 +463,7 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
                 break
             state, elbo = batch_step(model, config, opt, state, xb[b], yb[b],
                                      None if sb is None else sb[b], w[b],
-                                     generator=gen)
+                                     generator=gen, group=group)
             elbos.append(elbo)
             steps += 1
         elbos_np = torch.stack(elbos).cpu().numpy()
@@ -456,7 +495,8 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
                 not config.only_eval_last_epoch or epoch == config.epochs - 1):
             epoch_callback(epoch, model, state, trace)
         if (checkpoint_dir is not None and checkpoint_every and len(elbos) == nb
-                and (epoch + 1) % checkpoint_every == 0):
+                and (epoch + 1) % checkpoint_every == 0
+                and (group is None or dist.get_rank(group) == 0)):
             save_checkpoint(checkpoint_dir, state, opt, step=epoch + 1)
     report = {
         "elbo_trace": trace,
@@ -512,33 +552,39 @@ def ell_fit(model, state, xobs, yobs, sobs, ell_min: float, ell_max: float,
             integrated_obs: bool = False,
             semi_integrated_estimator: str = "analytic",
             semi_integrated_samps: int = 10, verbose: bool = True,
-            parallel: Optional[str] = None, **solve_kwargs):
+            parallel: Optional[str] = None, mesh=None, **solve_kwargs):
     """Grid-search the lengthscale by the closed-form ``batch_solve`` ELBO
-    over ``np.arange(ell_min, ell_max + ell_step_size, ell_step_size)``, on
-    one device (``solve_kwargs`` go to ``batch_solve``: ``mean_solver`` and
-    its settings).  Returns (best_state, best_ell, ell_list, elbo_list).
-    ``parallel`` ('dp' or 'mp') is not ported (ROADMAP.md section A items 9
-    and 10)."""
+    over ``np.arange(ell_min, ell_max + ell_step_size, ell_step_size)``
+    (``solve_kwargs`` go to ``batch_solve``: ``mean_solver`` and its
+    settings).  ``parallel='dp'`` solves each candidate by
+    `parallel.dp_batch_solve` over ``mesh`` (default: every rank of the world
+    on 'dp'); every rank gets the same ELBO curve and takes the same argmax.
+    ``parallel='mp'`` is not ported (ROADMAP.md section A item 10).  Returns
+    (best_state, best_ell, ell_list, elbo_list)."""
     if parallel not in (None, "dp", "mp"):
         raise ValueError(f"parallel={parallel!r}; choose None | 'dp' | 'mp'")
-    if parallel is not None:
+    if parallel == "mp":
         raise NotImplementedError(
-            f"ell_fit(parallel={parallel!r}) is not ported yet (ROADMAP.md "
-            f"section A item {9 if parallel == 'dp' else 10})")
+            "ell_fit(parallel='mp') is not ported yet (ROADMAP.md section A item 10)")
     as_t = lambda a: torch.as_tensor(a, dtype=model.dtype, device=model.device)
     x, y = as_t(xobs), as_t(yobs)
     s = None if sobs is None else as_t(sobs)
+    flags = dict(batch_size=batch_solve_bsz, maxiter_cg=maxiter_cg,
+                 integrated_obs=integrated_obs,
+                 semi_integrated_estimator=semi_integrated_estimator,
+                 semi_integrated_samps=semi_integrated_samps, compute_elbo=True)
+    if parallel == "dp":
+        from ..parallel import dp_batch_solve, make_mesh
+
+        mesh = make_mesh() if mesh is None else mesh
+        solve = lambda st: dp_batch_solve(model, st, x, y, s, mesh, **flags)
+    else:
+        solve = lambda st: model.batch_solve(st, x, y, s, **flags, **solve_kwargs)
     ells = np.arange(ell_min, ell_max + ell_step_size, ell_step_size)
     best = (-np.inf, None, None)
     elbo_list = []
     for ell in ells:
-        st = state.replace(log_ell=as_t(float(np.log(ell))))
-        st, elbo = model.batch_solve(
-            st, x, y, s, batch_size=batch_solve_bsz, maxiter_cg=maxiter_cg,
-            integrated_obs=integrated_obs,
-            semi_integrated_estimator=semi_integrated_estimator,
-            semi_integrated_samps=semi_integrated_samps, compute_elbo=True,
-            **solve_kwargs)
+        st, elbo = solve(state.replace(log_ell=as_t(float(np.log(ell)))))
         elbo_f = float(elbo)
         elbo_list.append(elbo_f)
         if verbose:

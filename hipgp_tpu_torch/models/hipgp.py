@@ -156,8 +156,10 @@ class HIPGP:
     builds the doubly-integrated diagonal's table, which line-integral
     observations need, and ``learn_kernel``/``learn_noise`` are stored as
     the JAX model stores them (the fit's `FitConfig` decides what is
-    learned).  Runs on ``device`` (CUDA unless the caller asks for the CPU)
-    in ``dtype``."""
+    learned).  ``grid_shards`` pads the circulant embedding so that it
+    splits evenly over that many ranks (`parallel.fft_sharded.shard_multiples`;
+    M' and the init change, K does not).  Runs on ``device`` (CUDA unless
+    the caller asks for the CPU) in ``dtype``."""
 
     def __init__(
         self,
@@ -177,6 +179,7 @@ class HIPGP:
         learn_kernel: bool = False,
         learn_noise: bool = False,
         support_integrated_obs: bool = False,
+        grid_shards: Optional[int] = None,
         dtype: torch.dtype = torch.float32,
         device="cuda",
     ):
@@ -208,8 +211,17 @@ class HIPGP:
         self.xinduce = torch.stack([m.reshape(-1) for m in mesh], dim=-1)  # (M, D)
         self.M = math.prod(self.dims)
         self.ndim = len(self.dims)
-        self.edims = (embedded_dims(self.dims) if whitened_type == "ziggy"
-                      else self.dims)
+        # grid_shards: the circulant embedding padded so that it splits evenly
+        # over that many ranks (`parallel/fft_sharded.py`); the padding changes
+        # M' and the init, never K
+        self.grid_shards = grid_shards
+        self._spec_multiple = None
+        if whitened_type == "ziggy" and grid_shards and grid_shards > 1:
+            from ..parallel.fft_sharded import shard_multiples
+
+            self._spec_multiple = shard_multiples(self.dims, grid_shards)
+        self.edims = (embedded_dims(self.dims, self._spec_multiple)
+                      if whitened_type == "ziggy" else self.dims)
         self.Mprime = math.prod(self.edims)
         # the block family chunks the whitened grid (the expanded one under
         # 'ziggy'); the tables move to the device once
@@ -268,10 +280,13 @@ class HIPGP:
     # covariance plumbing
     # ------------------------------------------------------------------
 
-    def spectrum(self, state: HIPGPState) -> BTTBSpectrum:
+    def spectrum(self, state: HIPGPState, transform: str = "fft") -> BTTBSpectrum:
+        """The circulant spectrum at the state's hyperparameters, on the
+        embedding padded for ``grid_shards`` (``transform``: `make_spectrum`'s)."""
         p = self.kernel_params(state)
         return make_spectrum(self.xgrids, lambda x, y: self.kernel(x, y, p),
-                             jitter=self.jitter)
+                             jitter=self.jitter, multiple_of=self._spec_multiple,
+                             transform=transform)
 
     def _kmm_chol(self, state: HIPGPState) -> torch.Tensor:
         """Cholesky factor L of Kmm + jitter I (M x M)."""
@@ -481,23 +496,33 @@ class HIPGP:
     # natural gradient
     # ------------------------------------------------------------------
 
-    def _natgrad(self, state, kn, y, ivar, qm, bscale):
+    def _natgrad(self, state, kn, y, ivar, qm, bscale, reduce=None):
         """(deta1, deta2): natural-gradient ascent directions, family-shaped
         (full-rank: deta1 = b - theta1 with b = kn^T (ivar y), unscaled, as
-        in the JAX package)."""
+        in the JAX package).  ``reduce(*sums)`` sums the data terms (the sums
+        over the batch's rows) over the ranks that hold its rows; the prior
+        terms are added after it, once."""
         y = y.reshape(-1)
+        if reduce is None:
+            reduce = lambda *sums: sums
         if self.family == "full-rank":
-            lam = self.get_lam(ivar, kn, bscale=bscale, add_identity=True)
-            return kn.T @ (ivar * y) - state.theta1, -0.5 * lam - state.theta2
+            with fp32_matmul():
+                gram = (kn * ivar[:, None]).T @ kn
+            b, gram = reduce(kn.T @ (ivar * y), gram)
+            lam = self._with_identity(bscale * gram)
+            return b - state.theta1, -0.5 * lam - state.theta2
         knt_m = kn @ qm
         bdiff = ivar * (knt_m - y)              # (bsz,)
-        data_dm = -(kn.T @ bdiff)               # (M',)
-        dm = bscale * data_dm - qm
         if self.family == "mean-field":
-            lam_diag = bscale * torch.sum(ivar[:, None] * kn * kn, dim=0) + 1.0
+            data_dm, lam_sum = reduce(-(kn.T @ bdiff),
+                                      torch.sum(ivar[:, None] * kn * kn, dim=0))
+            dm = bscale * data_dm - qm
+            lam_diag = bscale * lam_sum + 1.0
             dS = -0.5 * lam_diag - state.theta2
             return dm + dS * (-2.0 * qm), dS
-        dS = -0.5 * self.get_lam(ivar, kn, bscale=bscale, add_identity=True) - state.theta2
+        data_dm, lam_sum = reduce(-(kn.T @ bdiff), self._block_gram(kn, ivar))
+        dm = bscale * data_dm - qm
+        dS = -0.5 * self._with_identity(bscale * lam_sum) - state.theta2
         return dm + self.block_diag_multiply(dS, (-2.0 * qm)[None, :])[0], dS
 
     def elbo_and_grads(self, state: HIPGPState, x: torch.Tensor,
@@ -507,7 +532,7 @@ class HIPGP:
                        semi_integrated_samps: int = 10,
                        generator: Optional[torch.Generator] = None,
                        weights: Optional[torch.Tensor] = None,
-                       compute_hyper_grads: bool = False):
+                       compute_hyper_grads: bool = False, group=None):
         """ELBO and natural gradients (and hyperparameter gradients).
 
         Returns (elbo, grads), ``grads`` a :class:`HIPGPState` in descent
@@ -516,11 +541,24 @@ class HIPGP:
         ``compute_hyper_grads`` the hyperparameter entries hold
         -d elbo / d log_sig2, log_ell, log_noise2 (theta1 and theta2 held
         constant), else zeros.  Needs the expectation-family
-        parameterization (ValueError otherwise)."""
+        parameterization (ValueError otherwise).
+
+        ``group``: a process group over whose ranks the batch's rows are
+        split (`parallel.make_dp_data_shard_fn`).  Every sum over the rows
+        is then summed over the group: sum w first, then in one all-reduce
+        sum a_n w, the hyper-gradients of the data part and the natural
+        gradient's data terms; KL and the prior terms are counted once, and
+        every rank returns the same (elbo, grads)."""
         if self.parameterization != "expectation-family":
             raise ValueError("natural-gradient step needs expectation-family")
         y = y.reshape(-1)
         hypers = (state.log_sig2, state.log_ell, state.log_noise2)
+        if group is not None:
+            from ..parallel.mesh import all_reduce
+
+            if weights is None:
+                weights = torch.ones_like(y)
+            (wsum,) = all_reduce([torch.sum(weights)], group)
         with torch.set_grad_enabled(compute_hyper_grads):
             if compute_hyper_grads:
                 hypers = tuple(h.detach().requires_grad_() for h in hypers)
@@ -533,7 +571,12 @@ class HIPGP:
             kn = self.compute_kn(st, Knm, maxiter_cg=maxiter_cg)
             qm, qS = self.standard_params(st)
             an = self.batch_an(st, y, noise_std, kn, Knn_diag, qm, qS)
-            elbo = self._mean_an(an, weights) - self.kl_to_prior(qm, qS) / self.N
+            if group is None:
+                elbo = self._mean_an(an, weights) - self.kl_to_prior(qm, qS) / self.N
+            else:
+                # this rank's share of the data term (KL is added once below)
+                an_sum = torch.sum(an * weights)
+                elbo = an_sum / torch.clamp(wsum, min=1.0)
         if compute_hyper_grads:
             hgrads = torch.autograd.grad(elbo, hypers, allow_unused=True)
             g_sig2, g_ell, g_noise2 = (torch.zeros_like(h) if g is None else -g
@@ -543,12 +586,27 @@ class HIPGP:
             g_sig2, g_ell, g_noise2 = (torch.zeros_like(h) for h in hypers)
 
         ivar, _ = self._ivar_and_lognoise(state, noise_std, y.shape[0])
+        reduce = None
         if weights is not None:
             ivar = ivar * weights
-            bscale = self.N / torch.clamp(torch.sum(weights), min=1.0)
+            wtot = torch.sum(weights) if group is None else wsum
+            bscale = self.N / torch.clamp(wtot, min=1.0)
         else:
             bscale = self.N / y.shape[0]
-        deta1, deta2 = self._natgrad(state, kn, y, ivar, qm, bscale)
+        if group is not None:
+            scalars = {}
+
+            def reduce(*sums):
+                out = all_reduce([an_sum.detach(), g_sig2, g_ell, g_noise2, *sums], group)
+                scalars.update(zip(("an_sum", "g_sig2", "g_ell", "g_noise2"), out[:4]))
+                return out[4:]
+
+        deta1, deta2 = self._natgrad(state, kn, y, ivar, qm, bscale, reduce)
+        if group is not None:
+            g_sig2, g_ell, g_noise2 = scalars["g_sig2"], scalars["g_ell"], scalars["g_noise2"]
+            with torch.no_grad():
+                elbo = (scalars["an_sum"] / torch.clamp(wsum, min=1.0)
+                        - self.kl_to_prior(qm, qS) / self.N)
         grads = HIPGPState(
             theta1=-deta1,
             theta2=-deta2,

@@ -207,14 +207,17 @@ class SVGP:
                        u: Optional[float] = None,
                        compute_kernel_grads: bool = False,
                        compute_hyper_grads: Optional[bool] = None,
-                       weights: Optional[torch.Tensor] = None, **_):
+                       weights: Optional[torch.Tensor] = None, group=None, **_):
         """(elbo, grads), ``grads`` an :class:`SVGPState` in descent
         convention: -deta for theta (the natural gradient, unscaled) and, with
         ``compute_kernel_grads`` (alias ``compute_hyper_grads``), -d/d
         log_sig2 and log_ell of the ELBO plus kernel_param_prior / N (theta
         held constant; the returned ELBO then includes that prior term), else
         zeros.  The signature takes HIPGP's (maxiter_cg and the like are
-        accepted and ignored), so the shared fit loop drives either model."""
+        accepted and ignored), so the shared fit loop drives either model.
+
+        ``group``: a process group over whose ranks the batch's rows are
+        split, as in `HIPGP.elbo_and_grads` (:meth:`_split_elbo_and_grads`)."""
         if compute_hyper_grads is not None:
             compute_kernel_grads = compute_hyper_grads
         if noise_std is None:
@@ -223,14 +226,17 @@ class SVGP:
                 "reference, ziggy/svgp.py): per-point noise_std is required; "
                 "learn_noise is a HIPGP-only feature")
         x, y, ns = self._t(x), self._t(y).reshape(-1), self._t(noise_std).reshape(-1)
-        if weights is not None:
-            bscale = self.N / torch.clamp(torch.sum(weights), min=1.0)
-        else:
-            bscale = self.N / y.shape[0]
         flags = dict(integrated_obs=integrated_obs,
                      semi_integrated_estimator=semi_integrated_estimator,
                      semi_integrated_samps=semi_integrated_samps,
                      generator=generator, u=u)
+        if group is not None:
+            return self._split_elbo_and_grads(state, x, y, ns, flags, weights,
+                                              compute_kernel_grads, group)
+        if weights is not None:
+            bscale = self.N / torch.clamp(torch.sum(weights), min=1.0)
+        else:
+            bscale = self.N / y.shape[0]
         with fp32_matmul():
             if compute_kernel_grads:
                 hypers = tuple(h.detach().requires_grad_()
@@ -258,6 +264,55 @@ class SVGP:
                 yw = (y / ns) if weights is None else (y / ns) * torch.sqrt(weights)
                 dm = bscale * (kn_t.T @ yw) - state.theta1
         return elbo, SVGPState(theta1=-dm, theta2=-dS, log_sig2=g_sig2, log_ell=g_ell)
+
+    def _split_elbo_and_grads(self, state, x, y, ns, flags, weights, kernel_grads, group):
+        """:meth:`elbo_and_grads` of a batch whose rows are split over the
+        ranks of ``group``: sum w first, then in one all-reduce sum a_n w, the
+        data part's hyper-gradients and the natural gradient's two data sums
+        (kn^T kn and kn^T y, noise-scaled); KL, the kernel prior and the
+        prior precision are counted once.  Every rank returns the same
+        (elbo, grads)."""
+        from ..parallel.mesh import all_reduce
+
+        if weights is None:
+            weights = torch.ones_like(y)
+        (wsum,) = all_reduce([torch.sum(weights)], group)
+        wsum = torch.clamp(wsum, min=1.0)
+        hypers = (state.log_sig2, state.log_ell)
+        zeros = tuple(torch.zeros_like(h) for h in hypers)
+        with fp32_matmul():
+            with torch.set_grad_enabled(kernel_grads):
+                if kernel_grads:
+                    hypers = tuple(h.detach().requires_grad_() for h in hypers)
+                st = state.replace(theta1=state.theta1.detach(),
+                                   theta2=state.theta2.detach(),
+                                   log_sig2=hypers[0], log_ell=hypers[1])
+                Knm, Knn_diag = self.make_grams(st, x, **flags)
+                Kmm = self._kmm(st)
+                kn = self.make_kn(st, Knm, Kmm)
+                qm, qS = self.standard_params(st)
+                an_sum = torch.sum(self.batch_an(y, ns, kn, Knm, Knn_diag, qm, qS)
+                                   * weights)
+                once = -self._kl(st, qm, qS, Kmm) / self.N
+                if kernel_grads:
+                    once = once + self.kernel_param_prior(st) / self.N
+            g_data = g_once = zeros
+            if kernel_grads:
+                fill = lambda gs: tuple(z if g is None else g for g, z in zip(gs, zeros))
+                g_data = fill(torch.autograd.grad(an_sum / wsum, hypers,
+                                                  retain_graph=True, allow_unused=True))
+                g_once = fill(torch.autograd.grad(once, hypers, allow_unused=True))
+            with torch.no_grad():
+                kn_t = kn.detach() / ns[:, None] * torch.sqrt(weights)[:, None]
+                yw = (y / ns) * torch.sqrt(weights)
+                an_sum, g_sig2, g_ell, gram, kty = all_reduce(
+                    [an_sum.detach(), *g_data, kn_t.T @ kn_t, kn_t.T @ yw], group)
+                bscale = self.N / wsum
+                dS = -0.5 * (bscale * gram + self._prior_prec(Kmm.detach())) - state.theta2
+                dm = bscale * kty - state.theta1
+                elbo = an_sum / wsum + once.detach()
+        return elbo, SVGPState(theta1=-dm, theta2=-dS, log_sig2=-(g_sig2 + g_once[0]),
+                               log_ell=-(g_ell + g_once[1]))
 
     def batch_solve(self, state: SVGPState, xobs, yobs, noise_std, batch_size: int = -1,
                     integrated_obs: bool = False,

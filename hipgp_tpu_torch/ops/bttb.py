@@ -275,29 +275,57 @@ def spectrum_from_column(col: torch.Tensor,
                         edims=tuple(emb.shape), ecolumn=emb)
 
 
+def _cosine_matrix(L: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """(L, L) cosine DFT matrix C[n, k] = cos(2 pi n k / L), built in float64."""
+    n = np.arange(L, dtype=np.float64)
+    return torch.as_tensor(np.cos((2.0 * np.pi / L) * np.outer(n, n))).to(
+        dtype=dtype, device=device)
+
+
+def _real_even_half_spectrum_matmul(emb: torch.Tensor) -> torch.Tensor:
+    """The half-spectrum of a per-axis-even real tensor without an FFT: the
+    DFT of an even vector is its cosine transform, so one (L, L) cosine
+    contraction per axis gives the same eigenvalues as
+    :func:`_real_even_half_spectrum` (full FP32)."""
+    full = emb
+    with fp32_matmul():
+        for a in range(emb.ndim):
+            full = _axis_contract(full, _cosine_matrix(emb.shape[a], emb.dtype, emb.device), a)
+    return full[..., : emb.shape[-1] // 2 + 1].contiguous()
+
+
 def make_spectrum(
     xgrids: Sequence[torch.Tensor],
     kernel_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     jitter: float = 1e-3,
     eig_floor: float = DEFAULT_EIG_FLOOR,
     pad_to_fast: bool = True,
+    multiple_of: Optional[Sequence[int]] = None,
+    transform: str = "fft",
 ) -> BTTBSpectrum:
     """Column, circulant embedding and spectrum clamped to ``eig_floor`` in
-    one call (the JAX package's default ``transform='fft'``).
+    one call.
 
     With ``pad_to_fast`` each embedded axis is padded from 2m-2 to
-    `embedded_dims` by evaluating the kernel at wrapped lags
-    tau_j = min(j, L - j) * h: for any L >= 2m - 2 that circulant has the
-    exact BTTB Gram as its top-left M x M block, so the padding changes the
-    whitened basis, never K.  Requires uniformly spaced grids.  Without it,
-    the minimal 2m - 2 embedding of the Toeplitz column
-    (`spectrum_from_column`); the kernel paths refuse its lengths where
-    they have no plan for them, and the generic path takes them.
+    `embedded_dims` (rounded up to the per-axis ``multiple_of``, as the
+    grid-sharded solves need: `parallel.fft_sharded.shard_multiples`) by
+    evaluating the kernel at wrapped lags tau_j = min(j, L - j) * h: for any
+    L >= 2m - 2 that circulant has the exact BTTB Gram as its top-left
+    M x M block, so the padding changes the whitened basis, never K.
+    Requires uniformly spaced grids.  Without it, the minimal 2m - 2
+    embedding of the Toeplitz column (`spectrum_from_column`); the kernel
+    paths refuse its lengths where they have no plan for them, and the
+    generic path takes them.  ``transform``: 'fft' (torch.fft) or 'matmul'
+    (one cosine-matrix contraction per axis, for short axes).
     """
+    if transform not in ("fft", "matmul"):
+        raise ValueError(f"unknown transform {transform!r}")
     if not pad_to_fast:
+        if multiple_of is not None:
+            raise ValueError("multiple_of requires pad_to_fast=True")
         return spectrum_from_column(toeplitz_column(xgrids, kernel_fn, jitter), eig_floor)
     dims = tuple(len(g) for g in xgrids)
-    edims = embedded_dims(dims)
+    edims = embedded_dims(dims, multiple_of)
     coords = []
     for g, L in zip(xgrids, edims):
         if L == 1:
@@ -310,7 +338,9 @@ def make_spectrum(
     c = kernel_fn(pts[:1], pts)[0].clone()
     c[0] += jitter
     emb = c.reshape(edims)
-    eigs = torch.clamp(_real_even_half_spectrum(emb), min=eig_floor)
+    half = (_real_even_half_spectrum_matmul(emb) if transform == "matmul"
+            else _real_even_half_spectrum(emb))
+    eigs = torch.clamp(half, min=eig_floor)
     col_idx = tuple(slice(0, d) for d in dims)
     return BTTBSpectrum(column=emb[col_idx], eigs=eigs, dims=dims,
                         edims=edims, ecolumn=emb)

@@ -81,33 +81,40 @@ def _fixed_iters(matvec: MatVec, b: torch.Tensor, precond: Optional[MatVec],
 
 def pcg(matvec: MatVec, b: torch.Tensor, precond: Optional[MatVec] = None,
         maxiter: int = 20, tol: float = 1e-10,
-        x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x0: Optional[torch.Tensor] = None,
+        dot_fn: Optional[Callable] = None) -> torch.Tensor:
     """Solve A x = b with (preconditioned) CG; returns x with b's shape."""
-    return pcg_result(matvec, b, precond, maxiter, tol, x0).x
+    return pcg_result(matvec, b, precond, maxiter, tol, x0, dot_fn).x
 
 
 def pcg_result(matvec: MatVec, b: torch.Tensor,
                precond: Optional[MatVec] = None, maxiter: int = 20,
-               tol: float = 1e-10, x0: Optional[torch.Tensor] = None) -> PCGResult:
-    """Like :func:`pcg` but also reports iteration count and residual norms."""
+               tol: float = 1e-10, x0: Optional[torch.Tensor] = None,
+               dot_fn: Optional[Callable] = None) -> PCGResult:
+    """Like :func:`pcg` but also reports iteration count and residual norms.
+
+    ``dot_fn(a, b) -> (batch,)`` replaces the inner product (a sum over the
+    last axis): for operands split over ranks, where it must also sum over
+    them (`parallel.fft_sharded`)."""
+    dot = _dot if dot_fn is None else dot_fn
     if precond is None:
         precond = lambda r: r
     x, r = _start(matvec, b, x0)
     z = precond(r)
     p = z
-    rz = _dot(r, z)
-    rr = _dot(r, r)
+    rz = dot(r, z)
+    rr = dot(r, r)
     tol_sq = torch.as_tensor(tol, dtype=b.dtype) ** 2
     k = 0
     while k < maxiter and bool(torch.any(rr >= tol_sq)):
         Ap = matvec(p)
-        pAp = _dot(p, Ap)
+        pAp = dot(p, Ap)
         safe, alpha = _guarded_steps(rz, pAp)
         x = x + alpha[..., None] * p
         r = r - alpha[..., None] * Ap
-        rr = _dot(r, r)
+        rr = dot(r, r)
         z = precond(r)
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z)
         p = z + _beta(safe, rz_new, rz)[..., None] * p
         rz = rz_new
         k += 1
