@@ -296,6 +296,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3507,6 +3508,35 @@ DP_SOLVE_F32_THETA1_TOL = 1.5e-3
 DP_SOLVE_F64_TOL = 1e-8
 GRID_FFT = {"2d": dict(rows=256, iters=10), "1d": dict(M=HEADLINE_M, rows=8, iters=PCG_ITERS)}
 GRID_FFT_TOL = 5e-3        # [accuracy]'s limit against float64
+# [mp]: [main]'s model at full width (M = 125^2, embedded at 250^2, which
+# splits over two grid ranks as it is) on a (1, 2) ('dp', 'grid') mesh of
+# the gloo world's two ranks, JAX's default mesh; the rows cut to 10 of
+# [main]'s batches of 256 (warm start, rho, lr clamp, 10 natgrad steps) and
+# the prediction to 500 of [main]'s 2 000 test points: every split whitening
+# exchanges its planes through host memory ([grid-fft]: ~1.1 s a solve)
+MP = dict(rows=2560, batch_size=256, maxiter_cg=10, predict_rows=500, predict_maxiter=50)
+MP_TOL = 5e-3              # [accuracy]'s: theta, ELBO trace, rho, lr, predictions
+MP_GRAD_TOL = 1e-2         # [train-grad]'s: f32 hyper-gradients against float64
+# [mp-solve]: mp_batch_solve at 64^2 (M' = 16 384) on 2 000 rows, a world of
+# four gloo ranks as a (2, 2) mesh; micro-batches of 1 000 rows, 500 a 'dp'
+# position (the single-process references take 500: the same row groups).
+# In float64 every mean solve converged (||r|| 1e-10: ~1 000 'cg' and ~1 900
+# 'gram' iterations, 12-17 ms each over gloo), 'cg' against 'dense', 'gram'
+# and 'factored' against themselves: at 300 iterations the truncated (K + A)
+# PCGs of the split and the single-process apply stood 5.0e-5 apart in
+# theta1 (PERF.md section 6)
+MP_SOLVE = dict(grid=64, rows=2000, batch_size=1000, maxiter_cg=10, mean_maxiter=2500,
+                cg_maxiter=2500, mean_tol=1e-10, factor_jitter=1e-10, ranks=4)
+MP_SOLVE_F64_TOL = 1e-8    # [dp-solve]'s: the split sums are exact
+# [mp-solve] in float32 against the single-process float32 solve by the same
+# solver (the mean PCGs truncated at 200 iterations) and 'sharded' against
+# 'host': about three times the first reading on an H100 80GB HBM3 at
+# 700 W (theta1 1.498e-3, theta2 1.663e-6, ELBO 6.052e-5)
+MP_SOLVE_F32_TOL = {"theta1": 5e-3, "theta2": 1e-5, "ELBO": 2e-4}
+# [mp-solve]'s 'factored' decline at 125^2 (float32 kappa > 1e3): 1 000 rows
+MP_SOLVE_125_ROWS = 1000
+# the device of the model-parallel phases' ranks and models
+CARD = "cuda"
 
 
 def _rank_prelude(torch):
@@ -3557,6 +3587,142 @@ def _rank_epoch(torch, d, sig2, mesh):
     model.elbo_and_grads(state, xb[0], yb[0], sb[0], maxiter_cg=10, weights=w[0],
                          group=shard.group)
     out["comm_step"] = dict(pmesh.COMM)
+    return out
+
+
+def mp_model(torch, grid, n, sig2, shards, dtype):
+    """[main]'s model (SqExp at ell 0.05, noise 0.01) on a grid^2 grid of
+    [-1, 1]^2, its embedding padded for ``shards`` grid ranks, on the card."""
+    import numpy as np
+
+    from hipgp_tpu_torch.kernels import kernel_from_name
+    from hipgp_tpu_torch.models import HIPGP
+
+    grids = [np.linspace(-1, 1, grid)] * 2
+    return HIPGP(kernel_from_name("SqExp"), grids, num_obs=n, sig2_init=sig2, ell_init=0.05,
+                 noise2_init=1e-4, init_Svar=1.0, jitter=1e-3, grid_shards=shards,
+                 dtype=dtype, device=torch.device(CARD))
+
+
+def mp_config():
+    from hipgp_tpu_torch.infer import FitConfig
+
+    return FitConfig(epochs=1, batch_size=MP["batch_size"], lr=1e-2, maxiter_cg=MP["maxiter_cg"])
+
+
+def _rank_mp(torch, d, sig2, mesh, ckpt_dir):
+    """[mp] on this rank: mp_svigp_fit of [main]'s model on the cut rows
+    (warm start, rho, lr clamp, one epoch; the whole state checkpointed by
+    rank 0 into ``ckpt_dir``), one more step's collectives, one batch's
+    hyper-gradients, mp_predict of the cut test points; the whole state."""
+    from hipgp_tpu_torch.parallel import (mp_elbo_and_grads, mp_gather_state, mp_predict,
+                                          mp_svigp_fit)
+    from hipgp_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(CARD)
+    n, ng = MP["rows"], pmesh.axis_size(mesh, "grid")
+    model = mp_model(torch, MAIN_GRID, n, sig2, ng, torch.float32)
+    rows = [d[k][:n] for k in ("xobs", "yobs", "sobs")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pmesh.reset_comm()
+    t0 = time.perf_counter()
+    st, rep = mp_svigp_fit(model, model.init_state(), *rows, mp_config(), mesh, verbose=False,
+                           theta2_warmstart=True, natgrad_safe_lr="clamp",
+                           checkpoint_dir=ckpt_dir, checkpoint_every=1)
+    torch.cuda.synchronize()
+    whole = mp_gather_state(st, mesh)
+    out = dict(fit_s=time.perf_counter() - t0, steps=rep["steps"],
+               step_ms=1e3 * rep["epoch_times"][0] / rep["steps"],
+               warmstart_s=rep["warmstart_s"], trace=rep["elbo_trace"],
+               rho=rep["natgrad_rho"], lr_used=rep["lr_used"], comm_fit=dict(pmesh.COMM),
+               peak=torch.cuda.max_memory_allocated(), theta1=whole.theta1.cpu().numpy(),
+               theta2=whole.theta2.cpu().numpy())
+    b = MP["batch_size"]
+    xb, yb, sb = (torch.as_tensor(a[:b]).to(dtype=model.dtype, device=dev) for a in rows)
+    # one more step's collectives, counted alone
+    pmesh.reset_comm()
+    mp_elbo_and_grads(model, st, xb, yb, sb, mesh=mesh, maxiter_cg=MP["maxiter_cg"])
+    out["comm_step"] = dict(pmesh.COMM)
+    elbo, g = mp_elbo_and_grads(model, st, xb, yb, sb, mesh=mesh,
+                                maxiter_cg=MP["maxiter_cg"], compute_hyper_grads=True)
+    out["hyper"] = {k: float(getattr(g, k)) for k in ("log_sig2", "log_ell", "log_noise2")}
+    out["hyper_elbo"] = float(elbo)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mu, sig = mp_predict(model, st, d["xtest"][:MP["predict_rows"]], mesh,
+                         batch_size=MP["predict_rows"], maxiter_cg=MP["predict_maxiter"])
+    torch.cuda.synchronize()
+    out.update(predict_s=time.perf_counter() - t0, mu=mu.cpu().numpy(), sig=sig.cpu().numpy())
+    return out
+
+
+def _mp_solve_mean(torch, dt, solver):
+    """[mp-solve]'s mean-solve settings: float64 converged; float32 at the
+    defaults."""
+    c = MP_SOLVE
+    if dt != torch.float64:
+        return {}
+    return dict(mean_solver_maxiter=c["cg_maxiter"] if solver == "cg" else c["mean_maxiter"],
+                mean_solver_tol=c["mean_tol"])
+
+
+def mp_solve_ranks(d, sig2):
+    """[mp-solve] in one rank of the world of four: mp_batch_solve with
+    'cg', 'gram' and 'factored' at 64^2 in float64 and float32, 'gram' with
+    the split spectrum, and 'factored' declining at 125^2; the whole states
+    (rank 0's), the ELBOs, stage seconds, peaks and warnings."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from hipgp_tpu_torch import _build
+    from hipgp_tpu_torch.models.hipgp import MEAN_PCG_STATS
+    from hipgp_tpu_torch.parallel import make_mesh, mp_batch_solve, mp_gather_state
+
+    _rank_prelude(torch)
+    mesh = make_mesh(axis_names=("dp", "grid"), shape=(2, 2))
+    c = MP_SOLVE
+    rank = dist.get_rank()
+
+    def run(model, n, key, **kw):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        with warnings.catch_warnings(record=True) as ws:
+            warnings.simplefilter("always")
+            st, elbo = mp_batch_solve(model, model.init_state(), d["xobs"][:n], d["yobs"][:n],
+                                      d["sobs"][:n], mesh, maxiter_cg=c["maxiter_cg"],
+                                      compute_elbo=True, timings=timings, **kw)
+        whole = mp_gather_state(st, mesh)
+        out[key] = dict(elbo=float(elbo), timings=timings, peak=torch.cuda.max_memory_allocated(),
+                        mean_iters=MEAN_PCG_STATS["iterations"],
+                        warned=[str(w.message) for w in ws
+                                if issubclass(w.category, RuntimeWarning)],
+                        theta1=whole.theta1.cpu().numpy() if rank == 0 else None,
+                        theta2=whole.theta2.cpu().numpy() if rank == 0 else None)
+
+    out = {}
+    n = c["rows"]
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).split(".")[-1]
+        model = mp_model(torch, c["grid"], n, sig2, 2, dt)
+        for solver in ("cg", "gram", "factored"):
+            jit = {"factor_jitter": c["factor_jitter"]} if solver == "factored" else {}
+            run(model, n, f"{name}/{solver}", batch_size=c["batch_size"], mean_solver=solver,
+                **_mp_solve_mean(torch, dt, solver), **jit)
+        if dt == torch.float32:
+            run(model, n, "float32/gram-sharded", batch_size=c["batch_size"],
+                mean_solver="gram", spectrum_mode="sharded")
+        del model
+    model = mp_model(torch, MAIN_GRID, MP_SOLVE_125_ROWS, sig2, 2, torch.float32)
+    for solver in ("factored", "gram"):
+        run(model, MP_SOLVE_125_ROWS, f"125/{solver}", batch_size=MP_SOLVE_125_ROWS,
+            mean_solver=solver)
+    out["nvcc"] = sorted(_build.LOGS)
+    out["backend"] = dist.get_backend()
     return out
 
 
@@ -3676,6 +3842,23 @@ def _rank_collectives(torch):
         dist.all_gather(parts, x)
         check(all(torch.equal(p, ramp(r)) for r, p in enumerate(parts)), f"all_gather {dt}")
         took.append(str(dt).replace("torch.", ""))
+    # the model-parallel path's reductions: MAX and MIN, and the
+    # differentiable sum (its gradient each rank's share: the identity)
+    from hipgp_tpu_torch.parallel import mesh as pmesh
+
+    for dt in (torch.float32, torch.float64):
+        v = (torch.arange(3, device=dev) + 10.0 * rank).to(dt)
+        (hi,) = pmesh.all_reduce([v], op="max")
+        (lo,) = pmesh.all_reduce([v], op="min")
+        check(torch.equal(hi, v - 10.0 * rank + 10.0 * (n - 1))
+              and torch.equal(lo, v - 10.0 * rank), f"all_reduce max / min {dt}")
+        w = v.clone().requires_grad_()
+        (tot,) = pmesh.sum_over([w * w], None)
+        (g,) = torch.autograd.grad(torch.sum(tot * 3.0), w)
+        check(torch.equal(tot.detach(), sum((torch.arange(3, device=dev) + 10.0 * r).to(dt) ** 2
+                                           for r in range(n)))
+              and torch.equal(g, 6.0 * v), f"sum_over {dt}")
+    took.append("max / min / sum_over")
     ms = {}
     for name, nbytes in (("all_reduce", 1 << 19), ("all_reduce", 1 << 25),
                          ("all_to_all", 1 << 25)):
@@ -3693,9 +3876,9 @@ def _rank_collectives(torch):
     return {"took": took, "ms": ms}
 
 
-def parallel_ranks(d, sig2):
+def parallel_ranks(d, sig2, ckpt_dir):
     """The gloo world's phases, in one rank: the collectives, [dp],
-    [dp-solve], [grid-fft]."""
+    [dp-solve], [grid-fft], [mp] (on a (1, 2) ('dp', 'grid') mesh)."""
     import torch
 
     from hipgp_tpu_torch import _build
@@ -3709,13 +3892,17 @@ def parallel_ranks(d, sig2):
     out["dp-solve"] = _rank_dp_solve(torch, d, sig2, mesh)
     torch.cuda.empty_cache()
     out["grid-fft"] = _rank_grid_fft(torch, d, sig2, ("2d", "1d"))
+    torch.cuda.empty_cache()
+    out["mp"] = _rank_mp(torch, d, sig2, make_mesh(axis_names=("dp", "grid"),
+                                                   shape=(1, PAR_RANKS)), ckpt_dir)
     out["nvcc"] = sorted(_build.LOGS)
     out["backend"] = torch.distributed.get_backend()
     return out
 
 
-def nccl_rank(d, sig2):
-    """The NCCL world of one: [main]'s epoch and the 2-D [grid-fft] case."""
+def nccl_rank(d, sig2, ckpt_dir):
+    """The NCCL world of one: [main]'s epoch, the 2-D [grid-fft] case and
+    [mp]'s steps on a (1, 1) mesh."""
     import torch
 
     from hipgp_tpu_torch import _build
@@ -3725,6 +3912,9 @@ def nccl_rank(d, sig2):
     out = {"collectives": _rank_collectives(torch),
            "dp": _rank_epoch(torch, d, sig2, make_mesh()),
            "grid-fft": _rank_grid_fft(torch, d, sig2, ("2d",))}
+    torch.cuda.empty_cache()
+    out["mp"] = _rank_mp(torch, d, sig2, make_mesh(axis_names=("dp", "grid"), shape=(1, 1)),
+                         ckpt_dir)
     out["nvcc"] = sorted(_build.LOGS)
     out["backend"] = torch.distributed.get_backend()
     return out
@@ -3768,15 +3958,19 @@ def phase_parallel(torch, dev, d, sig2, main, main_step_ms):
     from hipgp_tpu_torch.ops import mxu2d, radix_fft, solve
     from hipgp_tpu_torch.parallel import launch
 
+    import tempfile
+
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    data = {k: d[k] for k in ("xobs", "yobs", "sobs")}
+    data = {k: d[k] for k in ("xobs", "yobs", "sobs", "xtest")}
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    ckpt_dirs = {w: os.path.join(ckpt_root, w) for w in ("gloo", "nccl")}
     gloo = launch.run(parallel_ranks, PAR_RANKS, backend="gloo", device="cuda",
-                      args=(data, sig2), timeout_s=PAR_TIMEOUT_S)
+                      args=(data, sig2, ckpt_dirs["gloo"]), timeout_s=PAR_TIMEOUT_S)
     t_gloo = time.perf_counter() - t0
     t1 = time.perf_counter()
-    (nccl,) = launch.run(nccl_rank, 1, backend="nccl", device="cuda", args=(data, sig2),
-                         timeout_s=PAR_TIMEOUT_S)
+    (nccl,) = launch.run(nccl_rank, 1, backend="nccl", device="cuda",
+                         args=(data, sig2, ckpt_dirs["nccl"]), timeout_s=PAR_TIMEOUT_S)
     t_nccl = time.perf_counter() - t1
     for r in gloo + [nccl]:
         check(not r["nvcc"], f"a rank ran nvcc for {r['nvcc']}")
@@ -3919,7 +4113,209 @@ def phase_parallel(torch, dev, d, sig2, main, main_step_ms):
         del got, want, kern, spec32, b32
         torch.cuda.empty_cache()
     log(f"[dp] kernel-A launches of the three epochs {total}; {time.perf_counter() - t0:.2f} s")
+    t2 = time.perf_counter()
+    try:
+        _check_mp(torch, dev, d, sig2, gloo, nccl, ckpt_dirs)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    log(f"[mp] checked in {time.perf_counter() - t2:.2f} s")
+    phase_mp_solve(torch, dev, d, sig2)
     return total
+
+
+def _check_mp(torch, dev, d, sig2, gloo, nccl, ckpt_dirs):
+    """[mp]: the split fit of each rank (two gloo ranks, the NCCL world of
+    one) against the single-process fit of the same steps on the card (the
+    kernel-A path), its predictions against the single-process predict of
+    its own state, its checkpoint against a single-process checkpoint of
+    the gathered state, one batch's hyper-gradients against float64."""
+    import tempfile
+
+    import numpy as np
+
+    from hipgp_tpu_torch.infer import batch_predict, svigp_fit
+    from hipgp_tpu_torch.ops import mxu2d
+    from hipgp_tpu_torch.utils import checkpoint as ckpt
+
+    n, b = MP["rows"], MP["batch_size"]
+    rows = [d[k][:n] for k in ("xobs", "yobs", "sobs")]
+    model = mp_model(torch, MAIN_GRID, n, sig2, PAR_RANKS, torch.float32)
+    check(model.edims == (2 * MAIN_GRID, 2 * MAIN_GRID), f"[mp] embedded at {model.edims}")
+    before = dict(mxu2d.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref, rep = svigp_fit(model, model.init_state(), *rows, mp_config(), verbose=False,
+                         theta2_warmstart=True, natgrad_safe_lr="clamp")
+    torch.cuda.synchronize()
+    ref_s, ref_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    moved = {k: v - before[k] for k, v in mxu2d.LAUNCHES.items()}
+    check(moved["sandwich_apply"] > 0, "[mp] the single-process fit took no kernel-A path")
+    ref_step_ms = 1e3 * rep["epoch_times"][0] / rep["steps"]
+    ref_trace = np.asarray(rep["elbo_trace"])
+    on = lambda a: torch.as_tensor(a, device=dev)
+    log(f"[mp] single-process reference on the card (kernel A): {rep['steps']} steps at "
+        f"{ref_step_ms:.2f} ms a step, warm start {rep['warmstart_s']:.2f} s, rho "
+        f"{rep['natgrad_rho']:.2f}, lr {rep['lr_used']:.4g}, peak {ref_peak / 1e9:.3f} GB; "
+        f"{ref_s:.2f} s; kernel-A launches {moved}")
+    worlds = [(f"gloo rank {i}", g["mp"]) for i, g in enumerate(gloo)] + [("nccl", nccl["mp"])]
+    for tag, r in worlds:
+        trace = np.asarray(r["trace"])
+        check(r["steps"] == rep["steps"] and bool(np.isfinite(trace).all()),
+              f"[mp] {tag}: {r['steps']} steps, finite trace")
+        gaps = {"theta1": rel(on(r["theta1"]), ref.theta1),
+                "theta2": rel(on(r["theta2"]), ref.theta2),
+                "ELBO trace": float(np.max(np.abs(trace - ref_trace) / np.abs(ref_trace))),
+                "rho": abs(r["rho"] - rep["natgrad_rho"]) / abs(rep["natgrad_rho"]),
+                "lr used": abs(r["lr_used"] - rep["lr_used"]) / abs(rep["lr_used"])}
+        for k, v in gaps.items():
+            check(v <= MP_TOL, f"[mp] {tag} {k} {v:.3e} from the single-process fit "
+                               f"(limit {MP_TOL:g})")
+        log(f"[mp] {tag}: {r['steps']} steps at {r['step_ms']:.2f} ms a step a rank (warm "
+            f"start {r['warmstart_s']:.2f} s, fit {r['fit_s']:.2f} s); a step's collectives: "
+            f"{r['comm_step']['all_to_all']} bytes through all_to_all, "
+            f"{r['comm_step']['all_reduce']} through all_reduce ({r['comm_fit']} in the fit); "
+            f"peak {r['peak'] / 1e9:.3f} GB; rel gaps to the single-process fit "
+            + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    check(list(gloo[0]["mp"]["trace"]) == list(gloo[1]["mp"]["trace"]),
+          "[mp] the gloo ranks' ELBO traces differ")
+    # the split predict against the single-process predict of the same state
+    for tag, r in worlds[:1] + worlds[-1:]:
+        st = ref.replace(theta1=on(r["theta1"]), theta2=on(r["theta2"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mu, sig = batch_predict(model, st, d["xtest"][:MP["predict_rows"]],
+                                batch_size=MP["predict_rows"], maxiter_cg=MP["predict_maxiter"])
+        torch.cuda.synchronize()
+        p_s = time.perf_counter() - t0
+        emu, esig = rel(on(r["mu"]), mu), rel(on(r["sig"]), sig)
+        check(emu <= MP_TOL and esig <= MP_TOL,
+              f"[mp] {tag} predictions: mu {emu:.3e}, sigma {esig:.3e} (limit {MP_TOL:g})")
+        log(f"[mp] {tag} mp_predict of {MP['predict_rows']} points, maxiter "
+            f"{MP['predict_maxiter']}: {r['predict_s']:.2f} s (single process {p_s:.3f} s); "
+            f"rel gaps mu {emu:.3e}, sigma {esig:.3e} (limit {MP_TOL:g})")
+    # the checkpoint: rank 0 wrote the gathered state, as a single process
+    # writes it
+    for w, r in (("gloo", gloo[0]["mp"]), ("nccl", nccl["mp"])):
+        path = os.path.join(ckpt_dirs[w], "state.npz")
+        got = ckpt.load_pytree(path, ref)
+        same = (np.array_equal(got.theta1.cpu().numpy(), r["theta1"])
+                and np.array_equal(got.theta2.cpu().numpy(), r["theta2"]))
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt.save_checkpoint(tmp, got)
+            single = ckpt.load_pytree(os.path.join(tmp, "state.npz"), ref)
+        same_file = all(torch.equal(getattr(single, k), getattr(got, k))
+                        for k in ("theta1", "theta2", "log_sig2", "log_ell", "log_noise2"))
+        check(same and same_file, f"[mp] {w}: the checkpoint is not the gathered state")
+        log(f"[mp] {w}: the checkpoint holds the whole state ({got.theta1.numel()} + "
+            f"{got.theta2.numel()} entries), equal to the gathered state and to a "
+            f"single-process checkpoint of it")
+    # one batch's hyper-gradients against the float64 plain single-process step
+    m64 = mp_model(torch, MAIN_GRID, n, sig2, PAR_RANKS, torch.float64)
+    r = gloo[0]["mp"]
+    st64 = m64.init_state().replace(theta1=on(r["theta1"]).double(),
+                                    theta2=on(r["theta2"]).double())
+    xb, yb, sb = (torch.as_tensor(a[:b]).to(dtype=torch.float64, device=dev) for a in rows)
+    _, g64 = m64.elbo_and_grads(st64, xb, yb, sb, maxiter_cg=MP["maxiter_cg"],
+                                compute_hyper_grads=True)
+    # the per-point noise drives the likelihood: log_noise2 has no gradient
+    check(r["hyper"]["log_noise2"] == 0.0 and float(g64.log_noise2) == 0.0,
+          "[mp] a log_noise2 gradient under per-point noise")
+    gaps = {k: abs(r["hyper"][k] - float(getattr(g64, k))) / abs(float(getattr(g64, k)))
+            for k in ("log_sig2", "log_ell")}
+    for k, v in gaps.items():
+        check(v <= MP_GRAD_TOL, f"[mp] hyper-gradient {k} {v:.3e} from float64")
+    log("[mp] one batch's float32 split hyper-gradients against the float64 plain "
+        "single-process step: " + ", ".join(f"{k} {r['hyper'][k]:.6g} (rel {v:.3e})"
+                                            for k, v in gaps.items())
+        + f" (limit {MP_GRAD_TOL:g})")
+    del m64, model
+
+
+def phase_mp_solve(torch, dev, d, sig2):
+    """[mp-solve]: a world of four gloo ranks on the card as a (2, 2) mesh,
+    mp_batch_solve with 'cg', 'gram' and 'factored' against the
+    single-process solve by the same solver at the same row groups and
+    iterations (float64: limit 1e-8, the split sums exact; float32); the
+    split spectrum against the whole one; 'factored' declining at 125^2."""
+    import numpy as np
+
+    from hipgp_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    c = MP_SOLVE
+    data = {k: d[k] for k in ("xobs", "yobs", "sobs")}
+    out = launch.run(mp_solve_ranks, c["ranks"], backend="gloo", device=CARD,
+                     args=(data, sig2), timeout_s=PAR_TIMEOUT_S)
+    t_world = time.perf_counter() - t0
+    for r in out:
+        check(not r["nvcc"] and r["backend"] == "gloo", "[mp-solve] a rank ran nvcc or not gloo")
+    keys = [k for k in out[0] if "/" in k]
+    for k in keys:
+        check(len({r[k]["elbo"] for r in out}) == 1, f"[mp-solve] {k}: the ranks' ELBOs differ")
+    log(f"[mp-solve] {c['ranks']} gloo ranks on one card as a (2, 2) ('dp', 'grid') mesh in "
+        f"{t_world:.2f} s (start included)")
+    n, on = c["rows"], (lambda a: torch.as_tensor(a, device=dev))
+    rows = [d[k][:n] for k in ("xobs", "yobs", "sobs")]
+    failed = []   # every reading is logged before a failed limit ends the run
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).split(".")[-1]
+        model = mp_model(torch, c["grid"], n, sig2, 2, dt)
+        for solver in ("cg", "gram", "factored"):
+            ref_solver = "dense" if solver == "cg" and dt == torch.float64 else solver
+            mean = _mp_solve_mean(torch, dt, solver)
+            jit = {"factor_jitter": c["factor_jitter"]} if solver == "factored" else {}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref, ref_elbo = model.batch_solve(model.init_state(), *rows,
+                                              batch_size=c["batch_size"] // 2,
+                                              maxiter_cg=c["maxiter_cg"], compute_elbo=True,
+                                              mean_solver=ref_solver, **mean, **jit)
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t1
+            r = out[0][f"{name}/{solver}"]
+            gaps = {"theta1": rel(on(r["theta1"]), ref.theta1),
+                    "theta2": rel(on(r["theta2"]), ref.theta2),
+                    "ELBO": abs(r["elbo"] - float(ref_elbo)) / abs(float(ref_elbo))}
+            tol = ({k: MP_SOLVE_F64_TOL for k in gaps} if dt == torch.float64
+                   else MP_SOLVE_F32_TOL)
+            for k, v in gaps.items():
+                if v > tol[k]:
+                    failed.append(f"[mp-solve] {name} {solver} {k} {v:.3e} from the "
+                                  f"single-process '{ref_solver}' (limit {tol[k]:g})")
+            if r["warned"]:
+                failed.append(f"[mp-solve] {name} {solver} warned {r['warned']}")
+            log(f"[mp-solve] {name} '{solver}' at {c['grid']}^2 (M' = {model.Mprime}), {n} rows: "
+                + "; ".join(f"rank {i} " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                                       o[f'{name}/{solver}']['timings'].items())
+                            + f", peak {o[f'{name}/{solver}']['peak'] / 1e9:.3f} GB"
+                            for i, o in enumerate(out))
+                + f"; mean PCG {r['mean_iters']} iterations; against the single-process "
+                f"'{ref_solver}' ({ref_s:.2f} s): "
+                + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+                + f" (limits {tol})")
+        del model
+        torch.cuda.empty_cache()
+    g, s = out[0]["float32/gram"], out[0]["float32/gram-sharded"]
+    gaps = {"theta1": rel(on(s["theta1"]), on(g["theta1"])),
+            "theta2": rel(on(s["theta2"]), on(g["theta2"])),
+            "ELBO": abs(s["elbo"] - g["elbo"]) / abs(g["elbo"])}
+    failed += [f"[mp-solve] sharded spectrum {k} {v:.3e} from host"
+               for k, v in gaps.items() if v > MP_SOLVE_F32_TOL[k]]
+    log("[mp-solve] float32 'gram' with spectrum_mode='sharded' against 'host': "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    check(not failed, "; ".join(failed))
+    f, g = out[0]["125/factored"], out[0]["125/gram"]
+    check(len(f["warned"]) == 1 and "declined" in f["warned"][0]
+          and "falling back" in f["warned"][0], f"[mp-solve] 125^2 'factored' warned {f['warned']}")
+    check(np.array_equal(f["theta1"], g["theta1"]) and np.array_equal(f["theta2"], g["theta2"])
+          and f["elbo"] == g["elbo"], "[mp-solve] 125^2: the declined 'factored' is not 'gram'")
+    log(f"[mp-solve] float32 'factored' at {MAIN_GRID}^2 ({MP_SOLVE_125_ROWS} rows): "
+        f"{f['warned'][0][:90]}...; its state and ELBO equal 'gram''s "
+        f"(sweep {f['timings'].get('sweep', float('nan')):.2f} s, mean "
+        f"{f['timings'].get('mean', float('nan')):.2f} s, peak {f['peak'] / 1e9:.3f} GB); "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def main():

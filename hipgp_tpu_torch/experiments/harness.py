@@ -27,10 +27,17 @@ through `svigp_fit` with `parallel.round_batch_to_mesh` and
 `parallel.make_dp_data_shard_fn`, full batch through
 `parallel.dp_batch_solve`.  Every rank returns the same state and report;
 only the coordinator (`multihost.on_coordinator`) writes the artifacts.
+``parallel='mp'`` fits model-parallel (mean-field and block) over
+``mesh`` (default: a (1, world) ('dp', 'grid') mesh), the model built with
+``grid_shards`` from the mesh's grid axis: natgrad through
+`parallel.mp_svigp_fit`, full batch through `parallel.mp_batch_solve` ('gram'
+and 'factored' passed on, any other mean solver solved by 'cg', as the JAX
+harness routes them), evaluation through `parallel.mp_predict`
+(`evaluate_and_save`'s ``predict_fn``); every rank gathers the state whole
+(`parallel.mp_gather_state`) and only the coordinator writes it.
 ``grid_shards`` pads the model's circulant embedding as the JAX harness
-does.  Not ported: ``parallel='mp'`` (ROADMAP.md section A item 10) raises
-NotImplementedError; its ``predict_fn`` and ``eval_only_state`` (evaluate a
-saved state without a fit) are left out.
+does.  Not ported: ``eval_only_state`` (evaluate a saved state without a
+fit).
 """
 from __future__ import annotations
 
@@ -99,22 +106,26 @@ def make_model(model_class: str, kernel_name: str, xinduce_grids: Sequence,
 
 
 def init_parallel(parallel: Optional[str], device="cuda"):
-    """The world of a ``parallel`` run: (mesh, writer).  'dp' joins torchrun's
-    world (`multihost.initialize`; a world of one process, said so, without
-    torchrun's environment) and returns the mesh of every rank on 'dp' and
+    """The world of a ``parallel`` run: (mesh, writer).  'dp' and 'mp' join
+    torchrun's world (`multihost.initialize`; a world of one process, said
+    so, without torchrun's environment) and return the mesh, every rank on
+    'dp' or, for 'mp', JAX's default (1, world) ('dp', 'grid') mesh, and
     whether this rank is the coordinator, the one that writes; None returns
-    (None, True); 'mp' is not ported (ROADMAP.md section A item 10)."""
+    (None, True)."""
     if parallel not in (None, "dp", "mp"):
         raise ValueError(f"parallel={parallel!r}; choose None | 'dp' | 'mp'")
-    if parallel == "mp":
-        raise NotImplementedError(
-            "parallel='mp' is not ported yet (ROADMAP.md section A item 10)")
     if parallel is None:
         return None, True
+    import torch.distributed as dist
+
     from ..parallel import make_mesh, multihost
 
     multihost.initialize(device=device)
-    return make_mesh(), multihost.on_coordinator()
+    if parallel == "mp":
+        mesh = make_mesh(axis_names=("dp", "grid"), shape=(1, dist.get_world_size()))
+    else:
+        mesh = make_mesh()
+    return mesh, multihost.on_coordinator()
 
 
 def empirical_sig2_init(xobs: np.ndarray, yobs: np.ndarray) -> float:
@@ -136,13 +147,16 @@ def empirical_sig2_init(xobs: np.ndarray, yobs: np.ndarray) -> float:
 
 
 def _predict_all(model, state, xtest, ftest, etest, xvalid, fvalid, evalid, xgrid, fgrid,
-                 egrid, integrated, maxiter_cg, ksemi_method, ksemi_samps, batch_size):
+                 egrid, integrated, maxiter_cg, ksemi_method, ksemi_samps, batch_size,
+                 predict_fn=None):
     """The predictions on valid/test/grid (latent and, with ``integrated``,
     integrated) and their seconds: (pdict, eval_times)."""
     pdict: Dict[str, np.ndarray] = {}
     times: Dict[str, float] = {}
 
     def _predict(x, integrated_obs=False):
+        if predict_fn is not None:
+            return predict_fn(x, integrated_obs=integrated_obs)
         kw = {}
         if integrated_obs:
             kw = dict(integrated_obs=True, semi_integrated_estimator=ksemi_method,
@@ -187,17 +201,21 @@ def evaluate_and_save(odir: str, model, state, *, xtest=None, ftest=None, etest=
                       train_elbo: Optional[float] = None,
                       predict_batch_size: int = 4096,
                       make_plots: Optional[bool] = None, grid_shape=None,
-                      grid_extent=None, write: bool = True):
+                      grid_extent=None, write: bool = True, predict_fn=None):
     """Checkpoint, predict on valid/test/grid (latent and, with
     ``do_integrated_predictions``, integrated), write the metric CSVs and,
     with ``make_plots`` (None: where matplotlib imports), the JAX harness's
     figures.  ``write=False`` predicts and writes nothing (the ranks of a
-    data-parallel run but its coordinator).  Returns (pdict, eval_times)."""
+    parallel run but its coordinator).  ``predict_fn(x, integrated_obs=...)
+    -> (mu, sig)`` replaces `batch_predict` (the model-parallel run's
+    `parallel.mp_predict`; ``state`` is then only written).  Returns
+    (pdict, eval_times)."""
+    pkw = dict(predict_fn=predict_fn)
     if not write:
         return _predict_all(model, state, xtest, ftest, etest, xvalid, fvalid, evalid,
                             xgrid, fgrid, egrid, do_integrated_predictions,
                             predict_maxiter_cg, predict_ksemi_method, predict_ksemi_samps,
-                            predict_batch_size)
+                            predict_batch_size, **pkw)
     os.makedirs(odir, exist_ok=True)
     if make_plots is None:
         make_plots = viz.matplotlib_available()
@@ -215,7 +233,7 @@ def evaluate_and_save(odir: str, model, state, *, xtest=None, ftest=None, etest=
     pdict, times = _predict_all(model, state, xtest, ftest, etest, xvalid, fvalid, evalid,
                                 xgrid, fgrid, egrid, do_integrated_predictions,
                                 predict_maxiter_cg, predict_ksemi_method,
-                                predict_ksemi_samps, predict_batch_size)
+                                predict_ksemi_samps, predict_batch_size, **pkw)
     ckpt.save_predictions(os.path.join(odir, "predictions.npz"), pdict)
 
     if "ftest" in pdict:
@@ -301,12 +319,20 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
     grid predictions' figures, drawn as `evaluate_and_save` decides
     (``eval_epoch_plots`` for the per-epoch evaluations);
     ``max_steps`` (the port's) ends a natgrad fit after that many steps.
-    ``parallel='dp'`` fits data-parallel over ``mesh`` (the module
-    docstring); ``grid_shards`` pads the HIP-GP's embedding.  Returns
-    (model, state, report), the same on every rank."""
+    ``parallel='dp'`` and ``'mp'`` fit over ``mesh`` (the module
+    docstring); ``grid_shards`` pads the HIP-GP's embedding (under 'mp' the
+    mesh's grid size).  Returns (model, state, report), the same on every
+    rank (under 'mp' the whole state, gathered)."""
+    if parallel == "mp" and not (model_class == "mean-field"
+                                 or model_class.startswith("block")):
+        raise ValueError("parallel='mp' supports the mean-field and block families")
     default_mesh, writer = init_parallel(parallel, device)
     if mesh is None:
         mesh = default_mesh
+    if parallel == "mp":
+        from ..parallel.mesh import axis_size
+
+        grid_shards = axis_size(mesh, "grid")
     odir = os.path.join(output_dir, name)
     if writer:
         os.makedirs(odir, exist_ok=True)
@@ -354,6 +380,26 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
                    predict_ksemi_samps=cfg.predict_ksemi_samps,
                    data_noise_std=None if sobs is None else float(np.mean(sobs)),
                    grid_shape=grid_shape, grid_extent=grid_extent)
+
+    def for_eval(state_):
+        """(the state to write, evaluate_and_save's predict_fn): under 'mp'
+        the gathered state (every rank takes part) and `mp_predict` of the
+        rank's block."""
+        if parallel != "mp":
+            return state_, None
+        from ..parallel import mp_gather_state, mp_predict
+
+        def predict_fn(x, integrated_obs=False):
+            kw = {}
+            if integrated_obs:
+                kw = dict(integrated_obs=True,
+                          semi_integrated_estimator=cfg.predict_ksemi_method,
+                          semi_integrated_samps=cfg.predict_ksemi_samps)
+            return mp_predict(model, state_, x, mesh, maxiter_cg=cfg.predict_maxiter_cg,
+                              **kw)
+
+        return mp_gather_state(state_, mesh), predict_fn
+
     epoch_eval_rows = []
     epoch_callback = None
     if eval_epochs and fit_method == "natgrad":
@@ -363,25 +409,30 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
             if (epoch + 1) % every and epoch != cfg.epochs - 1:
                 return
             t0 = time.time()
+            st_w, predict_fn = for_eval(state_)
             _, etimes = evaluate_and_save(
-                os.path.join(odir, "epoch_output", f"epoch_{epoch}"), model_, state_,
-                elbo_trace=trace, make_plots=eval_epoch_plots, write=writer, **eval_kw)
+                os.path.join(odir, "epoch_output", f"epoch_{epoch}"), model_, st_w,
+                elbo_trace=trace, make_plots=eval_epoch_plots, write=writer,
+                predict_fn=predict_fn, **eval_kw)
             epoch_eval_rows.append({"epoch": epoch, "eval_total": time.time() - t0,
                                     **etimes})
 
     t_start = time.time()
     if fit_method == "natgrad":
-        shard_kw = {}
-        if parallel == "dp":
-            from ..parallel import make_dp_data_shard_fn, round_batch_to_mesh
+        fit_kw = dict(verbose=writer, theta2_warmstart=theta2_warmstart,
+                      natgrad_safe_lr=natgrad_safe_lr, max_steps=max_steps,
+                      epoch_callback=epoch_callback)
+        if parallel == "mp":
+            from ..parallel import mp_svigp_fit
 
-            cfg = round_batch_to_mesh(cfg, mesh, len(xobs))
-            shard_kw = {"data_shard_fn": make_dp_data_shard_fn(mesh)}
-        state, report = svigp_fit(model, state, xobs, yobs, sobs, cfg, verbose=writer,
-                                  theta2_warmstart=theta2_warmstart,
-                                  natgrad_safe_lr=natgrad_safe_lr,
-                                  max_steps=max_steps, epoch_callback=epoch_callback,
-                                  **shard_kw)
+            state, report = mp_svigp_fit(model, state, xobs, yobs, sobs, cfg, mesh, **fit_kw)
+        else:
+            if parallel == "dp":
+                from ..parallel import make_dp_data_shard_fn, round_batch_to_mesh
+
+                cfg = round_batch_to_mesh(cfg, mesh, len(xobs))
+                fit_kw["data_shard_fn"] = make_dp_data_shard_fn(mesh)
+            state, report = svigp_fit(model, state, xobs, yobs, sobs, cfg, **fit_kw)
         train_elbo = report["epoch_elbos"][-1] if report["epoch_elbos"] else None
     elif fit_method == "full-batch":
         flags = dict(batch_size=batch_solve_bsz, maxiter_cg=maxiter_cg,
@@ -392,6 +443,15 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
             from ..parallel import dp_batch_solve
 
             state, elbo = dp_batch_solve(model, state, xobs, yobs, sobs, mesh, **flags)
+        elif parallel == "mp":
+            from ..parallel import mp_batch_solve
+
+            flags["batch_size"] = batch_solve_bsz if batch_solve_bsz > 0 else len(xobs)
+            state, elbo = mp_batch_solve(
+                model, state, xobs, yobs, sobs, mesh,
+                mean_solver=mean_solver if mean_solver in ("gram", "factored") else "cg",
+                mean_solver_maxiter=mean_solver_maxiter, mean_solver_tol=mean_solver_tol,
+                **flags)
         else:
             state, elbo = model.batch_solve(
                 state, xobs, yobs, sobs, mean_solver=mean_solver,
@@ -405,8 +465,9 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
         raise ValueError(f"fit_method={fit_method!r}")
     fitting_time = time.time() - t_start
 
+    state, predict_fn = for_eval(state)
     pdict, eval_times = evaluate_and_save(
-        odir, model, state, elbo_trace=report.get("elbo_trace"),
+        odir, model, state, predict_fn=predict_fn, elbo_trace=report.get("elbo_trace"),
         hyper_traces={"sig2": report.get("sig2_trace"), "ell": report.get("ell_trace"),
                       "noisesq": report.get("noise2_trace")},
         train_elbo=train_elbo, write=writer, **eval_kw)

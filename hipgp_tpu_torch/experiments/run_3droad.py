@@ -9,8 +9,9 @@ road-altitude surface of ``--nobs`` rows stands in.  ``--device`` (default
 cuda) and ``--f64`` are the port's.  ``--parallel dp`` fits data-parallel,
 one process per device: ``torchrun --nproc-per-node N -m
 hipgp_tpu_torch.experiments.run_3droad --parallel dp`` (without torchrun, a
-world of one process); ``--parallel mp`` is not ported (ROADMAP.md section A
-item 10).
+world of one process); ``--parallel mp`` fits model-parallel the same way,
+the whitened state split over a (1, world) ('dp', 'grid') mesh (mean-field
+and block; the harness's 'dense' becomes the split 'cg').
 
 Usage: python -m hipgp_tpu_torch.experiments.run_3droad
        (add --device cpu --nobs 400 --num-inducing 8 for a small CPU run)
@@ -77,8 +78,8 @@ def main(argv=None):
     p.add_argument("--mean-solver", default="dense",
                    choices=["dense", "cg", "gram", "factored", "matfree"])
     p.add_argument("--parallel", default=None, choices=["dp", "mp"],
-                   help="dp: data-parallel over the ranks of torchrun's world "
-                        "(mp: not ported, raises)")
+                   help="over the ranks of torchrun's world: dp data-parallel, mp "
+                        "model-parallel (the state split over a (1, world) grid)")
     p.add_argument("--learn-kernel", action="store_true",
                    help="learn hyperparameters (cholesky whitening under 'auto')")
     p.add_argument("--whitening", default="auto", choices=["auto", "ziggy", "cholesky"],

@@ -36,8 +36,12 @@ slice's cells, is the slice's truth, as in the JAX package.
 batch by `parallel.dp_batch_solve`, whose mean is the dense solve whatever
 ``--mean-solver`` says, as in the JAX package; natgrad through `svigp_fit`
 with `parallel.make_dp_data_shard_fn`); every rank generates the same data
-and only rank 0 writes.  ``--parallel mp`` is not ported (ROADMAP.md section
-A item 10).
+and only rank 0 writes.  ``--parallel mp`` fits model-parallel, the whitened
+state split over a (1, world) ('dp', 'grid') mesh (mean-field and block):
+the full batch by `parallel.mp_batch_solve` ('gram' and 'factored' passed
+on, any other mean solver solved by 'cg', as in the JAX package), natgrad by
+`parallel.mp_svigp_fit`, the predictions by `parallel.mp_predict`; the state
+is gathered whole (`parallel.mp_gather_state`) before rank 0 writes it.
 
 Usage: python -m hipgp_tpu_torch.experiments.run_domain --fit-method natgrad
            --nx 64 --nz 32 --ell 0.07
@@ -64,7 +68,9 @@ import torch
 from ..infer import FitConfig, batch_predict, svigp_fit
 from ..models import HIPGP
 from ..models.hipgp import MEAN_PCG_STATS
-from ..parallel import dp_batch_solve, make_dp_data_shard_fn, round_batch_to_mesh
+from ..parallel import (dp_batch_solve, make_dp_data_shard_fn, mp_batch_solve,
+                        mp_gather_state, mp_predict, mp_svigp_fit, round_batch_to_mesh)
+from ..parallel.mesh import axis_size
 from ..utils import checkpoint, metrics
 from .dust_density import gen_dust_density
 from .harness import empirical_sig2_init, init_parallel, make_model
@@ -189,15 +195,16 @@ def snapshot_truth(x, xgrid, zmid: float, eval_grid: int, nz: int, snapshot: str
 
 def domain_model(kernel: str, grids, num_obs: int, sig2: float, ell: float,
                  dtype=torch.float32, device="cuda", model_class: str = "mean-field",
-                 block_sizes=None) -> HIPGP:
+                 block_sizes=None, grid_shards=None) -> HIPGP:
     """The model of the protocol, built by the JAX harness's factory
     (`harness.make_model`: noise2_init 1, init_Svar 1, jitter 1e-3), with
     the doubly-integrated diagonal's table; ``block_sizes`` chunks the
-    block family."""
+    block family, ``grid_shards`` pads the embedding for a model-parallel
+    fit."""
     return make_model(model_class, kernel, grids, num_obs=num_obs, sig2_init=sig2,
                       ell_init=ell, noise2_init=1.0, init_Svar=1.0, jitter=1e-3,
                       block_sizes=block_sizes, support_integrated_obs=True,
-                      dtype=dtype, device=device)
+                      grid_shards=grid_shards, dtype=dtype, device=device)
 
 
 def main(argv=None):
@@ -246,8 +253,8 @@ def main(argv=None):
     p.add_argument("--eval-only-state", default=None,
                    help="restore this state.npz and skip the fit (re-evaluation)")
     p.add_argument("--parallel", default=None, choices=["dp", "mp"],
-                   help="dp: data-parallel over the ranks of torchrun's world "
-                        "(mp: not ported, raises)")
+                   help="over the ranks of torchrun's world: dp data-parallel, mp "
+                        "model-parallel (the state split over a (1, world) grid)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--f64", action="store_true")
     args = p.parse_args(argv)
@@ -273,10 +280,15 @@ def main(argv=None):
     sig2 = empirical_sig2_init(xobs, aobs)
     blocks = ((args.xblock_size, args.xblock_size, args.zblock_size)
               if args.model_class.startswith("block") else None)
+    mp = args.parallel == "mp"
+    # 'mp' has no dense M' x M' mean: 'gram' and 'factored' pass, the rest is 'cg'
+    mean_solver = ("cg" if mp and args.mean_solver not in ("gram", "factored")
+                   else args.mean_solver)
     model = domain_model(args.kernel, prob["grids"], len(xobs), sig2, args.ell,
                          dtype=torch.float64 if args.f64 else torch.float32,
                          device=args.device, model_class=args.model_class,
-                         block_sizes=blocks)
+                         block_sizes=blocks,
+                         grid_shards=axis_size(mesh, "grid") if mp else None)
     cfg = FitConfig(epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
                     maxiter_cg=args.maxiter_cg, integrated_obs=True,
                     semi_integrated_estimator="analytic" if analytic else "mc-biased")
@@ -290,6 +302,16 @@ def main(argv=None):
         state = checkpoint.load_pytree(args.eval_only_state, model.init_state())
         full_batch = False
         report = {"elbo_trace": [float("nan")], "steps": 0, "epoch_times": [],
+                  "warmstart_s": 0.0, "natgrad_rho": None, "lr_used": None}
+    elif full_batch and mp:
+        state, elbo = mp_batch_solve(
+            model, model.init_state(), xobs, aobs, sobs_tr, mesh,
+            batch_size=args.batch_size, maxiter_cg=args.maxiter_cg, integrated_obs=True,
+            semi_integrated_estimator=cfg.semi_integrated_estimator,
+            semi_integrated_samps=cfg.num_semi_mc_samples, compute_elbo=True,
+            mean_solver=mean_solver, mean_solver_maxiter=args.mean_solver_maxiter,
+            mean_solver_tol=args.mean_solver_tol, timings=timings)
+        report = {"elbo_trace": [float(elbo)], "steps": 0, "epoch_times": [],
                   "warmstart_s": 0.0, "natgrad_rho": None, "lr_used": None}
     elif full_batch and mesh is not None:
         state, elbo = dp_batch_solve(
@@ -310,6 +332,10 @@ def main(argv=None):
             mean_solver_tol=args.mean_solver_tol, timings=timings)
         report = {"elbo_trace": [float(elbo)], "steps": 0, "epoch_times": [],
                   "warmstart_s": 0.0, "natgrad_rho": None, "lr_used": None}
+    elif mp:
+        state, report = mp_svigp_fit(model, model.init_state(), xobs, aobs, sobs_tr, cfg,
+                                     mesh, verbose=False, theta2_warmstart=True,
+                                     natgrad_safe_lr="clamp", max_steps=args.max_steps)
     else:
         shard_kw = {}
         if mesh is not None:
@@ -326,10 +352,14 @@ def main(argv=None):
     ekw = dict(integrated_obs=True,
                semi_integrated_estimator="analytic" if analytic else "mc-biased",
                semi_integrated_samps=PREDICT_KSEMI_SAMPS)
-    emu, esig = batch_predict(model, state, xtest, batch_size=PREDICT_BATCH,
-                              maxiter_cg=cfg.predict_maxiter_cg, **ekw)
-    fmu, fsig = batch_predict(model, state, xgrid, batch_size=PREDICT_BATCH,
-                              maxiter_cg=cfg.predict_maxiter_cg)
+    predict = mp_predict if mp else batch_predict
+    where = (mesh,) if mp else ()
+    emu, esig = predict(model, state, xtest, *where, batch_size=PREDICT_BATCH,
+                        maxiter_cg=cfg.predict_maxiter_cg, **ekw)
+    fmu, fsig = predict(model, state, xgrid, *where, batch_size=PREDICT_BATCH,
+                        maxiter_cg=cfg.predict_maxiter_cg)
+    if mp and not args.eval_only_state:
+        state = mp_gather_state(state, mesh)
     emu, esig = emu.cpu().numpy(), esig.cpu().numpy()
     fmu, fsig = fmu.cpu().numpy(), fsig.cpu().numpy()
     predict_s = time.perf_counter() - t0
@@ -383,7 +413,7 @@ def main(argv=None):
            f"{out['mean_pcg_relres']:.3e}" if full_batch and out["mean_pcg_iterations"]
            else "")
     mem = f", peak {out['fit_peak_gb']:.3f} GB" if full_batch and on_card else ""
-    fit = (f"full batch ({args.mean_solver}) in {fit_s:.2f} s ({stages}{pcg}{mem}), "
+    fit = (f"full batch ({mean_solver}) in {fit_s:.2f} s ({stages}{pcg}{mem}), "
            f"ELBO {out['last_elbo']:.4f}" if full_batch else
            f"the state of {args.eval_only_state}" if args.eval_only_state else
            f"rho {out['natgrad_rho']:.1f}, lr used {out['lr_used']:.3g}; "

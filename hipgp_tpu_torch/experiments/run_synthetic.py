@@ -18,14 +18,16 @@ evaluation grid's among them) under ``--output-dir``; the summary of every model
 log-likelihood.  ``--device``, ``--steps`` and ``--f64`` are the port's.
 ``--parallel dp`` fits (and sweeps the lengthscale) data-parallel, one
 process per device, every rank generating the same data and only rank 0
-writing; ``--parallel mp`` is not ported (ROADMAP.md section A item 10).
+writing; ``--parallel mp`` fits (and sweeps) model-parallel the same way,
+the whitened state split over a (1, world) ('dp', 'grid') mesh (mean-field
+and block models).
 
 Usage: python -m hipgp_tpu_torch.experiments.run_synthetic --epochs 1
        (add --device cpu --nobs 2000 --num-inducing 32 for a small CPU run;
        --fit-method full-batch --mean-solver gram for the closed form)
        torchrun --nproc-per-node N -m hipgp_tpu_torch.experiments.run_synthetic
-           --parallel dp
-       (without torchrun, --parallel dp runs as a world of one process)
+           --parallel dp    (or --parallel mp)
+       (without torchrun, --parallel runs as a world of one process)
 """
 from __future__ import annotations
 
@@ -99,8 +101,8 @@ def main(argv=None):
                    choices=["dense", "cg", "gram", "factored"])
     p.add_argument("--output-dir", default="./output-synthetic")
     p.add_argument("--parallel", default=None, choices=["dp", "mp"],
-                   help="dp: data-parallel over the ranks of torchrun's world "
-                        "(mp: not ported, raises)")
+                   help="over the ranks of torchrun's world: dp data-parallel, mp "
+                        "model-parallel (the state split over a (1, world) grid)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--f64", action="store_true")
     args = p.parse_args(argv)
@@ -120,11 +122,16 @@ def main(argv=None):
 
     ell = args.ell
     if args.ell_sweep is not None:
+        shards = None
+        if args.parallel == "mp":
+            from ..parallel.mesh import axis_size
+
+            shards = axis_size(mesh, "grid")
         probe = make_model("mean-field", args.kernel, grids, num_obs=len(d["xobs"]),
                            sig2_init=float(np.var(yobs)), ell_init=args.ell,
                            noise2_init=args.noise_std ** 2,
-                           support_integrated_obs=args.integrated_obs, dtype=dtype,
-                           device=args.device)
+                           support_integrated_obs=args.integrated_obs,
+                           grid_shards=shards, dtype=dtype, device=args.device)
         _, ell, ells, elbos = ell_fit(
             probe, probe.init_state(), d["xobs"], yobs, d["sobs"],
             ell_min=args.ell_sweep[0], ell_max=args.ell_sweep[1],

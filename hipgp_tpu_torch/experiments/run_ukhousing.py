@@ -12,8 +12,9 @@ the ``csv`` module (no pandas).  ``--device`` (default cuda) and ``--f64``
 are the port's.  ``--parallel dp`` fits data-parallel, one process per
 device: ``torchrun --nproc-per-node N -m
 hipgp_tpu_torch.experiments.run_ukhousing --parallel dp`` (without torchrun,
-a world of one process); ``--parallel mp`` is not ported (ROADMAP.md section
-A item 10).
+a world of one process); ``--parallel mp`` fits model-parallel the same way,
+the whitened state split over a (1, world) ('dp', 'grid') mesh (mean-field
+and block; the harness's 'dense' becomes the split 'cg').
 
 Usage: python -m hipgp_tpu_torch.experiments.run_ukhousing
        (add --device cpu --nobs 400 --ntest 80 --num-inducing-x 10
@@ -146,8 +147,8 @@ def main(argv=None):
     p.add_argument("--mean-solver", default="dense",
                    choices=["dense", "cg", "gram", "factored", "matfree"])
     p.add_argument("--parallel", default=None, choices=["dp", "mp"],
-                   help="dp: data-parallel over the ranks of torchrun's world "
-                        "(mp: not ported, raises)")
+                   help="over the ranks of torchrun's world: dp data-parallel, mp "
+                        "model-parallel (the state split over a (1, world) grid)")
     p.add_argument("--output-dir", default="./output-ukhousing")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--f64", action="store_true")

@@ -243,42 +243,48 @@ def _gram_flags(config: FitConfig, generator=None) -> dict:
 
 
 def batch_step(model, config: FitConfig, opt: FitOptimizer, state, xb, yb, sb, wb,
-               generator=None, group=None):
+               generator=None, group=None, kn_fn=None):
     """One natural-gradient step (and Adam step on the learned
     hyperparameters) on one prepared batch: (state, elbo).  ``group``: the
     process group over which the batch's rows are split (data parallelism;
-    `model.elbo_and_grads` sums over it)."""
+    `model.elbo_and_grads` sums over it); ``kn_fn``: the whitening override
+    (`parallel.make_mp_kn_fn`)."""
     elbo, grads = model.elbo_and_grads(
         state, xb, yb, sb, maxiter_cg=config.maxiter_cg, weights=wb,
         compute_hyper_grads=config.learn_kernel or config.learn_noise,
-        **_gram_flags(config, generator), group=group)
+        **_gram_flags(config, generator), group=group, kn_fn=kn_fn)
     return opt.step(state, zero_frozen(config, grads)), elbo
 
 
 def _batch_kn_ivar(model, state, xl, sl, wl, config: FitConfig, spec=None,
-                   generator=None):
-    """(kn, ivar) for one prepared batch: the warm start's kn path."""
-    if spec is None:
-        spec = model.spectrum(state)
-    Knm, _ = model.make_grams(state, xl, **_gram_flags(config, generator))
-    kn = model.compute_kn(state, Knm, maxiter_cg=config.maxiter_cg, spec=spec)
+                   generator=None, kn_fn=None):
+    """(kn, ivar) for one prepared batch: the warm start's kn path
+    (``kn_fn``'s kn where one is given)."""
+    if kn_fn is not None:
+        kn = kn_fn(state, xl, generator)[0]
+    else:
+        if spec is None:
+            spec = model.spectrum(state)
+        Knm, _ = model.make_grams(state, xl, **_gram_flags(config, generator))
+        kn = model.compute_kn(state, Knm, maxiter_cg=config.maxiter_cg, spec=spec)
     ivar = wl / (sl * sl) if sl is not None else wl * torch.exp(-state.log_noise2)
     return kn, ivar
 
 
 def _theta2_warmstart(model, state, xb, sb, w, config: FitConfig, generator=None,
-                      group=None):
+                      group=None, kn_fn=None):
     """theta2 <- -(Lambda + I)/2 from one Lambda-only pass over the data,
     Lambda family-shaped (`model.get_lam`, its prior identity too).  With
     ``group`` the rows are split over its ranks: the data's Lambda is summed
-    over them in one all-reduce before the identity is added."""
-    spec = model.spectrum(state)
+    over them in one all-reduce before the identity is added.  With an
+    'mp' ``kn_fn`` (and its view as ``model``) Lambda is the rank's block."""
+    spec = None if kn_fn is not None else model.spectrum(state)
     dt, dev = model.dtype, model.device
     zero_kn = torch.zeros((1, model.Mprime), dtype=dt, device=dev)
     lam = torch.zeros_like(model.get_lam(torch.ones((1,), dtype=dt, device=dev), zero_kn))
     for b in range(xb.shape[0]):
         kn, ivar = _batch_kn_ivar(model, state, xb[b], None if sb is None else sb[b],
-                                  w[b], config, spec=spec, generator=generator)
+                                  w[b], config, spec=spec, generator=generator, kn_fn=kn_fn)
         lam = lam + model.get_lam(ivar, kn, add_identity=False)
     if group is not None:
         from ..parallel.mesh import all_reduce
@@ -290,7 +296,7 @@ def _theta2_warmstart(model, state, xb, sb, w, config: FitConfig, generator=None
 
 
 def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30,
-                          group=None) -> float:
+                          group=None, grid_group=None, grid_offset: int = 0) -> float:
     """Top eigenvalue rho of the warm-metric-preconditioned batch precision
     of the natural-gradient iteration, by power iteration (any family: S
     applied as S * v, by blocks, or S @ v).
@@ -303,7 +309,9 @@ def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30,
     2 * iters (bsz, M') products.  With ``group`` the batch's rows are split
     over its ranks: kn^T (ivar * (kn u)) is summed over them in every
     iteration (one all-reduce of M' values), so rho is the whole batch's on
-    every rank."""
+    every rank.  With ``grid_group`` kn, the state and the iterate hold
+    this rank's block of M' (from index ``grid_offset``; `parallel.mp`):
+    kn u and the norms are summed over the grid as well."""
     _, S = model.standard_params(state)
     if model.family == "mean-field":
         apply_S = lambda v: S * v
@@ -312,24 +320,30 @@ def natgrad_stability_rho(kn, ivar, state, model, bscale, iters: int = 30,
     else:
         apply_S = lambda v: S @ v
 
-    if group is None:
-        data_sum = lambda u: kn.T @ (ivar * (kn @ u))
-    else:
-        from ..parallel.mesh import all_reduce
+    from ..parallel.mesh import all_reduce
 
-        data_sum = lambda u: all_reduce([kn.T @ (ivar * (kn @ u))], group)[0]
+    total = ((lambda t: t) if grid_group is None
+             else (lambda t: all_reduce([t], grid_group)[0]))
+    kn_u = lambda u: total(kn @ u)
+    if group is None:
+        data_sum = lambda u: kn.T @ (ivar * kn_u(u))
+    else:
+        data_sum = lambda u: all_reduce([kn.T @ (ivar * kn_u(u))], group)[0]
 
     def mv(v):
         u = apply_S(v)
         return bscale * data_sum(u) + u
 
-    z = torch.sin(torch.arange(kn.shape[-1], dtype=kn.dtype, device=kn.device) * 0.73) + 0.1
-    z = z / torch.linalg.norm(z)
+    norm = (torch.linalg.norm if grid_group is None
+            else (lambda t: torch.sqrt(total(torch.sum(t * t)))))
+    idx = torch.arange(grid_offset, grid_offset + kn.shape[-1], device=kn.device)
+    z = torch.sin(idx.to(kn.dtype) * 0.73) + 0.1
+    z = z / norm(z)
     rho = torch.zeros((), dtype=kn.dtype, device=kn.device)
     for _ in range(iters):
         q = mv(z)
-        rho = torch.linalg.norm(q) / torch.linalg.norm(z)
-        z = q / torch.linalg.norm(q)
+        rho = norm(q) / norm(z)
+        z = q / norm(q)
     return float(rho)
 
 
@@ -338,7 +352,7 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
               checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
               resume: bool = False, theta2_warmstart: bool = False,
               natgrad_safe_lr: str = "warn", max_steps: Optional[int] = None,
-              data_shard_fn: Optional[Callable] = None):
+              data_shard_fn: Optional[Callable] = None, kn_fn: Optional[Callable] = None):
     """Fit the variational parameters by natural-gradient SVI.
 
     ``data_shard_fn(xb, yb, sb, w)``: applied to the prepared (nb, bsz, ...)
@@ -347,6 +361,14 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
     every batch and carries the process group over which the batches' sums
     run (``data_shard_fn.group``): the steps, the warm start and rho then sum
     over it, and only its rank 0 writes checkpoints.
+
+    ``kn_fn``: the whitening override threaded into every step, the warm
+    start and rho (JAX's hook).  Model parallelism passes
+    `parallel.make_mp_kn_fn`'s with this rank's block of the state: the fit
+    then runs on the kn_fn's view of the model (``kn_fn.model``), rho sums
+    over the grid (``kn_fn.grid_group``), and a checkpoint holds the whole
+    state (``kn_fn.gather_state``, a collective; written by the world's rank
+    0), which a resumed fit cuts again (``kn_fn.shard_state``).
 
     ``theta2_warmstart``: one Lambda-only pass over the data sets theta2 to
     -(Lambda + I)/2 before SVI.  From the cold init the raw natural-gradient
@@ -384,6 +406,9 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
     seconds, and ``natgrad_rho``, ``natgrad_lr_crit`` and ``lr_used``."""
     dt_, dev = model.dtype, model.device
     as_t = lambda a: torch.as_tensor(a).to(dtype=dt_, device=dev)
+    outer_model = model
+    model = getattr(kn_fn, "model", model)
+    grid = getattr(kn_fn, "grid_group", None)
     noise = None if config.learn_noise else noise_std_train
     x_raw, y_raw = as_t(xtrain), as_t(ytrain).reshape(-1)
     s_raw = None if noise is None else as_t(noise).reshape(-1)
@@ -402,6 +427,8 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
                 and os.path.exists(os.path.join(checkpoint_dir, "state.npz")))
     if restored:
         state, _, start_epoch = restore_checkpoint(checkpoint_dir, state, opt)
+        if grid is not None:
+            state = kn_fn.shard_state(state)
         if verbose:
             print(f"resumed from {checkpoint_dir} at epoch {start_epoch}", flush=True)
     # the warm start and the rho estimate are HIP-GP's (an SVGP has no
@@ -410,7 +437,7 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
     t0 = time.perf_counter()
     if warmstart:
         state = _theta2_warmstart(model, state, xb, sb, w, config, generator=gen,
-                                  group=group)
+                                  group=group, kn_fn=kn_fn)
     warmstart_s = time.perf_counter() - t0
     rho = lr_crit = None
     if (natgrad_safe_lr != "off" and warmstart
@@ -421,9 +448,10 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
                              "'warn', 'clamp', or 'off'")
         kn0, ivar0 = _batch_kn_ivar(model, state, xb[0],
                                     None if sb is None else sb[0], w[0], config,
-                                    generator=gen)
+                                    generator=gen, kn_fn=kn_fn)
         rho = natgrad_stability_rho(kn0, ivar0, state, model, model.N / bsz,
-                                    group=group)
+                                    group=group, grid_group=grid,
+                                    grid_offset=getattr(kn_fn, "offset", 0))
         lr_crit = 2.0 / rho
         if config.lr > 0.5 * lr_crit:
             msg = (f"natgrad lr={config.lr:g} exceeds half the estimated natgrad "
@@ -463,7 +491,7 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
                 break
             state, elbo = batch_step(model, config, opt, state, xb[b], yb[b],
                                      None if sb is None else sb[b], w[b],
-                                     generator=gen, group=group)
+                                     generator=gen, group=group, kn_fn=kn_fn)
             elbos.append(elbo)
             steps += 1
         elbos_np = torch.stack(elbos).cpu().numpy()
@@ -493,11 +521,14 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
                   flush=True)
         if epoch_callback is not None and (
                 not config.only_eval_last_epoch or epoch == config.epochs - 1):
-            epoch_callback(epoch, model, state, trace)
+            epoch_callback(epoch, outer_model, state, trace)
         if (checkpoint_dir is not None and checkpoint_every and len(elbos) == nb
-                and (epoch + 1) % checkpoint_every == 0
-                and (group is None or dist.get_rank(group) == 0)):
-            save_checkpoint(checkpoint_dir, state, opt, step=epoch + 1)
+                and (epoch + 1) % checkpoint_every == 0):
+            saved = state if grid is None else kn_fn.gather_state(state)
+            writer = (dist.get_rank() == 0 if grid is not None
+                      else group is None or dist.get_rank(group) == 0)
+            if writer:
+                save_checkpoint(checkpoint_dir, saved, opt, step=epoch + 1)
     report = {
         "elbo_trace": trace,
         "epoch_elbos": epoch_elbos,
@@ -558,14 +589,16 @@ def ell_fit(model, state, xobs, yobs, sobs, ell_min: float, ell_max: float,
     (``solve_kwargs`` go to ``batch_solve``: ``mean_solver`` and its
     settings).  ``parallel='dp'`` solves each candidate by
     `parallel.dp_batch_solve` over ``mesh`` (default: every rank of the world
-    on 'dp'); every rank gets the same ELBO curve and takes the same argmax.
-    ``parallel='mp'`` is not ported (ROADMAP.md section A item 10).  Returns
+    on 'dp'); ``parallel='mp'`` by `parallel.mp_batch_solve` over ``mesh``
+    (default: a (1, world) ('dp', 'grid') mesh; the model built with that
+    many ``grid_shards``), in batches of ``batch_solve_bsz`` rows (all of
+    them when it is not positive), with ``mean_solver`` 'gram' or
+    'factored' passed on and anything else solved by 'cg', as in the JAX
+    package, and the best state gathered whole (`parallel.mp_gather_state`).
+    Every rank gets the same ELBO curve and takes the same argmax.  Returns
     (best_state, best_ell, ell_list, elbo_list)."""
     if parallel not in (None, "dp", "mp"):
         raise ValueError(f"parallel={parallel!r}; choose None | 'dp' | 'mp'")
-    if parallel == "mp":
-        raise NotImplementedError(
-            "ell_fit(parallel='mp') is not ported yet (ROADMAP.md section A item 10)")
     as_t = lambda a: torch.as_tensor(a, dtype=model.dtype, device=model.device)
     x, y = as_t(xobs), as_t(yobs)
     s = None if sobs is None else as_t(sobs)
@@ -578,6 +611,19 @@ def ell_fit(model, state, xobs, yobs, sobs, ell_min: float, ell_max: float,
 
         mesh = make_mesh() if mesh is None else mesh
         solve = lambda st: dp_batch_solve(model, st, x, y, s, mesh, **flags)
+    elif parallel == "mp":
+        from ..parallel import make_mesh, mp_batch_solve
+
+        if mesh is None:
+            world = dist.get_world_size()
+            mesh = make_mesh(axis_names=("dp", "grid"), shape=(1, world))
+        mp_kw = {k: v for k, v in solve_kwargs.items()
+                 if k in ("mean_solver_maxiter", "mean_solver_tol", "factor_jitter")}
+        if solve_kwargs.get("mean_solver") in ("gram", "factored"):
+            mp_kw["mean_solver"] = solve_kwargs["mean_solver"]
+        mp_flags = dict(flags, batch_size=batch_solve_bsz if batch_solve_bsz > 0
+                        else x.shape[0])
+        solve = lambda st: mp_batch_solve(model, st, x, y, s, mesh, **mp_flags, **mp_kw)
     else:
         solve = lambda st: model.batch_solve(st, x, y, s, **flags, **solve_kwargs)
     ells = np.arange(ell_min, ell_max + ell_step_size, ell_step_size)
@@ -591,7 +637,12 @@ def ell_fit(model, state, xobs, yobs, sobs, ell_min: float, ell_max: float,
             print(f"ell={ell:.4f} elbo={elbo_f:.5f}", flush=True)
         if elbo_f > best[0]:
             best = (elbo_f, float(ell), st)
-    return best[2], best[1], list(map(float, ells)), elbo_list
+    best_state = best[2]
+    if parallel == "mp":
+        from ..parallel import mp_gather_state
+
+        best_state = mp_gather_state(best_state, mesh)
+    return best_state, best[1], list(map(float, ells)), elbo_list
 
 
 def predictive_variance_correction(model, state, xobs, aobs, sobs, **kwargs) -> float:

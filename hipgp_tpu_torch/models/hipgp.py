@@ -34,6 +34,7 @@ import warnings
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..infer.fit import prepare_batches
 from ..kernels.interdomain import DoublyDiagInterpolator, k_semi_mc, k_semi_sqexp
@@ -457,15 +458,21 @@ class HIPGP:
             (bsz,), dtype=self.dtype, device=self.device)
         return ivar, 0.5 * state.log_noise2
 
-    def batch_an(self, state, y, noise_std, kn, Knn_diag, qm, qS) -> torch.Tensor:
+    def batch_an(self, state, y, noise_std, kn, Knn_diag, qm, qS,
+                 row_sums=None) -> torch.Tensor:
         """Per-point expected log-likelihood
         a_n = -1/(2 s_n^2) [ (kn.m - y)^2 + Knn - kn.kn + kn S kn ]
-              - log s_n - 1/2 log 2 pi."""
+              - log s_n - 1/2 log 2 pi.
+        ``row_sums(kn.m, kn.kn, kn S kn)``: where kn holds a block of M'
+        (`parallel.mp`), the three per-row sums over M' summed over the
+        blocks, before the squares."""
         y = y.reshape(-1)
         ivar, log_noise_std = self._ivar_and_lognoise(state, noise_std, y.shape[0])
         knt_m = kn @ qm
         knt_kn = torch.sum(kn * kn, dim=-1)
         knSkn = self.compute_knSkn(kn, qS)
+        if row_sums is not None:
+            knt_m, knt_kn, knSkn = row_sums(knt_m, knt_kn, knSkn)
         mse = (knt_m - y) ** 2
         variance = Knn_diag.reshape(-1) - knt_kn + knSkn
         return -0.5 * ivar * (mse + variance) - log_noise_std - 0.5 * LN2PI
@@ -496,12 +503,13 @@ class HIPGP:
     # natural gradient
     # ------------------------------------------------------------------
 
-    def _natgrad(self, state, kn, y, ivar, qm, bscale, reduce=None):
+    def _natgrad(self, state, kn, y, ivar, qm, bscale, reduce=None, knt_m=None):
         """(deta1, deta2): natural-gradient ascent directions, family-shaped
         (full-rank: deta1 = b - theta1 with b = kn^T (ivar y), unscaled, as
         in the JAX package).  ``reduce(*sums)`` sums the data terms (the sums
         over the batch's rows) over the ranks that hold its rows; the prior
-        terms are added after it, once."""
+        terms are added after it, once.  ``knt_m``: kn.qm per row when kn
+        holds a block of M' (summed over the blocks)."""
         y = y.reshape(-1)
         if reduce is None:
             reduce = lambda *sums: sums
@@ -511,7 +519,8 @@ class HIPGP:
             b, gram = reduce(kn.T @ (ivar * y), gram)
             lam = self._with_identity(bscale * gram)
             return b - state.theta1, -0.5 * lam - state.theta2
-        knt_m = kn @ qm
+        if knt_m is None:
+            knt_m = kn @ qm
         bdiff = ivar * (knt_m - y)              # (bsz,)
         if self.family == "mean-field":
             data_dm, lam_sum = reduce(-(kn.T @ bdiff),
@@ -532,7 +541,7 @@ class HIPGP:
                        semi_integrated_samps: int = 10,
                        generator: Optional[torch.Generator] = None,
                        weights: Optional[torch.Tensor] = None,
-                       compute_hyper_grads: bool = False, group=None):
+                       compute_hyper_grads: bool = False, group=None, kn_fn=None):
         """ELBO and natural gradients (and hyperparameter gradients).
 
         Returns (elbo, grads), ``grads`` a :class:`HIPGPState` in descent
@@ -548,9 +557,31 @@ class HIPGP:
         is then summed over the group: sum w first, then in one all-reduce
         sum a_n w, the hyper-gradients of the data part and the natural
         gradient's data terms; KL and the prior terms are counted once, and
-        every rank returns the same (elbo, grads)."""
+        every rank returns the same (elbo, grads).
+
+        ``kn_fn(st, x, generator) -> (kn, Knn_diag)`` replaces the whitened
+        cross-covariances (JAX's hook; it must be differentiable in the
+        hyperparameters ``st`` carries).  The model-parallel layer passes
+        `parallel.make_mp_kn_fn`'s, whose kn is this rank's block of M' and
+        which carries the grid's process group (``kn_fn.grid_group``) and the
+        rank's view of the model (``kn_fn.model``, on which the step then
+        runs): the per-row sums over M' are summed over the grid before the
+        squares (differentiably: `parallel.mesh.sum_over`), the KL over the
+        grid's blocks, the hyper-gradients over the grid, with the terms
+        every grid rank computes whole (Knn, the noise) counted from grid
+        rank 0 only; the natural gradient stays on the rank's block, its
+        data terms summed over ``group``."""
         if self.parameterization != "expectation-family":
             raise ValueError("natural-gradient step needs expectation-family")
+        view = getattr(kn_fn, "model", self)
+        if view is not self:
+            return view.elbo_and_grads(
+                state, x, y, noise_std, maxiter_cg=maxiter_cg, integrated_obs=integrated_obs,
+                semi_integrated_estimator=semi_integrated_estimator,
+                semi_integrated_samps=semi_integrated_samps, generator=generator,
+                weights=weights, compute_hyper_grads=compute_hyper_grads, group=group,
+                kn_fn=kn_fn)
+        grid = getattr(kn_fn, "grid_group", None)
         y = y.reshape(-1)
         hypers = (state.log_sig2, state.log_ell, state.log_noise2)
         if group is not None:
@@ -565,14 +596,33 @@ class HIPGP:
             st = state.replace(theta1=state.theta1.detach(),
                                theta2=state.theta2.detach(), log_sig2=hypers[0],
                                log_ell=hypers[1], log_noise2=hypers[2])
-            Knm, Knn_diag = self.make_grams(st, x, integrated_obs,
-                                            semi_integrated_estimator,
-                                            semi_integrated_samps, generator)
-            kn = self.compute_kn(st, Knm, maxiter_cg=maxiter_cg)
+            if kn_fn is not None:
+                kn, Knn_diag = kn_fn(st, x, generator)
+            else:
+                Knm, Knn_diag = self.make_grams(st, x, integrated_obs,
+                                                semi_integrated_estimator,
+                                                semi_integrated_samps, generator)
+                kn = self.compute_kn(st, Knm, maxiter_cg=maxiter_cg)
             qm, qS = self.standard_params(st)
-            an = self.batch_an(st, y, noise_std, kn, Knn_diag, qm, qS)
+            kl = self.kl_to_prior(qm, qS)
+            row_sums, summed, st_an = None, {}, st
+            if grid is not None:
+                from ..parallel.mesh import all_reduce, sum_over
+
+                def row_sums(*sums):
+                    out = sum_over(sums, grid)
+                    summed["knt_m"] = out[0].detach()
+                    return out
+
+                (kl,) = all_reduce([kl.detach()], grid)
+                if compute_hyper_grads and dist.get_rank(grid) != 0:
+                    # every grid rank computes these whole: their gradient
+                    # enters the grid's sum once, from grid rank 0
+                    Knn_diag = Knn_diag.detach()
+                    st_an = st.replace(log_noise2=st.log_noise2.detach())
+            an = self.batch_an(st_an, y, noise_std, kn, Knn_diag, qm, qS, row_sums=row_sums)
             if group is None:
-                elbo = self._mean_an(an, weights) - self.kl_to_prior(qm, qS) / self.N
+                elbo = self._mean_an(an, weights) - kl / self.N
             else:
                 # this rank's share of the data term (KL is added once below)
                 an_sum = torch.sum(an * weights)
@@ -581,6 +631,9 @@ class HIPGP:
             hgrads = torch.autograd.grad(elbo, hypers, allow_unused=True)
             g_sig2, g_ell, g_noise2 = (torch.zeros_like(h) if g is None else -g
                                        for g, h in zip(hgrads, hypers))
+            if grid is not None:
+                # each grid rank holds its share (`parallel.mesh.sum_over`)
+                g_sig2, g_ell, g_noise2 = all_reduce([g_sig2, g_ell, g_noise2], grid)
             elbo, kn = elbo.detach(), kn.detach()
         else:
             g_sig2, g_ell, g_noise2 = (torch.zeros_like(h) for h in hypers)
@@ -601,12 +654,12 @@ class HIPGP:
                 scalars.update(zip(("an_sum", "g_sig2", "g_ell", "g_noise2"), out[:4]))
                 return out[4:]
 
-        deta1, deta2 = self._natgrad(state, kn, y, ivar, qm, bscale, reduce)
+        deta1, deta2 = self._natgrad(state, kn, y, ivar, qm, bscale, reduce,
+                                     knt_m=summed.get("knt_m"))
         if group is not None:
             g_sig2, g_ell, g_noise2 = scalars["g_sig2"], scalars["g_ell"], scalars["g_noise2"]
             with torch.no_grad():
-                elbo = (scalars["an_sum"] / torch.clamp(wsum, min=1.0)
-                        - self.kl_to_prior(qm, qS) / self.N)
+                elbo = scalars["an_sum"] / torch.clamp(wsum, min=1.0) - kl.detach() / self.N
         grads = HIPGPState(
             theta1=-deta1,
             theta2=-deta2,

@@ -95,15 +95,19 @@ def pcg_result(matvec: MatVec, b: torch.Tensor,
 
     ``dot_fn(a, b) -> (batch,)`` replaces the inner product (a sum over the
     last axis): for operands split over ranks, where it must also sum over
-    them (`parallel.fft_sharded`)."""
+    them (`parallel.fft_sharded`); it then takes ||r||^2 and r.z of an
+    iteration as one call on the two pairs stacked (one collective)."""
     dot = _dot if dot_fn is None else dot_fn
     if precond is None:
         precond = lambda r: r
+    if dot_fn is None:
+        rr_rz = lambda r, z: (_dot(r, r), _dot(r, z))
+    else:
+        rr_rz = lambda r, z: tuple(dot_fn(torch.stack([r, r]), torch.stack([r, z])))
     x, r = _start(matvec, b, x0)
     z = precond(r)
     p = z
-    rz = dot(r, z)
-    rr = dot(r, r)
+    rr, rz = rr_rz(r, z)
     tol_sq = torch.as_tensor(tol, dtype=b.dtype) ** 2
     k = 0
     while k < maxiter and bool(torch.any(rr >= tol_sq)):
@@ -112,9 +116,8 @@ def pcg_result(matvec: MatVec, b: torch.Tensor,
         safe, alpha = _guarded_steps(rz, pAp)
         x = x + alpha[..., None] * p
         r = r - alpha[..., None] * Ap
-        rr = dot(r, r)
         z = precond(r)
-        rz_new = dot(r, z)
+        rr, rz_new = rr_rz(r, z)
         p = z + _beta(safe, rz_new, rz)[..., None] * p
         rz = rz_new
         k += 1

@@ -2,8 +2,10 @@
 exact data-parallel solves and training, and grid-sharded circulant solves.
 
 Counterpart of `hipgp_tpu/parallel/`: one process per device (SPMD), each
-rank holding its block of the rows or of the expanded grid.  Not ported
-yet: the model-parallel HIP-GP of `mp.py` (ROADMAP.md section A item 10)."""
+rank holding its block of the rows (`dp.py`), of the expanded grid
+(`fft_sharded.py`), or of both at once: the model-parallel HIP-GP of
+`mp.py`, its whitened state split over a 'grid' mesh axis and its rows over
+'dp'."""
 from . import launch, multihost
 from .dp import (
     dp_batch_solve,
@@ -28,6 +30,16 @@ from .fft_sharded import (
     weights_shard,
 )
 from .mesh import make_mesh, shard_batch
+from .mp import (
+    grid_state_spec,
+    make_mp_kn_fn,
+    mp_batch_solve,
+    mp_elbo_and_grads,
+    mp_gather_state,
+    mp_predict,
+    mp_shard_state,
+    mp_svigp_fit,
+)
 
 __all__ = [
     "launch",
@@ -52,4 +64,12 @@ __all__ = [
     "sharded_inv_matmul",
     "sharded_matmul_by_K",
     "weights_shard",
+    "mp_batch_solve",
+    "mp_predict",
+    "mp_shard_state",
+    "mp_gather_state",
+    "grid_state_spec",
+    "make_mp_kn_fn",
+    "mp_elbo_and_grads",
+    "mp_svigp_fit",
 ]

@@ -44,13 +44,13 @@ def _rank_main(rank, n, port, backend, device, timeout_s, fn, args, kwargs, out)
             torch.distributed.destroy_process_group()
 
 
-def run(fn: Callable, n: int, *, backend: str = "gloo", device: str = "cpu",
+def run(fn: Callable, n: int, *, backend: str = "gloo", device: str = "cuda",
         args=(), kwargs: Optional[dict] = None, timeout_s: float = 600.0) -> List:
     """Run ``fn(*args, **kwargs)`` in ``n`` ranks of one process group and
-    return the ``n`` results in rank order.  ``device``: 'cpu', or 'cuda'
-    (rank r on ``cuda:r % device_count``, so every rank on the one card of a
-    one-card machine) or a named CUDA device; ``backend``: 'gloo' or
-    'nccl'.  Raises RuntimeError, every rank stopped, if one raises, exits
+    return the ``n`` results in rank order.  ``device``: 'cuda' (the
+    default: rank r on ``cuda:r % device_count``, so every rank on the one
+    card of a one-card machine), a named CUDA device, or 'cpu';
+    ``backend``: 'gloo' or 'nccl'.  Raises RuntimeError, every rank stopped, if one raises, exits
     early or the world outlives ``timeout_s``."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()

@@ -26,11 +26,14 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["make_mesh", "shard_batch", "axis_size", "axis_index", "axis_group",
-           "all_reduce", "all_to_all", "all_gather", "COMM", "reset_comm"]
+           "all_reduce", "sum_over", "all_to_all", "all_gather", "COMM", "reset_comm"]
 
 # bytes of the buffers this process handed each kind of collective since
-# reset_comm() (an all_to_all's piece for this rank itself included)
+# reset_comm() (an all_to_all's piece for this rank itself included;
+# "all_reduce" counts the sums, the MAX and MIN reductions and sum_over)
 COMM = {"all_reduce": 0, "all_to_all": 0, "all_gather": 0}
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
 
 def reset_comm() -> None:
@@ -88,23 +91,28 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def all_reduce(tensors, group=None, inplace: bool = False):
-    """Sum each tensor over the ranks of ``group``: one collective for the
-    whole list (packed into one buffer when there are several).  Returns a
-    list of new tensors in the dtypes and shapes given; ``inplace`` (one
-    contiguous tensor) sums into it instead, without a copy."""
+def all_reduce(tensors, group=None, inplace: bool = False, op: str = "sum"):
+    """Sum each tensor over the ranks of ``group`` (``op`` 'max' or 'min':
+    the elementwise extremum, JAX's ``pmax`` / ``pmin``): one collective for
+    the whole list (packed into one buffer when there are several).  Returns
+    a list of new tensors in the dtypes and shapes given, not part of any
+    autograd graph (:func:`sum_over` is the differentiable sum);
+    ``inplace`` (one contiguous tensor) reduces into it instead, without a
+    copy."""
     tensors = list(tensors)
+    if op not in _OPS:
+        raise ValueError(f"op={op!r}; choose 'sum', 'max' or 'min'")
     if inplace:
         (buf,) = tensors
         COMM["all_reduce"] += _nbytes(buf)
-        dist.all_reduce(buf, group=group)
+        dist.all_reduce(buf, op=_OPS[op], group=group)
         return [buf]
     if len(tensors) == 1:
         buf = tensors[0].detach().clone()
     else:
         buf = torch.cat([t.detach().reshape(-1).to(tensors[0].dtype) for t in tensors])
     COMM["all_reduce"] += _nbytes(buf)
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=_OPS[op], group=group)
     if len(tensors) == 1:
         return [buf]
     out, o = [], 0
@@ -112,6 +120,36 @@ def all_reduce(tensors, group=None, inplace: bool = False):
         out.append(buf[o:o + t.numel()].reshape(t.shape).to(t.dtype))
         o += t.numel()
     return out
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum over a group's ranks, with the identity as its backward.
+
+    Every rank of the group goes on with the same sum and differentiates
+    the same objective of it, so the cotangent that reaches the sum on each
+    rank is already the cotangent of that rank's summand (JAX's ``psum``
+    transposes to the broadcast, not to a second ``psum``).  What a rank
+    then gets for its inputs is its share of the gradient: the shares sum
+    to the whole over the group."""
+
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        # the packed buffer's pieces are views of one tensor: own copies
+        return tuple(t.clone() for t in all_reduce(tensors, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + grads
+
+
+def sum_over(tensors, group):
+    """Each tensor summed over the ranks of ``group`` in one collective (as
+    :func:`all_reduce`), differentiably: see `_SumOver` for the gradient's
+    convention.  Returns a list."""
+    tensors = list(tensors)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return list(_SumOver.apply(group, *tensors))
+    return all_reduce(tensors, group)
 
 
 def _exchange(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:

@@ -109,11 +109,22 @@ def global_mesh(axis_names=("dp",), shape=None):
     return _mesh.make_mesh(None, tuple(axis_names), shape)
 
 
-def process_slice(n_global: int) -> slice:
+def _blocks(mesh, mesh_axis: str):
+    """(this rank's block, the number of blocks) of rows: the world rank
+    and size, or with a mesh the rank's position on ``mesh_axis`` and that
+    axis's size (the ranks that share a position, the grid ranks of a
+    model-parallel mesh, hold the same rows)."""
+    if mesh is None:
+        return dist.get_rank(), dist.get_world_size()
+    return _mesh.axis_index(mesh, mesh_axis), _mesh.axis_size(mesh, mesh_axis)
+
+
+def process_slice(n_global: int, mesh=None, mesh_axis: str = "dp") -> slice:
     """Rows of a length-n_global dataset owned by this rank: contiguous
-    ceil(n / nprocs) blocks (the last may be shorter; :func:`global_batch`
+    ceil(n / nprocs) blocks, one a rank of the world, or with ``mesh`` one a
+    position on ``mesh_axis`` (the last may be shorter; :func:`global_batch`
     pads it back to the common size)."""
-    p, nprocs = dist.get_rank(), dist.get_world_size()
+    p, nprocs = _blocks(mesh, mesh_axis)
     per = -(-n_global // nprocs)
     lo = min(p * per, n_global)
     return slice(lo, min(lo + per, n_global))
@@ -135,12 +146,9 @@ class GlobalBatch:
 
 
 def _rows_per_process(mesh, mesh_axis: str, n_global: int) -> int:
-    """The common block size: ceil(n / nprocs), rounded up so the global rows
-    tile evenly over every device on ``mesh_axis``."""
-    nprocs = dist.get_world_size()
-    dev_per_proc = max(1, _mesh.axis_size(mesh, mesh_axis) // nprocs)
-    per = -(-n_global // nprocs)
-    return -(-per // dev_per_proc) * dev_per_proc
+    """The common block size: ceil(n / blocks), one block a position on
+    ``mesh_axis`` (one device, one process)."""
+    return -(-n_global // _mesh.axis_size(mesh, mesh_axis))
 
 
 def global_batch(mesh, local_rows, mesh_axis: str = "dp",
@@ -152,21 +160,22 @@ def global_batch(mesh, local_rows, mesh_axis: str = "dp",
     :func:`global_row_weights`.  Use ``fill=1.0`` for noise-std arrays, so
     that 1 / s^2 stays finite on the pads."""
     local = torch.as_tensor(np.asarray(local_rows))
+    nblocks = _mesh.axis_size(mesh, mesh_axis)
     if n_global is None:
-        return GlobalBatch(local, local.shape[0] * dist.get_world_size())
+        return GlobalBatch(local, local.shape[0] * nblocks)
     per = _rows_per_process(mesh, mesh_axis, n_global)
     pad = per - local.shape[0]
     if pad:
         tail = torch.full((pad,) + tuple(local.shape[1:]), fill, dtype=local.dtype)
         local = torch.cat([local, tail])
-    return GlobalBatch(local, per * dist.get_world_size())
+    return GlobalBatch(local, per * nblocks)
 
 
 def global_row_weights(mesh, n_global: int, mesh_axis: str = "dp",
                        dtype=np.float64) -> GlobalBatch:
     """0/1 weights of a :func:`global_batch` block: 1 on this rank's real
     rows, 0 on its pad rows."""
-    sl = process_slice(n_global)
+    sl = process_slice(n_global, mesh, mesh_axis)
     return global_batch(mesh, np.ones((sl.stop - sl.start,), dtype), mesh_axis,
                         n_global=n_global, fill=0.0)
 

@@ -90,7 +90,7 @@ def cluster():
                     for k, (d, kn, ell) in WEIGHTS.items()},
         "grad": {**GRAD, "b": _b(6, 3, grad_M), "r": _b(7, 3, int(np.prod(g_edims)))},
     }
-    return inputs, launch.run(ranks.fft_sharded_cases, RANKS, args=(inputs,),
+    return inputs, launch.run(ranks.fft_sharded_cases, RANKS, args=(inputs,), device="cpu",
                               timeout_s=300)
 
 

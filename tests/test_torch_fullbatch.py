@@ -274,8 +274,6 @@ def test_ell_fit_matches_jax(pairs, data):
     assert tell == jell
     np.testing.assert_allclose(_np(tbest.theta2), _np(jbest.theta2), rtol=1e-9)
     assert float(torch.exp(tbest.log_ell)) == pytest.approx(tell, rel=1e-12)
-    with pytest.raises(NotImplementedError, match="section A item 10"):
-        ell_fit(tm, ts, x, y, s, parallel="mp", **kw)
 
 
 def test_svigp_fit_shuffled_epoch_matches_jax(pairs, data):

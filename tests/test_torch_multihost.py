@@ -24,7 +24,7 @@ N, RANKS = 241, 2
 
 @pytest.fixture(scope="module")
 def cluster():
-    return launch.run(ranks.multihost_cases, RANKS, args=(N,), timeout_s=300)
+    return launch.run(ranks.multihost_cases, RANKS, args=(N,), device="cpu", timeout_s=300)
 
 
 def _data():

@@ -74,6 +74,10 @@ DRIVERS = {
 }
 DRIVER_ARGV = ["--device", "cpu", "--nobs", "200", "--ntest", "40", "--num-inducing", "8",
                "--gridnum", "8", "--epochs", "1", "--batch-size", "32", "--f64"]
+# 9 x 9 inducing points embed at 16 x 16 with or without the padding for two
+# grid shards (8 x 8 at 15 x 15 unpadded): the single-process model is the
+# model-parallel one
+DRIVER_MP_ARGV = DRIVER_ARGV + ["--num-inducing", "9"]
 
 
 def _jmodel(p):
@@ -134,11 +138,13 @@ def cluster(tmp_path_factory):
                       for k, (w, lk) in SVGP_FITS.items()},
         "harness": _harness_setup(),
         "driver_argv": DRIVER_ARGV,
+        "driver_mp_argv": DRIVER_MP_ARGV,
         "drivers": DRIVERS,
     }
     p = ranks.dp_setup(n=61)
     inputs["solve"]["uneven-61"] = {**p, "maxiter_cg": 10}
-    out = launch.run(ranks.dp_cases, RANKS, args=(inputs, outdir), timeout_s=300)
+    out = launch.run(ranks.dp_cases, RANKS, args=(inputs, outdir), device="cpu",
+                     timeout_s=300)
     return inputs, out, outdir
 
 
@@ -394,8 +400,26 @@ def test_drivers_parallel_dp_match_single_process(cluster, tmp_path, name):
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-7, err_msg=k)
 
 
-def test_parallel_mp_raises_item_10():
-    with pytest.raises(NotImplementedError, match="section A item 10"):
-        harness.init_parallel("mp", "cpu")
-    with pytest.raises(NotImplementedError, match="section A item 10"):
-        run_synthetic.main(DRIVER_ARGV + ["--parallel", "mp"])
+def test_parallel_mp_mesh_and_run_synthetic(cluster, tmp_path):
+    # init_parallel('mp'): JAX's default (1, world) ('dp', 'grid') mesh, the
+    # coordinator writes; run_synthetic --parallel mp at a cut size against
+    # the single-process run of the same model (DRIVER_MP_ARGV)
+    _, out, outdir = cluster
+    assert [r["init_parallel_mp"] for r in out] == [
+        (("dp", "grid"), (1, RANKS), r == 0) for r in range(RANKS)]
+    want = run_synthetic.main(DRIVER_MP_ARGV + ["--output-dir", str(tmp_path)])
+    for r in out:
+        got = r["driver_mp"]
+        assert got["steps"] == want["steps"]
+        for k in ("first_elbo", "last_elbo", "test_rmse", "test_loglike"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+    assert [r["driver_mp_wrote"] for r in out] == [True] + [False] * (RANKS - 1)
+    _assert_same_csv(os.path.join(outdir, "driver-mp-0", "errordf-summary.csv"),
+                     str(tmp_path / "errordf-summary.csv"))
+    # run_domain --parallel mp: its own fit path ('gram' split, mp_predict),
+    # the same metrics on every rank, the gathered state written by rank 0
+    dom = [r["run_domain_mp"] for r in out]
+    for k in ("last_elbo", "e_post_rmse", "latent_rmse"):
+        assert np.isfinite(dom[0][k]) and all(d[k] == dom[0][k] for d in dom), k
+    assert dom[0]["e_post_rmse"] < dom[0]["e_rms"]
+    assert [r["run_domain_mp_wrote"] for r in out] == [True] + [False] * (RANKS - 1)

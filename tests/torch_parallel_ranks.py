@@ -1,8 +1,9 @@
 """Rank-side cases of the port's parallel tests.
 
 `hipgp_tpu_torch.parallel.launch.run` starts the ranks of
-tests/test_torch_parallel.py, tests/test_torch_multihost.py and
-tests/test_torch_fft_sharded.py once per file and runs one function of this
+tests/test_torch_parallel.py, tests/test_torch_multihost.py,
+tests/test_torch_fft_sharded.py, tests/test_torch_mp.py and
+tests/test_torch_mp_train.py once per file and runs one function of this
 module in each: every case of the file, on the CPU in float64 and one
 intra-op thread a rank, its results returned as numpy for the parent to
 hold against the JAX package.  The ranks import neither JAX nor the JAX
@@ -11,6 +12,7 @@ the port.
 """
 import importlib
 import os
+import shutil
 
 import numpy as np
 import torch
@@ -94,7 +96,7 @@ def dp_cases(inputs, outdir):
     torch.set_num_threads(1)
     import torch.distributed as dist
 
-    from hipgp_tpu_torch.experiments import harness, run_synthetic
+    from hipgp_tpu_torch.experiments import harness, run_domain, run_synthetic
     from hipgp_tpu_torch.infer import FitConfig, ell_fit, make_optimizer, svigp_fit
     from hipgp_tpu_torch.parallel import (dp_batch_solve, dp_elbo_and_grads, dp_svigp_fit,
                                           make_dp_data_shard_fn, make_dp_train_step,
@@ -182,6 +184,18 @@ def dp_cases(inputs, outdir):
         inputs["driver_argv"] + ["--parallel", "dp", "--output-dir",
                                  os.path.join(outdir, f"driver-{rank}")])
     res["driver_wrote"] = os.path.isdir(os.path.join(outdir, f"driver-{rank}"))
+    mp_mesh, mp_writer = harness.init_parallel("mp", "cpu")
+    res["init_parallel_mp"] = (tuple(mp_mesh.mesh_dim_names),
+                               tuple(int(v) for v in mp_mesh.shape), mp_writer)
+    res["driver_mp"] = run_synthetic.main(
+        inputs["driver_mp_argv"] + ["--parallel", "mp", "--output-dir",
+                                 os.path.join(outdir, f"driver-mp-{rank}")])
+    res["driver_mp_wrote"] = os.path.isdir(os.path.join(outdir, f"driver-mp-{rank}"))
+    odir = os.path.join(outdir, f"run_domain-mp-{rank}")
+    res["run_domain_mp"] = run_domain.main(inputs["drivers"]["run_domain"]
+                                           + ["--parallel", "mp", "--mean-solver", "gram",
+                                              "--output-dir", odir])
+    res["run_domain_mp_wrote"] = os.path.isfile(os.path.join(odir, "state.npz"))
     for name, argv in inputs["drivers"].items():
         mod = importlib.import_module(f"hipgp_tpu_torch.experiments.{name}")
         odir = os.path.join(outdir, f"{name}-{rank}")
@@ -307,4 +321,207 @@ def fft_sharded_cases(inputs):
                        g_b=_np(g[:-2].reshape(g_b.shape)), g_log_sig2=float(g[-2]),
                        g_log_ell=float(g[-1]))
     res["rank"] = rank
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the model-parallel HIP-GP (tests/test_torch_mp.py, tests/test_torch_mp_train.py)
+# ---------------------------------------------------------------------------
+
+MP_MESHES = ((2, 2), (1, 4))
+
+
+def mp_data(N=300, seed=0, dim=2):
+    """tests/test_mp.py's data: N points in [0.05, 0.95]^dim, a sin-cos
+    surface, noise std in [0.05, 0.15] (numpy from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.05, 0.95, (N, dim))
+    f = np.sin(3 * x[:, 0]) * np.cos(2 * x[:, -1])
+    s = rng.uniform(0.05, 0.15, N)
+    return x, f + s * rng.standard_normal(N), s
+
+
+def mp_model_kw(N, ng, family="mean-field", m=11, dim=2, ell=0.15, block_sizes=None,
+                integrated=False, f32=False, lo=0.0, **extra):
+    """tests/test_mp.py's model (SqExp on an m^dim grid of [lo, 1]^dim, noise2
+    0.01, ``grid_shards=ng``, float64) as keywords both packages' tests
+    build from."""
+    return dict(N=N, ng=ng, family=family, m=m, dim=dim, ell=ell, block_sizes=block_sizes,
+                integrated=integrated, f32=f32, lo=lo, **extra)
+
+
+def mp_model(p):
+    from hipgp_tpu_torch.models import HIPGP
+
+    kw = {} if p["block_sizes"] is None else {"block_sizes": p["block_sizes"]}
+    for k in ("learn_noise",):
+        if k in p:
+            kw[k] = p[k]
+    dt = torch.float32 if p["f32"] else F64
+    grids = [np.linspace(p["lo"], 1.0, p["m"])] * p["dim"]
+    return HIPGP(SqExp(), grids, num_obs=p["N"], family=p["family"], ell_init=p["ell"],
+                 noise2_init=0.01, grid_shards=p["ng"],
+                 support_integrated_obs=p["integrated"], dtype=dt, device="cpu", **kw)
+
+
+def _meshes():
+    from hipgp_tpu_torch.parallel import make_mesh
+
+    return {shape: make_mesh(axis_names=("dp", "grid"), shape=shape) for shape in MP_MESHES}
+
+
+def _t(a, p=None):
+    if a is None:
+        return None
+    dt = torch.float32 if p is not None and p["f32"] else F64
+    return torch.as_tensor(np.asarray(a)).to(dt)
+
+
+def _whole(st, mesh):
+    from hipgp_tpu_torch.parallel import mp_gather_state
+
+    g = mp_gather_state(st, mesh)
+    return {k: _np(getattr(g, k)) for k in convert.STATE_FIELDS}
+
+
+def _recorded(fn):
+    """(fn(), the messages of the RuntimeWarnings it raised)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        out = fn()
+    return out, [str(w.message) for w in ws if issubclass(w.category, RuntimeWarning)]
+
+
+def mp_cases(inputs):
+    """Every case of tests/test_torch_mp.py, on this rank: mp_batch_solve
+    (and mp_predict of its state), ell_fit(parallel='mp'), the GlobalBatch
+    blocks of process_slice / global_batch, the raises."""
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from hipgp_tpu_torch.infer import ell_fit
+    from hipgp_tpu_torch.parallel import mp_batch_solve, mp_predict, multihost
+
+    meshes, res = _meshes(), {}
+    from hipgp_tpu_torch.models import hipgp
+
+    for key, c in inputs["solves"].items():
+        p, mesh = c["model"], meshes[c["mesh"]]
+        m = mp_model(p)
+        x, y, s = (_t(c[k], p) for k in ("x", "y", "s"))
+        st0 = m.init_state() if c.get("state") is None else _state(c["state"])
+        # the float32 pre-check lifted: the exactness guard's fallback
+        kappa_max = hipgp.FACTORED_F32_KAPPA_MAX
+        hipgp.FACTORED_F32_KAPPA_MAX = c.get("kappa_max", kappa_max)
+        try:
+            out, warned = _recorded(lambda: mp_batch_solve(m, st0, x, y, s, mesh, **c["kw"]))
+        finally:
+            hipgp.FACTORED_F32_KAPPA_MAX = kappa_max
+        st, elbo = out if c["kw"].get("compute_elbo") else (out, None)
+        r = dict(_whole(st, mesh), elbo=None if elbo is None else float(elbo), warned=warned)
+        if "predict" in c:
+            mu, sig = mp_predict(m, st, _t(c["xq"], p), mesh, **c["predict"])
+            r.update(mu=_np(mu), sig=_np(sig))
+        res[f"solves/{key}"] = r
+
+    for key, c in inputs.get("raises", {}).items():
+        m = mp_model(c["model"])
+        try:
+            mp_batch_solve(m, m.init_state(), _t(c["x"]), _t(c["y"]), _t(c["s"]),
+                           meshes[c["mesh"]])
+            res[f"raises/{key}"] = None
+        except ValueError as e:
+            res[f"raises/{key}"] = str(e)
+
+    if "ell_fit" not in inputs:
+        return res
+    c = inputs["ell_fit"]
+    m = mp_model(c["model"])
+    best, ell, ells, elbos = ell_fit(m, m.init_state(), c["x"], c["y"], c["s"], parallel="mp",
+                                     mesh=meshes[c["mesh"]], **c["kw"])
+    res["ell_fit"] = (ell, ells, elbos, _np(best.theta2))
+
+    # the multi-host layout: each 'dp' position loads its rows (process_slice
+    # over the mesh's dp axis), pads them to the common block (global_batch)
+    c = inputs["multihost"]
+    mesh = meshes[c["mesh"]]
+    n = c["model"]["N"]
+    sl = multihost.process_slice(n, mesh)
+    xg, yg = (multihost.global_batch(mesh, c[k][sl], n_global=n) for k in ("x", "y"))
+    sg = multihost.global_batch(mesh, c["s"][sl], n_global=n, fill=1.0)
+    wg = multihost.global_row_weights(mesh, n)
+    m = mp_model(c["model"])
+    st, elbo = mp_batch_solve(m, m.init_state(), xg, yg, sg, mesh, row_weights=wg, **c["kw"])
+    res["multihost"] = dict(_whole(st, mesh), elbo=float(elbo), slice=(sl.start, sl.stop),
+                            n_global=xg.n_global, local_rows=int(xg.local.shape[0]),
+                            pad_rows=int((wg.local == 0).sum()))
+    res["rank"] = dist.get_rank()
+    return res
+
+
+def _fit_report(rep):
+    return dict(epoch_elbos=np.asarray(rep["epoch_elbos"]), rho=rep.get("natgrad_rho"),
+                lr_used=rep.get("lr_used"), steps=rep.get("steps"),
+                ell_trace=np.asarray(rep.get("ell_trace") or []))
+
+
+def mp_train_cases(inputs, outdir):
+    """Every case of tests/test_torch_mp_train.py, on this rank: one
+    natgrad step's ELBO and gradients (mp_elbo_and_grads), mp_svigp_fit's
+    trajectories with mp_predict of their states, make_mp_kn_fn in 1-D,
+    and a checkpointed fit resumed."""
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from hipgp_tpu_torch.infer import FitConfig
+    from hipgp_tpu_torch.parallel import (make_mp_kn_fn, mp_elbo_and_grads, mp_predict,
+                                          mp_svigp_fit)
+    from hipgp_tpu_torch.parallel.mesh import all_gather, axis_group
+
+    meshes, res = _meshes(), {}
+    for key, c in inputs["grads"].items():
+        p, mesh = c["model"], meshes[c.get("mesh", (2, 2))]
+        m = mp_model(p)
+        st = m.init_state() if c["state"] is None else _state(c["state"])
+        gen = None if "seed" not in c else torch.Generator().manual_seed(c["seed"])
+        elbo, g = mp_elbo_and_grads(m, st, _t(c["x"]), _t(c["y"]), _t(c["s"]), mesh=mesh,
+                                    generator=gen, **c["kw"])
+        res[f"grads/{key}"] = dict(_whole(g, mesh), elbo=float(elbo))
+
+    for key, c in inputs["fits"].items():
+        dist.barrier()   # a resumed fit reads what rank 0 wrote
+        p, mesh = c["model"], meshes[c.get("mesh", (2, 2))]
+        m = mp_model(p)
+        kw = dict(c["kw"])
+        if "checkpoint" in c:
+            kw["checkpoint_dir"] = os.path.join(outdir, c["checkpoint"])
+        st, rep = mp_svigp_fit(m, _state(c["state"]), c["x"], c["y"], c["s"],
+                               FitConfig(**c["cfg"]), mesh, verbose=False, **kw)
+        r = dict(_whole(st, mesh), **_fit_report(rep))
+        if "predict" in c:
+            mu, sig = mp_predict(m, st, _t(c["xq"]), mesh, **c["predict"])
+            r.update(mu=_np(mu), sig=_np(sig))
+        res[f"fits/{key}"] = r
+        if "keep_checkpoint" in c:
+            dist.barrier()
+            if dist.get_rank() == 0:
+                shutil.copytree(kw["checkpoint_dir"], os.path.join(outdir,
+                                                                   c["keep_checkpoint"]))
+
+    c = inputs["kn_fn"]
+    mesh = meshes[c.get("mesh", (2, 2))]
+    m = mp_model(c["model"])
+    kn_fn = make_mp_kn_fn(m, mesh, **c["kw"])
+    from hipgp_tpu_torch.parallel.dp import _rows
+    from hipgp_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    x = _rows(_t(c["x"]), axis_size(mesh, "dp"), axis_index(mesh, "dp"))
+    kn, knn = kn_fn(_state(c["state"]), x, None)
+    kn = all_gather(all_gather(kn, axis_group(mesh, "grid"), axis=1), axis_group(mesh, "dp"),
+                    axis=0)
+    res["kn_fn"] = dict(kn=_np(kn), knn=_np(all_gather(knn, axis_group(mesh, "dp"))),
+                        offset=kn_fn.offset, local_shape=tuple(x.shape))
+    res["rank"] = dist.get_rank()
     return res
