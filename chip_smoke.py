@@ -27,7 +27,13 @@ Phases, each printing one line of progress with its seconds:
                points; the launch counters are zeroed just before and read
                just after, and checked against the solver's own iteration
                count (each PCG solve makes 1 + 2k self-dot launches, each
-               whitening one R^T launch);
+               whitening one R^T launch); the epoch is infer.make_train_step's;
+     eval-only - [main]'s fitted state saved (checkpoint.save_pytree) and
+               evaluated by the harness with eval_only_state= at the same
+               width: the predictions within 1e-6 of [main]'s batch_predict,
+               no natgrad step and no warm start (one PCG solve, the
+               prediction chunk's), kernel A's launches exact, the restore's
+               and the prediction's seconds;
   4. accuracy - the float32 kernel-path whitening at M = 125^2 on 256 rows
                against the float64 plain path on the card, and the same
                whitening with USE_MXU2D_PCG off and USE_PALLAS_TRANSFORM on
@@ -181,7 +187,10 @@ Phases, each printing one line of progress with its seconds:
                the test stars and of the density on the 20 x 20 slice; the
                counters zeroed just before and read just after: every 3-D
                PCG solve makes 1 + 2k self-dot applies, every whitening one
-               R^T;
+               R^T; then run_domain --eval-only-state on the state the fit
+               wrote, the same grid: no step, e post-RMSE, latent RMSE and
+               slice correlation within 1e-6 of the fitted run's, B-6 and B-5
+               launches those of the prediction chunks' solves alone;
  10. accuracy-3d - 64 rows of the main path's integrated Knm, 20 iterations:
                the float32 kernel-path whiten against the same float32 path
                with the plain stages (limit 1e-4) and, at ell 0.07, against
@@ -284,6 +293,14 @@ Phases, each printing one line of progress with its seconds:
                ms a solve for both, the bytes through all_to_all a solve;
      dp-nccl - a world of one rank over NCCL: [main]'s epoch (within 1e-6 of
                [main]'s; the gap reported) and the 2-D [grid-fft] case;
+     mp      - (in both worlds) mp_svigp_fit of [main]'s model on 2 560 rows
+               against the single-process fit, mp_predict of 500 points, the
+               checkpoint, the hyper-gradients; then every rank runs the
+               harness with parallel='mp' and eval_only_state= that
+               checkpoint: the state returned whole, bit for bit the file's,
+               mu and sigma within 1e-6 of mp_predict's;
+     mp-solve - four gloo ranks as a (2, 2) mesh: mp_batch_solve at 64^2
+               against the single-process solvers, the 'factored' decline;
 Any failed check raises, so the script exits non-zero.  The line before the
 last is the card's name and power limit from nvidia-smi, the one before it a
 JSON object with one entry per kernel (the radix kernels' entries add the
@@ -329,6 +346,7 @@ DOMAIN_BATCH = 512
 HEADLINE_M = 1 << 20      # the 1-D headline: L = 2^21, (A, B, C) = (128, 128, 128)
 SIZES_1D = (10_000, 131_072, 500_000, HEADLINE_M)
 PCG_ITERS = 20            # the section 5.2 protocol's fixed iteration count
+EVAL_ONLY_TOL = 1e-6      # [eval-only] and the eval-only reruns: against the fitted run's
 
 
 def log(msg):
@@ -1455,7 +1473,18 @@ def phase_main_3d(torch):
         torch.cuda.synchronize()
         lc = {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}
         st = dict(solve.PCG_STATS)
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        # the same grid evaluated from the state the fit wrote, no fit
+        t1 = time.perf_counter()
+        mxu2d.reset_launches()
+        mxu3d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        again = run_domain.main(argv + ["--output-dir", os.path.join(tmp, "eval-only"),
+                                        "--eval-only-state", os.path.join(tmp, "state.npz")])
+        torch.cuda.synchronize()
+        lc_eval = {**mxu2d.LAUNCHES, **mxu3d.LAUNCHES}
+        st_eval = dict(solve.PCG_STATS)
+        wall_eval = time.perf_counter() - t1
     steps = out["steps"]
     log(f"[main-3d] {steps} natgrad steps at {out['step_ms']:.1f} ms/step (host clock "
         f"over the epoch, ending in a sync); warm start {out['warmstart_s']:.2f} s; "
@@ -1487,6 +1516,100 @@ def phase_main_3d(torch):
         f"expect {applies} self-dot applies through {'B-6' if use_wp3 else 'B-5'} and "
         f"{st['solves']} R^T launches of B-5; counted {lc}; {wall:.2f} s")
     check(lc == want, f"3-D launches {lc}, expected {want}")
+
+    # [main-3d] eval-only: no step, the prediction chunks' solves alone
+    gaps = {k: abs(again[k] - out[k]) / abs(out[k])
+            for k in ("e_post_rmse", "latent_rmse", "latent_corr")}
+    applies = st_eval["solves"] + 2 * st_eval["iterations"]
+    want_eval = {"sandwich_apply_wp_selfdot": 0 if use_wp3 else applies,
+                 "sandwich_apply_wp3": applies if use_wp3 else 0,
+                 "sandwich_apply_wp": st_eval["solves"],
+                 "sandwich_apply": 0, "sandwich_apply_selfdot": 0}
+    log(f"[main-3d] eval-only (run_domain --eval-only-state): {again['steps']} steps, "
+        f"predict {again['predict_s']:.2f} s, {wall_eval:.2f} s in all; e post-RMSE "
+        f"{again['e_post_rmse']:.5f}, latent RMSE {again['latent_rmse']:.5f}, slice corr "
+        f"{again['latent_corr']:.4f}; rel gaps to the fitted run "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f" (limit {EVAL_ONLY_TOL:g}); {st_eval['solves']} PCG solves (the {chunks} "
+        f"prediction chunks), {st_eval['iterations']} iterations -> expect {want_eval}, "
+        f"counted {lc_eval}")
+    check(again["steps"] == 0 and again["fit_method"] == "eval-only",
+          f"[main-3d] eval-only ran {again['steps']} steps")
+    for k, v in gaps.items():
+        check(v <= EVAL_ONLY_TOL, f"[main-3d] eval-only {k} {v:.3e} from the fitted run")
+    check(st_eval["solves"] == chunks,
+          f"[main-3d] eval-only {st_eval['solves']} solves, expected {chunks}")
+    check(lc_eval == want_eval, f"[main-3d] eval-only launches {lc_eval}, expected {want_eval}")
+    return lc, lc_eval
+
+
+def phase_eval_only(torch, dev, d, sig2, state, mu, sig):
+    """[eval-only]: [main]'s fitted state saved with checkpoint.save_pytree,
+    then the harness with eval_only_state= that file at [main]'s full width
+    (M = 125^2, its 20 000 rows, the 2 000 test points), with the counters
+    zeroed just before and read just after: its predictions against [main]'s
+    batch_predict of the same state, no natgrad step and no warm start (the
+    fit functions replaced by a raise; only the prediction's PCG solves),
+    kernel A's launches exact.  Returns the launches."""
+    import tempfile
+
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments import harness
+    from hipgp_tpu_torch.infer import FitConfig
+    from hipgp_tpu_torch.ops import mxu2d, solve
+    from hipgp_tpu_torch.utils import checkpoint
+
+    def no_fit(*args, **kwargs):
+        raise RuntimeError("[eval-only] a fit function ran")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        checkpoint.save_pytree(path, state)
+        saved = harness.svigp_fit
+        harness.svigp_fit = no_fit
+        mxu2d.reset_launches()
+        solve.PCG_STATS.update(solves=0, iterations=0)
+        try:
+            _, st, rep = harness.fit_predict_and_save(
+                "eval-only", d["xobs"], d["yobs"], d["sobs"],
+                [np.linspace(-1, 1, MAIN_GRID)] * 2, sig2_init=sig2, ell_init=0.05,
+                noise2_init=1e-4, fit_config=FitConfig(epochs=1, batch_size=256, lr=1e-2),
+                maxiter_cg=10, xtest=d["xtest"], ftest=d["ftest"], output_dir=tmp,
+                dtype=torch.float32, device=dev, eval_only_state=path)
+            torch.cuda.synchronize()
+        finally:
+            harness.svigp_fit = saved
+        lc, stats = dict(mxu2d.LAUNCHES), dict(solve.PCG_STATS)
+        with open(os.path.join(tmp, "eval-only", "fit_params.json")) as f:
+            recorded = json.load(f)["fit_method"]
+    wall = time.perf_counter() - t0
+    on = lambda a: torch.as_tensor(a, device=dev)
+    emu, esig = max_rel(on(rep["pdict"]["fmu_test"]), on(mu)), max_rel(
+        on(rep["pdict"]["fsig_test"]), on(sig))
+    chunks = 1   # 2 000 test points in one chunk of the harness's 4 096
+    want = {"sandwich_apply_selfdot": stats["solves"] + 2 * stats["iterations"],
+            "sandwich_apply": stats["solves"]}
+    tr = rep["time_report"]
+    log(f"[eval-only] harness(eval_only_state=) at M = {MAIN_GRID}^2: restore "
+        f"{tr['fitting']:.3f} s, predict 2000 points {tr['ftest_eval']:.3f} s, {wall:.2f} s "
+        f"in all; "
+        f"{stats['solves']} PCG solves, {stats['iterations']} iterations -> expect {want}, "
+        f"counted {lc}; against [main]'s batch_predict of the same state: mu {emu:.3e}, "
+        f"sigma {esig:.3e} (limit {EVAL_ONLY_TOL:g}, max relative); fit_params.json "
+        f"records fit_method {recorded!r}")
+    check(rep["elbo_trace"] is None and rep["epoch_elbos"] == [],
+          "[eval-only] the report has an ELBO trace")
+    check(recorded == "natgrad", f"[eval-only] fit_params.json records {recorded!r}")
+    check(stats["solves"] == chunks,
+          f"[eval-only] {stats['solves']} PCG solves: a warm start or a step ran")
+    check(all(lc[k] == v for k, v in want.items()), f"[eval-only] launches {lc}, want {want}")
+    check(all(torch.equal(getattr(st, k), getattr(state, k))
+              for k in ("theta1", "theta2", "log_sig2", "log_ell", "log_noise2")),
+          "[eval-only] the restored state is not [main]'s")
+    check(emu <= EVAL_ONLY_TOL and esig <= EVAL_ONLY_TOL,
+          f"[eval-only] predictions mu {emu:.3e}, sigma {esig:.3e} from [main]'s")
     return lc
 
 
@@ -1733,8 +1856,9 @@ def phase_train(torch, d, model, state0, main_step_ms):
     trace = np.asarray(report["elbo_trace"])
     before, after = _hypers(torch, state0), _hypers(torch, state)
     log(f"[train] {steps} training steps (natgrad + Adam on the hypers, gradients "
-        f"through the whitening) at {step_ms:.2f} ms/step against the forward-only "
-        f"step's {main_step_ms:.2f} ms ([main]); warm start {report['warmstart_s']:.2f} s")
+        f"through the whitening; infer.make_train_step's epoch) at {step_ms:.2f} ms/step "
+        f"against the forward-only step's {main_step_ms:.2f} ms ([main]); warm start "
+        f"{report['warmstart_s']:.2f} s")
     log(f"[train] (sig2, ell, noise2) {before} -> {after}")
     log(f"[train] ELBO first {trace[0]:.4f}, last {trace[-1]:.4f}; mean of first 10 "
         f"{trace[:10].mean():.4f}, of last 10 {trace[-10:].mean():.4f}")
@@ -3654,7 +3778,43 @@ def _rank_mp(torch, d, sig2, mesh, ckpt_dir):
                          batch_size=MP["predict_rows"], maxiter_cg=MP["predict_maxiter"])
     torch.cuda.synchronize()
     out.update(predict_s=time.perf_counter() - t0, mu=mu.cpu().numpy(), sig=sig.cpu().numpy())
+    out["eval_only"] = _rank_mp_eval_only(torch, d, sig2, mesh, ckpt_dir)
     return out
+
+
+def _rank_mp_eval_only(torch, d, sig2, mesh, ckpt_dir):
+    """[mp] eval-only on this rank: the harness with parallel='mp' and
+    eval_only_state= the checkpoint [mp]'s fit wrote (rank 0 wrote it before
+    the collectives of the steps after the fit), on [mp]'s prediction
+    points; whether the returned state is the file's bit for bit, the
+    predictions, the seconds."""
+    import numpy as np
+
+    from hipgp_tpu_torch.experiments import harness
+    from hipgp_tpu_torch.infer import FitConfig
+
+    path = os.path.join(ckpt_dir, "state.npz")
+    n, rows = MP["rows"], MP["predict_rows"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st, rep = harness.fit_predict_and_save(
+        "mp-eval-only", d["xobs"][:n], d["yobs"][:n], d["sobs"][:n],
+        [np.linspace(-1, 1, MAIN_GRID)] * 2, sig2_init=sig2, ell_init=0.05,
+        noise2_init=1e-4, fit_config=FitConfig(predict_maxiter_cg=MP["predict_maxiter"]),
+        maxiter_cg=MP["maxiter_cg"], xtest=d["xtest"][:rows], ftest=d["ftest"][:rows],
+        output_dir=os.path.join(ckpt_dir, "eval-only"), parallel="mp", mesh=mesh,
+        dtype=torch.float32, device=CARD, eval_only_state=path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with np.load(path) as saved:
+        leaves = [saved[k] for k in saved.files]
+    fields = ("theta1", "theta2", "log_sig2", "log_ell", "log_noise2")
+    same = all(np.array_equal(getattr(st, k).cpu().numpy(), a)
+               for k, a in zip(fields, leaves))
+    return dict(wall_s=wall, restore_s=rep["time_report"]["fitting"],
+                predict_s=rep["time_report"]["ftest_eval"], same_state=same,
+                mu=rep["pdict"]["fmu_test"], sig=rep["pdict"]["fsig_test"],
+                trace=rep["elbo_trace"])
 
 
 def _mp_solve_mean(torch, dt, solver):
@@ -3962,7 +4122,7 @@ def phase_parallel(torch, dev, d, sig2, main, main_step_ms):
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    data = {k: d[k] for k in ("xobs", "yobs", "sobs", "xtest")}
+    data = {k: d[k] for k in ("xobs", "yobs", "sobs", "xtest", "ftest")}
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_mp_")
     ckpt_dirs = {w: os.path.join(ckpt_root, w) for w in ("gloo", "nccl")}
     gloo = launch.run(parallel_ranks, PAR_RANKS, backend="gloo", device="cuda",
@@ -4210,6 +4370,23 @@ def _check_mp(torch, dev, d, sig2, gloo, nccl, ckpt_dirs):
         log(f"[mp] {w}: the checkpoint holds the whole state ({got.theta1.numel()} + "
             f"{got.theta2.numel()} entries), equal to the gathered state and to a "
             f"single-process checkpoint of it")
+    # [mp] eval-only: the harness restored each world's checkpoint, cut it
+    # into the rank's block and predicted through mp_predict: the state
+    # returned whole, bit for bit the file's, the predictions [mp]'s
+    for tag, r in worlds:
+        e = r["eval_only"]
+        emu = rel(on(e["mu"]), on(r["mu"]))
+        esig = rel(on(e["sig"]), on(r["sig"]))
+        check(e["same_state"], f"[mp eval-only] {tag}: the returned state is not the file's")
+        check(e["trace"] is None, f"[mp eval-only] {tag}: an ELBO trace without a fit")
+        check(emu <= EVAL_ONLY_TOL and esig <= EVAL_ONLY_TOL,
+              f"[mp eval-only] {tag}: mu {emu:.3e}, sigma {esig:.3e} from [mp]'s mp_predict "
+              f"(limit {EVAL_ONLY_TOL:g})")
+        log(f"[mp eval-only] {tag}: harness(parallel='mp', eval_only_state=) in "
+            f"{e['wall_s']:.2f} s (restore {e['restore_s']:.3f} s, predict "
+            f"{MP['predict_rows']} points {e['predict_s']:.2f} s); the returned state is "
+            f"the checkpoint's bit for bit; mu {emu:.3e}, sigma {esig:.3e} from [mp]'s "
+            f"mp_predict of the same state (limit {EVAL_ONLY_TOL:g})")
     # one batch's hyper-gradients against the float64 plain single-process step
     m64 = mp_model(torch, MAIN_GRID, n, sig2, PAR_RANKS, torch.float64)
     r = gloo[0]["mp"]
@@ -4427,7 +4604,8 @@ def main():
     trace = np.asarray(report["elbo_trace"])
     steps = report["steps"]
     step_s = report["epoch_times"][0] / steps
-    log(f"[main] fit: warm start + {steps} natgrad steps in {fit_s:.2f} s "
+    log(f"[main] fit: warm start + {steps} natgrad steps (svigp_fit's epoch, "
+        f"infer.make_train_step) in {fit_s:.2f} s "
         f"({step_s * 1e3:.1f} ms/step); ELBO first {trace[0]:.4f}, last "
         f"{trace[-1]:.4f}; mean of first 10 {trace[:10].mean():.4f}, of last 10 "
         f"{trace[-10:].mean():.4f}")
@@ -4453,6 +4631,7 @@ def main():
     check(rmse < fstd, f"test RMSE {rmse} not below std(ftest) {fstd}")
     log(f"[main] predict: 2000 points in {predict_s:.2f} s; test RMSE {rmse:.5f} vs "
         f"std(ftest) {fstd:.5f}; {time.perf_counter() - t0:.2f} s")
+    eval_launches = phase_eval_only(torch, dev, d, sig2, state, mu, sig)
 
     # ---- 4. whitening accuracy: f32 kernel path vs f64 plain path ------------
     t0 = time.perf_counter()
@@ -4536,7 +4715,7 @@ def main():
 
     # ---- 8.-10. the 3-D dust map ----------------------------------------------
     results_3d = phase_kernels_3d(torch, dev)
-    launches_3d = phase_main_3d(torch)
+    launches_3d, eval_3d_launches = phase_main_3d(torch)
     phase_accuracy_3d(torch, dev)
     fb3_launches, fb3_mf = phase_full_batch_3d(torch)
     phase_accuracy_full_batch_3d(torch, dev)
@@ -4565,12 +4744,12 @@ def main():
     kernels = []
     for name in ("sandwich_apply_selfdot", "sandwich_apply"):
         r = results[name]
-        # the main path's launches: [main], [main-block], [full-rank],
-        # [resume]'s resumed epoch, [trajectory]'s paper-scale torch leg,
-        # [uci], [precision]'s kernel-A policy and the ranks' epochs of [dp]
-        # and [dp-nccl]
-        n = (launches[name] + block_launches[name] + fr_launches[name]
-             + resume_launches[name] + traj_launches[name] + uci_launches[name]
+        # the main path's launches: [main], [eval-only], [main-block],
+        # [full-rank], [resume]'s resumed epoch, [trajectory]'s paper-scale
+        # torch leg, [uci], [precision]'s kernel-A policy and the ranks'
+        # epochs of [dp] and [dp-nccl]
+        n = (launches[name] + eval_launches[name] + block_launches[name]
+             + fr_launches[name] + resume_launches[name] + traj_launches[name] + uci_launches[name]
              + precision_launches.get(name, 0) + dp_launches[name])
         kernels.append({
             "name": f"mxu2d.{name}", "route": "cuda", "source": KERNEL_SOURCE,
@@ -4614,8 +4793,10 @@ def main():
             ("B-6", "mxu3d.sandwich_apply_wp3", WP3_SOURCE, WP3_TPU_KERNEL,
              ("sandwich_apply_wp3",))):
         r = results_3d[key]
-        # the 3-D main path's launches: [main-3d] and [full-batch-3d-block]
-        n = sum(launches_3d[c] + fb3_block_launches[c] for c in counts)
+        # the 3-D main path's launches: [main-3d], its eval-only rerun and
+        # [full-batch-3d-block]
+        n = sum(launches_3d[c] + eval_3d_launches[c] + fb3_block_launches[c]
+                for c in counts)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": tpu,
             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],

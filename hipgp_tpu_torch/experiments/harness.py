@@ -36,8 +36,9 @@ harness routes them), evaluation through `parallel.mp_predict`
 (`evaluate_and_save`'s ``predict_fn``); every rank gathers the state whole
 (`parallel.mp_gather_state`) and only the coordinator writes it.
 ``grid_shards`` pads the model's circulant embedding as the JAX harness
-does.  Not ported: ``eval_only_state`` (evaluate a saved state without a
-fit).
+does.  ``eval_only_state`` (the JAX harness's crash recovery) restores a
+saved state instead of fitting (`restore_eval_state`) and evaluates it on
+any of these paths.
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ from ..utils import checkpoint as ckpt
 from ..utils import metrics
 
 __all__ = ["fit_predict_and_save", "make_model", "evaluate_and_save",
-           "empirical_sig2_init", "init_parallel"]
+           "empirical_sig2_init", "init_parallel", "restore_eval_state"]
 
 
 def make_model(model_class: str, kernel_name: str, xinduce_grids: Sequence,
@@ -126,6 +127,27 @@ def init_parallel(parallel: Optional[str], device="cuda"):
     else:
         mesh = make_mesh()
     return mesh, multihost.on_coordinator()
+
+
+def restore_eval_state(model, path: str, parallel: Optional[str] = None, mesh=None):
+    """The state saved at ``path`` (by either package: a whole state, as
+    every path writes it) with the dtypes and device of ``model``, for an
+    evaluation without a fit.  Each leaf must have the model's shape, else
+    ValueError names the file and both shapes.  Under ``parallel='mp'`` the
+    whole state is cut into this rank's block of ``mesh``
+    (`parallel.mp_shard_state`), the state a split fit returns."""
+    like = model.init_state()
+    state = ckpt.load_pytree(path, like)
+    for f in dataclasses.fields(like):
+        got, want = tuple(getattr(state, f.name).shape), tuple(getattr(like, f.name).shape)
+        if got != want:
+            raise ValueError(f"{path}: leaf {f.name} has shape {got}, the model's "
+                             f"has {want}")
+    if parallel == "mp":
+        from ..parallel import mp_shard_state
+
+        state = mp_shard_state(state, mesh)
+    return state
 
 
 def empirical_sig2_init(xobs: np.ndarray, yobs: np.ndarray) -> float:
@@ -305,8 +327,8 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
                          eval_epoch_plots: bool = False,
                          parallel: Optional[str] = None, mesh=None,
                          grid_shards: Optional[int] = None,
-                         dtype=torch.float32, device="cuda",
-                         max_steps: Optional[int] = None):
+                         dtype=torch.float32, eval_only_state: Optional[str] = None,
+                         device="cuda", max_steps: Optional[int] = None):
     """Fit and evaluate one model, saving every artifact under
     ``output_dir/name`` (the JAX harness's single entry point, on one
     device).  ``fit_method`` 'natgrad' runs `svigp_fit` (with
@@ -321,8 +343,13 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
     ``max_steps`` (the port's) ends a natgrad fit after that many steps.
     ``parallel='dp'`` and ``'mp'`` fit over ``mesh`` (the module
     docstring); ``grid_shards`` pads the HIP-GP's embedding (under 'mp' the
-    mesh's grid size).  Returns (model, state, report), the same on every
-    rank (under 'mp' the whole state, gathered)."""
+    mesh's grid size).  ``eval_only_state`` names a saved state (either
+    package's ``state.npz``) to evaluate instead of fitting: no fit runs,
+    ``fit_params.json`` records the ``fit_method`` passed in, the report's
+    ``elbo_trace`` is None and its ``epoch_elbos`` empty, and the time
+    report's ``fitting`` is the restore's seconds.  Returns (model, state,
+    report), the same on every rank (under 'mp' the whole state,
+    gathered)."""
     if parallel == "mp" and not (model_class == "mean-field"
                                  or model_class.startswith("block")):
         raise ValueError("parallel='mp' supports the mean-field and block families")
@@ -418,7 +445,11 @@ def fit_predict_and_save(name: str, xobs, yobs, sobs, xinduce_grids,
                                     **etimes})
 
     t_start = time.time()
-    if fit_method == "natgrad":
+    if eval_only_state is not None:
+        state = restore_eval_state(model, eval_only_state, parallel, mesh)
+        report = {"elbo_trace": None, "epoch_elbos": []}
+        train_elbo = None
+    elif fit_method == "natgrad":
         fit_kw = dict(verbose=writer, theta2_warmstart=theta2_warmstart,
                       natgrad_safe_lr=natgrad_safe_lr, max_steps=max_steps,
                       epoch_callback=epoch_callback)

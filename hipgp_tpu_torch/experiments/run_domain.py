@@ -26,12 +26,14 @@ batch the seconds of each stage of the solve, its mean PCG's iterations and
 relative residual and, on the card, the peak of allocated memory; the fitted
 state goes to ``state.npz`` there, in the JAX package's checkpoint layout.
 ``--eval-only-state`` (the JAX flag) restores such a state, the JAX
-package's or the port's, and skips the fit.  With a ``--data-path`` table
-(which gives no true density on the slice) ``--snapshot`` names a
-latte-format SPH snapshot: its dust density, deposited on the device by
-``--deposit-method`` sph or cic (`dust_density.gen_dust_density`) onto
-eval_grid x eval_grid x max(nz, 2) cells over the stars' box, sampled at the
-slice's cells, is the slice's truth, as in the JAX package.
+package's or the port's, through the harness's `restore_eval_state` (under
+``--parallel mp`` cut into the rank's block) and skips the fit.  With a
+``--data-path`` table (which gives no true density on the slice)
+``--snapshot`` names a latte-format SPH snapshot: its dust density,
+deposited on the device by ``--deposit-method`` sph or cic
+(`dust_density.gen_dust_density`) onto eval_grid x eval_grid x max(nz, 2)
+cells over the stars' box, sampled at the slice's cells, is the slice's
+truth, as in the JAX package.
 ``--parallel dp`` fits data-parallel, one process per device (the full
 batch by `parallel.dp_batch_solve`, whose mean is the dense solve whatever
 ``--mean-solver`` says, as in the JAX package; natgrad through `svigp_fit`
@@ -73,7 +75,7 @@ from ..parallel import (dp_batch_solve, make_dp_data_shard_fn, mp_batch_solve,
 from ..parallel.mesh import axis_size
 from ..utils import checkpoint, metrics
 from .dust_density import gen_dust_density
-from .harness import empirical_sig2_init, init_parallel, make_model
+from .harness import empirical_sig2_init, init_parallel, make_model, restore_eval_state
 from .synthetic_data import integrated_obs
 
 __all__ = ["main", "synthetic_dust_field", "make_synthetic_domain_data",
@@ -299,7 +301,7 @@ def main(argv=None):
     MEAN_PCG_STATS.update(iterations=0, resnorm=float("nan"), bnorm=float("nan"))
     t0 = time.perf_counter()
     if args.eval_only_state:
-        state = checkpoint.load_pytree(args.eval_only_state, model.init_state())
+        state = restore_eval_state(model, args.eval_only_state, args.parallel, mesh)
         full_batch = False
         report = {"elbo_trace": [float("nan")], "steps": 0, "epoch_times": [],
                   "warmstart_s": 0.0, "natgrad_rho": None, "lr_used": None}
@@ -358,7 +360,7 @@ def main(argv=None):
                         maxiter_cg=cfg.predict_maxiter_cg, **ekw)
     fmu, fsig = predict(model, state, xgrid, *where, batch_size=PREDICT_BATCH,
                         maxiter_cg=cfg.predict_maxiter_cg)
-    if mp and not args.eval_only_state:
+    if mp:
         state = mp_gather_state(state, mesh)
     emu, esig = emu.cpu().numpy(), esig.cpu().numpy()
     fmu, fsig = fmu.cpu().numpy(), fsig.cpu().numpy()

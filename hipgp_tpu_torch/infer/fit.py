@@ -20,7 +20,12 @@ or this one's.  ``ell_fit`` grid-searches the lengthscale by the closed-form
 ``batch_solve`` ELBO.
 
 Data is padded to a whole number of batches and masked, as in the JAX
-package, so every batch has the same shape.
+package, so every batch has the same shape.  ``make_train_step`` builds the
+epoch over those batches that ``svigp_fit`` runs.
+
+Not ported, because they serve only the TPU runtime: ``prefer_eager_batch_solve``
+(it steers the closed-form solve around an XLA program-fusion fault) and
+``utils/jaxcache.py`` (the persistent jit cache).
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ import torch.distributed as dist
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 
 __all__ = ["FitConfig", "svigp_fit", "ell_fit", "batch_predict",
-           "predictive_variance_correction", "make_optimizer",
+           "predictive_variance_correction", "make_optimizer", "make_train_step",
            "prepare_batches", "batch_step", "natgrad_stability_rho",
            "HyperAdam", "zero_frozen"]
 
@@ -256,6 +261,36 @@ def batch_step(model, config: FitConfig, opt: FitOptimizer, state, xb, yb, sb, w
     return opt.step(state, zero_frozen(config, grads)), elbo
 
 
+def make_train_step(model, config: FitConfig, opt: FitOptimizer, kn_fn=None, *,
+                    group=None):
+    """One epoch over the prepared (nb, bsz, ...) batches (the JAX package's
+    ``make_train_step``, whose jitted epoch scans them).
+
+    Returns ``epoch_step(state, opt, generator, xb, yb, sb, wb, limit=None)
+    -> (state, opt, generator, elbos)``: :func:`batch_step` on each batch in
+    order (the natural-gradient step, and Adam on what ``config`` learns,
+    the other hyper-gradients zeroed), the ``opt`` passed in stepped in
+    place (it keeps its own moments: JAX's ``opt`` and ``opt_state`` in
+    one; ``make_train_step`` takes ``opt`` for JAX's signature), the
+    estimator's draws taken from ``generator`` (JAX's key), ``elbos`` the
+    batches' ELBOs stacked on the device (no host sync inside the epoch).
+    ``limit`` (at least 1) ends the epoch after that many batches
+    (``svigp_fit``'s ``max_steps``).  ``group``: the process group over
+    which each batch's rows are split; ``kn_fn``: the whitening override
+    (`parallel.make_mp_kn_fn`)."""
+
+    def epoch_step(state, opt, generator, xb, yb, sb, wb, limit=None):
+        elbos = []
+        for b in range(xb.shape[0] if limit is None else min(limit, xb.shape[0])):
+            state, elbo = batch_step(model, config, opt, state, xb[b], yb[b],
+                                     None if sb is None else sb[b], wb[b],
+                                     generator=generator, group=group, kn_fn=kn_fn)
+            elbos.append(elbo)
+        return state, opt, generator, torch.stack(elbos)
+
+    return epoch_step
+
+
 def _batch_kn_ivar(model, state, xl, sl, wl, config: FitConfig, spec=None,
                    generator=None, kn_fn=None):
     """(kn, ivar) for one prepared batch: the warm start's kn path
@@ -469,6 +504,7 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
                 warnings.warn(msg + "; pass natgrad_safe_lr='clamp' to lower it, "
                               "or reduce config.lr", UserWarning, stacklevel=2)
     nb = xb.shape[0]
+    epoch_step = make_train_step(model, config, opt, kn_fn, group=group)
     if config.shuffle:
         shuffle_rng = np.random.default_rng(config.seed)
     trace, epoch_elbos, epoch_times = [], [], []
@@ -485,16 +521,10 @@ def svigp_fit(model, state, xtrain, ytrain, noise_std_train, config: FitConfig,
             if data_shard_fn is not None:
                 xb, yb, sb, w = data_shard_fn(xb, yb, sb, w)
         t0 = time.perf_counter()
-        elbos = []
-        for b in range(nb):
-            if max_steps is not None and steps >= max_steps:
-                break
-            state, elbo = batch_step(model, config, opt, state, xb[b], yb[b],
-                                     None if sb is None else sb[b], w[b],
-                                     generator=gen, group=group, kn_fn=kn_fn)
-            elbos.append(elbo)
-            steps += 1
-        elbos_np = torch.stack(elbos).cpu().numpy()
+        limit = None if max_steps is None else max_steps - steps
+        state, opt, gen, elbos = epoch_step(state, opt, gen, xb, yb, sb, w, limit=limit)
+        steps += len(elbos)
+        elbos_np = elbos.cpu().numpy()
         dt = time.perf_counter() - t0
         epoch_times.append(dt)
         trace.extend(elbos_np.tolist())

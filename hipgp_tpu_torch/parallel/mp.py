@@ -885,7 +885,7 @@ def make_mp_kn_fn(model, mesh, maxiter_cg: int = 10, tol: float = 1e-8,
 
 
 def mp_elbo_and_grads(model, state, x, y, noise_std=None, *, mesh, maxiter_cg: int = 10,
-                      integrated_obs: bool = False,
+                      tol: float = 1e-8, integrated_obs: bool = False,
                       semi_integrated_estimator: str = "analytic",
                       semi_integrated_samps: int = 10,
                       generator: Optional[torch.Generator] = None, weights=None,
@@ -895,11 +895,12 @@ def mp_elbo_and_grads(model, state, x, y, noise_std=None, *, mesh, maxiter_cg: i
     ``grid_axis`` and the batch's rows over ``dp_axis``: the model's own
     ``elbo_and_grads`` with :func:`make_mp_kn_fn`.  Every rank passes the
     whole batch and takes its 'dp' rows; ``state`` is whole or this rank's
-    block.  Returns (elbo, grads) on every rank, the grads' theta leaves
-    this rank's block (the hyper-gradients whole)."""
+    block.  ``tol`` stops the split whitening PCG (`make_mp_kn_fn`).
+    Returns (elbo, grads) on every rank, the grads' theta leaves this
+    rank's block (the hyper-gradients whole)."""
     from .dp import _rows
 
-    kn_fn = make_mp_kn_fn(model, mesh, maxiter_cg=maxiter_cg,
+    kn_fn = make_mp_kn_fn(model, mesh, maxiter_cg=maxiter_cg, tol=tol,
                           integrated_obs=integrated_obs,
                           semi_integrated_estimator=semi_integrated_estimator,
                           semi_integrated_samps=semi_integrated_samps,

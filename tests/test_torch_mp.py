@@ -11,10 +11,14 @@ the float32 fallbacks to 'gram', the split spectrum against the whole one)
 and ``mp_predict`` against the JAX package's single-device ``batch_solve``
 and ``predict`` on the same ``grid_shards``-padded model, one case also
 against JAX's own ``mp_batch_solve`` on a (2, 2) mesh of its CPU devices;
-``ell_fit(parallel='mp')``; the blocks of ``process_slice`` /
+the harness's ``eval_only_state`` under 'mp' against its single-process
+run, and a mismatched file; ``ell_fit(parallel='mp')``; the blocks of
+``process_slice`` /
 ``global_batch`` over the mesh's 'dp' axis; the raises.  Tolerances are
 tests/test_mp.py's or tighter, each stated where it is used.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +27,7 @@ import torch
 torch.set_num_threads(1)  # one intra-op thread a process: the xdist workers share the cores
 
 import torch_parallel_ranks as ranks
+from hipgp_tpu.utils import checkpoint as jckpt
 from hipgp_tpu.infer import ell_fit as jell_fit
 from hipgp_tpu.kernels import SqExp as JSqExp
 from hipgp_tpu.models import HIPGP as JHIPGP
@@ -125,8 +130,29 @@ def _solve_cases():
     }
 
 
+def _eval_only_case(outdir):
+    """The harness's evaluation of a saved state under 'mp': a whole state
+    of the padded 11 x 11 model, away from the prior, saved by the JAX
+    package, and a file of a 9 x 9 model's state, saved by the port, which
+    must not load."""
+    from hipgp_tpu_torch import convert
+    from hipgp_tpu_torch.utils import checkpoint as tckpt
+
+    model = ranks.mp_model_kw(300, 2)
+    js = _jmodel(model).init_state(jax.random.PRNGKey(4))
+    path = os.path.join(outdir, "eval-state.npz")
+    jckpt.save_pytree(path, js.replace(theta1=js.theta1 * 30.0, theta2=js.theta2 * 2.0))
+    bad = os.path.join(outdir, "eval-state-9.npz")
+    tckpt.save_pytree(bad, ranks.mp_model(ranks.mp_model_kw(300, 2, m=9)).init_state())
+    x, y, s = ranks.mp_data()
+    xq = ranks.mp_data(N=64, seed=5)[0]
+    return dict(model=model, mesh=(2, 2), x=x, y=y, s=s, xq=xq,
+                fq=np.sin(3 * xq[:, 0]) * np.cos(2 * xq[:, 1]), path=path, bad_path=bad)
+
+
 @pytest.fixture(scope="module")
-def cluster():
+def cluster(tmp_path_factory):
+    outdir = str(tmp_path_factory.mktemp("mp"))
     x, y, s = ranks.mp_data(N=40)
     d300 = ranks.mp_data()
     n = 241
@@ -155,8 +181,9 @@ def cluster():
         "multihost": dict(model=ranks.mp_model_kw(n, 2, m=9, ell=0.3, lo=-1.0), mesh=(2, 2),
                           x=xm, y=ym, s=np.full(n, 0.1),
                           kw=dict(CG, batch_size=64, compute_elbo=True, mean_solver="cg")),
+        "eval_only": _eval_only_case(outdir),
     }
-    return inputs, launch.run(ranks.mp_cases, RANKS, args=(inputs,), device="cpu",
+    return inputs, launch.run(ranks.mp_cases, RANKS, args=(inputs, outdir), device="cpu",
                               timeout_s=600)
 
 
@@ -386,3 +413,42 @@ def test_multihost_blocks_mp_batch_solve_matches_jax(cluster):
     np.testing.assert_allclose(got["theta1"], np.asarray(want.theta1), rtol=2e-4, atol=1e-6)
     np.testing.assert_allclose(got["theta2"], np.asarray(want.theta2), rtol=1e-7, atol=1e-9)
     np.testing.assert_allclose(got["elbo"], float(want_elbo), rtol=1e-6)
+
+
+def test_harness_mp_eval_only_matches_single_process(cluster, tmp_path):
+    # fit_predict_and_save(parallel='mp', eval_only_state=) on a (2, 2)
+    # mesh: each rank cuts its block of the JAX-saved whole state, predicts
+    # through mp_predict and returns the whole state, bit for bit the file's;
+    # the single-process harness on the same padded model predicts the same
+    # within 1e-6; only the coordinator writes
+    from hipgp_tpu_torch import convert
+    from hipgp_tpu_torch.experiments import harness
+
+    inputs, out = cluster
+    c = inputs["eval_only"]
+    p = c["model"]
+    _, _, rep = harness.fit_predict_and_save(
+        name="mp", xobs=c["x"], yobs=c["y"], sobs=c["s"],
+        xinduce_grids=[np.linspace(p["lo"], 1.0, p["m"])] * p["dim"], ell_init=p["ell"],
+        noise2_init=0.01, sig2_init="marginal", fit_method="natgrad", xtest=c["xq"],
+        ftest=c["fq"], grid_shards=p["ng"], dtype=torch.float64, device="cpu",
+        output_dir=str(tmp_path), eval_only_state=c["path"])
+    saved = np.load(c["path"])
+    for r in out:
+        got = r["eval_only"]
+        for i, k in enumerate(convert.STATE_FIELDS):
+            np.testing.assert_array_equal(got[k], saved[f"arr_{i}"], err_msg=k)
+        np.testing.assert_allclose(got["fmu"], rep["pdict"]["fmu_test"], rtol=1e-6, atol=1e-12)
+        np.testing.assert_allclose(got["fsig"], rep["pdict"]["fsig_test"], rtol=1e-6)
+    assert [r["eval_only"]["wrote"] for r in out] == [True] + [False] * (RANKS - 1)
+
+
+def test_harness_mp_eval_only_rejects_a_mismatched_file(cluster):
+    # a 9 x 9 model's state for the padded 11 x 11 model raises on every
+    # rank, naming the file and both shapes, before anything is evaluated
+    inputs, out = cluster
+    c = inputs["eval_only"]
+    for r in out:
+        msg = r["eval_only_bad"]
+        assert msg is not None and c["bad_path"] in msg
+        assert "theta1" in msg and "(256,)" in msg and "(400,)" in msg, msg

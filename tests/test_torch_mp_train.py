@@ -7,9 +7,10 @@ mp_train_cases`, which imports neither JAX nor the JAX package), mirroring
 tests/test_mp_train.py: ``mp_elbo_and_grads`` (the ELBO and natural
 gradient, the hyper-gradients through the split whitening at fixed
 iterations, 2-D and 1-D, mean-field and block) against the JAX package's
-single-device ``elbo_and_grads``; ``mp_svigp_fit`` (a 3-epoch learn-kernel
-trajectory with the warm start, an uneven batch learning the noise, the
-block family, the 1-D grid) with ``mp_predict`` of its state against JAX's
+single-device ``elbo_and_grads``, and at a loose ``tol`` against JAX's
+own ``mp_elbo_and_grads`` on a mesh of its CPU devices; ``mp_svigp_fit``
+(a 3-epoch learn-kernel trajectory with the warm start, an uneven batch
+learning the noise, the block family, the 1-D grid) with ``mp_predict`` of its state against JAX's
 ``svigp_fit`` and ``predict``; the split spectrum against the whole one;
 ``make_mp_kn_fn`` on the 1-D four-step layout against ``compute_kn``; a
 checkpointed fit, whose file holds the whole state, resumed by the port and
@@ -67,6 +68,7 @@ def _rel(a, b):
 MF = ranks.mp_model_kw(300, NG)
 BLOCK = ranks.mp_model_kw(300, NG, family="block", block_sizes=(5, 4))
 ONE_D = ranks.mp_model_kw(120, NG, m=40, dim=1, ell=0.08)
+TOL_MF = ranks.mp_model_kw(300, NG, ell=0.1)
 
 
 def _grads_case(p, data, n, **kw):
@@ -105,6 +107,12 @@ def _inputs():
             "hyper": _grads_case(MF, d300, 100, compute_hyper_grads=True),
             "hyper-block": _grads_case(BLOCK, d300, 100, compute_hyper_grads=True),
             "hyper-1d": _grads_case(ONE_D, d1, 60, compute_hyper_grads=True),
+            # a loose tol stops the split whitening long before 60 iterations:
+            # at ell 0.1 after 5, where both packages' split PCGs still agree
+            # to rounding (at ell 0.15 the exit comes after ~25, where their
+            # iterates have drifted ~5e-4 apart and a row's residual norm by
+            # ~50 %, so the two can exit an iteration apart)
+            "tol": dict(_grads_case(TOL_MF, d300, 100), kw=dict(maxiter_cg=60, tol=1e-3)),
             "mc-biased": dict(model=mc, state=None, x=xi, y=np.sin(3 * xi[:, 0]),
                               s=np.full(64, 0.1), seed=11,
                               kw=dict(maxiter_cg=60, compute_hyper_grads=True,
@@ -185,6 +193,38 @@ def test_mp_elbo_and_grads_match_jax(cluster, key):
             np.testing.assert_allclose(got[k], np.asarray(getattr(jg, k)), rtol=tol,
                                        err_msg=k)
         assert got["log_ell"] != 0.0
+
+
+def test_mp_elbo_and_grads_tol_matches_jax_mp(cluster):
+    # tol reaches the split whitening: at tol 1e-3 (60 iterations at most)
+    # the port's step matches JAX's own mp_elbo_and_grads at the same tol on
+    # a (2, 2) mesh of its CPU devices, within test_mp_elbo_and_grads_match_jax's
+    # limits (ELBO 1e-4, natural gradient 1e-5), and differs from the step
+    # at JAX's default tol of 1e-8 by more than ten times them (2.4e-4)
+    import jax
+    from jax.sharding import Mesh
+
+    from hipgp_tpu.parallel import mp_elbo_and_grads as jmp_elbo_and_grads
+    from hipgp_tpu.parallel import mp_shard_state as jmp_shard_state
+
+    inputs, out, _ = cluster
+    c = inputs["grads"]["tol"]
+    for r in out[1:]:
+        assert r["grads/tol"]["elbo"] == out[0]["grads/tol"]["elbo"]
+    got = out[0]["grads/tol"]
+    jm = _jmodel(c["model"])
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("dp", "grid"))
+    st = jmp_shard_state(_jstate(c["model"], c["state"]), mesh)
+    data = tuple(jnp.asarray(c[k]) for k in ("x", "y", "s"))
+    want = {}
+    for tol in (1e-3, 1e-8):
+        elbo, g = jmp_elbo_and_grads(jm, st, *data, mesh=mesh, maxiter_cg=60, tol=tol)
+        want[tol] = (float(elbo), np.asarray(g.theta1), np.asarray(g.theta2))
+    elbo, t1, t2 = want[1e-3]
+    np.testing.assert_allclose(got["elbo"], elbo, rtol=1e-4)
+    assert _rel(got["theta1"], t1) < 1e-5
+    assert _rel(got["theta2"], t2) < 1e-5
+    assert _rel(got["theta1"], want[1e-8][1]) > 1e-4
 
 
 def test_mp_mc_biased_draws_match_the_single_device_step(cluster):

@@ -11,8 +11,9 @@ uneven N, ``ell_fit(parallel='dp')``, ``dp_elbo_and_grads`` with the
 hyper-gradients, ``make_dp_train_step``, ``dp_svigp_fit`` and
 ``svigp_fit(data_shard_fn=...)`` with the warm start, rho's clamp and
 ``learn_kernel``, and the dense SVGP's ``svigp_fit(data_shard_fn=...)``;
-the harness's ``parallel='dp'`` and ``run_synthetic --parallel dp``
-against the port's own single-process run.  Tolerances are
+the harness's ``parallel='dp'`` (with a fit and with ``eval_only_state``)
+and ``run_synthetic --parallel dp`` against the port's own single-process
+run, and ``run_domain --parallel mp --eval-only-state`` against its fit.  Tolerances are
 the JAX tests': 1e-8 on batch solves, 1e-7 on fits, 1e-6 on the ELBO curve.
 """
 import csv
@@ -34,6 +35,7 @@ from hipgp_tpu.models import HIPGP as JHIPGP
 from hipgp_tpu.models import SVGP as JSVGP
 from hipgp_tpu.parallel import dp_batch_solve as jdp_batch_solve
 from hipgp_tpu.parallel import make_mesh as jmake_mesh
+from hipgp_tpu.utils import checkpoint as jckpt
 from hipgp_tpu_torch import convert
 from hipgp_tpu_torch.experiments import harness, run_synthetic
 from hipgp_tpu_torch.infer import FitConfig, svigp_fit
@@ -117,6 +119,15 @@ def _harness_setup():
             "cfg": dict(epochs=1, batch_size=32, lr=0.05)}
 
 
+def _save_eval_state(path):
+    """A state of the harness's ziggy model on dp_setup's grid, away from
+    the prior, saved by the JAX package: the file the eval-only cases
+    restore."""
+    js = _jmodel(ranks.dp_setup(whitened="ziggy")).init_state(jax.random.PRNGKey(4))
+    jckpt.save_pytree(path, js.replace(theta1=js.theta1 * 30.0, theta2=js.theta2 * 2.0))
+    return path
+
+
 @pytest.fixture(scope="module")
 def cluster(tmp_path_factory):
     outdir = str(tmp_path_factory.mktemp("dp"))
@@ -143,6 +154,7 @@ def cluster(tmp_path_factory):
     }
     p = ranks.dp_setup(n=61)
     inputs["solve"]["uneven-61"] = {**p, "maxiter_cg": 10}
+    inputs["eval_state"] = _save_eval_state(os.path.join(outdir, "eval-state.npz"))
     out = launch.run(ranks.dp_cases, RANKS, args=(inputs, outdir), device="cpu",
                      timeout_s=300)
     return inputs, out, outdir
@@ -360,6 +372,40 @@ def test_harness_dp_writes_the_single_process_csvs(cluster, tmp_path, method):
     assert params["parallel"] == "dp" and params["mesh_shape"] == {"dp": RANKS}
 
 
+def test_harness_dp_eval_only_matches_single_process(cluster, tmp_path, monkeypatch):
+    # fit_predict_and_save(eval_only_state=) under 'dp': every rank restores
+    # the JAX-saved file and predicts as one process does (within 1e-6);
+    # no fit runs, only the coordinator writes, fit_params.json records the
+    # fit_method passed in
+    import json
+
+    inputs, out, outdir = cluster
+    p = inputs["harness"]
+
+    def no_fit(*a, **k):
+        raise AssertionError("an eval-only run fitted")
+
+    monkeypatch.setattr(harness, "svigp_fit", no_fit)
+    _, st, rep = harness.fit_predict_and_save(
+        name="dp", xobs=p["x"], yobs=p["y"], sobs=p["s"], xinduce_grids=p["grids"],
+        ell_init=0.2, noise2_init=0.04, sig2_init="marginal", fit_method="natgrad",
+        maxiter_cg=10, xtest=p["xt"], ftest=p["ft"], output_dir=str(tmp_path),
+        dtype=torch.float64, device="cpu", eval_only_state=inputs["eval_state"])
+    saved = np.load(inputs["eval_state"])
+    for r in out:
+        got = r["harness/eval-only"]
+        assert got["elbo_trace"] is None
+        for i, k in enumerate(convert.STATE_FIELDS):
+            np.testing.assert_array_equal(got[k], saved[f"arr_{i}"], err_msg=k)
+        np.testing.assert_allclose(got["fmu"], rep["pdict"]["fmu_test"], rtol=1e-6, atol=1e-12)
+        np.testing.assert_allclose(got["fsig"], rep["pdict"]["fsig_test"], rtol=1e-6)
+    assert [r["harness/eval-only"]["wrote"] for r in out] == [True] + [False] * (RANKS - 1)
+    with open(os.path.join(outdir, "harness-eval-only-0", "dp", "fit_params.json")) as f:
+        assert json.load(f)["fit_method"] == "natgrad"
+    _assert_same_csv(os.path.join(outdir, "harness-eval-only-0", "dp", "errordf-summary.csv"),
+                     str(tmp_path / "dp" / "errordf-summary.csv"))
+
+
 def test_run_synthetic_parallel_dp_matches_single_process(cluster, tmp_path):
     _, out, outdir = cluster
     want = run_synthetic.main(DRIVER_ARGV + ["--output-dir", str(tmp_path)])
@@ -423,3 +469,15 @@ def test_parallel_mp_mesh_and_run_synthetic(cluster, tmp_path):
         assert np.isfinite(dom[0][k]) and all(d[k] == dom[0][k] for d in dom), k
     assert dom[0]["e_post_rmse"] < dom[0]["e_rms"]
     assert [r["run_domain_mp_wrote"] for r in out] == [True] + [False] * (RANKS - 1)
+
+
+def test_run_domain_parallel_mp_eval_only_matches_its_fit(cluster):
+    # run_domain --parallel mp --eval-only-state on the state its split fit
+    # wrote: the harness's restore cuts the whole file into each rank's
+    # block, no step runs, and the metrics are the fit's
+    _, out, _ = cluster
+    for r in out:
+        fit, again = r["run_domain_mp"], r["run_domain_mp_eval"]
+        assert again["fit_method"] == "eval-only" and again["steps"] == 0
+        for k in ("e_post_rmse", "latent_rmse", "latent_corr"):
+            np.testing.assert_allclose(again[k], fit[k], rtol=1e-6, err_msg=k)

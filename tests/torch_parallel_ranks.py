@@ -180,6 +180,18 @@ def dp_cases(inputs, outdir):
         res[f"harness/{method}"] = dict(
             theta1=_np(st.theta1), epoch_elbos=np.asarray(rep["epoch_elbos"]),
             fmu=rep["pdict"]["fmu_test"], wrote=os.path.isdir(os.path.join(odir, "dp")))
+    # the harness without a fit: every rank restores the same file, only
+    # the coordinator writes
+    odir = os.path.join(outdir, f"harness-eval-only-{rank}")
+    _, st, rep = harness.fit_predict_and_save(
+        name="dp", xobs=p["x"], yobs=p["y"], sobs=p["s"], xinduce_grids=p["grids"],
+        ell_init=0.2, noise2_init=0.04, sig2_init="marginal", fit_method="natgrad",
+        maxiter_cg=10, xtest=p["xt"], ftest=p["ft"], output_dir=odir, parallel="dp",
+        dtype=F64, device="cpu", eval_only_state=inputs["eval_state"])
+    res["harness/eval-only"] = dict(
+        {k: _np(getattr(st, k)) for k in convert.STATE_FIELDS},
+        fmu=rep["pdict"]["fmu_test"], fsig=rep["pdict"]["fsig_test"],
+        elbo_trace=rep["elbo_trace"], wrote=os.path.isdir(os.path.join(odir, "dp")))
     res["driver"] = run_synthetic.main(
         inputs["driver_argv"] + ["--parallel", "dp", "--output-dir",
                                  os.path.join(outdir, f"driver-{rank}")])
@@ -196,6 +208,13 @@ def dp_cases(inputs, outdir):
                                            + ["--parallel", "mp", "--mean-solver", "gram",
                                               "--output-dir", odir])
     res["run_domain_mp_wrote"] = os.path.isfile(os.path.join(odir, "state.npz"))
+    # --eval-only-state under 'mp': every rank restores rank 0's file and
+    # evaluates its own block
+    dist.barrier()
+    res["run_domain_mp_eval"] = run_domain.main(
+        inputs["drivers"]["run_domain"]
+        + ["--parallel", "mp", "--output-dir", os.path.join(outdir, f"run_domain-mp-eval-{rank}"),
+           "--eval-only-state", os.path.join(outdir, "run_domain-mp-0", "state.npz")])
     for name, argv in inputs["drivers"].items():
         mod = importlib.import_module(f"hipgp_tpu_torch.experiments.{name}")
         odir = os.path.join(outdir, f"{name}-{rank}")
@@ -394,10 +413,11 @@ def _recorded(fn):
     return out, [str(w.message) for w in ws if issubclass(w.category, RuntimeWarning)]
 
 
-def mp_cases(inputs):
+def mp_cases(inputs, outdir=None):
     """Every case of tests/test_torch_mp.py, on this rank: mp_batch_solve
-    (and mp_predict of its state), ell_fit(parallel='mp'), the GlobalBatch
-    blocks of process_slice / global_batch, the raises."""
+    (and mp_predict of its state), the harness's evaluation of a saved state
+    (``eval_only_state``, writing under ``outdir``), ell_fit(parallel='mp'),
+    the GlobalBatch blocks of process_slice / global_batch, the raises."""
     torch.set_num_threads(1)
     import torch.distributed as dist
 
@@ -434,6 +454,29 @@ def mp_cases(inputs):
             res[f"raises/{key}"] = None
         except ValueError as e:
             res[f"raises/{key}"] = str(e)
+
+    if "eval_only" in inputs:
+        from hipgp_tpu_torch.experiments import harness
+
+        c = inputs["eval_only"]
+        p, mesh = c["model"], meshes[c["mesh"]]
+        kw = dict(name="mp", xobs=c["x"], yobs=c["y"], sobs=c["s"],
+                  xinduce_grids=[np.linspace(p["lo"], 1.0, p["m"])] * p["dim"],
+                  ell_init=p["ell"], noise2_init=0.01, sig2_init="marginal",
+                  fit_method="natgrad", xtest=c["xq"], ftest=c["fq"], parallel="mp",
+                  mesh=mesh, dtype=F64, device="cpu")
+        odir = os.path.join(outdir, f"harness-mp-eval-{dist.get_rank()}")
+        _, st, rep = harness.fit_predict_and_save(output_dir=odir,
+                                                  eval_only_state=c["path"], **kw)
+        res["eval_only"] = dict({k: _np(getattr(st, k)) for k in convert.STATE_FIELDS},
+                                fmu=rep["pdict"]["fmu_test"], fsig=rep["pdict"]["fsig_test"],
+                                wrote=os.path.isdir(os.path.join(odir, "mp")))
+        try:
+            harness.fit_predict_and_save(output_dir=odir + "-bad",
+                                         eval_only_state=c["bad_path"], **kw)
+            res["eval_only_bad"] = None
+        except ValueError as e:
+            res["eval_only_bad"] = str(e)
 
     if "ell_fit" not in inputs:
         return res
